@@ -1,5 +1,5 @@
 """Shared building blocks for the ported models (port of
-``mvp_benchmark_tpu/models/layers.py``, the subset PCN uses).
+``mvp_benchmark_tpu/models/layers.py``, the subset PCN and ECG use).
 
 Layout: point features are channels-last, (B, N, C), as in the JAX package, so
 the reference's 1x1 Conv1d stacks are Linear layers over the last axis.
@@ -19,6 +19,8 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from mvp_benchmark_tpu_torch import ops
 
 # ---------------------------------------------------------------------------
 # Activation-dtype policy (layers.py:41-65 of the JAX package)
@@ -109,6 +111,58 @@ class DenseCat(nn.Module):
             off += c
             part = F.linear(x.to(dt), w.to(dt)).to(torch.float32)
             y = part if y is None else y + part
+        if self.bias is not None:
+            y = y + self.bias
+        return y.to(dt)
+
+
+_EDGE_MODES = ("center_neighbor", "neighbor_center", "center_minus")
+
+
+class DenseEdge(nn.Module):
+    """Linear over virtual DGCNN edge features, never materialising them.
+
+    Computes ``cat(parts, -1) @ W.T`` for the edge layouts ``[x_i, x_j]``
+    (``center_neighbor``), ``[x_j, x_i]`` (``neighbor_center``) and
+    ``[x_i, x_j - x_i]`` (``center_minus``) by projecting the N points with
+    the centre and neighbour halves of the weight first and gathering only
+    the projected rows: Linear(gather(x)) == gather(Linear(x)). One weight
+    (out, 2C) and one bias, as a TorchDense on the concatenated edge
+    features (JAX ``DenseEdge``, ``layers.py:219-274``).
+
+    x: (B, N, C), idx: (B, N, k) -> (B, N, k, out).
+    """
+
+    def __init__(self, in_features: int, out_features: int,
+                 mode: str = "center_minus", bias: bool = True,
+                 dtype: Optional[torch.dtype] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if mode not in _EDGE_MODES:
+            raise ValueError(f"unknown mode {mode!r}")
+        self.in_features = int(in_features)
+        self.mode = mode
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(out_features, 2 * in_features))
+        self.bias = nn.Parameter(torch.empty(out_features)) if bias else None
+        _uniform_(self.weight, 2 * in_features, generator)
+        if self.bias is not None:
+            _uniform_(self.bias, 2 * in_features, generator)
+
+    def forward(self, x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype or compute_dtype()
+        C = self.in_features
+        wa, wb = self.weight[:, :C], self.weight[:, C:]
+        if self.mode == "center_neighbor":
+            w_center, w_neigh = wa, wb
+        elif self.mode == "neighbor_center":
+            w_center, w_neigh = wb, wa
+        else:
+            w_center, w_neigh = wa - wb, wb
+        xd = x.to(dt)
+        center = F.linear(xd, w_center.to(dt))
+        neigh = F.linear(xd, w_neigh.to(dt))
+        y = center[:, :, None, :] + ops.grouping_operation(neigh, idx)
         if self.bias is not None:
             y = y + self.bias
         return y.to(dt)

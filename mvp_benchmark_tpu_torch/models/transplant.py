@@ -18,13 +18,17 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-from mvp_benchmark_tpu_torch.models import pcn
+from mvp_benchmark_tpu_torch.models import ecg, pcn
 
-_PCN = {
+_PCN_ENCODER = {
     "PCNEncoder_0/TorchDense_0": "encoder.fc1",
     "PCNEncoder_0/TorchDense_1": "encoder.fc2",
     "PCNEncoder_0/DenseCat_0": "encoder.fc3",
     "PCNEncoder_0/TorchDense_2": "encoder.fc4",
+}
+
+_PCN = {
+    **_PCN_ENCODER,
     "PCNDecoder_0/TorchDense_0": "decoder.fc1",
     "PCNDecoder_0/TorchDense_1": "decoder.fc2",
     "PCNDecoder_0/TorchDense_2": "decoder.fc3",
@@ -33,7 +37,34 @@ _PCN = {
     "PCNDecoder_0/TorchDense_4": "decoder.fold3",
 }
 
-FLAX_TO_TORCH = {pcn.Model: _PCN}
+
+def _ecg_table() -> dict:
+    ef = "ECGDecoder_0/EFEncoder_0"
+    table = {
+        **_PCN_ENCODER,
+        "ECGDecoder_0/TorchDense_0": "decoder.fc1",
+        "ECGDecoder_0/TorchDense_1": "decoder.fc2",
+        "ECGDecoder_0/TorchDense_2": "decoder.fc3",
+        "ECGDecoder_0/TorchDense_3": "decoder.fc4",
+        "ECGDecoder_0/TorchDense_4": "decoder.fc5",
+    }
+    names = ("lift", "down2", "down3", "down4", "gf1", "gf2", "gf3")
+    table.update({f"{ef}/TorchDense_{i}": f"decoder.ef.{n}"
+                  for i, n in enumerate(names)})
+    names = ("up4", "up3", "up2", "out")
+    table.update({f"{ef}/DenseCat_{i}": f"decoder.ef.{n}"
+                  for i, n in enumerate(names)})
+    for i in range(4):
+        conv, torch_conv = f"{ef}/DenseConv_{i}", f"decoder.ef.conv{i + 1}"
+        table[f"{conv}/DenseEdge_0"] = f"{torch_conv}.edge"
+        table[f"{conv}/DenseCat_0"] = f"{torch_conv}.convs.0"
+        table[f"{conv}/DenseCat_1"] = f"{torch_conv}.convs.1"
+    return table
+
+
+_ECG = _ecg_table()
+
+FLAX_TO_TORCH = {pcn.Model: _PCN, ecg.Model: _ECG}
 
 
 def _leaf_modules(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, dict]:

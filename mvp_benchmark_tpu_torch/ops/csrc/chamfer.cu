@@ -99,8 +99,6 @@ void launch_rowmin(const float* query, const float* points, int batch, int nq,
 
 extern "C" {
 
-int chamfer_abi_version() { return 1; }
-
 // a (B, N, 3), b (B, M, 3) float32 contiguous on the device; outputs
 // d1/i1 (B, N), d2/i2 (B, M). Launches on `stream` without synchronising and
 // returns cudaGetLastError() (0 on success).

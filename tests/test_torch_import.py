@@ -20,6 +20,8 @@ SLICE_MODULES = [
     "mvp_benchmark_tpu_torch.models",
     "mvp_benchmark_tpu_torch.models.layers",
     "mvp_benchmark_tpu_torch.models.pcn",
+    "mvp_benchmark_tpu_torch.models.common",
+    "mvp_benchmark_tpu_torch.models.ecg",
     "mvp_benchmark_tpu_torch.models.transplant",
     "mvp_benchmark_tpu_torch.data.mvp",
     "mvp_benchmark_tpu_torch.train.config",
@@ -27,6 +29,7 @@ SLICE_MODULES = [
     "mvp_benchmark_tpu_torch.train.meters",
     "mvp_benchmark_tpu_torch.train.engine",
     "mvp_benchmark_tpu_torch.train.submission",
+    "mvp_benchmark_tpu_torch.profile_eval",
     "chip_smoke",
 ]
 
@@ -57,6 +60,25 @@ def test_slice_runs_without_jax_flax_yaml_or_h5py(tmp_path):
         "import torch\n"
         "from mvp_benchmark_tpu_torch.train import config, engine, submission\n"
         "cfg = config.load_config('completion/cfgs/pcn_smoke.yaml')\n"
+        "cpu = torch.device('cpu')\n"
+        f"res = engine.run_completion_val(cfg, {str(tmp_path)!r}, cpu)\n"
+        f"pred = submission.predict_completion_test(cfg, {str(tmp_path)!r}, cpu)\n"
+        "print(json.dumps({'val': res, 'shape': list(pred.shape),\n"
+        "  'finite': bool(torch.isfinite(torch.from_numpy(pred)).all())}))\n")
+    assert sorted(out["val"]) == ["cd_p", "cd_t", "f1"]
+    assert all(v == v and abs(v) != float("inf") for v in out["val"].values())
+    assert out["shape"] == [52, 128, 3] and out["finite"]
+
+
+def test_ecg_slice_runs_without_jax_flax_yaml_or_h5py(tmp_path):
+    """The ECG slice the same way, through the CLI's functions: every kNN,
+    FPS and gather op takes its plain version on the CPU."""
+    out = _run(
+        "import json, sys\n"
+        "for m in ('jax', 'flax', 'optax', 'yaml', 'h5py'): sys.modules[m] = None\n"
+        "import torch\n"
+        "from mvp_benchmark_tpu_torch.train import config, engine, submission\n"
+        "cfg = config.load_config('completion/cfgs/ecg_smoke.yaml')\n"
         "cpu = torch.device('cpu')\n"
         f"res = engine.run_completion_val(cfg, {str(tmp_path)!r}, cpu)\n"
         f"pred = submission.predict_completion_test(cfg, {str(tmp_path)!r}, cpu)\n"

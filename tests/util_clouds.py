@@ -35,6 +35,34 @@ def clouds_without_near_ties(B, N, M, margin=1e-6):
     raise AssertionError("no seed gave clouds without near ties")
 
 
+def knn_margin(q, p, k):
+    """Smallest float64 gap between consecutive distances among the k+1
+    nearest, over all query rows: the near-tie margin of a nearest-first
+    kNN (k >= N: among all N)."""
+    gaps = []
+    for b in range(q.shape[0]):
+        s = np.sort(pairwise_sqdist(q[b], p[b]), axis=1)[:, :k + 1]
+        if s.shape[1] > 1:
+            gaps.append(np.diff(s, axis=1).min())
+    return min(gaps) if gaps else np.inf
+
+
+def knn_inputs_with_margin(B, M, N, C, k):
+    """Deterministic (query, points) in [0, 1)^C whose k nearest, in order,
+    no fp32 rounding can reorder. The margin, 4e-6 * C, exceeds 8 ulp of the
+    largest |q|^2 + |p|^2 (<= 2C): the error bound of jnp_ref's
+    |q|^2+|p|^2-2q.p expansion, itself far above the error of exact
+    per-coordinate differences."""
+    margin = 4e-6 * C
+    for seed in range(200):
+        rng = np.random.default_rng([seed, C])
+        q = rng.random((B, M, C), dtype=np.float64).astype(np.float32)
+        p = rng.random((B, N, C), dtype=np.float64).astype(np.float32)
+        if knn_margin(q, p, k) > margin:
+            return q, p
+    raise AssertionError("no seed gave kNN inputs without near ties")
+
+
 def clouds_with_duplicates(B=2, N=64, M=40):
     """b holds repeated points, and a holds copies of some b points, so
     many distances tie exactly."""
