@@ -10,20 +10,21 @@ Phases, each of which raises on failure (exit code != 0):
 2. builds the CUDA kernels from ``mvp_benchmark_tpu_torch/ops/csrc`` with nvcc;
 3. holds each kernel against its plain PyTorch version on the card, at the
    shapes of the main paths plus ragged and duplicate-point cases: indices
-   equal, distances and values bitwise equal (0 ulp);
+   equal, distances and values bitwise equal (0 ulp); the SA block, which
+   sums in another order, within |kernel - plain| <= 1e-5 + 1e-4 |plain|;
 4. drives each main path through the functions ``completion/test_torch.py``
    calls, with seeded weights, over the synthetic val pass (cd_p, cd_t, f1)
    and test pass (52 predictions): full-width PCN from
-   ``completion/cfgs/pcn.yaml`` and full-width ECG from
-   ``completion/cfgs/ecg.yaml``, each with the launch counts zeroed just
-   before and read just after (ECG's counts must equal the ones derived from
-   the model's code);
+   ``completion/cfgs/pcn.yaml``, ECG from ``completion/cfgs/ecg.yaml`` and
+   VRCNet from ``completion/cfgs/vrcnet.yaml``, each with the launch counts
+   zeroed just before and read just after (ECG's and VRCNet's counts must
+   equal the ones derived from the model's code);
 5. checks the results: finite, of the expected shape, metrics equal to the
    ones recomputed with the plain chamfer on the card (rtol 1e-6), a val
    batch equal to the same model run on the CPU (PCN outputs atol 1e-5 /
-   rtol 1e-4; ECG's coarse output likewise and its fine output as a cloud,
-   see ``check_ecg_batch_on_cpu``), and cd_p/cd_t/f1 of clouds near gt equal
-   to the CPU's (rtol 1e-6);
+   rtol 1e-4; ECG's and VRCNet's coarse output likewise and their fine
+   output as a cloud, see ``check_batch_on_cpu_as_cloud``), and cd_p/cd_t/f1
+   of clouds near gt equal to the CPU's (rtol 1e-6);
 6. times the val and test passes per batch, and each kernel against its
    plain version (and a single PyTorch call computing the same function,
    where one exists) at a main-path shape, beside the least time the card
@@ -52,6 +53,7 @@ from mvp_benchmark_tpu_torch.train.config import load_config
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PCN_CFG = os.path.join(ROOT, "completion", "cfgs", "pcn.yaml")
 ECG_CFG = os.path.join(ROOT, "completion", "cfgs", "ecg.yaml")
+VRCNET_CFG = os.path.join(ROOT, "completion", "cfgs", "vrcnet.yaml")
 DATA_DIR = os.path.join(ROOT, "completion", "data")   # test_torch.py's default
 
 # H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): fp32 outside the
@@ -75,6 +77,9 @@ KERNELS = {   # launch-count key -> the kernel's identity in the kernels line
     "three_interpolate": {"name": "three_interpolate_forward",
                           "source": f"{_CSRC}/gather.cu",
                           "replaces": f"{_PK}:1050"},
+    "sa_attention": {"name": "sa_attention_forward",
+                     "source": f"{_CSRC}/sa_attention.cu",
+                     "replaces": f"{_PK}:1354"},
 }
 
 # ECG's kernel launches per forward pass, read off models/ecg.py and
@@ -85,6 +90,20 @@ KERNELS = {   # launch-count key -> the kernel's identity in the kernels line
 # calc_cd adds one chamfer launch per val batch.
 ECG_PER_BATCH = {"knn": 10, "fps": 4, "gather": 11, "group_max": 3,
                  "three_interpolate": 3}
+# VRCNet's, read off models/vrcnet.py and models/common.py at
+# completion/cfgs/vrcnet.yaml (knn_list 16, pk 10, layers 1,1,1,1, 3072
+# encoder points, num_fps = num_coarse = num_points): kNN 4 self-kNN of the
+# pyramid levels + 3 three_nn (edge_preserve_sampling reuses the k 16 self-kNN
+# rows, so it launches no kNN); FPS 3 edge_preserve_sampling + 1 of the 3072
+# predicted points to 2048; gather 2 per edge_preserve_sampling + 2 after that
+# FPS; group_max 3; three_interpolate 3; sa_attention one per SK-SA level (one
+# SA branch, one layer each). No score top-k or folding: 2048 points leave the
+# FPS, as many as num_coarse and num_points.
+VRCNET_PER_BATCH = {"knn": 7, "fps": 4, "gather": 8, "group_max": 3,
+                    "three_interpolate": 3, "sa_attention": 4}
+# The SA block's tolerance against its plain version on the card:
+# |kernel - plain| <= SA_ATOL + SA_RTOL |plain| (another summation order).
+SA_ATOL, SA_RTOL = 1e-5, 1e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -145,6 +164,35 @@ def check_equal(name, got, want):
         check(bad == 0, f"{name} output {i}: {bad} of {g.numel()} differ")
     print(f"kernel == plain: {name}: indices equal, values 0 ulp apart")
     return max_abs
+
+
+def check_close(name, got, want):
+    """|got - want| <= SA_ATOL + SA_RTOL |want| everywhere; returns the
+    largest absolute difference."""
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{name}: {got.shape}/{got.dtype} vs {want.shape}/{want.dtype}")
+    diff = (got - want).abs()
+    bad = int((~(diff <= SA_ATOL + SA_RTOL * want.abs())).sum())
+    max_abs = float(diff.max())
+    check(bad == 0, f"{name}: {bad} of {got.numel()} outside the tolerance, "
+          f"max |diff| {max_abs!r}")
+    print(f"kernel ~ plain: {name}: max |diff| {max_abs!r} within "
+          f"{SA_ATOL} + {SA_RTOL} |plain|")
+    return max_abs
+
+
+def sa_inputs(seed, B, N, k, rel, mid, device, share=8):
+    """The SA block's inputs: unit-scale proj and x1 in [-0.5, 0.5), weights
+    at torch's init scale (the model's), neighbour indices uniform."""
+    ms = mid // share
+    proj = uniform(seed, (B, N, rel + mid), device) - 0.5
+    x1 = uniform(seed + 1, (B, N, rel), device) - 0.5
+    idx = indices(seed + 2, N, (B, N, k), device)
+    b1, b2 = ((1 + k) * rel) ** -0.5, ms ** -0.5
+    W1 = (uniform(seed + 3, ((1 + k) * rel, ms), device) * 2 - 1) * b1
+    W2 = (uniform(seed + 4, (ms, k * ms), device) * 2 - 1) * b2
+    bias = (uniform(seed + 5, (k * ms,), device) * 2 - 1) * b2
+    return proj, x1, idx, W1, W2, bias
 
 
 def compare_kernels_with_plain(device):
@@ -217,6 +265,17 @@ def compare_kernels_with_plain(device):
             f"three_interpolate {ms}x{c}->{n}",
             [kernels.three_interpolate_forward(f, idx, w)],
             [ref.three_interpolate(f, idx, w)]))
+
+    # VRCNet's four SK-SA levels at full width, then ragged N and k 8/32.
+    for (B, n, k, rel, mid) in ((32, 3072, 16, 4, 16), (32, 1536, 16, 8, 32),
+                                (32, 768, 16, 16, 64), (32, 384, 16, 32, 128),
+                                (3, 97, 8, 4, 16), (2, 1001, 8, 32, 128),
+                                (2, 333, 32, 16, 64)):
+        args = sa_inputs(30 + n, B, n, k, rel, mid, device)
+        err["sa_attention"] = max(err["sa_attention"], check_close(
+            f"sa_attention ({B}, {n}, k {k}, rel {rel}, mid {mid})",
+            kernels.sa_attention_forward(*args, rel, mid, 8),
+            ref.sa_attention(*args, rel, mid, 8)))
     torch.cuda.synchronize()
     return err
 
@@ -248,16 +307,12 @@ def _batches(cfg):
             MVPCompletionDataset("test", DATA_DIR, n).steps_per_epoch(spec))
 
 
-def pcn_expected_counts(cfg):
-    """PCN reaches the chamfer kernel only, once per val batch (calc_cd)."""
-    counts = dict.fromkeys(KERNELS, 0)
-    counts["chamfer"] = _batches(cfg)[0]
-    return counts
-
-
-def ecg_expected_counts(cfg):
+def expected_counts(cfg, per_batch):
+    """``per_batch`` launches in every val and test batch, plus one chamfer
+    launch per val batch (calc_cd); 0 for every other kernel."""
     val_b, test_b = _batches(cfg)
-    counts = {k: v * (val_b + test_b) for k, v in ECG_PER_BATCH.items()}
+    counts = dict.fromkeys(KERNELS, 0)
+    counts.update({k: v * (val_b + test_b) for k, v in per_batch.items()})
     counts["chamfer"] = val_b
     return counts
 
@@ -311,26 +366,28 @@ def check_pcn_batch_on_cpu(cfg, step, first):
           "rtol 1e-4), cd_p/cd_t (rtol 1e-4)")
 
 
-# ECG's fine output on the card against the CPU, as clouds: at most this
-# share of the points of either cloud may lie further than a tenth of the
-# cloud's mean spacing from every point of the other (check_ecg_batch_on_cpu).
-ECG_MOVED_SHARE = 0.02
+# ECG's and VRCNet's fine output on the card against the CPU, as clouds: at
+# most this share of the points of either cloud may lie further than a tenth
+# of the cloud's mean spacing from every point of the other
+# (check_batch_on_cpu_as_cloud).
+MOVED_SHARE = 0.02
 
 
-def check_ecg_batch_on_cpu(cfg, step, first, clouds_cut=2):
-    """One full-width ECG val batch, cut to ``clouds_cut`` clouds, on the
-    card and on the CPU (plain versions throughout).
+def check_batch_on_cpu_as_cloud(name, cfg, step, first, clouds_cut=2):
+    """One full-width val batch, cut to ``clouds_cut`` clouds, on the card
+    and on the CPU (plain versions throughout, the same latent noise).
 
     out1 (the coarse head: plain matmuls, no kNN) is held at PCN's bar. out2
-    comes through the feature-space kNN of four DenseConv blocks and an FPS
-    of the 3072 predicted points, whose inputs cuBLAS and the CPU round
-    differently in the last bits: a near tie can then take another
-    neighbour or another sample, which moves a point by up to the cloud's
-    spacing, legitimately. So out2 is held as a cloud: at most 2% of the
-    points of either cloud may lie further than a tenth of the cloud's mean
-    nearest-neighbour spacing from every point of the other. A point that
-    took another neighbour set counts as moved; fp32 rounding of the
-    coordinates (~1e-7 relative) does not."""
+    comes through selections over activations that cuBLAS and the CPU round
+    differently in the last bits: ECG's feature-space kNN of four DenseConv
+    blocks and FPS of the 3072 predicted points, VRCNet's FPS of its 3072
+    predicted points and the 3-D kNN of the coarse head's GEMM outputs. A
+    near tie can then take another neighbour or another sample, which moves a
+    point by up to the cloud's spacing, legitimately. So out2 is held as a
+    cloud: at most 2% of the points of either cloud may lie further than a
+    tenth of the cloud's mean nearest-neighbour spacing from every point of
+    the other. A point that took another neighbour set counts as moved; fp32
+    rounding of the coordinates (~1e-7 relative) does not."""
     cpu = torch.device("cpu")
     batch = {k: (v[:clouds_cut] if isinstance(v, np.ndarray) and v.ndim else v)
              for k, v in first.items()}
@@ -343,14 +400,14 @@ def check_ecg_batch_on_cpu(cfg, step, first, clouds_cut=2):
     moved = max(float((d1.sqrt() > near).float().mean()),
                 float((d2.sqrt() > near).float().mean()))
     cd_t = (d1.mean(1) + d2.mean(1)).tolist()
-    print(f"ECG card vs CPU on {clouds_cut} full-width clouds: out1 equal "
+    print(f"{name} card vs CPU on {clouds_cut} full-width clouds: out1 equal "
           f"(atol 1e-5, rtol 1e-4); out2 share of points further than "
-          f"{near!r} from the other cloud {moved!r} (bar {ECG_MOVED_SHARE}), "
+          f"{near!r} from the other cloud {moved!r} (bar {MOVED_SHARE}), "
           f"cd_t(card, cpu) per cloud {cd_t!r}, mean spacing {spacing!r}, "
           f"max |out2 diff| "
           f"{float((got['out2'].cpu() - want['out2']).abs().max())!r}")
-    check(moved <= ECG_MOVED_SHARE,
-          f"ECG out2 card vs CPU: {moved} of the points moved")
+    check(moved <= MOVED_SHARE,
+          f"{name} out2 card vs CPU: {moved} of the points moved")
 
 
 def check_f1_near(device, first):
@@ -435,6 +492,7 @@ def timing_cases(device):
     edge_idx64 = edge_idx.reshape(B, -1, 1).long().expand(-1, -1, 24)
     t120 = uniform(24, (B, 3072, 120), device)
     gm_idx = indices(25, 3072, (B, 1024, 16), device)
+    sa = sa_inputs(29, B, 3072, 16, 4, 16, device)     # VRCNet level 1
     t512 = uniform(26, (B, 1024, 512), device)
     ti_idx, ti_w = ref.three_nn_upsampling(uniform(27, (B, 3072, 3), device),
                                            uniform(28, (B, 1024, 3), device))
@@ -471,6 +529,15 @@ def timing_cases(device):
                               lambda: ref.three_interpolate(t512, ti_idx, ti_w), None,
                               B * 1024 * 512 * 4 + B * 3072 * 3 * 8 + B * 3072 * 512 * 4,
                               B * 3072 * 512 * 5),
+        # bytes: proj, x1, idx read once, out written once (the weights are
+        # 1.4 KB); operations: the two MLP products, the bias and the
+        # weighted sum, 2 per multiply-add (relu not counted)
+        "sa_attention": ("(32, 3072, rel 4, mid 16, k 16)",
+                         lambda: kernels.sa_attention_forward(*sa, 4, 16, 8),
+                         lambda: ref.sa_attention(*sa, 4, 16, 8), None,
+                         B * 3072 * (20 + 4 + 16 + 16) * 4,
+                         B * 3072 * (2 * 17 * 4 * 2 + 2 * 2 * 32 + 32
+                                     + 2 * 16 * 16)),
     }
 
 
@@ -521,25 +588,32 @@ def main() -> int:
 
     pcn = load_config(PCN_CFG)
     val, preds, pcn_launches = drive_path("PCN", pcn, device,
-                                          pcn_expected_counts(pcn))
+                                          expected_counts(pcn, {}))
     step, first = check_metrics("PCN", pcn, device, val, preds)
     check_pcn_batch_on_cpu(pcn, step, first)
     check_f1_near(device, first)
 
     ecg = load_config(ECG_CFG)
-    val, preds, ecg_launches = drive_path("ECG", ecg, device,
-                                          ecg_expected_counts(ecg))
+    val, preds, ecg_launches = drive_path(
+        "ECG", ecg, device, expected_counts(ecg, ECG_PER_BATCH))
     step, first = check_metrics("ECG", ecg, device, val, preds)
-    check_ecg_batch_on_cpu(ecg, step, first)
+    check_batch_on_cpu_as_cloud("ECG", ecg, step, first)
+
+    vrc = load_config(VRCNET_CFG)
+    val, preds, vrc_launches = drive_path(
+        "VRCNet", vrc, device, expected_counts(vrc, VRCNET_PER_BATCH))
+    step, first = check_metrics("VRCNet", vrc, device, val, preds)
+    check_batch_on_cpu_as_cloud("VRCNet", vrc, step, first)
 
     time_passes("PCN", pcn, device, card)
     time_passes("ECG", ecg, device, card)
+    time_passes("VRCNet", vrc, device, card)
     times = time_kernels(device, card)
 
     print(f"chip_smoke: {time.perf_counter() - t_start!r} s on {card}")
     print(json.dumps({"kernels": [
         dict(KERNELS[k], route="cuda",
-             launches=pcn_launches[k] + ecg_launches[k],
+             launches=pcn_launches[k] + ecg_launches[k] + vrc_launches[k],
              max_abs_err=max_abs[k], **times[k])
         for k in KERNELS]}))
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,7 @@ import torch
 
 COMPLETION_MODELS = ("pcn", "ecg", "vrcnet")
 REGISTRATION_MODELS = ("dcp", "deepgmr", "idam")
-PORTED_MODELS = ("pcn", "ecg")
+PORTED_MODELS = ("pcn", "ecg", "vrcnet")
 
 
 def get_model_module(name: str):

@@ -1,5 +1,6 @@
 """Shared building blocks for the ported models (port of
-``mvp_benchmark_tpu/models/layers.py``, the subset PCN and ECG use).
+``mvp_benchmark_tpu/models/layers.py``, the subset PCN, ECG and VRCNet
+use).
 
 Layout: point features are channels-last, (B, N, C), as in the JAX package, so
 the reference's 1x1 Conv1d stacks are Linear layers over the last axis.
@@ -28,8 +29,9 @@ from mvp_benchmark_tpu_torch import ops
 #
 # Parameters always stay fp32. Under a bfloat16 policy the Dense layers would
 # compute and return bf16 activations, with coordinate heads pinned to fp32
-# by ``dtype=torch.float32``. PCN runs fp32, its config default; the bf16 mode
-# is exercised once VRCNet is ported.
+# by ``dtype=torch.float32``. Every eval config runs fp32, its default; the
+# bf16 mode (set only by the JAX package's train-step bench) comes with the
+# training slice.
 
 _COMPUTE_DTYPE = torch.float32
 
@@ -75,6 +77,36 @@ class TorchDense(nn.Module):
         if self.bias is not None:
             y = y + self.bias.to(dt)
         return y
+
+
+class MultiDense(nn.Module):
+    """Several Dense heads over one input as one concatenated GEMM; returns
+    the concatenated (..., sum(out_features)) output for the caller to slice
+    (JAX ``MultiDense``, ``layers.py:121-170``).
+
+    Head i keeps its own ``weight{i}`` (out_i, in) and ``bias{i}``, each
+    initialised as a TorchDense of the same widths, as the flax module keeps
+    ``kernel{i}``/``bias{i}``.
+    """
+
+    def __init__(self, in_features: int, out_features: Sequence[int],
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.heads = len(out_features)
+        for i, f in enumerate(out_features):
+            w = nn.Parameter(torch.empty(int(f), in_features))
+            _uniform_(w, in_features, generator)
+            setattr(self, f"weight{i}", w)
+        for i, f in enumerate(out_features):
+            b = nn.Parameter(torch.empty(int(f)))
+            _uniform_(b, in_features, generator)
+            setattr(self, f"bias{i}", b)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = compute_dtype()
+        w = torch.cat([getattr(self, f"weight{i}") for i in range(self.heads)])
+        b = torch.cat([getattr(self, f"bias{i}") for i in range(self.heads)])
+        return F.linear(x.to(dt), w.to(dt)) + b.to(dt)
 
 
 class DenseCat(nn.Module):

@@ -8,15 +8,17 @@ CUDA tensors and its plain PyTorch version for CPU tensors (``dispatch``);
 - ``knn_points``, ``knn_indices``, ``three_nn``, ``three_nn_upsampling``;
 - ``furthest_point_sample``;
 - ``gather_points``, ``grouping_operation``, ``group_max``,
-  ``three_interpolate``.
+  ``three_interpolate``;
+- ``sa_attention`` (VRCNet's SA block).
 """
 
 from mvp_benchmark_tpu_torch.ops.dispatch import (
     chamfer_distance, furthest_point_sample, gather_points, group_max,
-    grouping_operation, knn_indices, knn_points, three_interpolate, three_nn,
-    three_nn_upsampling)
+    grouping_operation, knn_indices, knn_points, sa_attention, three_interpolate,
+    three_nn, three_nn_upsampling)
 from mvp_benchmark_tpu_torch.ops.ref import chamfer_distance as chamfer_distance_ref
 
 __all__ = ["chamfer_distance", "chamfer_distance_ref", "furthest_point_sample",
            "gather_points", "group_max", "grouping_operation", "knn_indices",
-           "knn_points", "three_interpolate", "three_nn", "three_nn_upsampling"]
+           "knn_points", "sa_attention", "three_interpolate", "three_nn",
+           "three_nn_upsampling"]

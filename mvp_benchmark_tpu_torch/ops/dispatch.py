@@ -104,3 +104,15 @@ def three_interpolate(features: torch.Tensor, idx: torch.Tensor,
             features.contiguous(), idx.to(torch.int32).contiguous(),
             weight.contiguous())
     return ref.three_interpolate(features, idx, weight)
+
+
+def sa_attention(proj: torch.Tensor, x1: torch.Tensor, idx: torch.Tensor,
+                 W1: torch.Tensor, W2: torch.Tensor, b2: torch.Tensor,
+                 rel: int, mid: int, share: int) -> torch.Tensor:
+    """VRCNet's SA block, idx (B, N, k) as the kNN gives it -> (B, N, mid)
+    (see ref.sa_attention)."""
+    if _route(proj, x1, idx, W1, W2, b2) == "cuda":
+        return kernels.SAAttentionFunction.apply(
+            proj.contiguous(), x1.contiguous(), idx.to(torch.int32).contiguous(),
+            W1.contiguous(), W2.contiguous(), b2.contiguous(), rel, mid, share)
+    return ref.sa_attention(proj, x1, idx, W1, W2, b2, rel, mid, share)

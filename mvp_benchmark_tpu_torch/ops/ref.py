@@ -186,6 +186,40 @@ def three_interpolate(features: torch.Tensor, idx: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# VRCNet SA block
+# ---------------------------------------------------------------------------
+
+
+def sa_attention(proj: torch.Tensor, x1: torch.Tensor, idx: torch.Tensor,
+                 W1: torch.Tensor, W2: torch.Tensor, b2: torch.Tensor,
+                 rel: int, mid: int, share: int) -> torch.Tensor:
+    """The SA block between VRCNet's projection and output Denses.
+
+    proj (B, N, rel+mid), x1 (B, N, rel), idx (B, N, k) int, W1
+    ((1+k)*rel, ms), W2 (ms, k*ms), b2 (k*ms,) with ms = mid // share ->
+    (B, N, mid), per point:
+
+      w_in = relu([x1, proj[idx_0, :rel], ..., proj[idx_{k-1}, :rel]])
+      w    = relu(w_in @ W1) @ W2 + b2, viewed as (k, ms)
+      out[c] = sum_j w[j, c % ms] * proj[idx_j, rel + c]
+
+    (the XLA fallback of ``models/vrcnet.py:100-108``; channel c takes
+    ``w[:, c % ms]``, the ``jnp.tile(w, share)`` layout). W1 and W2 keep the
+    flax (in, out) orientation. The contract of ``csrc/sa_attention.cu``,
+    which sums in another order, so the two agree to a tolerance, not
+    bitwise.
+    """
+    B, N, k = idx.shape
+    ms = mid // share
+    pn = gather_points(proj, idx)                        # (B, N, k, rel+mid)
+    x2 = pn[..., :rel].reshape(B, N, k * rel)
+    w_in = torch.relu(torch.cat([x1, x2], dim=-1))
+    u = torch.relu(w_in @ W1)
+    w = (u @ W2 + b2).reshape(B, N, k, ms).repeat(1, 1, 1, share)
+    return torch.sum(w * pn[..., rel:], dim=2)
+
+
+# ---------------------------------------------------------------------------
 # Furthest point sampling
 # ---------------------------------------------------------------------------
 

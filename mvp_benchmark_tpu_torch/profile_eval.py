@@ -2,6 +2,7 @@
 few val passes of a completion config, after warm-up passes.
 
     python -m mvp_benchmark_tpu_torch.profile_eval -c completion/cfgs/ecg.yaml
+    python -m mvp_benchmark_tpu_torch.profile_eval -c completion/cfgs/vrcnet.yaml
 
 Prints, per val batch: the device time by kernel group (the port's CUDA
 kernels by name, cuBLAS GEMMs, the rest of PyTorch's kernels), the wall
@@ -29,7 +30,7 @@ from mvp_benchmark_tpu_torch.train.meters import AverageValueMeter
 # Substrings of the port's kernel names (ops/csrc/*.cu).
 PORT_KERNELS = ("chamfer_rowmin_kernel", "knn_kernel", "fps_kernel",
                 "gather_rows_kernel", "group_max_kernel",
-                "three_interpolate_kernel")
+                "three_interpolate_kernel", "sa_attention_kernel")
 GEMM_MARKS = ("gemm", "xmma", "cutlass", "sm90_", "sm80_")
 
 

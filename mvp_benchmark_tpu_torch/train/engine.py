@@ -12,7 +12,7 @@ checkpoint waits for the training loop.
 from __future__ import annotations
 
 import logging
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -52,16 +52,31 @@ def build_model(cfg: Config, device: torch.device, seed: int = 0) -> torch.nn.Mo
     return model.to(device).eval()
 
 
+def latent_noise(model: torch.nn.Module, batch_size: int) -> Optional[torch.Tensor]:
+    """The standard-normal latent noise of one eval batch for a model that
+    samples one (VRCNet: ``size_z``), else None. Drawn on the CPU from a
+    torch.Generator seeded 0 at every batch, as the JAX eval step seeds its
+    ``sample`` RNG with PRNGKey(0) at every batch (``engine.py:249-252`` of
+    the JAX package): a card run and a CPU run see the same numbers (not
+    JAX's: the two generators differ)."""
+    size = getattr(model, "size_z", None)
+    if size is None:
+        return None
+    return torch.randn((batch_size, size), generator=torch.Generator().manual_seed(0))
+
+
 def make_eval_step(model: torch.nn.Module, device: torch.device) -> Callable:
     """step(batch, prefix) -> the model's output dict for a numpy batch."""
 
     def step(batch: Dict[str, np.ndarray], prefix: str = "val"):
         with torch.inference_mode():
             x = torch.as_tensor(batch["inputs"]).to(device)
+            eps = latent_noise(model, x.shape[0])
+            kw = {} if eps is None else {"eps": eps.to(device)}
             if prefix == "test":
-                return model(x, None, prefix="test")
+                return model(x, None, prefix="test", **kw)
             gt = torch.as_tensor(batch["gt"]).to(device)
-            return model(x, gt, prefix=prefix)
+            return model(x, gt, prefix=prefix, **kw)
 
     return step
 

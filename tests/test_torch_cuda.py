@@ -221,7 +221,104 @@ def test_ecg_on_card_equals_cpu(cuda):
         torch.cuda.synchronize()
     assert kernels.launch_counts() == {"chamfer": 1, "knn": 10, "fps": 4,
                                        "gather": 11, "group_max": 3,
-                                       "three_interpolate": 3}
+                                       "three_interpolate": 3, "sa_attention": 0}
+    torch.testing.assert_close(got["out1"].cpu(), want["out1"], rtol=1e-4, atol=1e-5)
+    spacing = float(ref.knn(want["out2"], want["out2"], 2)[0][..., 1].sqrt().mean())
+    d1, d2, _, _ = ref.chamfer_distance(got["out2"].cpu(), want["out2"])
+    for d in (d1, d2):
+        assert float((d.sqrt() > 0.1 * spacing).float().mean()) <= 0.02
+
+
+def _sa_inputs(device, B, N, k, rel, mid, share=8, seed=0):
+    """Unit-scale proj/x1 in [-0.5, 0.5), weights at torch's init scale."""
+    ms = mid // share
+    proj = _rand(device, B, N, rel + mid, seed=seed) - 0.5
+    x1 = _rand(device, B, N, rel, seed=seed + 1) - 0.5
+    idx = torch.randint(0, N, (B, N, k), dtype=torch.int32,
+                        generator=torch.Generator().manual_seed(seed)).to(device)
+    b1, b2 = ((1 + k) * rel) ** -0.5, ms ** -0.5
+    W1 = (_rand(device, (1 + k) * rel, ms, seed=seed + 2) * 2 - 1) * b1
+    W2 = (_rand(device, ms, k * ms, seed=seed + 3) * 2 - 1) * b2
+    bias = (_rand(device, k * ms, seed=seed + 4) * 2 - 1) * b2
+    return proj, x1, idx, W1, W2, bias
+
+
+def _within_sa_tolerance(got, want):
+    """|kernel - plain| <= 1e-5 + 1e-4 |plain| (the kernel sums in another
+    order than the plain version's matmuls)."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert bool(((got - want).abs() <= 1e-5 + 1e-4 * want.abs()).all()), \
+        float((got - want).abs().max())
+
+
+@pytest.mark.parametrize("B,N,k,rel,mid", [
+    (2, 3072, 16, 4, 16), (2, 1536, 16, 8, 32), (2, 768, 16, 16, 64),
+    (2, 384, 16, 32, 128), (3, 97, 8, 4, 16), (1, 50, 32, 32, 128),
+    (2, 33, 1, 16, 64)])
+def test_sa_attention_kernel_matches_plain_version(cuda, B, N, k, rel, mid):
+    args = _sa_inputs(cuda, B, N, k, rel, mid)
+    before = kernels.SA_ATTENTION_LAUNCHES
+    got = kernels.sa_attention_forward(*args, rel, mid, 8)
+    torch.cuda.synchronize()
+    assert kernels.SA_ATTENTION_LAUNCHES == before + 1
+    _within_sa_tolerance(got, ref.sa_attention(*args, rel, mid, 8))
+
+
+def test_sa_attention_wrapper_rejects_bad_inputs(cuda):
+    proj, x1, idx, W1, W2, b2 = _sa_inputs(cuda, 2, 40, 8, 8, 32)
+    with pytest.raises(ValueError, match="built for"):
+        kernels.sa_attention_forward(proj, x1, idx, W1, W2, b2, 8, 32, 4)
+    with pytest.raises(ValueError, match="limits"):
+        big = torch.zeros(2, 40, 33, dtype=torch.int32, device=cuda)
+        kernels.sa_attention_forward(proj, x1, big, W1, W2, b2, 8, 32, 8)
+    with pytest.raises(ValueError, match="W2 must be"):
+        kernels.sa_attention_forward(proj, x1, idx, W1, W2[:, :8].contiguous(),
+                                     b2, 8, 32, 8)
+    with pytest.raises(TypeError, match="int32"):
+        kernels.sa_attention_forward(proj, x1, idx.long(), W1, W2, b2, 8, 32, 8)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.sa_attention_forward(proj, x1, idx, W1.cpu(), W2, b2, 8, 32, 8)
+    with pytest.raises(ValueError, match="several devices"):
+        dispatch.sa_attention(proj, x1, idx, W1.cpu(), W2, b2, 8, 32, 8)
+
+
+def test_sa_attention_out_of_range_index_gives_nan(cuda):
+    proj, x1, idx, W1, W2, b2 = _sa_inputs(cuda, 1, 20, 8, 4, 16)
+    idx[0, 3, 5] = 20
+    idx[0, 7, 0] = -1
+    out = kernels.sa_attention_forward(proj, x1, idx, W1, W2, b2, 4, 16, 8)
+    torch.cuda.synchronize()
+    assert torch.isnan(out[0, 3]).all() and torch.isnan(out[0, 7]).all()
+    assert torch.isfinite(out[0, :3]).all()
+
+
+def test_vrcnet_on_card_equals_cpu(cuda):
+    """A small VRCNet val batch (the smoke config's shape: FPS, score top-k,
+    folding) through every kernel, with the same latent noise: out1 at PCN's
+    bar; out2 held as a cloud with chip_smoke.py's bar, since its points pass
+    through the FPS and top-k of activations that cuBLAS and the CPU round
+    differently."""
+    from mvp_benchmark_tpu_torch.models import get_model
+    from mvp_benchmark_tpu_torch.train import engine
+    from mvp_benchmark_tpu_torch.train.config import Config
+
+    cfg = Config(model_name="vrcnet", num_points=128, loss="cd", eval_emd=False,
+                 layers="1, 1, 1, 1", knn_list="8", pk=6, points_label=True,
+                 local_folding=True, num_coarse_raw=64, num_fps=128,
+                 num_coarse=64)
+    model = get_model("vrcnet", cfg, generator=torch.Generator().manual_seed(0)).eval()
+    x, gt = (_rand(torch.device("cpu"), 2, 128, 3, seed=s) for s in (12, 13))
+    eps = engine.latent_noise(model, 2)
+    with torch.inference_mode():
+        want = model(x, gt, prefix="val", eps=eps)
+    model.to(cuda)
+    kernels.reset_launch_counts()
+    with torch.inference_mode():
+        got = model(x.to(cuda), gt.to(cuda), prefix="val", eps=eps.to(cuda))
+        torch.cuda.synchronize()
+    assert kernels.launch_counts() == {"chamfer": 1, "knn": 7, "fps": 4,
+                                       "gather": 10, "group_max": 3,
+                                       "three_interpolate": 3, "sa_attention": 4}
     torch.testing.assert_close(got["out1"].cpu(), want["out1"], rtol=1e-4, atol=1e-5)
     spacing = float(ref.knn(want["out2"], want["out2"], 2)[0][..., 1].sqrt().mean())
     d1, d2, _, _ = ref.chamfer_distance(got["out2"].cpu(), want["out2"])

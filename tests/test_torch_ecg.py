@@ -39,26 +39,18 @@ from mvp_benchmark_tpu_torch.models import ecg as tecg
 from mvp_benchmark_tpu_torch.models.transplant import load_flax_params
 from mvp_benchmark_tpu_torch.ops import ref
 from mvp_benchmark_tpu_torch.train.config import Config
+from tests.util_clouds import ULP, fps_sequences_agree, grid_points
 from tests.util_np import pairwise_sqdist
 
 NUM_POINTS, NUM_COARSE, B, K = 256, 128, 2, 16
 OUT_TOL = dict(rtol=1e-4, atol=1e-5)
 F1_ATOL = 2.0 / NUM_POINTS
-ULP = 2.0 ** -23                       # fp32 relative spacing
 STAGES = [("conv1", "TorchDense_0"), ("conv2", "TorchDense_1"),
           ("conv3", "TorchDense_2"), ("conv4", "TorchDense_3")]
 
 
 def _np_tree(tree):
     return jax.tree.map(lambda a: np.array(a), tree)
-
-
-def _grid_points(rng, n):
-    """n distinct points with coordinates k/32 in [-4, 4): squares and sums of
-    three need at most 17 bits, so the expansion is exact on them."""
-    cells = rng.choice(256 ** 3, n, replace=False)
-    ijk = np.stack([cells // 65536, (cells // 256) % 256, cells % 256], -1)
-    return ((ijk - 128) / 32.0).astype(np.float32)
 
 
 def _with_grid_coarse(variables, coarse):
@@ -95,29 +87,6 @@ def _knn_sets_agree(x_port, x_jax, k):
                 return False
             sets.append(np.sort(order[:, :k], axis=1))
         if not np.array_equal(*sets):
-            return False
-    return True
-
-
-def _fps_sequences_agree(fine_port, fine_jax, s):
-    """Float64 FPS on the torch and on the JAX predicted points picks the same
-    sequence, and at every step, on each side, the largest and second largest
-    min-distance are further apart than twice its fp32 error (8 ulp)."""
-    for b in range(fine_port.shape[0]):
-        seqs = []
-        for fine in (fine_port[b], fine_jax[b]):
-            p = fine.astype(np.float64)
-            md = np.full(len(p), 1e10)
-            last, seq = 0, []
-            for _ in range(1, s):
-                md = np.minimum(md, np.sum((p - p[last]) ** 2, -1))
-                top2 = np.sort(md)[-2:]
-                if not top2[1] - top2[0] > 16 * ULP * top2[1]:
-                    return False
-                last = int(np.argmax(md))
-                seq.append(last)
-            seqs.append(seq)
-        if seqs[0] != seqs[1]:
             return False
     return True
 
@@ -166,7 +135,7 @@ def case(jax_model):
         v, x, None, prefix="test", capture_intermediates=True))
     for seed in range(20):
         rng = np.random.default_rng(seed)
-        pts = _grid_points(rng, NUM_COARSE + B * NUM_POINTS)
+        pts = grid_points(rng, NUM_COARSE + B * NUM_POINTS)
         coarse, x = pts[:NUM_COARSE], pts[NUM_COARSE:].reshape(B, NUM_POINTS, 3)
         v = _with_grid_coarse(variables, coarse)
         tm = tecg.Model(NUM_POINTS, NUM_COARSE, NUM_POINTS, (128, 32, 8)).eval()
@@ -174,7 +143,7 @@ def case(jax_model):
         got = _port_activations(tm, x)
         pred, want = _jax_activations(apply_capture, v, x)
         if all(_knn_sets_agree(got[n], want[n], K) for n, _ in STAGES) and \
-                _fps_sequences_agree(got["fine"], want["fine"], NUM_POINTS):
+                fps_sequences_agree(got["fine"], want["fine"], NUM_POINTS):
             noise = rng.normal(0.0, 0.012, pred.shape).astype(np.float32)
             gt = (pred[:, rng.permutation(NUM_POINTS)] + noise).astype(np.float32)
             return jm, v, tm, x, gt, seed
@@ -253,7 +222,7 @@ def test_edge_preserve_sampling_matches_jax(reuse):
     from mvp_benchmark_tpu.ops import jnp_ref
 
     rng = np.random.default_rng(6)
-    pts = _grid_points(rng, 2 * 96).reshape(2, 96, 3)
+    pts = grid_points(rng, 2 * 96).reshape(2, 96, 3)
     feats = rng.standard_normal((2, 96, 10)).astype(np.float32)
     jk = jnp_ref.knn_indices(pts, 16) if reuse else None
     tk = ref.knn_indices(torch.from_numpy(pts), 16) if reuse else None

@@ -22,6 +22,7 @@ SLICE_MODULES = [
     "mvp_benchmark_tpu_torch.models.pcn",
     "mvp_benchmark_tpu_torch.models.common",
     "mvp_benchmark_tpu_torch.models.ecg",
+    "mvp_benchmark_tpu_torch.models.vrcnet",
     "mvp_benchmark_tpu_torch.models.transplant",
     "mvp_benchmark_tpu_torch.data.mvp",
     "mvp_benchmark_tpu_torch.train.config",
@@ -79,6 +80,25 @@ def test_ecg_slice_runs_without_jax_flax_yaml_or_h5py(tmp_path):
         "import torch\n"
         "from mvp_benchmark_tpu_torch.train import config, engine, submission\n"
         "cfg = config.load_config('completion/cfgs/ecg_smoke.yaml')\n"
+        "cpu = torch.device('cpu')\n"
+        f"res = engine.run_completion_val(cfg, {str(tmp_path)!r}, cpu)\n"
+        f"pred = submission.predict_completion_test(cfg, {str(tmp_path)!r}, cpu)\n"
+        "print(json.dumps({'val': res, 'shape': list(pred.shape),\n"
+        "  'finite': bool(torch.isfinite(torch.from_numpy(pred)).all())}))\n")
+    assert sorted(out["val"]) == ["cd_p", "cd_t", "f1"]
+    assert all(v == v and abs(v) != float("inf") for v in out["val"].values())
+    assert out["shape"] == [52, 128, 3] and out["finite"]
+
+
+def test_vrcnet_slice_runs_without_jax_flax_yaml_or_h5py(tmp_path):
+    """The VRCNet slice through the CLI's functions, on the CPU: the SA block
+    takes its plain version, and the eval step draws the latent noise."""
+    out = _run(
+        "import json, sys\n"
+        "for m in ('jax', 'flax', 'optax', 'yaml', 'h5py'): sys.modules[m] = None\n"
+        "import torch\n"
+        "from mvp_benchmark_tpu_torch.train import config, engine, submission\n"
+        "cfg = config.load_config('completion/cfgs/vrcnet_smoke.yaml')\n"
         "cpu = torch.device('cpu')\n"
         f"res = engine.run_completion_val(cfg, {str(tmp_path)!r}, cpu)\n"
         f"pred = submission.predict_completion_test(cfg, {str(tmp_path)!r}, cpu)\n"

@@ -155,7 +155,7 @@ def test_transplant_rejects_a_tree_that_does_not_fit(pair):
         load_flax_params(wrong, variables)
 
 
-@pytest.mark.parametrize("name", ["vrcnet", "dcp", "deepgmr", "idam"])
+@pytest.mark.parametrize("name", ["dcp", "deepgmr", "idam"])
 def test_unported_models_raise(name):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         get_model(name, Config(model_name=name))

@@ -1,5 +1,5 @@
-"""Seeded numpy point clouds for the port's chamfer tests (numpy only, so
-the tests that run on the card can import it without jax)."""
+"""Seeded numpy point clouds for the port's tests (numpy only, so the tests
+that run on the card can import it without jax)."""
 
 import numpy as np
 
@@ -72,3 +72,38 @@ def clouds_with_duplicates(B=2, N=64, M=40):
     a[:, 0:10] = b[:, 0:10]           # exact hits on a duplicated b point
     a[:, 40:45] = a[:, 10:15]         # a[i + 30] == a[i]
     return a, b
+
+
+ULP = 2.0 ** -23                       # fp32 relative spacing
+
+
+def grid_points(rng, n):
+    """n distinct points with coordinates k/32 in [-4, 4): squares and sums of
+    three need at most 17 bits, so the |a|^2+|b|^2-2a.b expansion of the JAX
+    package's CPU path is exact on them."""
+    cells = rng.choice(256 ** 3, n, replace=False)
+    ijk = np.stack([cells // 65536, (cells // 256) % 256, cells % 256], -1)
+    return ((ijk - 128) / 32.0).astype(np.float32)
+
+
+def fps_sequences_agree(points_port, points_jax, s):
+    """Float64 FPS on the torch and on the JAX points picks the same sequence,
+    and at every step, on each side, the largest and second largest
+    min-distance are further apart than twice its fp32 error (8 ulp)."""
+    for b in range(points_port.shape[0]):
+        seqs = []
+        for pts in (points_port[b], points_jax[b]):
+            p = pts.astype(np.float64)
+            md = np.full(len(p), 1e10)
+            last, seq = 0, []
+            for _ in range(1, s):
+                md = np.minimum(md, np.sum((p - p[last]) ** 2, -1))
+                top2 = np.sort(md)[-2:]
+                if not top2[1] - top2[0] > 16 * ULP * top2[1]:
+                    return False
+                last = int(np.argmax(md))
+                seq.append(last)
+            seqs.append(seq)
+        if seqs[0] != seqs[1]:
+            return False
+    return True
