@@ -12,23 +12,33 @@ Phases, each of which raises on failure (exit code != 0):
    shapes of the main paths plus ragged and duplicate-point cases: indices
    equal, distances and values bitwise equal (0 ulp); the SA block, which
    sums in another order, within |kernel - plain| <= 1e-5 + 1e-4 |plain|;
+   the five backward kernels, which scatter with atomics, at a VRCNet train
+   step's shapes plus ragged, collision and tie cases within the same bar
+   (the SA block's weight gradients, sums over every point, against
+   max|plain|);
 4. drives each main path through the functions ``completion/test_torch.py``
-   calls, with seeded weights, over the synthetic val pass (cd_p, cd_t, f1)
-   and test pass (52 predictions): full-width PCN from
-   ``completion/cfgs/pcn.yaml``, ECG from ``completion/cfgs/ecg.yaml`` and
-   VRCNet from ``completion/cfgs/vrcnet.yaml``, each with the launch counts
-   zeroed just before and read just after (ECG's and VRCNet's counts must
-   equal the ones derived from the model's code);
+   and ``completion/train_torch.py`` call, with seeded weights, on the
+   synthetic splits, each with the launch counts zeroed just before and read
+   just after and equal to the ones derived from the code: the val pass
+   (cd_p, cd_t, f1) and test pass (52 predictions) of full-width PCN
+   (``completion/cfgs/pcn.yaml``), ECG (``ecg.yaml``) and VRCNet
+   (``vrcnet.yaml``); then ``engine.train_completion`` of PCN and VRCNet
+   for one epoch of ``TRAIN_STEPS`` steps at batch 32 x 2048 points, with
+   its val pass and checkpoints;
 5. checks the results: finite, of the expected shape, metrics equal to the
    ones recomputed with the plain chamfer on the card (rtol 1e-6), a val
    batch equal to the same model run on the CPU (PCN outputs atol 1e-5 /
    rtol 1e-4; ECG's and VRCNet's coarse output likewise and their fine
-   output as a cloud, see ``check_batch_on_cpu_as_cloud``), and cd_p/cd_t/f1
-   of clouds near gt equal to the CPU's (rtol 1e-6);
-6. times the val and test passes per batch, and each kernel against its
-   plain version (and a single PyTorch call computing the same function,
-   where one exists) at a main-path shape, beside the least time the card
-   could take (``bound_ms``).
+   output as a cloud, see ``check_batch_on_cpu_as_cloud``), cd_p/cd_t/f1
+   of clouds near gt equal to the CPU's (rtol 1e-6); the train paths' loss
+   and every gradient finite, their checkpoint reloading to the same val
+   metrics, and one train step on two full-width clouds equal to the CPU's
+   (``check_pcn_step_on_cpu``, ``check_vrcnet_step_on_cpu``);
+6. times the val and test passes per batch, the train steps (ms and
+   points/s), and each kernel against its plain version (and a single
+   PyTorch call computing the same function, where one exists) at a
+   main-path shape, beside the least time the card could take
+   (``bound_ms``).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -38,6 +48,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -49,6 +60,7 @@ from mvp_benchmark_tpu_torch.data.mvp import BatchSpec, MVPCompletionDataset
 from mvp_benchmark_tpu_torch.train import engine, submission
 from mvp_benchmark_tpu_torch.train.meters import AverageValueMeter
 from mvp_benchmark_tpu_torch.train.config import load_config
+from mvp_benchmark_tpu_torch.train.optim import build_optimizer
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PCN_CFG = os.path.join(ROOT, "completion", "cfgs", "pcn.yaml")
@@ -81,6 +93,24 @@ KERNELS = {   # launch-count key -> the kernel's identity in the kernels line
                      "source": f"{_CSRC}/sa_attention.cu",
                      "replaces": f"{_PK}:1354"},
 }
+BACKWARD_KERNELS = {
+    "chamfer_backward": {"name": "chamfer_backward",
+                         "source": f"{_CSRC}/chamfer.cu",
+                         "replaces": f"{_PK}:333"},
+    "scatter_add_rows": {"name": "scatter_add_rows",
+                         "source": f"{_CSRC}/gather.cu",
+                         "replaces": f"{_PK}:1613"},
+    "group_max_backward": {"name": "group_max_backward",
+                           "source": f"{_CSRC}/gather.cu",
+                           "replaces": f"{_PK}:928"},
+    "three_interpolate_backward": {"name": "three_interpolate_backward",
+                                   "source": f"{_CSRC}/gather.cu",
+                                   "replaces": f"{_PK}:1086"},
+    "sa_attention_backward": {"name": "sa_attention_backward",
+                              "source": f"{_CSRC}/sa_attention.cu",
+                              "replaces": f"{_PK}:1417"},
+}
+KERNELS.update(BACKWARD_KERNELS)
 
 # ECG's kernel launches per forward pass, read off models/ecg.py and
 # models/common.py: kNN 4 DenseConv self-kNN + 3 edge_preserve_sampling
@@ -101,6 +131,29 @@ ECG_PER_BATCH = {"knn": 10, "fps": 4, "gather": 11, "group_max": 3,
 # FPS, as many as num_coarse and num_points.
 VRCNET_PER_BATCH = {"knn": 7, "fps": 4, "gather": 8, "group_max": 3,
                     "three_interpolate": 3, "sa_attention": 4}
+# Launches per train step (engine.make_train_step: forward in train mode,
+# total.mean() backward). PCN: calc_cd of out1 and of out2, each one chamfer
+# forward and, in the backward, one chamfer_backward for the prediction side
+# alone (calc_cd(pred, gt) differentiates the second cloud of
+# chamfer_distance(gt, pred)). VRCNet: the dual path doubles the batch and
+# runs the eval forward once (VRCNET_PER_BATCH; y = gt, since num_input ==
+# 2048 == |gt|, so no FPS of gt), plus four calc_cd (coarse_raw,
+# coarse_high, coarse, fine): chamfer 4. Its backward runs a kernel for each
+# node on a differentiable path to the loss: chamfer_backward 4;
+# sa_attention_backward 4; group_max_backward 3 (edge_preserve_sampling's
+# neighbour max-pool); three_interpolate_backward 3 (the decoder's
+# upsamplings, d_features only: three_nn's distances carry no gradient);
+# scatter_add_rows 4, the backward of the gathers whose output reaches the
+# loss -- edge_preserve_sampling's centre features, 3, and coarse_high at the
+# FPS indices, 1. The other 4 gathers launch no backward: the sampled xyz
+# feed only FPS, kNN and three_nn, and the gathered coarse features only the
+# score top-k and folding, which this config does not reach. Then one val
+# pass: per batch the eval counts plus one chamfer.
+PCN_PER_STEP = {"chamfer": 2, "chamfer_backward": 2}
+VRCNET_PER_STEP = dict(VRCNET_PER_BATCH, chamfer=4, chamfer_backward=4,
+                       sa_attention_backward=4, group_max_backward=3,
+                       three_interpolate_backward=3, scatter_add_rows=4)
+TRAIN_STEPS = 3       # max_steps_per_epoch of each driven train path
 # The SA block's tolerance against its plain version on the card:
 # |kernel - plain| <= SA_ATOL + SA_RTOL |plain| (another summation order).
 SA_ATOL, SA_RTOL = 1e-5, 1e-4
@@ -166,18 +219,23 @@ def check_equal(name, got, want):
     return max_abs
 
 
-def check_close(name, got, want):
-    """|got - want| <= SA_ATOL + SA_RTOL |want| everywhere; returns the
-    largest absolute difference."""
+def check_close(name, got, want, normwise=False):
+    """|got - want| <= SA_ATOL + SA_RTOL |want| everywhere, or with
+    ``normwise`` <= SA_ATOL + SA_RTOL max|want|; returns the largest absolute
+    difference. ``normwise`` is for a gradient summed over every point of
+    the batch (the SA block's dW1, dW2, db2: 49 k to 197 k terms an entry in
+    the train step), whose entries that cancel to near 0 keep the rounding
+    of the whole sum."""
     check(got.shape == want.shape and got.dtype == want.dtype,
           f"{name}: {got.shape}/{got.dtype} vs {want.shape}/{want.dtype}")
     diff = (got - want).abs()
-    bad = int((~(diff <= SA_ATOL + SA_RTOL * want.abs())).sum())
+    scale = want.abs().max() if normwise else want.abs()
+    bad = int((~(diff <= SA_ATOL + SA_RTOL * scale)).sum())
     max_abs = float(diff.max())
     check(bad == 0, f"{name}: {bad} of {got.numel()} outside the tolerance, "
           f"max |diff| {max_abs!r}")
     print(f"kernel ~ plain: {name}: max |diff| {max_abs!r} within "
-          f"{SA_ATOL} + {SA_RTOL} |plain|")
+          f"{SA_ATOL} + {SA_RTOL} {'max|plain|' if normwise else '|plain|'}")
     return max_abs
 
 
@@ -276,6 +334,118 @@ def compare_kernels_with_plain(device):
             f"sa_attention ({B}, {n}, k {k}, rel {rel}, mid {mid})",
             kernels.sa_attention_forward(*args, rel, mid, 8),
             ref.sa_attention(*args, rel, mid, 8)))
+    torch.cuda.synchronize()
+    return err
+
+
+def cotangent(seed, shape, device, positive=False):
+    """Unit-scale cotangents in [-1, 1), or in [0, 1) where a collision case
+    sums thousands of them into one row: there the bar relative to |plain|
+    holds a lost or doubled atomic update, not the rounding of a sum that
+    cancels to near 0."""
+    u = uniform(seed, shape, device)
+    return u if positive else u * 2 - 1
+
+
+def compare_backward_kernels_with_plain(device):
+    """Phase 3b: the five backward kernels against their plain versions, at
+    the VRCNet train step's shapes (the dual path doubles the batch to 64),
+    a ragged shape and heavy index collisions, within
+    |kernel - plain| <= SA_ATOL + SA_RTOL |plain| (atomic summation order).
+    Returns {launch-count key: max |kernel - plain|}."""
+    err = dict.fromkeys(BACKWARD_KERNELS, 0.0)
+
+    gt, pred = clouds(40, 64, 2048, 3072, device)
+    collapsed = clouds(41, 4, 2048, 1024, device)[1]
+    collapsed[:, :1000] = collapsed[:, :1]          # 1000 copies of one point
+    cases = {   # name: (a, b, need_a, need_b); calc_cd(pred, gt) needs db
+        "calc_cd_64x2048_vs_3072": (gt, pred, False, True),
+        "calc_cd_64x2048_vs_1024": (gt, pred[:, :1024].contiguous(), False, True),
+        "ragged_2x96x50_both": clouds(42, 2, 96, 50, device) + (True, True),
+        "collapsed_4x2048_vs_1024_both": (clouds(41, 4, 2048, 1024, device)[0],
+                                          collapsed, True, True),
+    }
+    for name, (a, b, need_a, need_b) in cases.items():
+        d1, d2, i1, i2 = ref.chamfer_distance(a, b)
+        g1 = cotangent(43, tuple(d1.shape), device, name.startswith("collapsed"))
+        g2 = cotangent(44, tuple(d2.shape), device, name.startswith("collapsed"))
+        got = kernels.chamfer_backward(a, b, i1, g1, i2, g2, need_a, need_b)
+        want = ref.chamfer_backward(a, b, i1, g1, i2, g2, need_a, need_b)
+        for side, g, w in zip("ab", got, want):
+            check((g is None) == (w is None), f"chamfer_backward {name} d{side}")
+            if g is not None:
+                err["chamfer_backward"] = max(err["chamfer_backward"], check_close(
+                    f"chamfer_backward {name} d{side}", g, w))
+
+    for name, (B, n, m, c, k) in {
+            "center_64x3072x64_by_1536": (64, 3072, 1536, 64, None),
+            "center_64x768x256_by_384": (64, 768, 384, 256, None),
+            "coarse_64x3072x3_by_2048": (64, 3072, 2048, 3, None),
+            "ragged_3x97x5_by_41x7": (3, 97, 41, 5, 7),
+            "collisions_4x2048x24_all_to_row_5": (4, 2048, 2048, 24, None)}.items():
+        shape = (B, m) if k is None else (B, m, k)
+        idx = indices(45 + n, n, shape, device)
+        if name.startswith("collisions"):
+            idx.fill_(5)
+        g = cotangent(46 + n, shape + (c,), device,
+                      positive=name.startswith("collisions"))
+        err["scatter_add_rows"] = max(err["scatter_add_rows"], check_close(
+            f"scatter_add_rows {name}", kernels.scatter_add_rows(g, idx, n),
+            ref.scatter_add_rows(g, idx, n)))
+
+    for name, (B, n, c, m, k) in {
+            "level1_64x3072x64_by_1536x10": (64, 3072, 64, 1536, 10),
+            "level2_64x1536x128_by_768x10": (64, 1536, 128, 768, 10),
+            "level3_64x768x256_by_384x10": (64, 768, 256, 384, 10),
+            "ragged_ties_3x97x6_by_41x7": (3, 97, 6, 41, 7)}.items():
+        # relu'd features: half are 0, so most maxima over zeros tie
+        f = torch.relu(uniform(47 + n, (B, n, c), device) - 0.5)
+        idx = indices(48 + n, n, (B, m, k), device)
+        idx[:, :, k - 1] = idx[:, :, 0]              # a row twice: exact ties
+        _, slot = kernels.group_max_forward(f, idx)
+        g = cotangent(49 + n, (B, m, c), device)
+        err["group_max_backward"] = max(err["group_max_backward"], check_close(
+            f"group_max_backward {name}", kernels.group_max_backward(g, idx, slot, n),
+            ref.group_max_backward(g, idx, slot, n)))
+
+    for name, (B, ms, n, c, need_w) in {
+            "level4to3_64x384x512_to_768": (64, 384, 768, 512, False),
+            "level3to2_64x768x256_to_1536": (64, 768, 1536, 256, False),
+            "level2to1_64x1536x128_to_3072": (64, 1536, 3072, 128, True),
+            "ragged_2x37x5_to_101": (2, 37, 101, 5, True),
+            "collisions_2x64x16_to_512_all_row_0": (2, 64, 512, 16, True)}.items():
+        f = cotangent(50 + n, (B, ms, c), device)
+        src = uniform(51 + n, (B, ms, 3), device)
+        idx, w = ref.three_nn_upsampling(uniform(52 + n, (B, n, 3), device), src)
+        if name.startswith("collisions"):
+            idx = torch.zeros_like(idx)
+        g = cotangent(53 + n, (B, n, c), device,
+                      positive=name.startswith("collisions"))
+        got = kernels.three_interpolate_backward(g, idx, w, f, need_w)
+        want = ref.three_interpolate_backward(g, idx, w, f, need_w)
+        check((got[1] is None) == (not need_w), f"three_interpolate_backward {name}")
+        for part, gt_, wt in zip(("d_features", "d_weight"), got, want):
+            if wt is not None:
+                err["three_interpolate_backward"] = max(
+                    err["three_interpolate_backward"], check_close(
+                        f"three_interpolate_backward {name} {part}", gt_, wt))
+
+    for (B, n, k, rel, mid) in ((64, 3072, 16, 4, 16), (64, 1536, 16, 8, 32),
+                                (64, 768, 16, 16, 64), (64, 384, 16, 32, 128),
+                                (3, 97, 8, 4, 16), (2, 333, 32, 16, 64),
+                                (2, 100, 32, 32, 128), (2, 64, 16, 8, 32)):
+        args = sa_inputs(60 + n, B, n, k, rel, mid, device)
+        if B == 2 and n == 64:                        # every neighbour is row 3
+            args[2].fill_(3)
+        g = cotangent(61 + n, (B, n, mid), device)
+        got = kernels.sa_attention_backward(g, *args, rel, mid, 8)
+        want = ref.sa_attention_backward(g, *args, rel, mid, 8)
+        for part, gt_, wt in zip(("d_proj", "d_x1", "dW1", "dW2", "db2"), got, want):
+            err["sa_attention_backward"] = max(
+                err["sa_attention_backward"], check_close(
+                    f"sa_attention_backward ({B}, {n}, k {k}, rel {rel}, "
+                    f"mid {mid}) {part}", gt_, wt,
+                    normwise=part in ("dW1", "dW2", "db2")))
     torch.cuda.synchronize()
     return err
 
@@ -428,6 +598,177 @@ def check_f1_near(device, first):
           f"{float(want[2].mean())!r}")
 
 
+def drive_train_path(name, cfg, device, per_step, per_val_batch, log_dir):
+    """Phase 4 for a train path: ``engine.train_completion`` for one epoch
+    of ``TRAIN_STEPS`` steps and its val pass, counts zeroed just before and
+    read just after, equal to ``per_step`` per step plus ``per_val_batch``
+    and one chamfer per val batch."""
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = engine.train_completion(cfg, log_dir, DATA_DIR,
+                                  max_steps_per_epoch=TRAIN_STEPS, device=device)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    val_b = _batches(cfg)[0]
+    expected = dict.fromkeys(KERNELS, 0)
+    for k, v in per_step.items():
+        expected[k] += v * TRAIN_STEPS
+    for k, v in per_val_batch.items():
+        expected[k] += v * val_b
+    expected["chamfer"] += val_b
+    print(f"{name} train path ({TRAIN_STEPS} steps + val pass, {seconds!r} s "
+          f"with the first step's allocations) launches: {launches}")
+    check(launches == expected, f"{name} train: launches {launches}, "
+          f"expected {expected}")
+    return res, launches
+
+
+def check_train_result(name, cfg_path, device, res, log_dir):
+    """Finite train loss and gradients; the epoch checkpoint, loaded back
+    through the eval path, gives the val metrics of the run's val pass."""
+    loss = res["history"]["train_loss"][-1]
+    check(np.isfinite(loss), f"{name} train loss {loss}")
+    bad = [n for n, p in res["model"].named_parameters()
+           if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+    check(not bad, f"{name}: parameters without a finite gradient: {bad}")
+    val = res["history"]["val"][-1]
+    check(all(np.isfinite(v) for v in val.values()), f"{name} val {val}")
+    names = sorted(os.listdir(log_dir))
+    check({"network.pkl", "best_cd_p_network.pkl", "best_cd_t_network.pkl"}
+          <= set(names), f"{name} checkpoints {names}")
+    again = engine.run_completion_val(
+        load_config(cfg_path, nepoch=1,
+                    load_model=os.path.join(log_dir, "network.pkl")),
+        DATA_DIR, device)
+    for m, v in val.items():
+        check(abs(again[m] - v) <= 1e-6 * abs(v),
+              f"{name} {m}: reloaded checkpoint {again[m]!r}, run {v!r}")
+    print(f"{name} train: loss {loss!r}, every gradient finite, val {val}; "
+          f"network.pkl reloads to the same val metrics (rtol 1e-6); "
+          f"checkpoints {names}")
+
+
+def _train_batch(cfg, clouds_cut):
+    n = int(cfg.num_points)
+    batch = next(MVPCompletionDataset("train", DATA_DIR, n).batches(
+        BatchSpec(int(cfg.batch_size), shuffle=True, seed=1)))
+    return {k: (v[:clouds_cut] if isinstance(v, np.ndarray) and v.ndim else v)
+            for k, v in batch.items()}
+
+
+def _step_on(cfg, device, batch, fn):
+    """Seeded weights on ``device``, ``fn(model, x, gt)`` -> dict of loss
+    tensors (with "total") backward; returns (losses, flat gradient)."""
+    model = engine.build_model(cfg, device, seed=1, for_training=True).train()
+    x = torch.as_tensor(batch["inputs"]).to(device)
+    gt = torch.as_tensor(batch["gt"]).to(device)
+    losses = fn(model, x, gt)
+    losses["total"].backward()
+    grads = [p.grad.detach().cpu() for p in model.parameters()]
+    return ({k: v.detach().cpu() for k, v in losses.items()}, grads)
+
+
+def check_pcn_step_on_cpu(cfg, device, clouds_cut=2):
+    """One PCN train step on a cut batch at full width, card against CPU:
+    the total loss and every gradient within atol 1e-5 / rtol 1e-4."""
+    batch = _train_batch(cfg, clouds_cut)
+
+    def fn(model, x, gt):
+        _, loss2, total = model(x, gt, prefix="train", alpha=0.5)
+        return {"loss2": loss2, "total": total}
+
+    got, g_card = _step_on(cfg, device, batch, fn)
+    want, g_cpu = _step_on(cfg, torch.device("cpu"), batch, fn)
+    for k in got:
+        torch.testing.assert_close(got[k], want[k], rtol=1e-4, atol=1e-5)
+    worst = 0.0
+    for g, w in zip(g_card, g_cpu):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+        worst = max(worst, float((g - w).abs().max()))
+    print(f"PCN train step card vs CPU on {clouds_cut} full-width clouds: "
+          f"total {float(got['total'])!r} / {float(want['total'])!r}, every "
+          f"gradient within atol 1e-5 / rtol 1e-4 (max |diff| {worst!r})")
+
+
+# VRCNet's train step on the card against the CPU, as a cloud: the total
+# loss and the whole gradient may differ by this much (relative norm) and
+# the gradients' cosine must reach VRC_COSINE (check_vrcnet_step_on_cpu).
+# Measured on an H100: totals equal, norms 1.9e-7 apart, cosine 1 - 2e-11;
+# the bars keep room for a selection that rounds the other way.
+VRC_NORM, VRC_COSINE = 1e-3, 0.9999
+
+
+def check_vrcnet_step_on_cpu(cfg, device, clouds_cut=2):
+    """One VRCNet train step on a cut batch at full width, card against CPU,
+    the same weights and noise. loss1 (coarse_raw against gt, before any
+    selection) and the KL terms within atol 1e-5 / rtol 1e-4. The losses
+    after coarse_raw pass through kNN and FPS of activations that cuBLAS and
+    the CPU round differently (as in eval, check_batch_on_cpu_as_cloud), so
+    the total loss and the gradient, as one vector, are held as a cloud: the
+    total within VRC_NORM relative, the gradients' norms within VRC_NORM of
+    each other and their cosine at least VRC_COSINE."""
+    batch = _train_batch(cfg, clouds_cut)
+    noise = {}          # drawn on the CPU at the first call, used by both
+
+    def fn(model, x, gt):
+        if not noise:
+            noise.update(model.draw_noise(clouds_cut,
+                                          torch.Generator().manual_seed(1)))
+        t = model.train_losses(x, gt, 0.5,
+                               {k: v.to(x.device) for k, v in noise.items()})
+        return {k: t[k] for k in ("loss1", "dl_rec", "dl_g", "total")}
+
+    got, g_card = _step_on(cfg, device, batch, fn)
+    want, g_cpu = _step_on(cfg, torch.device("cpu"), batch, fn)
+    for k in ("loss1", "dl_rec", "dl_g"):
+        torch.testing.assert_close(got[k], want[k], rtol=1e-4, atol=1e-5)
+    gc, gw = torch.cat([g.reshape(-1) for g in g_card]), torch.cat(
+        [g.reshape(-1) for g in g_cpu])
+    cosine = float(torch.dot(gc.double(), gw.double())
+                   / (gc.double().norm() * gw.double().norm()))
+    norm_rel = float(abs(gc.norm() - gw.norm()) / gw.norm())
+    total_rel = float(abs(got["total"] - want["total"]) / abs(want["total"]))
+    print(f"VRCNet train step card vs CPU on {clouds_cut} full-width clouds: "
+          f"loss1, dl_rec, dl_g within atol 1e-5 / rtol 1e-4 (max |loss1 "
+          f"diff| {float((got['loss1'] - want['loss1']).abs().max())!r}); "
+          f"total {float(got['total'])!r} / {float(want['total'])!r} "
+          f"(relative {total_rel!r}); gradient cosine {cosine!r}, norms "
+          f"{float(gc.norm())!r} / {float(gw.norm())!r} (relative "
+          f"{norm_rel!r}); bars {VRC_NORM} and {VRC_COSINE}")
+    check(total_rel <= VRC_NORM, f"VRCNet total loss card vs CPU: {total_rel}")
+    check(norm_rel <= VRC_NORM and cosine >= VRC_COSINE,
+          f"VRCNet gradient card vs CPU: cosine {cosine}, norms {norm_rel}")
+
+
+def time_train_steps(name, cfg, device, card, steps=5):
+    """ms per train step (``engine.make_train_step`` with the step's noise
+    drawn on the host, as the train loop runs it) over ``steps`` steps after
+    two warm-up steps, host clock; points/s = batch x num_points per step."""
+    model = engine.build_model(cfg, device, seed=1, for_training=True)
+    step = engine.make_train_step(model.train(), build_optimizer(
+        cfg, model.parameters()), device)
+    batch = _train_batch(cfg, int(cfg.batch_size))
+    gen = torch.Generator().manual_seed(1)
+    bs, n = int(cfg.batch_size), int(cfg.num_points)
+
+    def run():
+        return step(batch, 0.5, engine.draw_noise(model, bs, gen))
+
+    for _ in range(2):
+        run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        run()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    pts = bs * n / (ms / 1e3)
+    print(f"{name} train step: {ms!r} ms, {pts!r} points/s (batch {bs} x {n} "
+          f"points, host clock over {steps} steps) on {card}")
+    return {"ms_per_step": ms, "points_per_s": pts}
+
+
 def time_passes(name, cfg, device, card, repeats=3):
     n = int(cfg.num_points)
     model = engine.build_model(cfg, device)
@@ -442,15 +783,16 @@ def time_passes(name, cfg, device, card, repeats=3):
             ("test", test_ds, lambda: engine.predict_completion(step, test_ds, spec))):
         run()                                            # warm-up
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        each = []
         for _ in range(repeats):
+            t0 = time.perf_counter()
             run()
-        torch.cuda.synchronize()
-        batches = repeats * ds.steps_per_epoch(spec)
-        out[split] = (time.perf_counter() - t0) * 1e3 / batches
-        print(f"{name} {split} pass: {out[split]!r} ms/batch (batch "
-              f"{spec.batch_size}, {n} points, host batching + copy included) "
-              f"on {card}")
+            torch.cuda.synchronize()
+            each.append((time.perf_counter() - t0) * 1e3 / ds.steps_per_epoch(spec))
+        out[split] = sum(each) / repeats
+        print(f"{name} {split} pass: {out[split]!r} ms/batch (passes {each!r}; "
+              f"batch {spec.batch_size}, {n} points, host batching + copy "
+              f"included) on {card}")
     return out
 
 
@@ -541,11 +883,81 @@ def timing_cases(device):
     }
 
 
+def backward_timing_cases(device):
+    """timing_cases of the five backwards, at a VRCNet train step's shape
+    each (batch 64 after the dual path). Bytes: each input read once, each
+    output written once; operations: fp32 adds and multiplies the function
+    needs (the SA block's: its forward recomputed, then d_w, d_proj, db2,
+    dW2, d_u, dW1 and d_cat, 2 per multiply-add)."""
+    B = 64
+    gt, pred = clouds(5, B, 2048, 3072, device)
+    _, _, i1, i2 = kernels.chamfer_forward(gt, pred)
+    g1 = cotangent(6, (B, 2048), device)
+    g2 = cotangent(7, (B, 3072), device)
+    n1, m1, c1 = 3072, 1536, 64                     # level 1 -> 2, 64 channels
+    sc_g = cotangent(8, (B, m1, c1), device)
+    sc_idx = indices(9, n1, (B, m1), device)
+    sc_flat = (sc_idx.long() + torch.arange(B, device=device)[:, None] * n1).reshape(-1)
+    sc_zero = torch.zeros(B * n1, c1, device=device)
+    gm_f = torch.relu(uniform(10, (B, n1, c1), device) - 0.5)
+    gm_idx = indices(11, n1, (B, m1, 10), device)
+    _, gm_slot = kernels.group_max_forward(gm_f, gm_idx)
+    ti_f = cotangent(12, (B, 1536, 128), device)     # level 2 -> 1
+    ti_idx, ti_w = ref.three_nn_upsampling(uniform(13, (B, 3072, 3), device),
+                                           uniform(14, (B, 1536, 3), device))
+    ti_g = cotangent(15, (B, 3072, 128), device)
+    n, k, rel, mid, ms = 3072, 16, 4, 16, 2          # SA level 1
+    sa = sa_inputs(16, B, n, k, rel, mid, device)
+    sa_g = cotangent(17, (B, n, mid), device)
+    in_w, kms = (1 + k) * rel, k * ms
+    sa_ops = B * n * (2 * in_w * ms + 2 * ms * kms + kms          # forward
+                      + 2 * k * mid + k * mid + kms + 2 * ms * kms  # d_w .. dW2
+                      + 2 * kms * ms + 2 * in_w * ms + 2 * in_w * ms)
+    return {
+        "chamfer_backward": (
+            "(64, 2048 gt vs 3072 predicted), db",
+            lambda: kernels.chamfer_backward(gt, pred, i1, g1, i2, g2, False, True),
+            lambda: ref.chamfer_backward(gt, pred, i1, g1, i2, g2, False, True),
+            None,
+            B * (2048 + 3072) * (12 + 8) + B * 3072 * 12,
+            B * (2048 + 3072) * 7),
+        "scatter_add_rows": (
+            "(64, 1536 x 64) into (64, 3072 x 64)",
+            lambda: kernels.scatter_add_rows(sc_g, sc_idx, n1),
+            lambda: ref.scatter_add_rows(sc_g, sc_idx, n1),
+            lambda: torch.index_add(sc_zero, 0, sc_flat, sc_g.reshape(-1, c1)),
+            B * m1 * (c1 + 1) * 4 + B * n1 * c1 * 4,
+            B * m1 * c1),
+        "group_max_backward": (
+            "(64, 1536 x 64) by (64, 1536 x 10) into (64, 3072 x 64)",
+            lambda: kernels.group_max_backward(sc_g, gm_idx, gm_slot, n1),
+            lambda: ref.group_max_backward(sc_g, gm_idx, gm_slot, n1),
+            None,
+            B * m1 * (2 * c1 + 10) * 4 + B * n1 * c1 * 4,
+            B * m1 * c1),
+        "three_interpolate_backward": (
+            "(64, 3072 x 128) into (64, 1536 x 128), d_features",
+            lambda: kernels.three_interpolate_backward(ti_g, ti_idx, ti_w, ti_f, False),
+            lambda: ref.three_interpolate_backward(ti_g, ti_idx, ti_w, ti_f, False),
+            None,
+            B * 3072 * (128 + 6) * 4 + B * 1536 * 128 * 4,
+            B * 3072 * 3 * 128 * 2),
+        "sa_attention_backward": (
+            "(64, 3072, rel 4, mid 16, k 16)",
+            lambda: kernels.sa_attention_backward(sa_g, *sa, rel, mid, 8),
+            lambda: ref.sa_attention_backward(sa_g, *sa, rel, mid, 8),
+            None,
+            B * n * (2 * (rel + mid) + 2 * rel + k + mid) * 4,
+            sa_ops),
+    }
+
+
 def time_kernels(device, card):
     """Each kernel against its plain version in the order plain, kernel,
     kernel, plain (CUDA events), and the library call where there is one."""
     out = {}
-    for key, (shape, kern, plain, lib, nbytes, ops) in timing_cases(device).items():
+    cases = {**timing_cases(device), **backward_timing_cases(device)}
+    for key, (shape, kern, plain, lib, nbytes, ops) in cases.items():
         n_k, n_p = _iters(kern), _iters(plain)
         runs = {"plain": [], "kernel": []}
         for which in ("plain", "kernel", "kernel", "plain"):
@@ -585,35 +997,55 @@ def main() -> int:
         print(f"  {ln.strip()}")
 
     max_abs = compare_kernels_with_plain(device)
+    max_abs.update(compare_backward_kernels_with_plain(device))
 
+    paths = {}           # path -> its launch counts
     pcn = load_config(PCN_CFG)
-    val, preds, pcn_launches = drive_path("PCN", pcn, device,
-                                          expected_counts(pcn, {}))
+    val, preds, paths["PCN eval"] = drive_path("PCN", pcn, device,
+                                               expected_counts(pcn, {}))
     step, first = check_metrics("PCN", pcn, device, val, preds)
     check_pcn_batch_on_cpu(pcn, step, first)
     check_f1_near(device, first)
 
     ecg = load_config(ECG_CFG)
-    val, preds, ecg_launches = drive_path(
+    val, preds, paths["ECG eval"] = drive_path(
         "ECG", ecg, device, expected_counts(ecg, ECG_PER_BATCH))
     step, first = check_metrics("ECG", ecg, device, val, preds)
     check_batch_on_cpu_as_cloud("ECG", ecg, step, first)
 
     vrc = load_config(VRCNET_CFG)
-    val, preds, vrc_launches = drive_path(
+    val, preds, paths["VRCNet eval"] = drive_path(
         "VRCNet", vrc, device, expected_counts(vrc, VRCNET_PER_BATCH))
     step, first = check_metrics("VRCNet", vrc, device, val, preds)
     check_batch_on_cpu_as_cloud("VRCNet", vrc, step, first)
-
+    # before the train paths, as the eval-only runs of earlier versions
     time_passes("PCN", pcn, device, card)
     time_passes("ECG", ecg, device, card)
     time_passes("VRCNet", vrc, device, card)
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    for name, path, per_step, per_val in (
+            ("PCN", PCN_CFG, PCN_PER_STEP, {}),
+            ("VRCNet", VRCNET_CFG, VRCNET_PER_STEP, VRCNET_PER_BATCH)):
+        cfg = load_config(path, nepoch=1)
+        with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as log_dir:
+            res, paths[f"{name} train"] = drive_train_path(
+                name, cfg, device, per_step, per_val, log_dir)
+            check_train_result(name, path, device, res, log_dir)
+        del res
+    check_pcn_step_on_cpu(load_config(PCN_CFG), device)
+    check_vrcnet_step_on_cpu(load_config(VRCNET_CFG), device)
+
+    time_train_steps("PCN", pcn, device, card)
+    time_train_steps("VRCNet", vrc, device, card)
     times = time_kernels(device, card)
 
+    launches = {k: sum(counts[k] for counts in paths.values()) for k in KERNELS}
+    check(all(launches.values()), f"a kernel no driven path launched: {launches}")
     print(f"chip_smoke: {time.perf_counter() - t_start!r} s on {card}")
     print(json.dumps({"kernels": [
         dict(KERNELS[k], route="cuda",
-             launches=pcn_launches[k] + ecg_launches[k] + vrc_launches[k],
+             launches=launches[k],
              max_abs_err=max_abs[k], **times[k])
         for k in KERNELS]}))
     print(json.dumps({"ok": True, "device": {

@@ -2,8 +2,8 @@
 
 Reference: ``completion/models/pcn.py`` -- PointNet-style encoder with two
 max-pools (:13-30), FC coarse decoder + folding-grid upsampling (:33-71).
-The ``val`` and ``test`` branches are ported; the ``train`` branch comes with
-the training slice.
+All three branches are ported; the ``train`` branch takes the CD loss (EMD
+raises until the auction kernel is ported).
 """
 
 from __future__ import annotations
@@ -110,11 +110,18 @@ class Model(nn.Module):
 
     def forward(self, x: torch.Tensor, gt: Optional[torch.Tensor] = None,
                 prefix: str = "train", alpha=None):
-        if prefix == "train":
-            raise NotImplementedError(
-                "PCN's train branch comes with the training slice")
         feat = self.encoder(x)
         out1, out2 = self.decoder(feat)
+        if prefix == "train":
+            # pcn.py:95-104 of the JAX package; EMD needs the auction kernel
+            if self.train_loss == "emd":
+                calc_emd(out1, gt)
+            if self.train_loss != "cd":
+                raise NotImplementedError("Train loss is either CD or EMD!")
+            loss1, _ = calc_cd(out1, gt)
+            loss2, _ = calc_cd(out2, gt)
+            total = loss1.mean() + loss2.mean() * (1.0 if alpha is None else alpha)
+            return out2, loss2, total
         if prefix == "val":
             if self.eval_emd:
                 emd = calc_emd(out2, gt, eps=0.004, iterations=3000)

@@ -17,10 +17,15 @@ Leaves by name: ``kernel``/``bias`` go to ``weight`` (transposed) and
 ``w_mlp2`` and ``w_mlp2_bias`` to the torch parameters of the same name, in
 the flax orientation (they enter a product as ``w_in @ W1``).
 
-A scope mapped to None is one the ported branches never run (VRCNet's prior
-net, ``LinearResBlock_2``, which only the train branch calls): a checkpoint
-written by JAX training holds it, a tree made for eval does not, and either
-loads.
+VRCNet's prior net (``LinearResBlock_2``, ``prior_infer``) runs only in the
+train branch: a checkpoint written by training holds it, a tree made for eval
+need not. ``load_flax_params`` accepts a tree without it unless
+``for_training``, and leaves the port's prior net as it was.
+
+``to_flax_params(model)`` is the inverse: the port's parameters as the flax
+variables ``{'params': {...}}`` of numpy float32 arrays, which
+``train/checkpoint.py`` pickles so that the JAX package loads the port's
+checkpoints and the port loads the JAX package's.
 """
 
 from __future__ import annotations
@@ -91,7 +96,7 @@ def _vrcnet_table(model: "vrcnet.Model") -> dict:
         **_PCN_ENCODER,
         **_dense3("LinearResBlock_0", "posterior_infer1"),
         **_dense3("LinearResBlock_1", "posterior_infer2"),
-        **dict.fromkeys(_dense3("LinearResBlock_2", "prior_infer")),
+        **_dense3("LinearResBlock_2", "prior_infer"),
         **_dense3("LinearResBlock_3", "generator"),
     }
     heads = ["fc1", "fc2", "fc3", "fc4", "fc5"]
@@ -126,6 +131,17 @@ def _vrcnet_table(model: "vrcnet.Model") -> dict:
 
 
 FLAX_TO_TORCH = {pcn.Model: _PCN, ecg.Model: _ECG, vrcnet.Model: _vrcnet_table}
+# scopes that only a train branch runs, which an eval tree may lack
+_TRAIN_ONLY = ("LinearResBlock_2/",)
+
+
+def _table(model: torch.nn.Module) -> dict:
+    table = FLAX_TO_TORCH.get(type(model))
+    if table is None:
+        raise NotImplementedError(
+            f"no flax->torch table for {type(model).__module__}."
+            f"{type(model).__name__}")
+    return table(model) if callable(table) else table
 
 
 def _leaf_modules(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, dict]:
@@ -149,15 +165,9 @@ def _copy(param: torch.Tensor, value: np.ndarray, where: str) -> None:
         param.copy_(value)
 
 
-def load_flax_params(model: torch.nn.Module,
-                     variables: Mapping[str, Any]) -> torch.nn.Module:
-    table = FLAX_TO_TORCH.get(type(model))
-    if table is None:
-        raise NotImplementedError(
-            f"no flax->torch table for {type(model).__module__}."
-            f"{type(model).__name__}")
-    if callable(table):
-        table = table(model)
+def load_flax_params(model: torch.nn.Module, variables: Mapping[str, Any],
+                     for_training: bool = False) -> torch.nn.Module:
+    table = _table(model)
     if "params" in variables:
         extra = sorted(k for k, v in variables.items() if k != "params" and v)
         if extra:
@@ -167,7 +177,10 @@ def load_flax_params(model: torch.nn.Module,
         params = variables
     leaves = _leaf_modules(params)
     unknown = sorted(set(leaves) - set(table))
-    missing = sorted(k for k, v in table.items() if v is not None and k not in leaves)
+    absent = [k for k in table if k not in leaves]
+    skipped = [k for k in absent
+               if not for_training and k.startswith(_TRAIN_ONLY)]
+    missing = sorted(set(absent) - set(skipped))
     if unknown or missing:
         raise ValueError(f"flax tree does not match {type(model).__name__}: "
                          f"unknown {unknown}, missing {missing}")
@@ -175,8 +188,6 @@ def load_flax_params(model: torch.nn.Module,
     filled = set()
     for path, arrays in leaves.items():
         name = table[path]
-        if name is None:
-            continue
         module = model.get_submodule(name)
         for key, value in arrays.items():
             m = re.fullmatch(r"(kernel|bias)(\d*)", key)
@@ -193,7 +204,35 @@ def load_flax_params(model: torch.nn.Module,
                 raise ValueError(f"{path}/{key}: {name} has no parameter {attr}")
             _copy(param, value, f"{path}/{key}")
             filled.add(f"{name}.{attr}")
-    unfilled = sorted(set(n for n, _ in model.named_parameters()) - filled)
+    left = {f"{table[k]}." for k in skipped}
+    unfilled = sorted(n for n, _ in model.named_parameters()
+                      if n not in filled and not n.startswith(tuple(left)))
     if unfilled:
         raise ValueError(f"torch parameters not in the flax tree: {unfilled}")
     return model
+
+
+def to_flax_params(model: torch.nn.Module) -> Dict[str, Any]:
+    """The inverse of ``load_flax_params``: {'params': nested dicts of numpy
+    float32 arrays in the flax layout} (kernels (in, out), raw SA leaves as
+    they are)."""
+    tree: Dict[str, Any] = {}
+    done = set()
+    for path, name in _table(model).items():
+        node = tree
+        for part in path.split("/"):
+            node = node.setdefault(part, {})
+        for attr, param in model.get_submodule(name).named_parameters(recurse=False):
+            value = param.detach().cpu().numpy().astype(np.float32)
+            m = re.fullmatch(r"(weight|bias)(\d*)", attr)
+            if m is not None and m[1] == "weight":
+                node[f"kernel{m[2]}"] = np.ascontiguousarray(value.T)
+            elif m is not None or attr in _RAW_LEAVES:
+                node[attr] = value
+            else:
+                raise ValueError(f"{name}.{attr}: no flax counterpart")
+            done.add(f"{name}.{attr}")
+    left = sorted(n for n, _ in model.named_parameters() if n not in done)
+    if left:
+        raise ValueError(f"torch parameters without a flax scope: {left}")
+    return {"params": tree}

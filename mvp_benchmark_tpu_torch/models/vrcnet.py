@@ -7,23 +7,26 @@ with point self-attention (``SA_module`` :21-57), selective-kernel attention
 (``SA_SKN_Res_encoder`` :179-296), FPS + learned-score top-k selection
 (:380-393) and local folding (:60-92).
 
-The ``val`` and ``test`` branches are ported. The ``train`` branch (the dual
-path, the prior net and the KL/MMD losses) comes with the training slice,
-and ``EFExpansion``, which the protocol config never reaches (``up_scale ==
-1`` and ``local_folding`` on), with a later slice. Both raise. Dropout is
-the identity in eval, so there is none here.
+All three branches are ported. ``EFExpansion``, which the protocol config
+never reaches (``up_scale == 1`` and ``local_folding`` on), comes with a
+later slice and raises.
 
-The latent noise. The JAX model draws ``z = q_mu + q_std * N(0, 1)`` from
-its ``sample`` RNG even in val and test (:517-518). The port takes the
-standard-normal ``eps`` (B, size_z) as an argument of ``forward``, so a
-caller (``train/engine.py``) can give a card run, a CPU run and the JAX
-model the same numbers.
+The noise is an argument. The JAX model draws ``z = q_mu + q_std * N(0, 1)``
+from its ``sample`` RNG even in val and test (:517-518), and in train the two
+latents ``z_q``, ``z_p`` (:507-510), the two dropout keep-masks of the
+encoder's global feature (:223-225; p = 0.5) and, for the MMD loss, four more
+normals (:540-546). The port takes them from the caller: the standard-normal
+``eps`` (B, size_z) in eval, and in train a dict ``noise`` whose names and
+shapes ``Model.noise_shapes`` lists in the order the JAX model draws them
+(``draw_noise`` draws them from a generator). So a caller
+(``train/engine.py``) can give a card run, a CPU run and the JAX model the
+same numbers.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -148,6 +151,17 @@ class SKNResUnit(nn.Module):
         return self.fc_out(torch.relu(x)) + self.fc_skip(feat)
 
 
+DROPOUT_RATE = 0.5      # SASKNResEncoder.dropout_rate of the JAX package
+
+
+def _dropout(x: torch.Tensor, keep: Optional[torch.Tensor]) -> torch.Tensor:
+    """flax ``nn.Dropout`` with the keep-mask given: kept entries scaled by
+    1 / (1 - rate), the others 0; the identity without a mask."""
+    if keep is None:
+        return x
+    return torch.where(keep, x / (1.0 - DROPOUT_RATE), torch.zeros_like(x))
+
+
 class SASKNResEncoder(nn.Module):
     """4-level SK-SA pyramid with edge pool/unpool (vrcnet.py:166-244):
     features (B, N, C_in), xyz in the first 3 channels -> (B, N, output_size).
@@ -185,7 +199,10 @@ class SASKNResEncoder(nn.Module):
         widest = max(range(len(self.k)), key=lambda i: self.k[i])
         return idxs[widest] if self.k[widest] >= self.pk else None
 
-    def forward(self, features: torch.Tensor) -> torch.Tensor:
+    def forward(self, features: torch.Tensor,
+                keep: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+        """``keep``: the two dropout keep-masks (B, 512) and (B, 1024) of the
+        global feature in train, None (no dropout) in eval."""
         relu = torch.relu
         pts = [features[..., 0:3]]
         skips = []
@@ -202,7 +219,9 @@ class SASKNResEncoder(nn.Module):
 
         x1, x2, x3, x4 = skips
         gf = torch.amax(self.gf1(x4), dim=1)
-        gf = relu(self.gf3(relu(self.gf2(gf))))
+        keep = (None, None) if keep is None else keep
+        gf = _dropout(relu(self.gf2(gf)), keep[0])
+        gf = _dropout(relu(self.gf3(gf)), keep[1])
         # virtual concat [tile(global), x4] (layers.DenseCat)
         x = relu(self.up4(gf[:, None, :], x4))
         for up, skip, fine, coarse in ((self.up3, x3, pts[2], pts[3]),
@@ -289,7 +308,8 @@ class MSAPSKNDecoder(nn.Module):
         elif n_coarse != num_fine:
             raise ValueError(f"{n_coarse} coarse points for num_points {num_fine}")
 
-    def forward(self, global_feat: torch.Tensor, point_input: torch.Tensor):
+    def forward(self, global_feat: torch.Tensor, point_input: torch.Tensor,
+                keep: Optional[Sequence[torch.Tensor]] = None):
         B = global_feat.shape[0]
         if point_input.shape[1] != self.num_input:
             raise ValueError(f"built for {self.num_input} input points, got "
@@ -303,7 +323,7 @@ class MSAPSKNDecoder(nn.Module):
             coarse_input = F.pad(coarse_raw, (0, 1), value=0.0)
             org_input = F.pad(point_input, (0, 1), value=1.0)
         points = torch.cat([coarse_input, org_input], dim=1)
-        dense_feat = self.encoder(points)
+        dense_feat = self.encoder(points, keep)
 
         coarse_features = torch.relu(self.fc4(dense_feat))
         coarse_high = self.fc5(coarse_features)
@@ -344,16 +364,37 @@ def build(args, generator: Optional[torch.Generator] = None) -> "Model":
         num_coarse_raw=int(args.num_coarse_raw or 1024),
         num_fps=int(args.num_fps or 2048),
         num_coarse=int(args.num_coarse or 2048),
+        distribution_loss=str(args.distribution_loss or "KLD"),
+        train_loss=str(args.loss or "cd"),
         eval_emd=bool(args.eval_emd),
         generator=generator,
     )
 
 
+def _kl_normal(mu1, std1, mu2, std2):
+    """KL(N(mu1, std1) || N(mu2, std2)), elementwise (vrcnet.py:389-395)."""
+    return (torch.log(std2 / std1)
+            + (std1 ** 2 + (mu1 - mu2) ** 2) / (2.0 * std2 ** 2) - 0.5)
+
+
+def _mmd_kernel(x, y):
+    """k[i, j] = exp(-mean((x_i - y_j)^2) / dim) (vrcnet.py:398-403)."""
+    sq = torch.mean((x[:, None, :] - y[None, :, :]) ** 2, dim=2)
+    return torch.exp(-sq / float(x.shape[1]))
+
+
+def mmd_loss(x, y):
+    """Kernel MMD between two batches of latents (vrcnet.py:406-412)."""
+    return (torch.mean(_mmd_kernel(x, x)) + torch.mean(_mmd_kernel(y, y))
+            - 2.0 * torch.mean(_mmd_kernel(x, y)))
+
+
 class Model(nn.Module):
-    """VRCNet. forward(x (B, N, 3), gt, prefix, alpha, eps) like the
-    reference Model (vrcnet.py:412-527), with the latent noise ``eps``
-    (B, size_z) given by the caller. The JAX model's size_z 128 and global
-    feature size 1024, which no config sets, are constants here."""
+    """VRCNet. forward(x (B, N, 3), gt, prefix, alpha, eps, noise) like the
+    reference Model (vrcnet.py:412-527), with the noise given by the caller:
+    ``eps`` (B, size_z) in val and test, ``noise`` (``noise_shapes``) in
+    train. The JAX model's size_z 128 and global feature size 1024, which no
+    config sets, are constants here."""
 
     size_z = 128
 
@@ -362,12 +403,15 @@ class Model(nn.Module):
                  knn_list: Sequence[int] = (16,), pk: int = 10,
                  points_label: bool = True, local_folding: bool = True,
                  num_coarse_raw: int = 1024, num_fps: int = 2048,
-                 num_coarse: int = 2048, eval_emd: bool = False,
+                 num_coarse: int = 2048, distribution_loss: str = "KLD",
+                 train_loss: str = "cd", eval_emd: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         g = generator
         gfs, size_z = 1024, self.size_z
         self.num_points = num_points
+        self.distribution_loss = distribution_loss
+        self.train_loss = train_loss
         self.eval_emd = eval_emd
         self.encoder = PCNEncoder(gfs, generator=g)
         self.posterior_infer1 = LinearResBlock(gfs, gfs, generator=g)
@@ -377,13 +421,48 @@ class Model(nn.Module):
             num_coarse_raw, num_fps, num_coarse, num_points, num_points,
             layers_cfg, knn_list, pk, points_label, local_folding, gfs,
             generator=g)
+        # the prior net, which only the train branch runs; built last, so the
+        # weights a seed gives the eval modules do not depend on it
+        self.prior_infer = LinearResBlock(gfs, 2 * size_z, generator=g)
+
+    def noise_shapes(self, batch_size: int) -> Dict[str, tuple]:
+        """The noise of one train step for a batch of ``batch_size`` clouds,
+        {name: shape}, in the order the JAX model draws it: the standard
+        normals of z_q and z_p, the encoder's two dropout keep-masks (bool),
+        and MMD's four standard normals."""
+        B, z = batch_size, self.size_z
+        shapes = {"z_q": (B, z), "z_p": (B, z),
+                  "keep1": (2 * B, 512), "keep2": (2 * B, 1024)}
+        if self.distribution_loss == "MMD":
+            shapes.update({n: (B, z) for n in ("z_m", "z_q2", "z_p2", "z_p_fix")})
+        return shapes
+
+    def draw_noise(self, batch_size: int,
+                   generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        """One train step's noise, drawn on the CPU from ``generator``: keep
+        masks True with probability 1 - DROPOUT_RATE."""
+        out = {}
+        for name, shape in self.noise_shapes(batch_size).items():
+            if name.startswith("keep"):
+                out[name] = torch.rand(shape, generator=generator) < 1.0 - DROPOUT_RATE
+            else:
+                out[name] = torch.randn(shape, generator=generator)
+        return out
+
+    def _check_noise(self, noise, batch_size: int) -> None:
+        want = self.noise_shapes(batch_size)
+        got = None if noise is None else {n: tuple(t.shape) for n, t in noise.items()}
+        if got != want:
+            raise ValueError(f"VRCNet's train step takes its noise as an "
+                             f"argument: pass noise with shapes {want}, got {got}")
 
     def forward(self, x: torch.Tensor, gt: Optional[torch.Tensor] = None,
                 prefix: str = "train", alpha=None,
-                eps: Optional[torch.Tensor] = None):
+                eps: Optional[torch.Tensor] = None,
+                noise: Optional[Dict[str, torch.Tensor]] = None):
         if prefix == "train":
-            raise NotImplementedError(
-                "VRCNet's train branch comes with the training slice")
+            t = self.train_losses(x, gt, 1.0 if alpha is None else alpha, noise)
+            return t["fine"], t["loss4"], t["total"]
         if eps is None or tuple(eps.shape) != (x.shape[0], self.size_z):
             raise ValueError(
                 f"VRCNet samples z = q_mu + q_std * eps: pass eps, standard "
@@ -404,3 +483,59 @@ class Model(nn.Module):
             return {"out1": coarse_raw, "out2": fine, "emd": emd,
                     "cd_p": cd_p, "cd_t": cd_t, "f1": f1}
         return {"result": fine}
+
+    def train_losses(self, x: torch.Tensor, gt: torch.Tensor, alpha: float,
+                     noise: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The dual path and the loss (vrcnet.py:474-570 of the JAX package)
+        -> {"fine", "loss1".."loss4" (per cloud of the doubled batch),
+        "dl_rec", "dl_g" (elementwise), "total"}."""
+        if self.distribution_loss not in ("KLD", "MMD"):
+            raise NotImplementedError(
+                "Distribution loss is either MMD or KLD "
+                "(reference vrcnet.py:495-504).")
+        if self.train_loss != "cd":
+            raise NotImplementedError("Only CD is supported")
+        B, num_input = x.shape[0], x.shape[1]
+        self._check_noise(noise, B)
+        # Reconstruction on gt resampled to num_input points + completion on
+        # x; fps(gt, N) with N == |gt| selects every point, and the encoder
+        # and the CD losses do not see the order, so y = gt then.
+        if num_input == gt.shape[1]:
+            y = gt
+        else:
+            y = ops.gather_points(gt, ops.furthest_point_sample(gt, num_input))
+        feat = self.encoder(torch.cat([x, y], dim=0))
+        feat_x, feat_y = feat[:B], feat[B:]
+        o_x = self.posterior_infer2(self.posterior_infer1(feat_x))
+        q_mu, q_std = torch.split(o_x, self.size_z, dim=1)
+        p_mu, p_std = torch.split(self.prior_infer(feat_y), self.size_z, dim=1)
+        q_std, p_std = F.softplus(q_std), F.softplus(p_std)
+        z_q = q_mu + q_std * noise["z_q"]
+        z_p = p_mu + p_std * noise["z_p"]
+        feat = torch.cat([feat_x, feat_x], dim=0)
+        feat = feat + self.generator(torch.cat([z_q, z_p], dim=0))
+        coarse_raw, coarse_high, coarse, fine = self.decoder(
+            feat, torch.cat([x, x], dim=0), keep=(noise["keep1"], noise["keep2"]))
+
+        if self.distribution_loss == "KLD":
+            # dl_rec = KL(N(0, 1) || p); dl_g = KL(p detached || q)
+            dl_rec = _kl_normal(torch.zeros_like(p_mu), torch.ones_like(p_std),
+                                p_mu, p_std)
+            dl_g = _kl_normal(p_mu.detach(), p_std.detach(), q_mu, q_std)
+        else:
+            z_q2 = q_mu + q_std * noise["z_q2"]
+            z_p2 = p_mu + p_std * noise["z_p2"]
+            z_p_fix = p_mu.detach() + p_std.detach() * noise["z_p_fix"]
+            dl_rec = mmd_loss(noise["z_m"], z_p2)
+            dl_g = mmd_loss(z_q2, z_p_fix)
+
+        gt2 = torch.cat([gt, gt], dim=0)
+        loss1, _ = calc_cd(coarse_raw, gt2)
+        loss2, _ = calc_cd(coarse_high, gt2)
+        loss3, _ = calc_cd(coarse, gt2)
+        loss4, _ = calc_cd(fine, gt2)
+        total = (loss1.mean() * 10.0 + loss2.mean() * 0.5
+                 + loss3.mean() + loss4.mean() * alpha)
+        total = total + (dl_rec.mean() + dl_g.mean()) * 20.0
+        return {"fine": fine, "loss1": loss1, "loss2": loss2, "loss3": loss3,
+                "loss4": loss4, "dl_rec": dl_rec, "dl_g": dl_g, "total": total}

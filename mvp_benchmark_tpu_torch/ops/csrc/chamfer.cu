@@ -32,6 +32,30 @@
 // memory, and has all threads of a warp read the same shared word at once
 // (a broadcast, no bank conflicts). Register blocking of several query rows
 // per thread and warp-level tiling are left for later work.
+//
+// Chamfer backward: replaces `_chamfer_grad_mxu` / `_chamfer_grad_mxu_kernel`
+// (pallas_kernels.py:333 and :270), the default backward of `_chamfer_bwd`
+// :417. For one side p of the pair (p, q), with the argmins ip (p -> q) and
+// iq (q -> p) and the cotangents gp, gq of the two distance vectors:
+//
+//   dp[i] = 2 gp[i] (p[i] - q[ip[i]]) - sum_{j: iq[j] = i} 2 gq[j] (q[j] - p[i])
+//
+// (the XLA form of :442-450). The TPU kernel builds both terms as one-hot
+// MXU products, accumulating over its grid in order; here one thread takes
+// one point of either cloud and adds its term with fp32 atomicAdd into dp,
+// which the wrapper zeroes: a thread of p adds the gather term at its own
+// row, a thread of q subtracts its term at row iq[j]. Each term is
+// (2 g) * (p - q), rounded as ops/ref.py rounds it; the sum into one row is
+// in atomic order, so dp agrees with ref.chamfer_backward to a tolerance.
+// The wrapper launches it only for a side whose gradient is asked for:
+// `calc_cd(pred, gt)` needs the prediction side alone. An index outside its
+// cloud adds NaN to the thread's own row (gather term) or to row 0 (scatter
+// term) instead of reading or writing out of bounds.
+//
+// What bounds it: bytes and atomics. At VRCNet's step (B 64, 3072 predicted
+// against 2048 gt points) it reads 3.2 MB and writes 2.4 MB (~0.002 ms at
+// 3.35 TB/s) with 3 * (3072 + 2048) atomic adds per cloud; a collapsed
+// prediction sends many q rows to one p row, which serialise in L2.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -95,6 +119,49 @@ void launch_rowmin(const float* query, const float* points, int batch, int nq,
                                                        dist, idx);
 }
 
+constexpr int kBwdThreads = 256;
+
+// dp (B, np, 3) += the gradient terms; threads [0, np) of a cloud take the
+// points of p, [np, np + nq) those of q. Grid (ceil((np + nq) / 256), B).
+__global__ void __launch_bounds__(kBwdThreads)
+chamfer_backward_kernel(const float* __restrict__ p, const float* __restrict__ q,
+                        const int* __restrict__ ip, const float* __restrict__ gp,
+                        const int* __restrict__ iq, const float* __restrict__ gq,
+                        int np, int nq, float* __restrict__ dp) {
+  const int b = blockIdx.y;
+  const int t = blockIdx.x * kBwdThreads + threadIdx.x;
+  if (t >= np + nq) return;
+  const float* pb = p + static_cast<size_t>(b) * np * 3;
+  const float* qb = q + static_cast<size_t>(b) * nq * 3;
+  float* db = dp + static_cast<size_t>(b) * np * 3;
+  if (t < np) {                           // 2 gp[i] (p[i] - q[ip[i]]) at i
+    const int i = t;
+    const int j = ip[static_cast<size_t>(b) * np + i];
+    const float coef = __fmul_rn(2.f, gp[static_cast<size_t>(b) * np + i]);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float v = j >= 0 && j < nq
+          ? __fmul_rn(coef, __fsub_rn(pb[3 * i + c], qb[3 * j + c]))
+          : CUDART_NAN_F;
+      atomicAdd(db + 3 * i + c, v);
+    }
+  } else {                                // -2 gq[j] (q[j] - p[iq[j]]) at iq[j]
+    const int j = t - np;
+    const int i = iq[static_cast<size_t>(b) * nq + j];
+    const bool ok = i >= 0 && i < np;
+    const float coef = __fmul_rn(2.f, gq[static_cast<size_t>(b) * nq + j]);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      if (ok) {
+        atomicAdd(db + 3 * i + c,
+                  -__fmul_rn(coef, __fsub_rn(qb[3 * j + c], pb[3 * i + c])));
+      } else {
+        atomicAdd(db + c, CUDART_NAN_F);
+      }
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -109,6 +176,22 @@ int chamfer_forward(const float* a, const float* b, int batch, int n, int m,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   launch_rowmin(b, a, batch, m, n, d2, i2, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The gradient of one side: p (B, NP, 3), q (B, NQ, 3) float32, ip/gp
+// (B, NP), iq/gq (B, NQ) (int32 / float32), all contiguous on the device;
+// dp (B, NP, 3) zeroed by the caller. For da of chamfer_forward(a, b) pass
+// (a, b, i1, g1, i2, g2); for db, (b, a, i2, g2, i1, g1). Launches on
+// `stream` without synchronising; returns cudaGetLastError().
+int chamfer_backward(const float* p, const float* q, const int* ip,
+                     const float* gp, const int* iq, const float* gq,
+                     int batch, int np, int nq, float* dp, void* stream) {
+  if (batch == 0 || np + nq == 0) return 0;
+  const dim3 grid((np + nq + kBwdThreads - 1) / kBwdThreads, batch);
+  chamfer_backward_kernel<<<grid, kBwdThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      p, q, ip, gp, iq, gq, np, nq, dp);
   return static_cast<int>(cudaGetLastError());
 }
 

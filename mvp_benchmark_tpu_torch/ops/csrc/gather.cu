@@ -40,6 +40,37 @@
 // once. A later PR would fuse these into their consumers (the gathered
 // DenseEdge projection is added to the centre term and max-pooled right
 // after, so the (B, N, k, C) tensor need never be written).
+//
+// The backwards of the three, for training:
+//
+//   scatter_add_rows            <- `scatter_add_rows` :1613 (body
+//                                  `_scatter_rows_kernel` :1588), the
+//                                  backward of `gather_rows` (:1800):
+//                                  out[b, idx[b, m], :] += g[b, m, :]
+//   group_max_backward          <- `_group_max_bwd_rule` :928 (body
+//                                  `_group_max_bwd_kernel` :830):
+//                                  d[b, idx[b, m, slot], c] += g[b, m, c]
+//   three_interpolate_backward  <- `_ti_bwd_rule` :1086 (body
+//                                  `_ti_bwd_kernel` :993):
+//                                  d_f[b, idx[b, n, l], c] += w[b, n, l] g[b, n, c],
+//                                  d_w[b, n, l] = <g[b, n], f[b, idx[b, n, l]]>
+//
+// The TPU kernels scatter with one-hot-transpose MXU products (bf16 or
+// hi/lo-bf16 tables) into one output block that the grid revisits in order.
+// On a GPU that carry is a race, so each scatter here is an fp32 atomicAdd
+// into an output the wrapper zeroes: one thread per element of g, each
+// adding its value (times the weight) at the row its index names. The sum
+// into one row is taken in atomic order, which changes from run to run, so
+// these agree with ops/ref.py to a tolerance, not bitwise. d_w is a dot
+// product per (n, l): one warp per target row, lanes over channels, a
+// shuffle reduction. An index outside [0, N) (or a slot outside [0, k))
+// adds NaN to row 0 of its cloud instead of writing out of bounds.
+//
+// What bounds them: bytes, and the atomics. At VRCNet's largest
+// three_interpolate backward (B 64, 3072 x 128 from 1536 rows) g is 101 MB
+// and d_f 50 MB: 0.045 ms at 3.35 TB/s. Each of the 3 * 25 M atomic adds
+// is a read-modify-write in L2; rows gathered by many queries serialise
+// there. A later PR would sort the indices and sum segments in registers.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -194,6 +225,101 @@ three_interpolate_kernel(const float* __restrict__ f,
   store_vec<V>(out + static_cast<size_t>(r) * c + cc, o);
 }
 
+// out (B, n, C) += g (B, rows, C) at rows idx (B, rows); `total` = B*rows*C.
+__global__ void __launch_bounds__(kThreads)
+scatter_add_rows_kernel(const float* __restrict__ g, const int* __restrict__ idx,
+                        int n, int c, int rows, int total,
+                        float* __restrict__ out) {
+  const int t = blockIdx.x * kThreads + threadIdx.x;
+  if (t >= total) return;
+  const int r = t / c;                  // b * rows + m
+  const int cc = t - r * c;
+  const int b = r / rows;
+  const int dst = idx[r];
+  float* ob = out + static_cast<size_t>(b) * n * c + cc;
+  if (dst >= 0 && dst < n) {
+    atomicAdd(ob + static_cast<size_t>(dst) * c, g[t]);
+  } else {
+    atomicAdd(ob, CUDART_NAN_F);
+  }
+}
+
+// d (B, n, C) += g (B, m, C) at rows idx[b, m, slot[b, m, c]]; `total` =
+// B*m*C.
+__global__ void __launch_bounds__(kThreads)
+group_max_backward_kernel(const float* __restrict__ g,
+                          const int* __restrict__ idx,
+                          const int* __restrict__ slot, int n, int c, int m,
+                          int k, int total, float* __restrict__ d) {
+  const int t = blockIdx.x * kThreads + threadIdx.x;
+  if (t >= total) return;
+  const int r = t / c;                  // b * m + row
+  const int cc = t - r * c;
+  const int b = r / m;
+  const int s = slot[t];
+  const int src = s >= 0 && s < k ? idx[static_cast<size_t>(r) * k + s] : -1;
+  float* db = d + static_cast<size_t>(b) * n * c + cc;
+  if (src >= 0 && src < n) {
+    atomicAdd(db + static_cast<size_t>(src) * c, g[t]);
+  } else {
+    atomicAdd(db, CUDART_NAN_F);
+  }
+}
+
+// d_f (B, ms, C) += w * g from g (B, n, C), idx and w (B, n, 3); `total` =
+// B*n*C. Each term is rounded as ref.py's `g * w` is.
+__global__ void __launch_bounds__(kThreads)
+three_interpolate_backward_kernel(const float* __restrict__ g,
+                                  const int* __restrict__ idx,
+                                  const float* __restrict__ w, int ms, int c,
+                                  int n, int total, float* __restrict__ df) {
+  const int t = blockIdx.x * kThreads + threadIdx.x;
+  if (t >= total) return;
+  const int r = t / c;                  // b * n + row
+  const int cc = t - r * c;
+  const int b = r / n;
+  const float gv = g[t];
+  float* fb = df + static_cast<size_t>(b) * ms * c + cc;
+#pragma unroll
+  for (int l = 0; l < 3; ++l) {
+    const int src = idx[static_cast<size_t>(r) * 3 + l];
+    if (src >= 0 && src < ms) {
+      atomicAdd(fb + static_cast<size_t>(src) * c,
+                __fmul_rn(gv, w[static_cast<size_t>(r) * 3 + l]));
+    } else {
+      atomicAdd(fb, CUDART_NAN_F);
+    }
+  }
+}
+
+// d_w (B, n, 3) = <g[b, n], f[b, idx[b, n, l]]>: one warp per row of
+// (B*n), `rows` = B*n.
+__global__ void __launch_bounds__(kThreads)
+three_interpolate_dweight_kernel(const float* __restrict__ g,
+                                 const int* __restrict__ idx,
+                                 const float* __restrict__ f, int ms, int c,
+                                 int n, int rows, float* __restrict__ dw) {
+  const int r = (blockIdx.x * kThreads + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (r >= rows) return;                // whole warps leave together
+  const int b = r / n;
+  const float* gr = g + static_cast<size_t>(r) * c;
+#pragma unroll
+  for (int l = 0; l < 3; ++l) {
+    const int src = idx[static_cast<size_t>(r) * 3 + l];
+    float s = 0.f;
+    if (src >= 0 && src < ms) {
+      const float* fr = f + (static_cast<size_t>(b) * ms + src) * c;
+      for (int cc = lane; cc < c; cc += 32) s = fmaf(gr[cc], fr[cc], s);
+    } else {
+      s = CUDART_NAN_F;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    if (lane == 0) dw[static_cast<size_t>(r) * 3 + l] = s;
+  }
+}
+
 int blocks_for(int total) { return (total + kThreads - 1) / kThreads; }
 
 }  // namespace
@@ -254,6 +380,51 @@ int three_interpolate_forward(const float* f, const int* idx, const float* w,
     three_interpolate_kernel<1><<<blocks_for(total), kThreads, 0, s>>>(
         f, idx, w, ms, c, n, total, out);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The backwards take `out`/`d`/`df` zeroed by the caller and add into it.
+
+// g (B, M, C) float32, idx (B, M) int32 -> out (B, N, C) += scatter.
+int scatter_add_rows(const float* g, const int* idx, int batch, int n, int c,
+                     int rows, float* out, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int total = batch * rows * c;
+  if (total == 0) return 0;
+  scatter_add_rows_kernel<<<blocks_for(total), kThreads, 0, s>>>(
+      g, idx, n, c, rows, total, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// g (B, M, C) float32, idx (B, M, K) int32, slot (B, M, C) int32 ->
+// d (B, N, C) += routed g.
+int group_max_backward(const float* g, const int* idx, const int* slot,
+                       int batch, int n, int c, int m, int k, float* d,
+                       void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int total = batch * m * c;
+  if (total == 0) return 0;
+  group_max_backward_kernel<<<blocks_for(total), kThreads, 0, s>>>(
+      g, idx, slot, n, c, m, k, total, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// g (B, N, C), idx (B, N, 3) int32, w (B, N, 3), f (B, Ms, C) float32 ->
+// df (B, Ms, C) += scatter, and dw (B, N, 3) when dw is not null.
+int three_interpolate_backward(const float* g, const int* idx, const float* w,
+                               const float* f, int batch, int ms, int c, int n,
+                               float* df, float* dw, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int total = batch * n * c;
+  if (total == 0) return 0;
+  three_interpolate_backward_kernel<<<blocks_for(total), kThreads, 0, s>>>(
+      g, idx, w, ms, c, n, total, df);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || dw == nullptr) return static_cast<int>(err);
+  const int rows = batch * n;
+  three_interpolate_dweight_kernel<<<(rows + kThreads / 32 - 1) / (kThreads / 32),
+                                     kThreads, 0, s>>>(g, idx, f, ms, c, n,
+                                                       rows, dw);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -52,9 +52,12 @@ def knn_indices(points: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def three_nn(target: torch.Tensor, source: torch.Tensor):
-    """Top-3 NN -> (sqrt distances, idx) (see ref.three_nn)."""
-    d, idx = _knn(target, source, 3)
-    return torch.sqrt(d), idx
+    """Top-3 NN -> (sqrt distances, idx), neither differentiable (see
+    ref.three_nn)."""
+    if _route(target, source) == "cuda":
+        d, idx = kernels.knn(target.contiguous(), source.contiguous(), 3)
+        return torch.sqrt(d), idx
+    return ref.three_nn(target, source)
 
 
 def three_nn_upsampling(target_points: torch.Tensor, source_points: torch.Tensor):

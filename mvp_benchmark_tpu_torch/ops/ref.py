@@ -56,6 +56,26 @@ def chamfer_distance(
     return dist1, dist2, idx1.to(torch.int32), idx2.to(torch.int32)
 
 
+def chamfer_backward(a: torch.Tensor, b: torch.Tensor, i1: torch.Tensor,
+                     g1: torch.Tensor, i2: torch.Tensor, g2: torch.Tensor,
+                     need_a: bool = True, need_b: bool = True):
+    """Gradients of ``chamfer_distance(a, b)``'s (dist1, dist2) given their
+    cotangents g1 (B, N) and g2 (B, M) -> (da or None, db or None), the XLA
+    form of ``pallas_kernels.py:442-450``:
+
+      da = 2 g1 (a - b[i1]) - scatter_{i2}(2 g2 (b - a[i2]))
+      db = 2 g2 (b - a[i2]) - scatter_{i1}(2 g1 (a - b[i1]))
+
+    Each term is ``(2 g) * (p - q)``, each operation rounded on its own; the
+    sums of the scatter are taken in index order here, in atomic order by
+    ``chamfer_backward`` in ``csrc/chamfer.cu``."""
+    diff1 = 2.0 * g1[..., None] * (a - gather_points(b, i1))
+    diff2 = 2.0 * g2[..., None] * (b - gather_points(a, i2))
+    da = diff1 - scatter_add_rows(diff2, i2, a.shape[1]) if need_a else None
+    db = diff2 - scatter_add_rows(diff1, i1, b.shape[1]) if need_b else None
+    return da, db
+
+
 # ---------------------------------------------------------------------------
 # kNN family
 # ---------------------------------------------------------------------------
@@ -108,8 +128,12 @@ def knn_query(k: int, xyz: torch.Tensor, center_xyz: torch.Tensor) -> torch.Tens
 def three_nn(target: torch.Tensor,
              source: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Three nearest source points of every target point -> (EUCLIDEAN
-    distances (B, N, 3) ascending, idx (B, N, 3) int32) (jnp_ref.three_nn)."""
-    d, idx = knn(target, source, 3)
+    distances (B, N, 3) ascending, idx (B, N, 3) int32) (jnp_ref.three_nn).
+
+    Neither output carries a gradient, as in ``jnp_ref.three_nn`` and the
+    reference CUDA op: an upsampling from an FPS subset always meets zero
+    distances, where sqrt's derivative is infinite."""
+    d, idx = knn(target.detach(), source.detach(), 3)
     return torch.sqrt(d), idx
 
 
@@ -144,6 +168,28 @@ def gather_points(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return features[rows, flat].reshape(*idx.shape, features.shape[-1])
 
 
+def _check_range(idx: torch.Tensor, n: int) -> None:
+    if idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= n):
+        raise IndexError(f"index outside [0, {n}): "
+                         f"[{int(idx.min())}, {int(idx.max())}]")
+
+
+def scatter_add_rows(g: torch.Tensor, idx: torch.Tensor,
+                     num_rows: int) -> torch.Tensor:
+    """The backward of ``gather_points``: g (B, ..., C) fp32 with idx
+    (B, ...) in [0, num_rows) -> out (B, num_rows, C),
+    ``out[b, idx[b, m]] += g[b, m]`` (``pallas_kernels.scatter_add_rows``
+    at fp32). An index out of range raises. The contract of
+    ``scatter_add_rows`` in ``csrc/gather.cu``, which sums in atomic order."""
+    B, C = g.shape[0], g.shape[-1]
+    _check_range(idx, num_rows)
+    flat = idx.reshape(B, -1).long()
+    flat = flat + torch.arange(B, device=g.device)[:, None] * num_rows
+    out = torch.zeros((B * num_rows, C), dtype=torch.float32, device=g.device)
+    out.index_add_(0, flat.reshape(-1), g.reshape(-1, C).to(torch.float32))
+    return out.reshape(B, num_rows, C)
+
+
 def grouping_operation(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """(B, N, C) x (B, M, K) -> (B, M, K, C) (jnp_ref.grouping_operation)."""
     return gather_points(features, idx)
@@ -172,6 +218,24 @@ def group_max(features: torch.Tensor,
     return acc, slot
 
 
+def group_max_backward(g: torch.Tensor, idx: torch.Tensor, slot: torch.Tensor,
+                       num_rows: int) -> torch.Tensor:
+    """The backward of ``group_max``: g (B, M, C), idx (B, M, k), slot
+    (B, M, C) -> d_features (B, num_rows, C) with
+    ``d_features[b, idx[b, m, slot[b, m, c]], c] += g[b, m, c]``: the whole
+    gradient goes to the lowest slot reaching the max, as
+    ``_group_max_bwd_kernel`` (``pallas_kernels.py:830``) routes it. The
+    contract of ``group_max_backward`` in ``csrc/gather.cu``."""
+    B, M, C = g.shape
+    _check_range(slot, idx.shape[-1])
+    src = torch.gather(idx.long(), 2, slot.long())             # (B, M, C)
+    _check_range(src, num_rows)
+    flat = src * C + torch.arange(C, device=g.device)
+    out = torch.zeros((B, num_rows * C), dtype=torch.float32, device=g.device)
+    out.scatter_add_(1, flat.reshape(B, M * C), g.reshape(B, M * C))
+    return out.reshape(B, num_rows, C)
+
+
 def three_interpolate(features: torch.Tensor, idx: torch.Tensor,
                       weight: torch.Tensor) -> torch.Tensor:
     """Weighted 3-point interpolation: features (B, M, C), idx/weight
@@ -183,6 +247,25 @@ def three_interpolate(features: torch.Tensor, idx: torch.Tensor,
         term = gather_points(features, idx[..., l]) * weight[..., l, None]
         out = term if out is None else out + term
     return out
+
+
+def three_interpolate_backward(g: torch.Tensor, idx: torch.Tensor,
+                               weight: torch.Tensor, features: torch.Tensor,
+                               need_w: bool = True):
+    """The backward of ``three_interpolate`` for g (B, N, C) ->
+    (d_features (B, Ms, C), d_weight (B, N, 3) or None), as
+    ``_ti_bwd_kernel`` (``pallas_kernels.py:993``) computes them at fp32:
+
+      d_features[idx[n, j]] += w[n, j] * g[n]     (a scatter)
+      d_weight[n, j] = <g[n], features[idx[n, j]]>
+
+    The contract of ``three_interpolate_backward`` in ``csrc/gather.cu``."""
+    terms = g[:, :, None, :] * weight[..., None]              # (B, N, 3, C)
+    d_features = scatter_add_rows(terms, idx, features.shape[1])
+    d_weight = None
+    if need_w:
+        d_weight = torch.sum(gather_points(features, idx) * g[:, :, None, :], -1)
+    return d_features, d_weight
 
 
 # ---------------------------------------------------------------------------
@@ -217,6 +300,45 @@ def sa_attention(proj: torch.Tensor, x1: torch.Tensor, idx: torch.Tensor,
     u = torch.relu(w_in @ W1)
     w = (u @ W2 + b2).reshape(B, N, k, ms).repeat(1, 1, 1, share)
     return torch.sum(w * pn[..., rel:], dim=2)
+
+
+def sa_attention_backward(g: torch.Tensor, proj: torch.Tensor, x1: torch.Tensor,
+                          idx: torch.Tensor, W1: torch.Tensor, W2: torch.Tensor,
+                          b2: torch.Tensor, rel: int, mid: int, share: int):
+    """The backward of ``sa_attention`` for g (B, N, mid) -> (d_proj, d_x1,
+    dW1, dW2, db2), the semantics of ``_sa_bwd_kernel``
+    (``pallas_kernels.py:1241-1319``) at fp32. Per point, with the forward
+    recomputed (w_in, u, w as in ``sa_attention``; q = c % ms):
+
+      d_w[j, q] = sum_{c % ms = q} g[c] proj[idx_j, rel + c]
+      d_proj[idx_j, rel + c] += w[j, q] g[c]
+      db2 += d_w, dW2 += u^T d_w
+      d_u = (d_w W2^T) * [u > 0], dW1 += w_in^T d_u
+      d_cat = (d_u W1^T) * [cat > 0]
+      d_x1 = d_cat[:rel], d_proj[idx_j, :rel] += d_cat[rel + j rel : ...]
+
+    The contract of ``sa_attention_backward`` in ``csrc/sa_attention.cu``,
+    which sums in another order (and its scatters in atomic order)."""
+    B, N, k = idx.shape
+    ms = mid // share
+    pn = gather_points(proj, idx)                        # (B, N, k, rel+mid)
+    cat = torch.cat([x1, pn[..., :rel].reshape(B, N, k * rel)], dim=-1)
+    w_in = torch.relu(cat)
+    u_pre = w_in @ W1
+    u = torch.relu(u_pre)
+    w = (u @ W2 + b2).reshape(B, N, k, ms)
+    # channel c = s * ms + q of mid takes w[:, q]: fold the share groups
+    d_w = (g[:, :, None, :] * pn[..., rel:]).reshape(B, N, k, share, ms).sum(3)
+    d_mid = w.repeat(1, 1, 1, share) * g[:, :, None, :]     # (B, N, k, mid)
+    d_w = d_w.reshape(B, N, k * ms)
+    db2 = d_w.sum((0, 1))
+    dW2 = u.reshape(-1, ms).T @ d_w.reshape(-1, k * ms)
+    d_u = (d_w @ W2.T) * (u_pre > 0)
+    dW1 = w_in.reshape(-1, (1 + k) * rel).T @ d_u.reshape(-1, ms)
+    d_cat = (d_u @ W1.T) * (cat > 0)
+    d_rel = d_cat[..., rel:].reshape(B, N, k, rel)
+    d_proj = scatter_add_rows(torch.cat([d_rel, d_mid], dim=-1), idx, N)
+    return d_proj, d_cat[..., :rel].contiguous(), dW1, dW2, db2
 
 
 # ---------------------------------------------------------------------------

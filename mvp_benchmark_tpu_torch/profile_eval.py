@@ -1,15 +1,18 @@
-"""Where the time of an eval pass goes on the card: ``torch.profiler`` over a
-few val passes of a completion config, after warm-up passes.
+"""Where the time of an eval pass, or of a train step, goes on the card:
+``torch.profiler`` over a few val passes (or train steps) of a completion
+config, after warm-up.
 
     python -m mvp_benchmark_tpu_torch.profile_eval -c completion/cfgs/ecg.yaml
     python -m mvp_benchmark_tpu_torch.profile_eval -c completion/cfgs/vrcnet.yaml
+    python -m mvp_benchmark_tpu_torch.profile_eval -c completion/cfgs/vrcnet.yaml --train
 
-Prints, per val batch: the device time by kernel group (the port's CUDA
-kernels by name, cuBLAS GEMMs, the rest of PyTorch's kernels), the wall
-time under the profiler and the share of it the device is busy, the matrix
-products' FLOPs (counted by ``FlopCounterMode`` on one batch) and their
-rate; then the profiler's table of the kernels with the most device time.
-Needs a card.
+Prints, per val batch (per train step with ``--train``: forward, backward
+and the optimizer, as ``engine.make_train_step`` runs them): the device time
+by kernel group (the port's CUDA kernels by name, cuBLAS GEMMs, the rest of
+PyTorch's kernels), the wall time under the profiler and the share of it
+the device is busy, the matrix products' FLOPs (counted by
+``FlopCounterMode`` on one batch or step) and their rate; then the
+profiler's table of the kernels with the most device time. Needs a card.
 """
 
 from __future__ import annotations
@@ -26,11 +29,15 @@ from mvp_benchmark_tpu_torch.data.mvp import BatchSpec, MVPCompletionDataset
 from mvp_benchmark_tpu_torch.train import engine
 from mvp_benchmark_tpu_torch.train.config import load_config
 from mvp_benchmark_tpu_torch.train.meters import AverageValueMeter
+from mvp_benchmark_tpu_torch.train.optim import build_optimizer
 
 # Substrings of the port's kernel names (ops/csrc/*.cu).
 PORT_KERNELS = ("chamfer_rowmin_kernel", "knn_kernel", "fps_kernel",
                 "gather_rows_kernel", "group_max_kernel",
-                "three_interpolate_kernel", "sa_attention_kernel")
+                "three_interpolate_kernel", "sa_attention_kernel",
+                "chamfer_backward_kernel", "scatter_add_rows_kernel",
+                "group_max_backward_kernel", "three_interpolate_backward_kernel",
+                "three_interpolate_dweight_kernel", "sa_attention_backward_kernel")
 GEMM_MARKS = ("gemm", "xmma", "cutlass", "sm90_", "sm80_")
 
 
@@ -54,31 +61,56 @@ def profile_val(cfg_path: str, data_dir: str, passes: int = 5,
                 warmup: int = 3, top: int = 25) -> str:
     cfg = load_config(cfg_path)
     device = engine.resolve_device("cuda")
-    n = int(cfg.num_points)
     step = engine.make_eval_step(engine.build_model(cfg, device), device)
     spec = BatchSpec(int(cfg.batch_size))
-    ds = MVPCompletionDataset("val", data_dir, n)
+    ds = MVPCompletionDataset("val", data_dir, int(cfg.num_points))
     meters = {m: AverageValueMeter() for m in engine.completion_metrics(cfg)}
+    return _profile(cfg, lambda: step(next(iter(ds.batches(spec))), prefix="val"),
+                    lambda: engine.val_completion(step, ds, spec, meters),
+                    ds.steps_per_epoch(spec), "val batches", passes, warmup, top)
+
+
+def profile_train(cfg_path: str, data_dir: str, steps: int = 5,
+                  warmup: int = 3, top: int = 25) -> str:
+    cfg = load_config(cfg_path)
+    device = engine.resolve_device("cuda")
+    model = engine.build_model(cfg, device, seed=1, for_training=True)
+    step = engine.make_train_step(model.train(), build_optimizer(
+        cfg, model.parameters()), device)
+    bs = int(cfg.batch_size)
+    batch = next(MVPCompletionDataset("train", data_dir, int(cfg.num_points))
+                 .batches(BatchSpec(bs, shuffle=True, seed=1)))
+    gen = torch.Generator().manual_seed(1)
+
+    def run():
+        return step(batch, 0.5, engine.draw_noise(model, bs, gen))
+
+    return _profile(cfg, run, run, 1, "train steps", steps, warmup, top)
+
+
+def _profile(cfg, once, unit, batches_per_unit, what, units, warmup, top) -> str:
+    """Profiles ``units`` calls of ``unit`` (``batches_per_unit`` batches
+    each) after ``warmup`` calls; FLOPs counted over one call of ``once``."""
     with FlopCounterMode(display=False) as flops:
-        step(next(iter(ds.batches(spec))), prefix="val")
+        once()
     for _ in range(warmup):
-        engine.val_completion(step, ds, spec, meters)
+        unit()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(passes):
-            engine.val_completion(step, ds, spec, meters)
+        for _ in range(units):
+            unit()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    batches = passes * ds.steps_per_epoch(spec)
+    batches = units * batches_per_unit
     groups: dict = {}
     for evt in prof.key_averages():
         if evt.device_type == torch.autograd.DeviceType.CUDA:
             g = group_of(evt.key)
             groups[g] = groups.get(g, 0.0) + _device_us(evt) / 1e3
     device_ms = sum(groups.values())
-    lines = [f"{cfg.model_name}: {batches} val batches (batch {spec.batch_size}, "
-             f"{n} points) on {torch.cuda.get_device_name(0)}",
+    lines = [f"{cfg.model_name}: {batches} {what} (batch {cfg.batch_size}, "
+             f"{cfg.num_points} points) on {torch.cuda.get_device_name(0)}",
              f"per batch: device {device_ms / batches!r} ms, wall under the "
              f"profiler {wall_ms / batches!r} ms, device busy "
              f"{device_ms / wall_ms!r}"]
@@ -100,9 +132,13 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("-c", "--config", required=True)
     parser.add_argument("--data-dir", default=os.path.join("completion", "data"))
-    parser.add_argument("--passes", type=int, default=5)
+    parser.add_argument("--passes", type=int, default=5,
+                        help="val passes (train steps with --train) profiled")
+    parser.add_argument("--train", action="store_true",
+                        help="profile train steps instead of val passes")
     arg = parser.parse_args(argv)
-    print(profile_val(arg.config, arg.data_dir, arg.passes))
+    run = profile_train if arg.train else profile_val
+    print(run(arg.config, arg.data_dir, arg.passes))
 
 
 if __name__ == "__main__":

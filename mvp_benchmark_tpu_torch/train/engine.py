@@ -1,18 +1,31 @@
-"""Eval engine for the completion track (port of the eval subset of
-``mvp_benchmark_tpu/train/engine.py``).
+"""Train and eval engine for the completion track (port of the completion
+part of ``mvp_benchmark_tpu/train/engine.py``).
 
-PyTorch runs eagerly, so the eval step is the model called under
-``torch.inference_mode()`` on an explicit device; there is nothing to jit.
+PyTorch runs eagerly, so a step is the model called on an explicit device;
+there is nothing to jit. The eval step runs under ``torch.inference_mode()``.
 The val pass reproduces ``val_completion`` (``engine.py:406-430`` of the JAX
 package): per-batch metrics averaged over the real ``count`` of each padded
-batch, pulled to the host once at the end of the pass. Saving the best
-checkpoint waits for the training loop.
+batch, pulled to the host once at the end of the pass.
+
+The train loop reproduces ``train_completion`` (``engine.py:280-403``) on one
+device: a shuffled ``BatchSpec`` seeded from ``manual_seed``, the epoch's
+alpha and learning rate, a train step of forward in ``train()`` mode,
+``total.mean()`` backward and an optimizer step, losses kept on the device
+and pulled once per flush (every ``min(step_interval_to_print, 20)`` steps)
+for ``NanGuard``, an epoch checkpoint, and a val pass in ``eval()`` mode that
+writes ``best_<metric>_network.pkl``. A model that samples noise in train
+(VRCNet) gets it from ``draw_noise`` on the CPU, per step, from a
+``torch.Generator`` seeded from ``manual_seed``. Multi-process data
+parallelism comes with a later slice.
 """
 
 from __future__ import annotations
 
 import logging
-from typing import Callable, Dict, Optional
+import math
+import os
+import time
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -23,6 +36,8 @@ from mvp_benchmark_tpu_torch.models.transplant import load_flax_params
 from mvp_benchmark_tpu_torch.train import checkpoint as ckpt
 from mvp_benchmark_tpu_torch.train.config import Config
 from mvp_benchmark_tpu_torch.train.meters import AverageValueMeter
+from mvp_benchmark_tpu_torch.train.optim import (alpha_for_epoch, build_optimizer,
+                                                 epoch_lr, set_learning_rate)
 
 logger = logging.getLogger(__name__)
 
@@ -36,18 +51,46 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def build_model(cfg: Config, device: torch.device, seed: int = 0) -> torch.nn.Module:
+class NanGuard:
+    """Failure detection for the train loop (``engine.py:48-72`` of the JAX
+    package): logs non-finite losses and aborts after ``limit`` consecutive
+    ones."""
+
+    def __init__(self, limit: int = 5):
+        self.limit = limit
+        self.consecutive = 0
+        self.total = 0
+
+    def check(self, loss: float, where: str) -> None:
+        if math.isfinite(loss):
+            self.consecutive = 0
+            return
+        self.consecutive += 1
+        self.total += 1
+        logger.warning("non-finite loss (%s) at %s [%d consecutive]",
+                       loss, where, self.consecutive)
+        if self.consecutive >= self.limit:
+            raise FloatingPointError(
+                f"{self.consecutive} consecutive non-finite losses at {where}"
+                " -- check LR / input normalization (EMD expects coords in"
+                " [0,1]) / distribution-loss stability.")
+
+
+def build_model(cfg: Config, device: torch.device, seed: int = 0,
+                for_training: bool = False) -> torch.nn.Module:
     """The config's model with weights drawn from a torch.Generator seeded
     with ``seed`` (on the CPU, so every device gets the same weights), or
-    transplanted from the JAX checkpoint named by ``cfg.load_model``; moved
-    to ``device`` in eval mode."""
+    transplanted from the checkpoint named by ``cfg.load_model`` (one the
+    JAX package or the port wrote; ``for_training`` needs every parameter
+    there, VRCNet's prior net included); moved to ``device`` in eval mode."""
     if str(cfg.compute_dtype or "float32").lower() not in ("f32", "float32"):
         raise NotImplementedError(
             f"compute_dtype {cfg.compute_dtype!r}: the port runs fp32 so far")
     model = get_model(cfg.model_name, cfg,
                       generator=torch.Generator().manual_seed(seed))
     if cfg.load_model:
-        load_flax_params(model, ckpt.load_model(cfg.load_model)["net_state_dict"])
+        load_flax_params(model, ckpt.load_model(cfg.load_model)["net_state_dict"],
+                         for_training=for_training)
         logger.info("%s's previous weights loaded.", cfg.model_name)
     return model.to(device).eval()
 
@@ -106,6 +149,46 @@ def predict_completion(eval_step: Callable, dataset, spec: BatchSpec) -> np.ndar
     return np.concatenate([r[:count].cpu().numpy() for count, r in outs], axis=0)
 
 
+def _to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host batch array on ``device``; to a card through pinned memory
+    without blocking the host, so the next step is enqueued while the card
+    runs this one."""
+    t = torch.as_tensor(x)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def draw_noise(model: torch.nn.Module, batch_size: int,
+               generator: torch.Generator) -> Optional[Dict[str, torch.Tensor]]:
+    """One train step's noise for a model that samples it (VRCNet's
+    ``draw_noise``), else None."""
+    draw = getattr(model, "draw_noise", None)
+    return None if draw is None else draw(batch_size, generator)
+
+
+def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                    device: torch.device) -> Callable:
+    """step(batch, alpha, noise) -> {"total_loss", "fine_loss"} as device
+    scalars: the forward in train mode, ``total.mean()`` backward and one
+    optimizer step (``engine.py:186-240`` of the JAX package)."""
+
+    def step(batch: Dict[str, np.ndarray], alpha: float,
+             noise: Optional[Dict[str, torch.Tensor]] = None):
+        x = _to_device(batch["inputs"], device)
+        gt = _to_device(batch["gt"], device)
+        kw = {} if noise is None else {
+            "noise": {k: v.to(device, non_blocking=True) for k, v in noise.items()}}
+        optimizer.zero_grad(set_to_none=True)
+        _, loss2, total = model(x, gt, prefix="train", alpha=alpha, **kw)
+        total = total.mean()
+        total.backward()
+        optimizer.step()
+        return {"total_loss": total.detach(), "fine_loss": loss2.mean().detach()}
+
+    return step
+
+
 def completion_metrics(cfg: Config):
     return ["cd_p", "cd_t", "emd", "f1"] if cfg.eval_emd else ["cd_p", "cd_t", "f1"]
 
@@ -120,3 +203,101 @@ def run_completion_val(cfg: Config, data_dir: str,
                          BatchSpec(int(cfg.batch_size)), meters)
     logger.info("".join(f"curr_{m}: {v:f}; " for m, v in res.items()))
     return res
+
+
+def _record_best(best: Dict[str, tuple], res: Dict[str, float], epoch: int,
+                 model: torch.nn.Module, log_dir: str) -> None:
+    """Keeps the best value of each metric (f1 highest, the others lowest)
+    and writes ``best_<metric>_network.pkl`` when it improves
+    (``engine.py:431-450`` of the JAX package)."""
+    log, best_log = "", ""
+    for m, value in res.items():
+        improved = value > best[m][1] if m == "f1" else value < best[m][1]
+        if improved:
+            best[m] = (epoch, value)
+            ckpt.save_model(os.path.join(log_dir, f"best_{m}_network.pkl"), model)
+            logger.info("Best %s net saved!", m)
+        log += f"curr_{m}: {value:f}; "
+        best_log += f"best_{m}: {best[m][1]:f} [epoch {best[m][0]}]; "
+    logger.info(log)
+    logger.info(best_log)
+
+
+def train_completion(cfg: Config, log_dir: str, data_dir: str = "./data",
+                     max_steps_per_epoch: Optional[int] = None,
+                     device: torch.device = torch.device("cuda")) -> Dict[str, Any]:
+    """Completion training loop (reference completion/train.py:21-153) ->
+    {"best", "history", "model", "optimizer"}."""
+    metrics = completion_metrics(cfg)
+    best = {m: (0, 0.0) if m == "f1" else (0, math.inf) for m in metrics}
+    train_meter = AverageValueMeter()
+    val_meters = {m: AverageValueMeter() for m in metrics}
+    num_points = int(cfg.num_points or 2048)
+    dataset = MVPCompletionDataset("train", data_dir, num_points)
+    dataset_val = MVPCompletionDataset("val", data_dir, num_points)
+    seed = int(cfg.manual_seed or 1)
+    batch_size = int(cfg.batch_size)
+    spec = BatchSpec(batch_size, shuffle=True, seed=seed)
+    val_spec = BatchSpec(batch_size)
+
+    model = build_model(cfg, device, seed=seed, for_training=True)
+    optimizer = build_optimizer(cfg, model.parameters())
+    train_step = make_train_step(model, optimizer, device)
+    eval_step = make_eval_step(model, device)
+    noise_generator = torch.Generator().manual_seed(seed)
+    guard = NanGuard()
+    print_every = int(cfg.step_interval_to_print or 100)
+    # flush the device-side losses at least every 20 steps, so a NaN aborts
+    # within ~20 optimizer updates (engine.py:326-330 of the JAX package)
+    guard_every = min(print_every, 20)
+
+    history = {"train_loss": [], "val": []}
+    for epoch in range(int(cfg.start_epoch or 0), int(cfg.nepoch)):
+        train_meter.reset()
+        alpha = alpha_for_epoch(cfg, epoch)
+        lr = epoch_lr(cfg, epoch)
+        set_learning_rate(optimizer, lr)
+        model.train()
+        pending = []
+        t_flush = time.perf_counter()
+
+        def flush():
+            nonlocal t_flush
+            if not pending:
+                return
+            dt = time.perf_counter() - t_flush
+            sps = len(pending) / dt if dt > 0 else 0.0
+            for j, dev in pending:
+                loss = float(dev["total_loss"])
+                guard.check(loss, f"completion epoch {epoch} step {j}")
+                train_meter.update(loss)
+                if j % print_every == 0:
+                    logger.info(
+                        "train [%d: %d] loss_type: %s fine_loss: %f "
+                        "total_loss: %f lr: %f alpha: %s steps/s: %.2f",
+                        epoch, j, cfg.loss, float(dev["fine_loss"]), loss,
+                        lr, alpha, sps)
+            pending.clear()
+            t_flush = time.perf_counter()
+
+        for i, batch in enumerate(dataset.batches(spec, epoch)):
+            if max_steps_per_epoch and i >= max_steps_per_epoch:
+                break
+            noise = draw_noise(model, batch_size, noise_generator)
+            pending.append((i, train_step(batch, 1.0 if alpha is None else alpha,
+                                          noise)))
+            if len(pending) >= guard_every:
+                flush()
+        flush()
+        history["train_loss"].append(train_meter.avg)
+
+        model.eval()
+        if epoch % int(cfg.epoch_interval_to_save or 1) == 0:
+            ckpt.save_model(os.path.join(log_dir, "network.pkl"), model, optimizer)
+        if (epoch % int(cfg.epoch_interval_to_val or 1) == 0
+                or epoch == int(cfg.nepoch) - 1):
+            res = val_completion(eval_step, dataset_val, val_spec, val_meters)
+            _record_best(best, res, epoch, model, log_dir)
+            history["val"].append(res)
+    return {"best": best, "history": history, "model": model,
+            "optimizer": optimizer}

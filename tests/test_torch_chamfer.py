@@ -91,10 +91,18 @@ def test_kernel_wrapper_rejects_cpu_tensors():
 
 
 def test_autograd_function_forward_and_backward(monkeypatch):
-    """The autograd wrapper around the kernel: forward returns the launcher's
-    outputs (here the plain version stands in for the launcher), indices are
-    not differentiable, and the backward is not ported yet."""
+    """The autograd wrapper around the kernels: forward returns the
+    launcher's outputs, indices are not differentiable, and the backward
+    launches ``chamfer_backward`` for the clouds that need a gradient (here
+    the plain versions stand in for the launchers)."""
+    calls = []
+
+    def backward(*args):
+        calls.append(args[6:])
+        return ref.chamfer_backward(*args)
+
     monkeypatch.setattr(kernels, "chamfer_forward", ref.chamfer_distance)
+    monkeypatch.setattr(kernels, "chamfer_backward", backward)
     a, b = (torch.from_numpy(x) for x in clouds(2, 2, 32, 24))
     with torch.inference_mode():
         out = kernels.chamfer_distance(a, b)
@@ -103,5 +111,8 @@ def test_autograd_function_forward_and_backward(monkeypatch):
     a.requires_grad_(True)
     d1, d2, i1, i2 = kernels.chamfer_distance(a, b)
     assert not i1.requires_grad and not i2.requires_grad
-    with pytest.raises(NotImplementedError, match="_chamfer_grad_mxu"):
-        (d1.sum() + d2.sum()).backward()
+    (d1.sum() + 2 * d2.sum()).backward()
+    assert calls == [(True, False)]
+    want = ref.chamfer_backward(a.detach(), b, i1, torch.ones_like(d1), i2,
+                                torch.full_like(d2, 2.0))[0]
+    torch.testing.assert_close(a.grad, want, rtol=0, atol=0)

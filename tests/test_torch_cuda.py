@@ -200,6 +200,12 @@ def test_out_of_range_indices_give_nan_not_a_fault(cuda):
     assert torch.isnan(g[0, 0, 1]).all() and torch.isfinite(g[0, 0, 0]).all()
 
 
+_NO_LAUNCHES = dict.fromkeys(
+    ("chamfer", "knn", "fps", "gather", "group_max", "three_interpolate",
+     "sa_attention", "chamfer_backward", "scatter_add_rows", "group_max_backward",
+     "three_interpolate_backward", "sa_attention_backward"), 0)
+
+
 def test_ecg_on_card_equals_cpu(cuda):
     """A small ECG val batch through every kernel: out1 as PCN's bar; out2
     through the kNN and FPS of activations that cuBLAS and the CPU round
@@ -219,9 +225,9 @@ def test_ecg_on_card_equals_cpu(cuda):
     with torch.inference_mode():
         got = model(x.to(cuda), gt.to(cuda), prefix="val")
         torch.cuda.synchronize()
-    assert kernels.launch_counts() == {"chamfer": 1, "knn": 10, "fps": 4,
-                                       "gather": 11, "group_max": 3,
-                                       "three_interpolate": 3, "sa_attention": 0}
+    assert kernels.launch_counts() == dict(_NO_LAUNCHES, chamfer=1, knn=10, fps=4,
+                                           gather=11, group_max=3,
+                                           three_interpolate=3)
     torch.testing.assert_close(got["out1"].cpu(), want["out1"], rtol=1e-4, atol=1e-5)
     spacing = float(ref.knn(want["out2"], want["out2"], 2)[0][..., 1].sqrt().mean())
     d1, d2, _, _ = ref.chamfer_distance(got["out2"].cpu(), want["out2"])
@@ -316,11 +322,270 @@ def test_vrcnet_on_card_equals_cpu(cuda):
     with torch.inference_mode():
         got = model(x.to(cuda), gt.to(cuda), prefix="val", eps=eps.to(cuda))
         torch.cuda.synchronize()
-    assert kernels.launch_counts() == {"chamfer": 1, "knn": 7, "fps": 4,
-                                       "gather": 10, "group_max": 3,
-                                       "three_interpolate": 3, "sa_attention": 4}
+    assert kernels.launch_counts() == dict(_NO_LAUNCHES, chamfer=1, knn=7, fps=4,
+                                           gather=10, group_max=3,
+                                           three_interpolate=3, sa_attention=4)
     torch.testing.assert_close(got["out1"].cpu(), want["out1"], rtol=1e-4, atol=1e-5)
     spacing = float(ref.knn(want["out2"], want["out2"], 2)[0][..., 1].sqrt().mean())
     d1, d2, _, _ = ref.chamfer_distance(got["out2"].cpu(), want["out2"])
     for d in (d1, d2):
         assert float((d.sqrt() > 0.1 * spacing).float().mean()) <= 0.02
+
+
+# ---------------------------------------------------------------------------
+# Backward kernels: they scatter with fp32 atomics, whose order changes from
+# run to run, so each is held within 1e-5 + 1e-4 |plain| (the SA block's
+# weight gradients, sums over every point, within 1e-5 + 1e-4 max|plain|).
+# ---------------------------------------------------------------------------
+
+
+def _close(got, want, normwise=False):
+    assert got.shape == want.shape and got.dtype == want.dtype
+    scale = want.abs().max() if normwise else want.abs()
+    diff = (got - want).abs()
+    assert bool((diff <= 1e-5 + 1e-4 * scale).all()), float(diff.max())
+
+
+def _cot(device, *shape, seed=0, positive=False):
+    """Cotangents in [-1, 1), or [0, 1) where thousands add into one row."""
+    u = _rand(device, *shape, seed=seed)
+    return u if positive else u * 2 - 1
+
+
+@pytest.mark.parametrize("case", ["2x2048x3072_db", "2x128x96_both", "collapsed"])
+def test_chamfer_backward_kernel_matches_plain_version(cuda, case):
+    B, N, M = {"2x2048x3072_db": (2, 2048, 3072), "2x128x96_both": (2, 128, 96),
+               "collapsed": (2, 1024, 700)}[case]
+    a, b = _on(cuda, *clouds(6, B, N, M))
+    if case == "collapsed":              # 600 predicted points on one spot
+        b[:, :600] = b[:, :1]
+    need_a = not case.endswith("_db")
+    d1, d2, i1, i2 = kernels.chamfer_forward(a, b)
+    g1 = _cot(cuda, *d1.shape, seed=1, positive=case == "collapsed")
+    g2 = _cot(cuda, *d2.shape, seed=2, positive=case == "collapsed")
+    before = kernels.CHAMFER_BWD_LAUNCHES
+    got = kernels.chamfer_backward(a, b, i1, g1, i2, g2, need_a, True)
+    torch.cuda.synchronize()
+    assert kernels.CHAMFER_BWD_LAUNCHES == before + 1 + need_a
+    want = ref.chamfer_backward(a, b, i1, g1, i2, g2, need_a, True)
+    assert (got[0] is None) == (not need_a)
+    for g, w in zip(got, want):
+        if w is not None:
+            _close(g, w)
+
+
+@pytest.mark.parametrize("case", ["2x3072x64_by_1536", "3x97x5_by_41x7",
+                                  "collisions"])
+def test_scatter_add_rows_kernel_matches_plain_version(cuda, case):
+    shapes = {"2x3072x64_by_1536": (2, 3072, 64, (2, 1536)),
+              "3x97x5_by_41x7": (3, 97, 5, (3, 41, 7)),
+              "collisions": (2, 2048, 24, (2, 2048))}
+    B, n, c, idx_shape = shapes[case]
+    idx = torch.randint(0, n, idx_shape, dtype=torch.int32,
+                        generator=torch.Generator().manual_seed(3)).to(cuda)
+    if case == "collisions":
+        idx.fill_(5)
+    g = _cot(cuda, *idx_shape, c, seed=4, positive=case == "collisions")
+    before = kernels.SCATTER_LAUNCHES
+    got = kernels.scatter_add_rows(g, idx, n)
+    torch.cuda.synchronize()
+    assert kernels.SCATTER_LAUNCHES == before + 1
+    _close(got, ref.scatter_add_rows(g, idx, n))
+
+
+@pytest.mark.parametrize("B,n,c,m,k", [(2, 3072, 64, 1536, 10), (3, 97, 6, 41, 7)])
+def test_group_max_backward_kernel_matches_plain_version_with_ties(cuda, B, n, c,
+                                                                   m, k):
+    f = torch.relu(_rand(cuda, B, n, c, seed=5) - 0.5)     # half 0: ties
+    idx = torch.randint(0, n, (B, m, k), dtype=torch.int32,
+                        generator=torch.Generator().manual_seed(6)).to(cuda)
+    idx[:, :, k - 1] = idx[:, :, 0]                         # a row twice
+    _, slot = kernels.group_max_forward(f, idx)
+    g = _cot(cuda, B, m, c, seed=7)
+    got = kernels.group_max_backward(g, idx, slot, n)
+    _close(got, ref.group_max_backward(g, idx, slot, n))
+    # all of each (m, c) goes to its lowest tied slot: the sums are kept
+    _close(got.sum(1), g.sum(1))
+
+
+@pytest.mark.parametrize("case", ["2x1536x128_to_3072", "2x37x5_to_101",
+                                  "collisions"])
+def test_three_interpolate_backward_kernel_matches_plain_version(cuda, case):
+    B, ms, c, n = {"2x1536x128_to_3072": (2, 1536, 128, 3072),
+                   "2x37x5_to_101": (2, 37, 5, 101),
+                   "collisions": (2, 64, 16, 512)}[case]
+    f = _cot(cuda, B, ms, c, seed=8)
+    idx, w = ref.three_nn_upsampling(_rand(cuda, B, n, 3, seed=9),
+                                     _rand(cuda, B, ms, 3, seed=10))
+    if case == "collisions":
+        idx = torch.zeros_like(idx)
+    g = _cot(cuda, B, n, c, seed=11, positive=case == "collisions")
+    for need_w in (False, True):
+        got = kernels.three_interpolate_backward(g, idx, w, f, need_w)
+        want = ref.three_interpolate_backward(g, idx, w, f, need_w)
+        _close(got[0], want[0])
+        assert (got[1] is None) == (not need_w)
+        if need_w:
+            _close(got[1], want[1])
+
+
+@pytest.mark.parametrize("B,N,k,rel,mid", [
+    (2, 3072, 16, 4, 16), (2, 1536, 16, 8, 32), (2, 768, 16, 16, 64),
+    (2, 384, 16, 32, 128), (3, 97, 8, 4, 16), (2, 100, 32, 32, 128),
+    (2, 33, 1, 16, 64)])
+def test_sa_attention_backward_kernel_matches_plain_version(cuda, B, N, k, rel, mid):
+    args = _sa_inputs(cuda, B, N, k, rel, mid, seed=12)
+    g = _cot(cuda, B, N, mid, seed=13)
+    before = kernels.SA_ATTENTION_BWD_LAUNCHES
+    got = kernels.sa_attention_backward(g, *args, rel, mid, 8)
+    torch.cuda.synchronize()
+    assert kernels.SA_ATTENTION_BWD_LAUNCHES == before + 1
+    want = ref.sa_attention_backward(g, *args, rel, mid, 8)
+    for i, (a, b) in enumerate(zip(got, want)):
+        _close(a, b, normwise=i >= 2)
+
+
+def test_sa_attention_backward_collisions_and_the_gradients_asked_for(cuda):
+    """Every neighbour is row 3 (k * N atomic adds into one row of d_proj),
+    and only dW1 and db2 asked for: the others are None."""
+    args = _sa_inputs(cuda, 2, 64, 16, 8, 32, seed=14)
+    args[2].fill_(3)
+    g = _cot(cuda, 2, 64, 32, seed=15)
+    want = ref.sa_attention_backward(g, *args, 8, 32, 8)
+    got = kernels.sa_attention_backward(g, *args, 8, 32, 8)
+    for i, (a, b) in enumerate(zip(got, want)):
+        _close(a, b, normwise=i >= 2)
+    some = kernels.sa_attention_backward(g, *args, 8, 32, 8,
+                                         need=(False, False, True, False, True))
+    assert some[0] is None and some[1] is None and some[3] is None
+    _close(some[2], want[2], normwise=True)
+    _close(some[4], want[4], normwise=True)
+
+
+def test_backward_wrappers_reject_bad_inputs(cuda):
+    a, b = _on(cuda, *clouds(7, 2, 64, 48))
+    d1, d2, i1, i2 = kernels.chamfer_forward(a, b)
+    with pytest.raises(ValueError, match="i1/g1 must be"):
+        kernels.chamfer_backward(a, b, i1, d1, i2, d1)
+    with pytest.raises(TypeError, match="int32"):
+        kernels.chamfer_backward(a, b, i1.long(), d1, i2, d2)
+    g = _rand(cuda, 2, 10, 4)
+    idx = torch.zeros(2, 10, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="idx's shape"):
+        kernels.scatter_add_rows(g, idx[:, :5].contiguous(), 20)
+    with pytest.raises(ValueError, match="num_rows"):
+        kernels.scatter_add_rows(g, idx, 0)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.scatter_add_rows(g, idx.cpu(), 20)
+    slot = torch.zeros(2, 10, 4, dtype=torch.int32, device=cuda)
+    idx3 = torch.zeros(2, 10, 3, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="slot must be"):
+        kernels.group_max_backward(g, idx3, slot[:, :, :2].contiguous(), 20)
+    with pytest.raises(ValueError, match="idx and weight"):
+        kernels.three_interpolate_backward(g, idx3, _rand(cuda, 2, 10, 2),
+                                           _rand(cuda, 2, 5, 4))
+    args = _sa_inputs(cuda, 2, 40, 8, 8, 32)
+    with pytest.raises(ValueError, match="g must be"):
+        kernels.sa_attention_backward(_rand(cuda, 2, 40, 16), *args, 8, 32, 8)
+
+
+def test_backward_out_of_range_indices_give_nan_not_a_fault(cuda):
+    g = _rand(cuda, 1, 3, 4)
+    idx = torch.tensor([[0, 7, 2]], dtype=torch.int32, device=cuda)
+    out = kernels.scatter_add_rows(g, idx, 5)
+    f = _rand(cuda, 1, 5, 4)
+    idx3 = torch.tensor([[[0, 1, 9], [1, 2, 3], [0, 0, 1]]], dtype=torch.int32,
+                        device=cuda)
+    slot = torch.zeros(1, 3, 4, dtype=torch.int32, device=cuda)
+    slot[0, 1, 0] = 5                                       # outside k = 3
+    gm = kernels.group_max_backward(g, idx3, slot, 5)
+    ti, tw = kernels.three_interpolate_backward(g, idx3, _rand(cuda, 1, 3, 3), f)
+    proj, x1, sidx, W1, W2, b2 = _sa_inputs(cuda, 1, 20, 8, 4, 16)
+    sidx[0, 3, 5] = 20
+    sa = kernels.sa_attention_backward(_rand(cuda, 1, 20, 16), proj, x1, sidx, W1,
+                                       W2, b2, 4, 16, 8)
+    torch.cuda.synchronize()
+    assert torch.isnan(out[0, 0]).all()
+    assert torch.isnan(gm[0, 0, 0]) and torch.isfinite(gm[0, 0, 1:]).all()
+    assert torch.isnan(ti[0, 0]).all() and torch.isnan(tw[0, 0, 2])
+    assert torch.isnan(sa[1][0, 3]).all() and torch.isnan(sa[4][0])
+
+
+# ---------------------------------------------------------------------------
+# Train steps, card against CPU, at chip_smoke.py's bars
+# ---------------------------------------------------------------------------
+
+
+def _train_step(cfg, device, x, gt, losses):
+    from mvp_benchmark_tpu_torch.models import get_model
+
+    model = get_model(cfg.model_name, cfg, generator=torch.Generator().manual_seed(1))
+    model = model.to(device).train()
+    out = losses(model, x.to(device), gt.to(device))
+    out["total"].backward()
+    return ({k: v.detach().cpu() for k, v in out.items()},
+            [torch.zeros_like(p).cpu() if p.grad is None else p.grad.cpu()
+             for p in model.parameters()])
+
+
+def _smoke_cfg(name):
+    import os
+    from mvp_benchmark_tpu_torch.train.config import load_config
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    return load_config(os.path.join(root, "completion", "cfgs", f"{name}_smoke.yaml"))
+
+
+def test_pcn_train_step_on_card_equals_cpu(cuda):
+    """pcn_smoke's shape, two clouds: total and every gradient within atol
+    1e-5 / rtol 1e-4; one chamfer forward and one backward per calc_cd."""
+    cfg = _smoke_cfg("pcn")
+    x, gt = (_rand(torch.device("cpu"), 2, 128, 3, seed=s) for s in (16, 17))
+
+    def losses(model, x, gt):
+        _, loss2, total = model(x, gt, prefix="train", alpha=0.5)
+        return {"loss2": loss2, "total": total}
+
+    want, g_cpu = _train_step(cfg, torch.device("cpu"), x, gt, losses)
+    kernels.reset_launch_counts()
+    got, g_card = _train_step(cfg, cuda, x, gt, losses)
+    assert kernels.launch_counts() == dict(_NO_LAUNCHES, chamfer=2, chamfer_backward=2)
+    for k in got:
+        torch.testing.assert_close(got[k], want[k], rtol=1e-4, atol=1e-5)
+    for a, b in zip(g_card, g_cpu):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+def test_vrcnet_train_step_on_card_equals_cpu(cuda):
+    """vrcnet_smoke's shape (FPS, score top-k, folding), two clouds, the same
+    noise: loss1 and the KL terms within atol 1e-5 / rtol 1e-4; the total
+    loss and the gradient, as one vector, as a cloud (norms within 1%,
+    cosine >= 0.999: looser than chip_smoke.py's protocol-shaped step, as
+    this shape also passes through the score top-k); every backward kernel
+    launched (scatter_add_rows 7: the top-k and folding reach three gathers
+    more than the protocol config)."""
+    cfg = _smoke_cfg("vrcnet")
+    x, gt = (_rand(torch.device("cpu"), 2, 128, 3, seed=s) for s in (18, 19))
+    noise = {}
+
+    def losses(model, x, gt):
+        if not noise:
+            noise.update(model.draw_noise(2, torch.Generator().manual_seed(2)))
+        t = model.train_losses(x, gt, 0.5, {k: v.to(x.device) for k, v in noise.items()})
+        return {k: t[k] for k in ("loss1", "dl_rec", "dl_g", "total")}
+
+    want, g_cpu = _train_step(cfg, torch.device("cpu"), x, gt, losses)
+    kernels.reset_launch_counts()
+    got, g_card = _train_step(cfg, cuda, x, gt, losses)
+    assert kernels.launch_counts() == dict(
+        _NO_LAUNCHES, chamfer=4, knn=7, fps=4, gather=10, group_max=3,
+        three_interpolate=3, sa_attention=4, chamfer_backward=4,
+        scatter_add_rows=7, group_max_backward=3, three_interpolate_backward=3,
+        sa_attention_backward=4)
+    for k in ("loss1", "dl_rec", "dl_g"):
+        torch.testing.assert_close(got[k], want[k], rtol=1e-4, atol=1e-5)
+    assert abs(float(got["total"] - want["total"])) <= 0.01 * abs(float(want["total"]))
+    gc = torch.cat([g.reshape(-1) for g in g_card]).double()
+    gw = torch.cat([g.reshape(-1) for g in g_cpu]).double()
+    assert abs(float(gc.norm() - gw.norm())) <= 0.01 * float(gw.norm())
+    assert float(gc @ gw / (gc.norm() * gw.norm())) >= 0.999

@@ -151,14 +151,36 @@ def test_kernel_wrappers_reject_cpu_tensors():
 ])
 def test_autograd_functions_name_the_backward_they_wait_for(monkeypatch, fn,
                                                             args, tpu):
-    """Forward returns the launcher's output (here the plain version stands in
-    for it); the backward is not ported yet and says which TPU backward it
-    waits for."""
+    """Forward returns the launcher's output and the backward launches the
+    port of the TPU backward ``tpu`` (here the plain versions stand in for
+    the launchers), for the inputs that need a gradient: the gradients equal
+    autograd's through the plain forward."""
+    launcher = {"scatter_add_rows": "scatter_add_rows",
+                "_group_max_bwd_rule": "group_max_backward",
+                "_ti_bwd_rule": "three_interpolate_backward"}[tpu]
+    calls = []
+
+    def stand_in(*a, **kw):
+        calls.append(launcher)
+        return getattr(ref, launcher)(*a, **kw)
+
     monkeypatch.setattr(kernels, "gather_rows", ref.gather_points)
     monkeypatch.setattr(kernels, "group_max_forward", ref.group_max)
     monkeypatch.setattr(kernels, "three_interpolate_forward", ref.three_interpolate)
+    monkeypatch.setattr(kernels, launcher, stand_in)
     f, idx, w = map(torch.from_numpy, _interp_inputs())
     f.requires_grad_(True)
-    out = fn.apply(*(f, idx, w)[:args])
-    with pytest.raises(NotImplementedError, match=tpu):
-        out.sum().backward()
+    w.requires_grad_(args == 3)
+    inputs = [f, idx, w][:args]
+    out = fn.apply(*inputs)
+    g = torch.linspace(-1, 1, out.numel()).reshape(out.shape)
+    got = torch.autograd.grad((out * g).sum(), [x for x in inputs if x.requires_grad])
+    assert calls == [launcher]
+    plain = {"scatter_add_rows": ref.gather_points,
+             "group_max_backward": lambda *a: ref.group_max(*a)[0],
+             "three_interpolate_backward": ref.three_interpolate}[launcher]
+    fp, wp = f.detach().requires_grad_(True), w.detach().requires_grad_(args == 3)
+    want = torch.autograd.grad((plain(*[fp, idx, wp][:args]) * g).sum(),
+                               [x for x in (fp, wp)[:args - 1] if x.requires_grad])
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)

@@ -162,10 +162,17 @@ def test_unported_models_raise(name):
 
 
 def test_train_branch_and_emd_are_not_ported(pair, inputs):
-    _, _, tm = pair
+    """The train branch is ported (its parity with JAX is in
+    test_torch_train.py); EMD, as its loss or in eval, is not."""
+    jm, variables, tm = pair
     x, gt = (torch.from_numpy(a) for a in inputs)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tm(x, gt, prefix="train")
+    out2, loss2, total = tm(x, gt, prefix="train", alpha=0.5)
+    want = jm.apply(variables, inputs[0], inputs[1], prefix="train", alpha=0.5)
+    np.testing.assert_allclose(loss2.detach().numpy(), np.asarray(want[1]), rtol=1e-4)
+    np.testing.assert_allclose(float(total.detach()), float(want[2]), rtol=1e-4)
+    emd_model = tpcn.Model(NUM_POINTS, NUM_COARSE, train_loss="emd")
+    with pytest.raises(NotImplementedError, match="EMD"):
+        emd_model(x, gt, prefix="train")
     with pytest.raises(NotImplementedError, match="EMD"):
         calc_emd(x, gt)
 

@@ -11,6 +11,7 @@ against it on the card, to a tolerance, in ``test_torch_cuda.py`` and
 - against the Pallas kernel ``pallas_kernels.sa_attention`` in interpret
   mode at that test's own bar (2e-2: the kernel rounds its gathers and W1,
   W2 to bf16), which pins the ``c % ms`` tile layout and the slot order.
+The backward's plain version is held in ``test_torch_backward.py``.
 """
 
 import jax.numpy as jnp
@@ -114,11 +115,25 @@ def test_kernel_wrapper_rejects_cpu_tensors():
 
 
 def test_autograd_function_names_the_backward_it_waits_for(monkeypatch):
-    """Forward returns the launcher's output (here the plain version stands in
-    for it); the backward is not ported yet."""
+    """Forward returns the launcher's output and the backward launches
+    ``sa_attention_backward`` (port of ``_sa_bwd``) for the inputs that need
+    a gradient (here the plain versions stand in for the launchers)."""
+    calls = []
+
+    def backward(g, *a, need):
+        calls.append(list(need))
+        out = ref.sa_attention_backward(g, *a)
+        return tuple(o if n else None for o, n in zip(out, need))
+
     monkeypatch.setattr(kernels, "sa_attention_forward", ref.sa_attention)
+    monkeypatch.setattr(kernels, "sa_attention_backward", backward)
     args = [torch.from_numpy(a) for a in _inputs(2, 20, 8, 4, 16)]
-    args[0].requires_grad_(True)
+    for i in (0, 3, 5):                          # proj, W1, b2
+        args[i].requires_grad_(True)
     out = kernels.SAAttentionFunction.apply(*args, 4, 16, SHARE)
-    with pytest.raises(NotImplementedError, match="_sa_bwd"):
-        out.sum().backward()
+    g = torch.linspace(-1, 1, out.numel()).reshape(out.shape)
+    got = torch.autograd.grad((out * g).sum(), [args[i] for i in (0, 3, 5)])
+    assert calls == [[True, False, True, False, True]]
+    want = ref.sa_attention_backward(g, *[a.detach() for a in args], 4, 16, SHARE)
+    for a, b in zip(got, (want[0], want[2], want[4])):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)

@@ -265,12 +265,17 @@ def test_transplant_fills_every_parameter_and_rejects_a_tree_that_does_not_fit(
     np.testing.assert_array_equal(branch.proj.weight2.detach().numpy(),
                                   sa["MultiDense_0"]["kernel2"].T)
     # a checkpoint written by training also holds the prior net, which the
-    # eval branches never run
-    prior = {f"TorchDense_{i}": {"kernel": np.zeros((1024, 1024), np.float32),
-                                 "bias": np.zeros(1024, np.float32)}
-             for i in range(3)}
+    # eval branches never run; a tree made for eval does not, and training
+    # needs it
+    prior = {f"TorchDense_{i}": {"kernel": np.full((1024, w), 0.5, np.float32),
+                                 "bias": np.zeros(w, np.float32)}
+             for i, w in enumerate((1024, 256, 256))}
     load_flax_params(tm, {"params": {**variables["params"],
-                                     "LinearResBlock_2": prior}})
+                                     "LinearResBlock_2": prior}},
+                     for_training=True)
+    assert (tm.prior_infer.fc2.weight == 0.5).all()
+    with pytest.raises(ValueError, match="LinearResBlock_2"):
+        load_flax_params(tm, variables, for_training=True)
     params = _np_tree(variables)["params"]
     del params[DEC]["SASKNResEncoder_0"]["SKNResUnit_1"]["SKSAModule_0"][
         "SAModule_0"]["w_mlp2_bias"]
@@ -292,21 +297,33 @@ def test_transplant_fills_every_parameter_and_rejects_a_tree_that_does_not_fit(
 
 
 def test_full_width_parameter_count():
-    """cfgs/vrcnet.yaml: 15,350,355 parameters in 124 tensors, the JAX
-    model's eval tree (one torch parameter per flax leaf)."""
+    """cfgs/vrcnet.yaml: 16,924,755 parameters in 130 tensors, the JAX
+    model's train tree (one torch parameter per flax leaf); without the
+    prior net, which only training runs, the eval tree's 15,350,355 in 124."""
     cfg = load_config(os.path.join(ROOT, "completion", "cfgs", "vrcnet.yaml"))
     model = get_model("vrcnet", cfg, generator=torch.Generator().manual_seed(0))
     params = list(model.parameters())
-    assert sum(p.numel() for p in params) == 15_350_355
-    assert len(params) == 124
+    assert sum(p.numel() for p in params) == 16_924_755
+    assert len(params) == 130
+    evals = [p for n, p in model.named_parameters() if not n.startswith("prior_infer.")]
+    assert sum(p.numel() for p in evals) == 15_350_355
+    assert len(evals) == 124
     assert model.decoder.encoder.pts_num == (3072, 1536, 768, 384)
     assert not model.decoder.top_k and not model.decoder.step_ratio
 
 
 def test_train_branch_eps_and_ef_expansion(case):
+    """The train branch takes its noise as an argument (its parity with JAX
+    is in test_torch_train.py), eval takes eps, and EFExpansion raises."""
     name, _, _, tm, x, gt, eps, _ = case
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(ValueError, match="noise"):
         tm(torch.from_numpy(x), torch.from_numpy(gt), prefix="train")
+    noise = tm.draw_noise(B, torch.Generator().manual_seed(0))
+    assert {k: tuple(v.shape) for k, v in noise.items()} == tm.noise_shapes(B)
+    assert noise["keep1"].dtype == torch.bool
+    _, loss4, total = tm(torch.from_numpy(x), torch.from_numpy(gt), prefix="train",
+                         noise=noise)
+    assert loss4.shape == (2 * B,) and torch.isfinite(total)
     with pytest.raises(ValueError, match="pass eps"):
         tm(torch.from_numpy(x), None, prefix="test")
     with pytest.raises(NotImplementedError, match="EFExpansion"):
