@@ -15,16 +15,21 @@ Phases, each of which raises on failure (exit code != 0):
    the five backward kernels, which scatter with atomics, at a VRCNet train
    step's shapes plus ragged, collision and tie cases within the same bar
    (the SA block's weight gradients, sums over every point, against
-   max|plain|);
+   max|plain|); the ball query at ECG's uniform-loss shapes plus ragged and
+   edge cases, and the auction EMD at the val metric's (32, 2048, eps 0.004,
+   3000 iterations), at an iteration count that ends in the forced round
+   and at an n that is not a multiple of 1024: indices and assignments
+   equal;
 4. drives each main path through the functions ``completion/test_torch.py``
    and ``completion/train_torch.py`` call, with seeded weights, on the
    synthetic splits, each with the launch counts zeroed just before and read
    just after and equal to the ones derived from the code: the val pass
    (cd_p, cd_t, f1) and test pass (52 predictions) of full-width PCN
    (``completion/cfgs/pcn.yaml``), ECG (``ecg.yaml``) and VRCNet
-   (``vrcnet.yaml``); then ``engine.train_completion`` of PCN and VRCNet
-   for one epoch of ``TRAIN_STEPS`` steps at batch 32 x 2048 points, with
-   its val pass and checkpoints;
+   (``vrcnet.yaml``); PCN's val pass with ``eval_emd: True`` (emd too);
+   then ``engine.train_completion`` of PCN, VRCNet and ECG for one epoch of
+   ``TRAIN_STEPS`` steps at batch 32 x 2048 points, with its val pass and
+   checkpoints;
 5. checks the results: finite, of the expected shape, metrics equal to the
    ones recomputed with the plain chamfer on the card (rtol 1e-6), a val
    batch equal to the same model run on the CPU (PCN outputs atol 1e-5 /
@@ -33,7 +38,9 @@ Phases, each of which raises on failure (exit code != 0):
    of clouds near gt equal to the CPU's (rtol 1e-6); the train paths' loss
    and every gradient finite, their checkpoint reloading to the same val
    metrics, and one train step on two full-width clouds equal to the CPU's
-   (``check_pcn_step_on_cpu``, ``check_vrcnet_step_on_cpu``);
+   (``check_pcn_step_on_cpu``, ``check_vrcnet_step_on_cpu``,
+   ``check_ecg_step_on_cpu``); the emd of the EMD val pass equal to the one
+   the plain auction gives on the same predictions (rtol 1e-6);
 6. times the val and test passes per batch, the train steps (ms and
    points/s), and each kernel against its plain version (and a single
    PyTorch call computing the same function, where one exists) at a
@@ -111,6 +118,12 @@ BACKWARD_KERNELS = {
                               "replaces": f"{_PK}:1417"},
 }
 KERNELS.update(BACKWARD_KERNELS)
+KERNELS.update({
+    "ball_query": {"name": "ball_query", "source": f"{_CSRC}/ball_query.cu",
+                   "replaces": f"{_PK}:1525"},
+    "emd": {"name": "emd_assignment", "source": f"{_CSRC}/emd.cu",
+            "replaces": f"{_PK}:2122"},
+})
 
 # ECG's kernel launches per forward pass, read off models/ecg.py and
 # models/common.py: kNN 4 DenseConv self-kNN + 3 edge_preserve_sampling
@@ -153,6 +166,23 @@ PCN_PER_STEP = {"chamfer": 2, "chamfer_backward": 2}
 VRCNET_PER_STEP = dict(VRCNET_PER_BATCH, chamfer=4, chamfer_backward=4,
                        sa_attention_backward=4, group_max_backward=3,
                        three_interpolate_backward=3, scatter_add_rows=4)
+# ECG (train_losses in models/ecg.py): the forward of ECG_PER_BATCH, two
+# calc_cd (chamfer 2, chamfer_backward 2) and get_uniform_loss of out1 (1024
+# points: 51 centres, nsample 4/6/8/10/12) and of out2 (2048: 102 centres,
+# 8-24). Each uniform loss: FPS 1 and a gather of the centres, then per
+# percentage a ball_query, the grouping gather, the kNN (k 2) of the
+# grouped points and the gather that recomputes its distances for autograd
+# (dispatch.knn_points): ball_query 10, knn 10, gather 2 + 20, fps 2. The
+# backward: scatter_add_rows 20 for the uniform losses' two gathers per
+# percentage, 8 for the model's gathers whose output reaches the loss
+# (edge_preserve_sampling's centre features 3, the four DenseEdge
+# neighbour gathers, the fine points after the last FPS); group_max_backward
+# 3, three_interpolate_backward 3. The sampled xyz gathers feed only FPS,
+# kNN and three_nn, and edge_preserve_sampling's kNN is taken on detached
+# points, so neither launches more.
+ECG_PER_STEP = dict(ECG_PER_BATCH, knn=20, fps=6, gather=33, ball_query=10,
+                    chamfer=2, chamfer_backward=2, scatter_add_rows=28,
+                    group_max_backward=3, three_interpolate_backward=3)
 TRAIN_STEPS = 3       # max_steps_per_epoch of each driven train path
 # The SA block's tolerance against its plain version on the card:
 # |kernel - plain| <= SA_ATOL + SA_RTOL |plain| (another summation order).
@@ -450,6 +480,51 @@ def compare_backward_kernels_with_plain(device):
     return err
 
 
+def compare_geometry_kernels_with_plain(device):
+    """Phase 3c: the ball query at ECG's uniform-loss shapes (out2: 2048
+    points, 102 centres, nsample 8-24; out1: 1024 points, 51 centres, 4-12)
+    plus ragged shapes, duplicates and the edge cases (a centre with no hit,
+    nsample above N, min_r > 0), indices equal; the auction EMD at the val
+    metric's shape, at an iteration count that ends in the forced round and
+    at n = 1000, assignments equal. Returns ({key: 0.0}, (xyz1, xyz2, eps,
+    iters, bids per round)) of the full-size EMD case, whose rounds the
+    timing phase's bound counts."""
+    for (B, n, m, lo, nsamples) in ((32, 2048, 102, 0.0, (8, 12, 16, 20, 24)),
+                                    (32, 1024, 51, 0.0, (4, 6, 8, 10, 12)),
+                                    (3, 777, 41, 0.05, (1, 7, 128)),
+                                    (2, 50, 9, 0.0, (64,))):
+        xyz = uniform(70 + n, (B, n, 3), device)
+        xyz[:, 1::7] = xyz[:, ::7][:, :xyz[:, 1::7].shape[1]]   # duplicates
+        centers = xyz[:, :m].clone()
+        centers[:, -1] = 5.0                                   # no hit
+        for ns in nsamples:
+            r = float(np.sqrt(ns / n))      # the uniform loss's sqrt(p)
+            check_equal(f"ball_query ({B}, {n}, {m}, nsample {ns}, r {lo}..{r:.4f})",
+                        [kernels.ball_query(lo, r, ns, xyz, centers)],
+                        [ref.ball_query(lo, r, ns, xyz, centers)])
+
+    cases = {   # name: (B, n, eps, iters)
+        "val_32x2048_eps0.004_3000": (32, 2048, 0.004, 3000),
+        "forced_round_32x2048_eps0.004_20": (32, 2048, 0.004, 20),
+        "n1000_4x1000_eps0.01_300": (4, 1000, 0.01, 300),
+    }
+    full = None
+    for name, (B, n, eps, iters) in cases.items():
+        a, b = uniform(80 + n, (B, n, 3), device), uniform(81 + n, (B, n, 3), device)
+        bids = []
+        got = kernels.emd_assignment(a, b, eps, iters)
+        want = ref.emd_assignment(a, b, eps, iters, bids)
+        check_equal(f"emd_assignment {name} ({len(bids)} rounds, the last "
+                    f"{bids[-1]} bidders)", [got], [want])
+        if name.startswith("forced"):
+            check(len(bids) == iters and bids[-1] > 0,
+                  f"emd {name}: no forced round ({len(bids)} rounds, {bids[-1:]})")
+        if full is None:
+            full = (a, b, eps, iters, bids)
+    torch.cuda.synchronize()
+    return {"ball_query": 0.0, "emd": 0.0}, full
+
+
 def drive_slice(cfg, device):
     """The main path, as test_torch.py runs it: --val, then the test pass."""
     val = engine.run_completion_val(cfg, DATA_DIR, device)
@@ -578,6 +653,55 @@ def check_batch_on_cpu_as_cloud(name, cfg, step, first, clouds_cut=2):
           f"{float((got['out2'].cpu() - want['out2']).abs().max())!r}")
     check(moved <= MOVED_SHARE,
           f"{name} out2 card vs CPU: {moved} of the points moved")
+
+
+def drive_emd_val(name, cfg, device):
+    """The val pass with ``eval_emd: True`` (one auction a batch, eps 0.004,
+    3000 iterations), counts zeroed just before and read just after: per val
+    batch one chamfer and one emd_assignment. Its emd equals the plain
+    auction's on the same predictions (rtol 1e-6: the assignments are
+    equal, the rest is the same arithmetic)."""
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    val = engine.run_completion_val(cfg, DATA_DIR, device)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    val_b = _batches(cfg)[0]
+    expected = dict.fromkeys(KERNELS, 0)
+    expected.update(chamfer=val_b, emd=val_b)
+    print(f"{name} val pass with eval_emd ({seconds!r} s) launches: {launches}")
+    check(launches == expected, f"{name} eval_emd: launches {launches}, "
+          f"expected {expected}")
+    check(sorted(val) == ["cd_p", "cd_t", "emd", "f1"]
+          and all(np.isfinite(v) for v in val.values()), f"{name} val {val}")
+
+    step = engine.make_eval_step(engine.build_model(cfg, device), device)
+    total, count = 0.0, 0
+    for i, batch in enumerate(MVPCompletionDataset("val", DATA_DIR, int(
+            cfg.num_points)).batches(BatchSpec(int(cfg.batch_size)))):
+        out2 = step(batch, prefix="test")["result"]
+        with torch.inference_mode():
+            gt = torch.as_tensor(batch["gt"]).to(device)
+            bids = []
+            dist = ref.emd_distance(out2, gt, ref.emd_assignment(out2, gt, 0.004, 3000,
+                                                                  bids))
+            emd = dist.sqrt().mean(1)
+            ms = time_cuda(lambda: kernels.emd_assignment(out2, gt, 0.004, 3000), 1, 0)
+        ops = sum(bids) * gt.shape[1] * 13
+        print(f"{name} val batch {i} with eval_emd: the auction ran {len(bids)} rounds, "
+              f"{sum(bids)} bidder-rounds (the first {bids[:3]}, the last "
+              f"{bids[-3:]}); emd_assignment {ms!r} ms, operation bound "
+              f"{ops / PEAK_FP32 * 1e3!r} ms (13 a pair, as geometry_timing_cases)")
+        c = int(batch["count"])
+        total += float(emd[:c].mean().cpu()) * c
+        count += c
+    want = total / count
+    check(abs(val["emd"] - want) <= 1e-6 * abs(want),
+          f"{name} emd: kernel path {val['emd']!r} vs plain auction {want!r}")
+    print(f"{name} val with eval_emd: {val}; emd == the plain auction's on the "
+          f"same predictions (rtol 1e-6)")
+    return launches
 
 
 def check_f1_near(device, first):
@@ -741,6 +865,38 @@ def check_vrcnet_step_on_cpu(cfg, device, clouds_cut=2):
           f"VRCNet gradient card vs CPU: cosine {cosine}, norms {norm_rel}")
 
 
+def check_ecg_step_on_cpu(cfg, device, clouds_cut=2):
+    """One ECG train step on a cut batch at full width, card against CPU:
+    loss1 and uniform1 (the coarse output, before any selection over
+    activations) and loss2 (chamfer, blind to the order of the points)
+    within atol 1e-5 / rtol 1e-4; the total within rtol 1e-4; the gradient
+    as one vector: norms within VRC_NORM, cosine at least VRC_COSINE (the
+    fine output passes through kNN and FPS of activations that cuBLAS and
+    the CPU round differently, as in ``check_batch_on_cpu_as_cloud``)."""
+    batch = _train_batch(cfg, clouds_cut)
+
+    def fn(model, x, gt):
+        t = model.train_losses(x, gt, 0.5)
+        return {k: t[k] for k in ("loss1", "loss2", "uniform1", "uniform2", "total")}
+
+    got, g_card = _step_on(cfg, device, batch, fn)
+    want, g_cpu = _step_on(cfg, torch.device("cpu"), batch, fn)
+    gc, gw = torch.cat([g.reshape(-1) for g in g_card]), torch.cat(
+        [g.reshape(-1) for g in g_cpu])
+    cosine = float(torch.dot(gc.double(), gw.double())
+                   / (gc.double().norm() * gw.double().norm()))
+    norm_rel = float(abs(gc.norm() - gw.norm()) / gw.norm())
+    print(f"ECG train step card vs CPU on {clouds_cut} full-width clouds: "
+          + ", ".join(f"{k} {got[k].tolist()!r} / {want[k].tolist()!r}" for k in got)
+          + f"; gradient cosine {cosine!r}, norms {float(gc.norm())!r} / "
+          f"{float(gw.norm())!r} (relative {norm_rel!r})")
+    for k in ("loss1", "uniform1", "loss2"):
+        torch.testing.assert_close(got[k], want[k], rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(got["total"], want["total"], rtol=1e-4, atol=0)
+    check(norm_rel <= VRC_NORM and cosine >= VRC_COSINE,
+          f"ECG gradient card vs CPU: cosine {cosine}, norms {norm_rel}")
+
+
 def time_train_steps(name, cfg, device, card, steps=5):
     """ms per train step (``engine.make_train_step`` with the step's noise
     drawn on the host, as the train loop runs it) over ``steps`` steps after
@@ -810,9 +966,15 @@ def time_cuda(fn, iters, warmup=2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _iters(fn, budget_ms=150.0) -> int:
-    """Launches per timing window: about ``budget_ms`` of work, 3 to 50."""
-    return int(min(50, max(3, budget_ms / max(time_cuda(fn, 1, warmup=1), 1e-3))))
+def _iters(fn, budget_ms=150.0):
+    """(launches, warm-up launches) of a timing window: about ``budget_ms``
+    of work, 3 to 50 launches after 2 warm-ups; one launch and no warm-up
+    for a call longer than the budget (the plain auction, seconds a call),
+    which this probe call warms up."""
+    once = time_cuda(fn, 1, warmup=0)
+    if once > budget_ms:
+        return 1, 0
+    return int(min(50, max(3, budget_ms / max(once, 1e-3)))), 2
 
 
 def bound(nbytes, ops):
@@ -952,18 +1114,53 @@ def backward_timing_cases(device):
     }
 
 
-def time_kernels(device, card):
+def geometry_timing_cases(device, emd_case):
+    """timing_cases of the ball query at the uniform loss's largest shape
+    and of the auction at the val metric's (the inputs, and the bidders of
+    each round counted by the plain version, from the check phase).
+    Operations are counted over what these inputs need: the ball query's
+    pairs up to each centre's ``nsample``-th hit (11 a pair: 3
+    subtractions, 3 multiplies, 2 adds, 3 compares), the auction's bidders
+    of every round times n targets (13 a pair: 3 + 3 + 2 for d, the sqrt,
+    2 subtractions for the benefit and 2 compares for the top-2)."""
+    B, n, m, ns = 32, 2048, 102, 24
+    xyz = uniform(90, (B, n, 3), device)
+    centers = xyz[:, :m].contiguous()
+    r = float(np.sqrt(0.012))
+    with torch.no_grad():
+        d = ref._sqdist(centers, xyz)
+        hit = (d == 0) | (d < ref.squared_radius(r))
+        scanned = torch.clamp((hit.cumsum(-1) < ns).sum(-1) + 1, max=n)
+    a, b, eps, iters, bids = emd_case
+    bn = a.shape[0] * a.shape[1]
+    return {
+        "ball_query": (f"(32, 2048) points, 102 centres, nsample {ns}, r sqrt(0.012)",
+                       lambda: kernels.ball_query(0.0, r, ns, xyz, centers),
+                       lambda: ref.ball_query(0.0, r, ns, xyz, centers), None,
+                       B * (n + m) * 12 + B * m * ns * 4,
+                       int(scanned.sum()) * 11),
+        "emd": (f"(32, 2048), eps {eps}, {iters} iterations ({len(bids)} rounds, "
+                f"{sum(bids)} bidder-rounds)",
+                lambda: kernels.emd_assignment(a, b, eps, iters),
+                lambda: ref.emd_assignment(a, b, eps, iters), None,
+                bn * (12 + 12 + 4),
+                sum(bids) * a.shape[1] * 13),
+    }
+
+
+def time_kernels(device, card, emd_case):
     """Each kernel against its plain version in the order plain, kernel,
     kernel, plain (CUDA events), and the library call where there is one."""
     out = {}
-    cases = {**timing_cases(device), **backward_timing_cases(device)}
+    cases = {**timing_cases(device), **backward_timing_cases(device),
+             **geometry_timing_cases(device, emd_case)}
     for key, (shape, kern, plain, lib, nbytes, ops) in cases.items():
-        n_k, n_p = _iters(kern), _iters(plain)
+        it_k, it_p = _iters(kern), _iters(plain)
         runs = {"plain": [], "kernel": []}
         for which in ("plain", "kernel", "kernel", "plain"):
-            fn, n = (plain, n_p) if which == "plain" else (kern, n_k)
-            runs[which].append(time_cuda(fn, n))
-        lib_ms = time_cuda(lib, _iters(lib)) if lib is not None else None
+            fn, (n, warm) = (plain, it_p) if which == "plain" else (kern, it_k)
+            runs[which].append(time_cuda(fn, n, warm))
+        lib_ms = time_cuda(lib, *_iters(lib)) if lib is not None else None
         bound_ms, bound_by = bound(nbytes, ops)
         out[key] = {"ms": sum(runs["kernel"]) / 2, "plain_ms": sum(runs["plain"]) / 2,
                     "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by}
@@ -998,6 +1195,8 @@ def main() -> int:
 
     max_abs = compare_kernels_with_plain(device)
     max_abs.update(compare_backward_kernels_with_plain(device))
+    geometry_err, emd_case = compare_geometry_kernels_with_plain(device)
+    max_abs.update(geometry_err)
 
     paths = {}           # path -> its launch counts
     pcn = load_config(PCN_CFG)
@@ -1018,15 +1217,19 @@ def main() -> int:
         "VRCNet", vrc, device, expected_counts(vrc, VRCNET_PER_BATCH))
     step, first = check_metrics("VRCNet", vrc, device, val, preds)
     check_batch_on_cpu_as_cloud("VRCNet", vrc, step, first)
+    pcn_emd = load_config(PCN_CFG, eval_emd=True)
+    paths["PCN eval_emd"] = drive_emd_val("PCN", pcn_emd, device)
     # before the train paths, as the eval-only runs of earlier versions
     time_passes("PCN", pcn, device, card)
     time_passes("ECG", ecg, device, card)
     time_passes("VRCNet", vrc, device, card)
+    time_passes("PCN with eval_emd", pcn_emd, device, card, repeats=2)
 
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     for name, path, per_step, per_val in (
             ("PCN", PCN_CFG, PCN_PER_STEP, {}),
-            ("VRCNet", VRCNET_CFG, VRCNET_PER_STEP, VRCNET_PER_BATCH)):
+            ("VRCNet", VRCNET_CFG, VRCNET_PER_STEP, VRCNET_PER_BATCH),
+            ("ECG", ECG_CFG, ECG_PER_STEP, ECG_PER_BATCH)):
         cfg = load_config(path, nepoch=1)
         with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as log_dir:
             res, paths[f"{name} train"] = drive_train_path(
@@ -1035,10 +1238,12 @@ def main() -> int:
         del res
     check_pcn_step_on_cpu(load_config(PCN_CFG), device)
     check_vrcnet_step_on_cpu(load_config(VRCNET_CFG), device)
+    check_ecg_step_on_cpu(load_config(ECG_CFG), device)
 
     time_train_steps("PCN", pcn, device, card)
     time_train_steps("VRCNet", vrc, device, card)
-    times = time_kernels(device, card)
+    time_train_steps("ECG", ecg, device, card)
+    times = time_kernels(device, card, emd_case)
 
     launches = {k: sum(counts[k] for counts in paths.values()) for k in KERNELS}
     check(all(launches.values()), f"a kernel no driven path launched: {launches}")

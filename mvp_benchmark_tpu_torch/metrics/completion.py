@@ -1,4 +1,4 @@
-"""Completion metrics: chamfer (cd_p / cd_t) and F-score (port of
+"""Completion metrics: chamfer (cd_p / cd_t), F-score and EMD (port of
 ``mvp_benchmark_tpu/metrics/completion.py``).
 
 - ``calc_cd``: reference ``completion/model_utils.py:67-77``. NOTE the
@@ -7,7 +7,8 @@
   fscore's (precision, recall) order depends on it.
 - ``fscore``: reference ``utils/metrics/CD/fscore.py:3-16``: threshold on
   SQUARED distances (default 1e-4), NaN -> 0.
-- ``calc_emd``: not ported yet (auction EMD kernel).
+- ``calc_emd``: reference ``completion/model_utils.py:80-85``: sqrt of the
+  auction's squared assignment distances, averaged over points.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from typing import Tuple
 
 import torch
 
-from mvp_benchmark_tpu_torch.ops import chamfer_distance
+from mvp_benchmark_tpu_torch.ops import chamfer_distance, emd_auction
 
 
 def fscore(
@@ -45,7 +46,10 @@ def calc_cd(output: torch.Tensor, gt: torch.Tensor, calc_f1: bool = False):
     return cd_p, cd_t
 
 
-def calc_emd(output, gt, eps: float = 0.005, iterations: int = 50):
-    raise NotImplementedError(
-        "calc_emd needs the auction EMD kernel (port of pallas_kernels."
-        "emd_auction), which is not ported yet; set eval_emd: False")
+def calc_emd(output: torch.Tensor, gt: torch.Tensor, eps: float = 0.005,
+             iterations: int = 50) -> torch.Tensor:
+    """Auction EMD metric: sqrt(squared assignment distance) averaged. (B,).
+    output and gt need as many points (``ops.emd_auction`` raises
+    ValueError otherwise, as the JAX package does)."""
+    dist, _ = emd_auction(output, gt, eps, iterations)
+    return torch.sqrt(dist).mean(dim=1)

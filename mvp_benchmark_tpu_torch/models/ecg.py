@@ -3,10 +3,11 @@
 Reference: ``completion/models/ecg.py`` -- PCN encoder + edge-aware dense
 graph-conv hierarchical encoder-decoder (``EF_encoder`` with DGCNN
 ``Dense_conv`` blocks :36-65, FPS downsampling via ``edge_preserve_sampling``
-and ``three_interpolate`` upsampling :68-159). The ``val`` and ``test``
-branches are ported; the ``train`` branch (uniform loss) comes with the
-training slice, and ``EFExpansion``, which the protocol config never reaches
-(``scale == 1``), with a later slice.
+and ``three_interpolate`` upsampling :68-159). All three branches are
+ported: ``train`` (CD or EMD loss plus ``get_uniform_loss`` of both
+outputs), ``val`` (cd_p, cd_t, f1 and, with ``eval_emd``, emd) and
+``test``. ``EFExpansion``, which the protocol config never reaches
+(``scale == 1``), comes with a later slice.
 """
 
 from __future__ import annotations
@@ -213,11 +214,33 @@ class Model(nn.Module):
         self.decoder = ECGDecoder(num_coarse, num_points, num_input, hierarchy,
                                   generator=generator)
 
+    def train_losses(self, x: torch.Tensor, gt: torch.Tensor, alpha=None) -> dict:
+        """The train branch's terms (ecg.py:204-219 of the JAX package):
+        out2, loss1/loss2 (CD, or EMD, which raises at n != m as JAX's
+        does), the uniform losses of both outputs, and
+        ``total = loss1.mean() + 0.1 u1 + (loss2.mean() + 0.1 u2) * alpha``."""
+        alpha = 1.0 if alpha is None else alpha
+        out1, out2 = self.decoder(self.encoder(x), x)
+        uniform1 = common.get_uniform_loss(out1)
+        uniform2 = common.get_uniform_loss(out2)
+        if self.train_loss == "emd":
+            loss1 = calc_emd(out1, gt)
+            loss2 = calc_emd(out2, gt)
+        elif self.train_loss == "cd":
+            loss1, _ = calc_cd(out1, gt)
+            loss2, _ = calc_cd(out2, gt)
+        else:
+            raise NotImplementedError("Train loss is either CD or EMD!")
+        total = (loss1.mean() + uniform1 * 0.1
+                 + (loss2.mean() + uniform2 * 0.1) * alpha)
+        return {"out2": out2, "loss1": loss1, "loss2": loss2,
+                "uniform1": uniform1, "uniform2": uniform2, "total": total}
+
     def forward(self, x: torch.Tensor, gt: Optional[torch.Tensor] = None,
                 prefix: str = "train", alpha=None):
         if prefix == "train":
-            raise NotImplementedError(
-                "ECG's train branch comes with the training slice")
+            t = self.train_losses(x, gt, alpha)
+            return t["out2"], t["loss2"], t["total"]
         feat = self.encoder(x)
         out1, out2 = self.decoder(feat, x)
         if prefix == "val":

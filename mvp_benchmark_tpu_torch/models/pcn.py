@@ -2,8 +2,10 @@
 
 Reference: ``completion/models/pcn.py`` -- PointNet-style encoder with two
 max-pools (:13-30), FC coarse decoder + folding-grid upsampling (:33-71).
-All three branches are ported; the ``train`` branch takes the CD loss (EMD
-raises until the auction kernel is ported).
+All three branches are ported. The ``train`` branch takes the CD or the EMD
+loss; EMD needs as many points as gt (``calc_emd`` raises ValueError at
+n != m, as the JAX package's does, so at the protocol's 1024 coarse points
+against 2048 gt points it raises).
 """
 
 from __future__ import annotations
@@ -112,14 +114,15 @@ class Model(nn.Module):
                 prefix: str = "train", alpha=None):
         feat = self.encoder(x)
         out1, out2 = self.decoder(feat)
-        if prefix == "train":
-            # pcn.py:95-104 of the JAX package; EMD needs the auction kernel
+        if prefix == "train":                  # pcn.py:92-103 of the JAX package
             if self.train_loss == "emd":
-                calc_emd(out1, gt)
-            if self.train_loss != "cd":
+                loss1 = calc_emd(out1, gt)
+                loss2 = calc_emd(out2, gt)
+            elif self.train_loss == "cd":
+                loss1, _ = calc_cd(out1, gt)
+                loss2, _ = calc_cd(out2, gt)
+            else:
                 raise NotImplementedError("Train loss is either CD or EMD!")
-            loss1, _ = calc_cd(out1, gt)
-            loss2, _ = calc_cd(out2, gt)
             total = loss1.mean() + loss2.mean() * (1.0 if alpha is None else alpha)
             return out2, loss2, total
         if prefix == "val":

@@ -9,16 +9,17 @@ CUDA tensors and its plain PyTorch version for CPU tensors (``dispatch``);
 - ``furthest_point_sample``;
 - ``gather_points``, ``grouping_operation``, ``group_max``,
   ``three_interpolate``;
-- ``sa_attention`` (VRCNet's SA block).
+- ``sa_attention`` (VRCNet's SA block);
+- ``ball_query`` (ECG's uniform loss) and ``emd_auction`` (the EMD metric).
 """
 
 from mvp_benchmark_tpu_torch.ops.dispatch import (
-    chamfer_distance, furthest_point_sample, gather_points, group_max,
-    grouping_operation, knn_indices, knn_points, sa_attention, three_interpolate,
-    three_nn, three_nn_upsampling)
+    ball_query, chamfer_distance, emd_auction, furthest_point_sample,
+    gather_points, group_max, grouping_operation, knn_indices, knn_points,
+    sa_attention, three_interpolate, three_nn, three_nn_upsampling)
 from mvp_benchmark_tpu_torch.ops.ref import chamfer_distance as chamfer_distance_ref
 
-__all__ = ["chamfer_distance", "chamfer_distance_ref", "furthest_point_sample",
-           "gather_points", "group_max", "grouping_operation", "knn_indices",
-           "knn_points", "sa_attention", "three_interpolate", "three_nn",
-           "three_nn_upsampling"]
+__all__ = ["ball_query", "chamfer_distance", "chamfer_distance_ref",
+           "emd_auction", "furthest_point_sample", "gather_points", "group_max",
+           "grouping_operation", "knn_indices", "knn_points", "sa_attention",
+           "three_interpolate", "three_nn", "three_nn_upsampling"]

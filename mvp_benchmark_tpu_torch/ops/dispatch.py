@@ -40,9 +40,22 @@ def _knn(query: torch.Tensor, points: torch.Tensor, k: int):
 
 def knn_points(query: torch.Tensor, points: torch.Tensor, k: int):
     """kNN of query in points -> (negative squared distances, idx), nearest
-    first (see ref.knn_points). The distances are the kernel's exact ones,
-    not differentiable; the training slice recomputes them from idx."""
-    d, idx = _knn(query, points, k)
+    first (see ref.knn_points). On the card the distances are the kernel's,
+    with no graph; where autograd needs them they are recomputed from the
+    neighbours gathered at idx, as ``pallas_kernels.knn_points`` does
+    (``:771-787``): the gather kernel, whose backward is scatter_add_rows,
+    then ``sum_c (q_c - p_c)^2`` with each operation rounded on its own,
+    bitwise the kernel's distance. A caller that wants only idx passes
+    detached tensors and launches the kNN alone."""
+    if _route(query, points) == "cpu":
+        return ref.knn_points(query, points, k)
+    d, idx = kernels.knn(query.detach().contiguous(), points.detach().contiguous(), k)
+    if torch.is_grad_enabled() and (query.requires_grad or points.requires_grad):
+        diff = query[:, :, None, :] - gather_points(points, idx)   # (B, M, k, C)
+        sq = diff * diff
+        d = sq[..., 0]
+        for c in range(1, sq.shape[-1]):
+            d = d + sq[..., c]
     return -d, idx
 
 
@@ -119,3 +132,27 @@ def sa_attention(proj: torch.Tensor, x1: torch.Tensor, idx: torch.Tensor,
             proj.contiguous(), x1.contiguous(), idx.to(torch.int32).contiguous(),
             W1.contiguous(), W2.contiguous(), b2.contiguous(), rel, mid, share)
     return ref.sa_attention(proj, x1, idx, W1, W2, b2, rel, mid, share)
+
+
+def ball_query(min_radius: float, max_radius: float, nsample: int,
+               xyz: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
+    """Fixed-size radius neighbourhoods, first-hit fill -> (B, M, nsample)
+    int32, no gradient (see ref.ball_query)."""
+    if _route(xyz, centers) == "cuda":
+        return kernels.ball_query(min_radius, max_radius, nsample,
+                                  xyz.detach().contiguous(),
+                                  centers.detach().contiguous())
+    return ref.ball_query(min_radius, max_radius, nsample, xyz, centers)
+
+
+def emd_auction(xyz1: torch.Tensor, xyz2: torch.Tensor, eps: float = 0.005,
+                iters: int = 50):
+    """Auction EMD -> (dist (B, n), assignment (B, n) int32), the gradient to
+    xyz1 only (see ref.emd_auction). On the card the assignment is the
+    auction kernel's; the distances are plain torch on either device."""
+    if _route(xyz1, xyz2) == "cpu":
+        return ref.emd_auction(xyz1, xyz2, eps, iters)
+    ref.emd_validate(xyz1, xyz2)
+    assignment = kernels.emd_assignment(xyz1.detach().contiguous(),
+                                        xyz2.detach().contiguous(), eps, iters)
+    return ref.emd_distance(xyz1, xyz2, assignment), assignment

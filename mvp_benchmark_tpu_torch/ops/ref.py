@@ -15,7 +15,8 @@ distances that are not 0.
 
 from __future__ import annotations
 
-from typing import Tuple
+import warnings
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -339,6 +340,153 @@ def sa_attention_backward(g: torch.Tensor, proj: torch.Tensor, x1: torch.Tensor,
     d_rel = d_cat[..., rel:].reshape(B, N, k, rel)
     d_proj = scatter_add_rows(torch.cat([d_rel, d_mid], dim=-1), idx, N)
     return d_proj, d_cat[..., :rel].contiguous(), dW1, dW2, db2
+
+
+# ---------------------------------------------------------------------------
+# Ball query
+# ---------------------------------------------------------------------------
+
+
+def squared_radius(r: float) -> float:
+    """A radius as the ball test compares it: squared in double precision,
+    then rounded to float32, as JAX's weak typing turns ``max_r * max_r``
+    into the float32 operand of ``d < r2`` (``pallas_kernels.py:1510``)."""
+    return torch.tensor(float(r) * float(r), dtype=torch.float32).item()
+
+
+def ball_query(min_radius: float, max_radius: float, nsample: int,
+               xyz: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
+    """Fixed-size radius neighbourhoods with first-hit fill.
+
+    xyz (B, N, 3) database, centers (B, M, 3) -> idx (B, M, nsample) int32,
+    no gradient. A point is a hit iff ``d == 0`` or ``min_r^2 <= d <
+    max_r^2`` for its exact squared distance d (``_sqdist``; the radii as
+    ``squared_radius`` rounds them); hits fill the slots in ascending index
+    order, unfilled slots repeat the first hit, and a center with no hit
+    gets a row of zeros (``_ball_query_kernel``, ``pallas_kernels.py:1491``;
+    the reference CUDA op ``ball_query_cuda.cu:12-54``). The contract of
+    ``csrc/ball_query.cu``.
+    """
+    B, N, _ = xyz.shape
+    lo = squared_radius(min_radius)
+    hi = squared_radius(max_radius)
+    with torch.no_grad():
+        d = _sqdist(centers, xyz)                                  # (B, M, N)
+        valid = (d == 0) | ((d >= lo) & (d < hi))
+        iota = torch.arange(N, device=xyz.device)
+        key = torch.where(valid, iota, N)
+        slots = torch.sort(key, dim=-1).values[..., :nsample]
+        if nsample > N:
+            slots = torch.cat([slots, slots.new_full(
+                (*slots.shape[:2], nsample - N), N)], dim=-1)
+        hit = slots < N
+        first = torch.where(hit[..., :1], slots[..., :1], 0)
+        return torch.where(hit, slots, first).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Auction EMD
+# ---------------------------------------------------------------------------
+
+
+def emd_validate(xyz1: torch.Tensor, xyz2: torch.Tensor) -> None:
+    """The shape checks of ``jnp_ref.emd_validate`` (the reference launcher's
+    asserts, ``emd_cuda.cu:236-249``): n != m raises; a batch above 512 and
+    n % 1024 != 0 only warn, since the auction is right at any size."""
+    B, n, _ = xyz1.shape
+    m = xyz2.shape[1]
+    if n != m:
+        raise ValueError(f"EMD requires n == m, got {n} vs {m} "
+                         "(emd_cuda.cu:239)")
+    if B > 512:
+        warnings.warn(
+            f"EMD protocol expects batch <= 512 (emd_cuda.cu:247); got "
+            f"B={B}. The auction still runs correctly.", stacklevel=2)
+    if n % 1024 != 0:
+        warnings.warn(
+            f"EMD protocol expects n % 1024 == 0 (emd_cuda.cu:243); got "
+            f"n={n}. The auction still runs correctly.", stacklevel=2)
+
+
+def emd_assignment(xyz1: torch.Tensor, xyz2: torch.Tensor, eps: float,
+                   iters: int, bids: Optional[List[int]] = None) -> torch.Tensor:
+    """The auction assignment of ``_emd_kernel`` (``pallas_kernels.py:1986``):
+    xyz1 (B, n, 3) bidders, xyz2 (B, n, 3) targets -> (B, n) int32.
+
+    Benefit ``(3 - sqrt(d)) - price`` with d the exact squared distance
+    (``_sqdist``; not ``jnp_ref``'s |a|^2+|b|^2-2a.b). Each round, every
+    unassigned bidder takes ``best`` and ``best_i`` (the lowest index among
+    equal maxima) and ``second``, the maximum over the other targets (a tie
+    gives best - second = 0), and bids ``(best - second) + eps``. Per target
+    the largest bid wins, and among equal bids the highest bidder index
+    (``:2073-2079``); the target's price rises by the bid, its previous owner
+    is evicted and the winner assigned. Rounds run while ``it < iters - 1``
+    and a bidder is unassigned; then one forced round gives each leftover
+    bidder its ``best_i`` (``:2108-2119``). Runs on CPU or CUDA tensors (one
+    host sync a round); the contract of ``csrc/emd.cu``. ``bids``, if given,
+    gets the number of bidders of every round, the forced one included."""
+    B, n, _ = xyz1.shape
+    m = xyz2.shape[1]
+    dev = xyz1.device
+    with torch.no_grad():
+        base = 3.0 - torch.sqrt(_sqdist(xyz1, xyz2))            # (B, n, m)
+        eps32 = torch.tensor(eps, dtype=torch.float32, device=dev)
+        price = torch.zeros(B * m, dtype=torch.float32, device=dev)
+        assign = torch.full((B, n), -1, dtype=torch.long, device=dev)
+        owner = torch.full((B * m,), -1, dtype=torch.long, device=dev)
+
+        def bid(b, i):
+            """best_i and bid_inc of the bidders (b, i)."""
+            if bids is not None:
+                bids.append(int(b.numel()))
+            benefit = base[b, i] - price.view(B, m)[b]              # (U, m)
+            best_i = torch.argmax(benefit, dim=1)
+            best = benefit.gather(1, best_i[:, None])[:, 0]
+            second = benefit.scatter(1, best_i[:, None], -torch.inf).amax(1)
+            return best_i, (best - second) + eps32
+
+        for _ in range(iters - 1):
+            b, i = torch.nonzero(assign < 0, as_tuple=True)
+            if b.numel() == 0:
+                break
+            best_i, inc = bid(b, i)
+            t = b * m + best_i                                      # flat target
+            max_inc = torch.full((B * m,), -torch.inf, device=dev).scatter_reduce(
+                0, t, inc, "amax")
+            tie = inc == max_inc[t]
+            winner = torch.full((B * m,), -1, dtype=torch.long, device=dev
+                                ).scatter_reduce(0, t, torch.where(tie, i, -1), "amax")
+            won = torch.nonzero(winner >= 0)[:, 0]
+            price[won] = price[won] + max_inc[won]
+            old = owner[won]
+            evicted = old >= 0
+            assign[won[evicted] // m, old[evicted]] = -1
+            assign[won // m, winner[won]] = won % m
+            owner[won] = winner[won]
+        b, i = torch.nonzero(assign < 0, as_tuple=True)
+        if b.numel():                                       # the forced round
+            assign[b, i] = bid(b, i)[0]
+        return assign.to(torch.int32)
+
+
+def emd_distance(xyz1: torch.Tensor, xyz2: torch.Tensor,
+                 assignment: torch.Tensor) -> torch.Tensor:
+    """(B, n) squared distance of each xyz1 point to its assigned xyz2 point,
+    ``sum((xyz1 - xyz2[assignment])^2)``; autograd gives xyz1 the gradient
+    ``2 g (xyz1 - matched)`` and xyz2 none (``pallas_kernels.py:2199-2204``;
+    JAX returns zeros for it)."""
+    rows = torch.arange(xyz1.shape[0], device=xyz1.device)[:, None]
+    matched = xyz2.detach()[rows, assignment.long()]
+    return torch.sum((xyz1 - matched) ** 2, dim=-1)
+
+
+def emd_auction(xyz1: torch.Tensor, xyz2: torch.Tensor, eps: float = 0.005,
+                iters: int = 50) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Auction EMD (``pallas_kernels.emd_auction``): (dist (B, n) squared L2
+    to the assigned xyz2 point, assignment (B, n) int32)."""
+    emd_validate(xyz1, xyz2)
+    assignment = emd_assignment(xyz1, xyz2, eps, iters)
+    return emd_distance(xyz1, xyz2, assignment), assignment
 
 
 # ---------------------------------------------------------------------------

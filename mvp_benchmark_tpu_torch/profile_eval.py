@@ -5,6 +5,7 @@ config, after warm-up.
     python -m mvp_benchmark_tpu_torch.profile_eval -c completion/cfgs/ecg.yaml
     python -m mvp_benchmark_tpu_torch.profile_eval -c completion/cfgs/vrcnet.yaml
     python -m mvp_benchmark_tpu_torch.profile_eval -c completion/cfgs/vrcnet.yaml --train
+    python -m mvp_benchmark_tpu_torch.profile_eval -c completion/cfgs/ecg.yaml --train
 
 Prints, per val batch (per train step with ``--train``: forward, backward
 and the optimizer, as ``engine.make_train_step`` runs them): the device time
@@ -37,7 +38,8 @@ PORT_KERNELS = ("chamfer_rowmin_kernel", "knn_kernel", "fps_kernel",
                 "three_interpolate_kernel", "sa_attention_kernel",
                 "chamfer_backward_kernel", "scatter_add_rows_kernel",
                 "group_max_backward_kernel", "three_interpolate_backward_kernel",
-                "three_interpolate_dweight_kernel", "sa_attention_backward_kernel")
+                "three_interpolate_dweight_kernel", "sa_attention_backward_kernel",
+                "ball_query_kernel", "emd_kernel")
 GEMM_MARKS = ("gemm", "xmma", "cutlass", "sm90_", "sm80_")
 
 

@@ -200,10 +200,7 @@ def test_out_of_range_indices_give_nan_not_a_fault(cuda):
     assert torch.isnan(g[0, 0, 1]).all() and torch.isfinite(g[0, 0, 0]).all()
 
 
-_NO_LAUNCHES = dict.fromkeys(
-    ("chamfer", "knn", "fps", "gather", "group_max", "three_interpolate",
-     "sa_attention", "chamfer_backward", "scatter_add_rows", "group_max_backward",
-     "three_interpolate_backward", "sa_attention_backward"), 0)
+_NO_LAUNCHES = dict.fromkeys(kernels.launch_counts(), 0)
 
 
 def test_ecg_on_card_equals_cpu(cuda):
@@ -589,3 +586,158 @@ def test_vrcnet_train_step_on_card_equals_cpu(cuda):
     gw = torch.cat([g.reshape(-1) for g in g_cpu]).double()
     assert abs(float(gc.norm() - gw.norm())) <= 0.01 * float(gw.norm())
     assert float(gc @ gw / (gc.norm() * gw.norm())) >= 0.999
+
+
+# ---------------------------------------------------------------------------
+# Ball query and auction EMD
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("B,N,M,lo,nsample", [
+    (2, 2048, 102, 0.0, 24), (2, 1024, 51, 0.0, 4), (3, 777, 41, 0.05, 7),
+    (2, 50, 9, 0.0, 64), (1, 3000, 5, 0.0, 200)])
+def test_ball_query_kernel_equals_plain_version(cuda, B, N, M, lo, nsample):
+    """Indices equal, at the uniform loss's shapes and radii, ragged N and
+    M, min_r > 0, nsample > N; with duplicate points and a centre far from
+    every point (zeros)."""
+    xyz = _rand(cuda, B, N, 3, seed=20)
+    xyz[:, 1::5] = xyz[:, ::5][:, :xyz[:, 1::5].shape[1]]
+    centers = xyz[:, :M].clone()
+    centers[:, -1] = 5.0
+    r = float(np.sqrt(min(nsample / N, 0.5)))
+    got = kernels.ball_query(lo, r, nsample, xyz, centers)
+    want = ref.ball_query(lo, r, nsample, xyz, centers)
+    torch.cuda.synchronize()
+    _bitwise([got], [want])
+    assert (got[:, -1] == 0).all()
+
+
+def test_ball_query_wrapper_rejects_bad_inputs(cuda):
+    x = _rand(cuda, 2, 64, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.ball_query(0.0, 0.2, 8, x.cpu(), x.cpu())
+    with pytest.raises(ValueError, match="batch"):
+        kernels.ball_query(0.0, 0.2, 8, x, x[:1].contiguous())
+    with pytest.raises(ValueError, match="empty"):
+        kernels.ball_query(0.0, 0.2, 0, x, x)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.ball_query(0.0, 0.2, 8, x, x[:, ::2])
+    assert not dispatch.ball_query(0.0, 0.2, 8, x.requires_grad_(), x).requires_grad
+
+
+@pytest.mark.parametrize("B,n,eps,iters", [
+    (2, 256, 0.02, 50), (3, 1000, 0.01, 5), (2, 2048, 0.004, 300), (1, 1, 0.01, 10),
+    (2, 7, 0.5, 1)])
+def test_emd_kernel_equals_plain_version(cuda, B, n, eps, iters):
+    """Assignments equal, converged or ended by the forced round, at ragged
+    n, n = 1 and iters = 1 (the forced round alone)."""
+    a, b = _rand(cuda, B, n, 3, seed=21), _rand(cuda, B, n, 3, seed=22)
+    got = kernels.emd_assignment(a, b, eps, iters)
+    want = ref.emd_assignment(a, b, eps, iters)
+    torch.cuda.synchronize()
+    _bitwise([got], [want])
+
+
+def test_emd_kernel_ties_and_equal_clouds(cuda):
+    """Equal clouds give the identity; a prediction with every point twice
+    (the tie rules decide) equals the plain version."""
+    a = _rand(cuda, 2, 512, 3, seed=23)
+    ident = kernels.emd_assignment(a, a, 0.005, 50)
+    assert (ident.long() == torch.arange(512, device=cuda)).all()
+    twice = torch.cat([a[:, :256], a[:, :256]], 1)
+    _bitwise([kernels.emd_assignment(twice, a, 0.005, 200)],
+             [ref.emd_assignment(twice, a, 0.005, 200)])
+
+
+def test_emd_wrapper_rejects_bad_inputs(cuda):
+    a = _rand(cuda, 2, 64, 3)
+    with pytest.raises(ValueError, match="like xyz1"):
+        kernels.emd_assignment(a, a[:, :32].contiguous(), 0.01, 10)
+    with pytest.raises(ValueError, match="eps"):
+        kernels.emd_assignment(a, a, 0.0, 10)
+    big = _rand(cuda, 1, kernels.EMD_MAX_N + 1, 3)
+    with pytest.raises(ValueError, match="n <="):
+        kernels.emd_assignment(big, big, 0.01, 10)
+    with pytest.raises(ValueError, match="n == m"):
+        dispatch.emd_auction(a, a[:, :32].contiguous())
+
+
+def test_calc_emd_and_its_gradient_on_card_equal_cpu(cuda):
+    from mvp_benchmark_tpu_torch.metrics import calc_emd
+
+    a, b = _rand(torch.device("cpu"), 2, 1024, 3, seed=24), _rand(
+        torch.device("cpu"), 2, 1024, 3, seed=25)
+    outs = []
+    for dev in (torch.device("cpu"), cuda):
+        x = a.clone().to(dev).requires_grad_()
+        e = calc_emd(x, b.to(dev), 0.004, 500)
+        e.sum().backward()
+        outs.append((e.detach().cpu(), x.grad.cpu()))
+    torch.testing.assert_close(outs[1][0], outs[0][0], rtol=1e-6, atol=0)
+    torch.testing.assert_close(outs[1][1], outs[0][1], rtol=1e-5, atol=1e-7)
+
+
+def test_knn_points_distances_differentiable_only_where_needed(cuda):
+    """With a graph, the distances are recomputed from the gathered
+    neighbours (one gather, bitwise the kernel's), and the gradient equals
+    the CPU's; without one, the kNN launches alone."""
+    q = _rand(cuda, 3, 20, 3, seed=26)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        d0, i0 = dispatch.knn_points(q, q, 2)
+    assert kernels.launch_counts() == dict(_NO_LAUNCHES, knn=1)
+    x = q.clone().requires_grad_()
+    d, i = dispatch.knn_points(x, x, 2)
+    assert kernels.launch_counts() == dict(_NO_LAUNCHES, knn=2, gather=1)
+    _bitwise([d.detach(), i], [d0, i0])
+    d.sum().backward()
+    xc = q.cpu().requires_grad_()
+    ref.knn_points(xc, xc, 2)[0].sum().backward()
+    torch.testing.assert_close(x.grad.cpu(), xc.grad, rtol=1e-5, atol=1e-7)
+
+
+def test_uniform_loss_on_card_equals_cpu(cuda):
+    from mvp_benchmark_tpu_torch.models import common
+
+    v = torch.randn(2, 2048, 3, generator=torch.Generator().manual_seed(27))
+    pcd = 0.5 * v / v.norm(dim=-1, keepdim=True)
+    outs = []
+    for dev in (torch.device("cpu"), cuda):
+        x = pcd.clone().to(dev).requires_grad_()
+        kernels.reset_launch_counts()
+        loss = common.get_uniform_loss(x)
+        loss.backward()
+        outs.append((float(loss.detach()), x.grad.cpu(), kernels.launch_counts()))
+    assert outs[1][2] == dict(_NO_LAUNCHES, fps=1, gather=11, ball_query=5, knn=5,
+                              scatter_add_rows=10)
+    assert outs[1][0] == pytest.approx(outs[0][0], rel=1e-5)
+    torch.testing.assert_close(outs[1][1], outs[0][1], rtol=1e-4, atol=1e-7)
+
+
+def test_ecg_train_step_on_card_equals_cpu(cuda):
+    """ecg_smoke at 512 points (the uniform loss needs nsample >= 2), two
+    clouds: loss1 and uniform1 (the coarse output) within atol 1e-5 / rtol
+    1e-4; the total within rtol 1e-4 and the gradient as one vector (norms
+    within 0.1%, cosine >= 0.9999), as chip_smoke.py holds the protocol
+    step; every kernel of ECG_PER_STEP launched."""
+    cfg = _smoke_cfg("ecg")
+    cfg.num_points = 512
+    x, gt = (_rand(torch.device("cpu"), 2, 512, 3, seed=s) for s in (28, 29))
+
+    def losses(model, x, gt):
+        t = model.train_losses(x, gt, 0.5)
+        return {k: t[k] for k in ("loss1", "uniform1", "loss2", "uniform2", "total")}
+
+    want, g_cpu = _train_step(cfg, torch.device("cpu"), x, gt, losses)
+    kernels.reset_launch_counts()
+    got, g_card = _train_step(cfg, cuda, x, gt, losses)
+    assert all(kernels.launch_counts()[k] > 0 for k in (
+        "ball_query", "knn", "gather", "scatter_add_rows", "group_max_backward",
+        "three_interpolate_backward", "chamfer_backward"))
+    for k in ("loss1", "uniform1"):
+        torch.testing.assert_close(got[k], want[k], rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(got["total"], want["total"], rtol=1e-4, atol=0)
+    gc = torch.cat([g.reshape(-1) for g in g_card]).double()
+    gw = torch.cat([g.reshape(-1) for g in g_cpu]).double()
+    assert abs(float(gc.norm() - gw.norm())) <= 1e-3 * float(gw.norm())
+    assert float(gc @ gw / (gc.norm() * gw.norm())) >= 0.9999

@@ -258,8 +258,13 @@ def test_transplant_fills_every_parameter_and_rejects_a_tree_that_does_not_fit(
 
 
 def test_train_branch_and_ef_expansion_are_not_ported(case):
+    """The train branch runs (its parity with JAX is in
+    test_torch_ecg_train.py); EFExpansion, which the protocol config never
+    reaches, still raises."""
     _, _, tm, x, gt, _ = case
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tm(torch.from_numpy(x), torch.from_numpy(gt), prefix="train")
+    out2, loss2, total = tm(torch.from_numpy(x), torch.from_numpy(gt),
+                            prefix="train", alpha=0.5)
+    assert out2.shape == (B, NUM_POINTS, 3) and loss2.shape == (B,)
+    assert total.requires_grad and bool(torch.isfinite(total))
     with pytest.raises(NotImplementedError, match="EFExpansion"):
         tecg.Model(num_points=4096, num_coarse=512, num_input=1024)

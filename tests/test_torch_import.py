@@ -107,3 +107,28 @@ def test_vrcnet_slice_runs_without_jax_flax_yaml_or_h5py(tmp_path):
     assert sorted(out["val"]) == ["cd_p", "cd_t", "f1"]
     assert all(v == v and abs(v) != float("inf") for v in out["val"].values())
     assert out["shape"] == [52, 128, 3] and out["finite"]
+
+
+def test_ecg_train_step_and_emd_run_without_jax_flax_yaml_or_h5py():
+    """ECG's train step at 512 points (the uniform loss needs nsample >= 2)
+    and calc_emd, on the CPU, with the ball query's and the auction's plain
+    versions."""
+    out = _run(
+        "import json, sys\n"
+        "for m in ('jax', 'flax', 'optax', 'yaml', 'h5py'): sys.modules[m] = None\n"
+        "import torch\n"
+        "from mvp_benchmark_tpu_torch.models import get_model\n"
+        "from mvp_benchmark_tpu_torch.train.config import Config\n"
+        "g = torch.Generator().manual_seed(0)\n"
+        "ecg = get_model('ecg', Config(num_points=512, loss='cd', eval_emd=False),"
+        " generator=g).train()\n"
+        "x = torch.rand(2, 512, 3, generator=g)\n"
+        "t = ecg.train_losses(x, torch.rand(2, 512, 3, generator=g), 0.5)\n"
+        "t['total'].backward()\n"
+        "from mvp_benchmark_tpu_torch.metrics import calc_emd\n"
+        "emd = calc_emd(x[:, :256], torch.rand(2, 256, 3, generator=g), 0.004, 300)\n"
+        "print(json.dumps({'u2': float(t['uniform2']), 'emd': emd.tolist(),\n"
+        "  'grads': all(bool(torch.isfinite(p.grad).all()) for p in ecg.parameters()"
+        " if p.grad is not None)}))\n")
+    assert out["u2"] > 0 and out["grads"]
+    assert len(out["emd"]) == 2 and all(0 < e < 2 for e in out["emd"])

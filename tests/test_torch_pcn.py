@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from mvp_benchmark_tpu.data import mvp as jmvp
+from mvp_benchmark_tpu.metrics import completion as jmetrics
 from mvp_benchmark_tpu.models import pcn as jpcn
 from mvp_benchmark_tpu.train import checkpoint as jckpt
 from mvp_benchmark_tpu.train import engine as jengine
@@ -35,6 +36,7 @@ from mvp_benchmark_tpu_torch.train import checkpoint as tckpt
 from mvp_benchmark_tpu_torch.train import engine as tengine
 from mvp_benchmark_tpu_torch.train import submission as tsubmission
 from mvp_benchmark_tpu_torch.train.config import Config
+from tests.util_clouds import grid_points
 
 NUM_POINTS, NUM_COARSE, B = 256, 128, 2
 OUT_TOL = dict(rtol=1e-4, atol=1e-5)
@@ -163,7 +165,11 @@ def test_unported_models_raise(name):
 
 def test_train_branch_and_emd_are_not_ported(pair, inputs):
     """The train branch is ported (its parity with JAX is in
-    test_torch_train.py); EMD, as its loss or in eval, is not."""
+    test_torch_train.py); the EMD loss raises the JAX package's ValueError
+    at n != m (the 128 coarse points against 256 gt points), and calc_emd
+    gives the JAX package's value (rtol 1e-6) on grid clouds, where both
+    auctions see exact distances (the JAX CPU path ranks on the
+    |a|^2+|b|^2-2a.b expansion; see test_torch_emd.py)."""
     jm, variables, tm = pair
     x, gt = (torch.from_numpy(a) for a in inputs)
     out2, loss2, total = tm(x, gt, prefix="train", alpha=0.5)
@@ -171,10 +177,18 @@ def test_train_branch_and_emd_are_not_ported(pair, inputs):
     np.testing.assert_allclose(loss2.detach().numpy(), np.asarray(want[1]), rtol=1e-4)
     np.testing.assert_allclose(float(total.detach()), float(want[2]), rtol=1e-4)
     emd_model = tpcn.Model(NUM_POINTS, NUM_COARSE, train_loss="emd")
-    with pytest.raises(NotImplementedError, match="EMD"):
+    jemd = jpcn.Model(num_points=NUM_POINTS, num_coarse=NUM_COARSE, train_loss="emd")
+    with pytest.raises(ValueError, match="EMD requires n == m") as jerr:
+        jax.eval_shape(lambda: jemd.apply(variables, inputs[0], inputs[1],
+                                          prefix="train"))
+    with pytest.raises(ValueError, match="EMD requires n == m") as err:
         emd_model(x, gt, prefix="train")
-    with pytest.raises(NotImplementedError, match="EMD"):
-        calc_emd(x, gt)
+    assert str(err.value) == str(jerr.value)
+    pts = grid_points(np.random.default_rng(12), 2 * B * NUM_POINTS) / 8.0
+    a, b = pts.reshape(2, B, NUM_POINTS, 3)
+    np.testing.assert_allclose(
+        calc_emd(torch.from_numpy(a), torch.from_numpy(b), 0.004, 500).numpy(),
+        np.asarray(jmetrics.calc_emd(a, b, 0.004, 500)), rtol=1e-6)
 
 
 @pytest.mark.parametrize("prefix,spec", [

@@ -22,8 +22,9 @@
   inverse transplant round-trips and the JAX model applied to it gives the
   port's output; ``completion/train_torch.py`` trains one epoch on the CPU
   without jax and writes its checkpoints.
-- A protocol train step launches the kernels ``chip_smoke.py`` derives for
-  it, counted on the CPU through stand-ins for the launchers.
+- A protocol train step of PCN, VRCNet and ECG launches the kernels
+  ``chip_smoke.py`` derives for it, counted on the CPU through stand-ins
+  for the launchers.
 """
 
 import copy
@@ -469,13 +470,14 @@ def test_vrcnet_train_step_matches_jax_value_and_grad(vrc_jax, monkeypatch):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("name", ["pcn", "vrcnet"])
+@pytest.mark.parametrize("name", ["pcn", "vrcnet", "ecg"])
 def test_protocol_train_step_launches_what_chip_smoke_derives(monkeypatch, name):
-    """One train step at ``cfgs/{pcn,vrcnet}.yaml`` (full width, two
+    """One train step at ``cfgs/{pcn,vrcnet,ecg}.yaml`` (full width, two
     clouds), with every tensor routed as a CUDA tensor would be and each
     kernel launcher replaced by a counting stand-in around its plain
     version: the launches equal ``chip_smoke.PCN_PER_STEP`` /
-    ``VRCNET_PER_STEP``, and every parameter's gradient is finite."""
+    ``VRCNET_PER_STEP`` / ``ECG_PER_STEP``, and every parameter's gradient
+    is finite."""
     import chip_smoke
     from mvp_benchmark_tpu_torch.data.mvp import BatchSpec, MVPCompletionDataset
     from mvp_benchmark_tpu_torch.ops import dispatch, kernels, ref
@@ -506,6 +508,8 @@ def test_protocol_train_step_launches_what_chip_smoke_derives(monkeypatch, name)
         "three_interpolate_backward": ("three_interpolate_backward",
                                        ref.three_interpolate_backward),
         "sa_attention_backward": ("sa_attention_backward", sa_backward),
+        "ball_query": ("ball_query", ref.ball_query),
+        "emd_assignment": ("emd", ref.emd_assignment),
     }
     for launcher, (key, fn) in stand_ins.items():
         monkeypatch.setattr(kernels, launcher, counted(key, fn))
@@ -514,7 +518,8 @@ def test_protocol_train_step_launches_what_chip_smoke_derives(monkeypatch, name)
         lambda *a: int(a[6]) + int(a[7])))          # one launch per side
     monkeypatch.setattr(dispatch, "_route", lambda *xs: "cuda")
 
-    path = {"pcn": chip_smoke.PCN_CFG, "vrcnet": chip_smoke.VRCNET_CFG}[name]
+    path = {"pcn": chip_smoke.PCN_CFG, "vrcnet": chip_smoke.VRCNET_CFG,
+            "ecg": chip_smoke.ECG_CFG}[name]
     cfg = load_config(path, batch_size=2)
     model = tengine.build_model(cfg, torch.device("cpu"), seed=1, for_training=True)
     step = tengine.make_train_step(model.train(), toptim.build_optimizer(
@@ -522,7 +527,8 @@ def test_protocol_train_step_launches_what_chip_smoke_derives(monkeypatch, name)
     batch = next(MVPCompletionDataset("train", os.path.join(ROOT, "nodata"), 2048)
                  .batches(BatchSpec(2, shuffle=True, seed=1)))
     step(batch, 0.5, tengine.draw_noise(model, 2, torch.Generator().manual_seed(1)))
-    want = {"pcn": chip_smoke.PCN_PER_STEP, "vrcnet": chip_smoke.VRCNET_PER_STEP}[name]
+    want = {"pcn": chip_smoke.PCN_PER_STEP, "vrcnet": chip_smoke.VRCNET_PER_STEP,
+            "ecg": chip_smoke.ECG_PER_STEP}[name]
     assert counts == want
     for n, p in model.named_parameters():
         assert p.grad is not None and torch.isfinite(p.grad).all(), n
