@@ -29,7 +29,9 @@ Phases, each of which raises on failure (exit code != 0):
    (``vrcnet.yaml``); PCN's val pass with ``eval_emd: True`` (emd too);
    then ``engine.train_completion`` of PCN, VRCNet and ECG for one epoch of
    ``TRAIN_STEPS`` steps at batch 32 x 2048 points, with its val pass and
-   checkpoints;
+   checkpoints; and the val pass (RotE, transE, MSE, RMSE, recall) and test
+   pass (32 poses) of full-width DCP (``registration/cfgs/dcp.yaml``), the
+   functions ``registration/test_torch.py`` calls;
 5. checks the results: finite, of the expected shape, metrics equal to the
    ones recomputed with the plain chamfer on the card (rtol 1e-6), a val
    batch equal to the same model run on the CPU (PCN outputs atol 1e-5 /
@@ -40,7 +42,10 @@ Phases, each of which raises on failure (exit code != 0):
    metrics, and one train step on two full-width clouds equal to the CPU's
    (``check_pcn_step_on_cpu``, ``check_vrcnet_step_on_cpu``,
    ``check_ecg_step_on_cpu``); the emd of the EMD val pass equal to the one
-   the plain auction gives on the same predictions (rtol 1e-6);
+   the plain auction gives on the same predictions (rtol 1e-6); DCP's val
+   metrics equal to the ones recomputed from its test-branch poses of the
+   val clouds, its poses rigid, and a val batch cut to two full-width
+   clouds equal to the CPU's (``check_dcp_batch_on_cpu``);
 6. times the val and test passes per batch, the train steps (ms and
    points/s), and each kernel against its plain version (and a single
    PyTorch call computing the same function, where one exists) at a
@@ -61,7 +66,10 @@ import time
 import numpy as np
 import torch
 
-from mvp_benchmark_tpu_torch.metrics import calc_cd, fscore
+from mvp_benchmark_tpu_torch.metrics import (calc_cd, fscore, rmse_loss,
+                                             rotation_error,
+                                             rotation_geodesic_error,
+                                             translation_error)
 from mvp_benchmark_tpu_torch.ops import kernels, ref
 from mvp_benchmark_tpu_torch.data.mvp import BatchSpec, MVPCompletionDataset
 from mvp_benchmark_tpu_torch.train import engine, submission
@@ -71,13 +79,16 @@ from mvp_benchmark_tpu_torch.train.optim import build_optimizer
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PCN_CFG = os.path.join(ROOT, "completion", "cfgs", "pcn.yaml")
+DCP_CFG = os.path.join(ROOT, "registration", "cfgs", "dcp.yaml")
+REG_DATA_DIR = os.path.join(ROOT, "registration", "data")   # its test_torch.py's
 ECG_CFG = os.path.join(ROOT, "completion", "cfgs", "ecg.yaml")
 VRCNET_CFG = os.path.join(ROOT, "completion", "cfgs", "vrcnet.yaml")
 DATA_DIR = os.path.join(ROOT, "completion", "data")   # test_torch.py's default
 
 # H100 SXM peaks (NVIDIA's data sheet, at the 700 W limit): fp32 outside the
-# tensor cores, and device memory.
+# tensor cores, bf16 dense on the tensor cores, and device memory.
 PEAK_FP32 = 67e12
+PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
 
 _PK = "mvp_benchmark_tpu/ops/pallas_kernels.py"
@@ -123,6 +134,12 @@ KERNELS.update({
                    "replaces": f"{_PK}:1525"},
     "emd": {"name": "emd_assignment", "source": f"{_CSRC}/emd.cu",
             "replaces": f"{_PK}:2122"},
+    "attention": {"name": "attention", "source": f"{_CSRC}/attention.cu",
+                  "replaces": f"{_PK}:2449"},
+    "attention_bnhd": {"name": "attention_bnhd", "source": f"{_CSRC}/attention.cu",
+                       "replaces": f"{_PK}:2637"},
+    "edge_mlp": {"name": "edge_mlp_eval", "source": f"{_CSRC}/edge_mlp.cu",
+                 "replaces": f"{_PK}:3025"},
 })
 
 # ECG's kernel launches per forward pass, read off models/ecg.py and
@@ -183,10 +200,29 @@ VRCNET_PER_STEP = dict(VRCNET_PER_BATCH, chamfer=4, chamfer_backward=4,
 ECG_PER_STEP = dict(ECG_PER_BATCH, knn=20, fps=6, gather=33, ball_query=10,
                     chamfer=2, chamfer_backward=2, scatter_add_rows=28,
                     group_max_backward=3, three_interpolate_backward=3)
+# DCP's, read off models/dcp.py at registration/cfgs/dcp.yaml (1 block, 4
+# heads): DGCNN runs once on src and once on tgt, each a self-kNN (k 20), a
+# gather of the neighbours and one edge chain; the transformer runs twice
+# (src -> tgt and tgt -> src), each an encoder self-attention and a decoder
+# self- and cross-attention; the svd head one fp32 attention.
+DCP_PER_BATCH = {"knn": 2, "gather": 2, "edge_mlp": 2, "attention_bnhd": 6,
+                 "attention": 1}
 TRAIN_STEPS = 3       # max_steps_per_epoch of each driven train path
 # The SA block's tolerance against its plain version on the card:
 # |kernel - plain| <= SA_ATOL + SA_RTOL |plain| (another summation order).
 SA_ATOL, SA_RTOL = 1e-5, 1e-4
+# bf16 kernels against their plain versions, normwise |kernel - plain| /
+# |plain|: the attention's online softmax rounds p to bf16 before dividing by
+# the row sum, the plain version after (3.1e-3 measured on an H100); the edge
+# chain sums in another order, and an activation may round to the other bf16
+# neighbour (6.6e-6 measured).
+ATTN_BF16_NORM, EDGE_MLP_NORM = 1e-2, 1e-4
+# DCP on the card against the CPU, two full-width clouds, the same weights:
+# the bf16 transformer's products round differently in cuBLAS and on the CPU.
+# Each output's bar is 6-10x its gap measured on an H100 (loss 1.8e-5, RotE
+# 0.028 degrees, transE 3.3e-4, RMSE 2.4e-4, MSE 8.1e-4, T_12 6.8e-4).
+DCP_CPU_ATOL = {"loss": 2e-4, "RotE": 0.25, "transE": 3e-3, "RMSE": 2.5e-3,
+                "MSE": 5e-3, "T_12": 5e-3}
 
 
 class SmokeFailure(RuntimeError):
@@ -523,6 +559,202 @@ def compare_geometry_kernels_with_plain(device):
             full = (a, b, eps, iters, bids)
     torch.cuda.synchronize()
     return {"ball_query": 0.0, "emd": 0.0}, full
+
+
+def check_normwise(name, got, want, bar):
+    """|got - want| / |want| <= bar over the whole tensor; returns the
+    largest absolute difference."""
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{name}: {got.shape}/{got.dtype} vs {want.shape}/{want.dtype}")
+    g, w = got.double(), want.double()
+    rel = float((g - w).norm() / w.norm())
+    max_abs = float((g - w).abs().max())
+    check(rel <= bar, f"{name}: normwise {rel!r} above {bar}")
+    print(f"kernel ~ plain: {name}: normwise {rel!r} (bar {bar}), max |diff| "
+          f"{max_abs!r}")
+    return max_abs
+
+
+def dcp_attention_inputs(seed, B, N, M, H, device):
+    """bf16 q/k/v (B, N|M, H, 128) as DCP's heads lie: views of fused
+    projection rows (B, N, 3 H 128), unit normal."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    d = H * 128
+    y = torch.randn(B, N, 3 * d, device=device, generator=g).to(torch.bfloat16)
+    ym = torch.randn(B, M, 3 * d, device=device, generator=g).to(torch.bfloat16)
+    return (y[..., :d].reshape(B, N, H, 128), ym[..., d:2 * d].reshape(B, M, H, 128),
+            ym[..., 2 * d:].reshape(B, M, H, 128))
+
+
+def dcp_edge_inputs(seed, B, N, K, device):
+    """The edge chain's inputs: a1 [x_j | x_i] bf16 of uniform clouds and
+    their kNN, weights at torch's init scale, BatchNorm parameters and
+    running statistics near their initial values."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.rand(B, N, 3, device=device, generator=g)
+    nb = ref.gather_points(x, ref.knn_indices(x, K))
+    a1 = torch.cat([nb, x[:, :, None].expand_as(nb)], -1).to(torch.bfloat16)
+    chs, cins = (64, 64, 128, 256), (6, 64, 64, 128)
+    Ws = [(torch.rand(ci, c, device=device, generator=g) * 2 - 1) * ci ** -0.5
+          for ci, c in zip(cins, chs)]
+    params = [[1 + 0.1 * torch.randn(c, device=device, generator=g) for c in chs],
+              [0.1 * torch.randn(c, device=device, generator=g) for c in chs],
+              [0.1 * torch.randn(c, device=device, generator=g) for c in chs],
+              [0.5 + torch.rand(c, device=device, generator=g) for c in chs]]
+    return a1, Ws, params
+
+
+def compare_dcp_kernels_with_plain(device):
+    """Phase 3d: DCP's three kernels at its path's shapes (B 32, N = M =
+    2048: the transformer's (32, 2048, 4, 128) bf16 heads, the svd head's
+    (32, 2048, 512) fp32 embeddings with the 3-wide target cloud, the edge
+    chain's (32, 2048, 20, 6) edges) plus ragged ones. Returns {key: max
+    |kernel - plain|}."""
+    err = {"attention": 0.0, "attention_bnhd": 0.0, "edge_mlp": 0.0}
+    for (B, N, M, H) in ((32, 2048, 2048, 4), (2, 1000, 777, 3)):
+        q, k, v = dcp_attention_inputs(100 + N, B, N, M, H, device)
+        err["attention_bnhd"] = max(err["attention_bnhd"], check_normwise(
+            f"attention_bnhd ({B}, {N} x {M}, H {H}, dk 128) bf16",
+            kernels.attention_bnhd_forward(q, k, v, 128 ** -0.5),
+            ref.attention_bnhd(q, k, v, 128 ** -0.5), ATTN_BF16_NORM))
+    for (B, N, M, D) in ((32, 2048, 2048, 512), (3, 1000, 777, 512)):
+        g = torch.Generator(device=device).manual_seed(200 + N)
+        q = torch.randn(B, N, D, device=device, generator=g)
+        k = torch.randn(B, M, D, device=device, generator=g)
+        v = torch.rand(B, M, 3, device=device, generator=g)
+        err["attention"] = max(err["attention"], check_close(
+            f"attention ({B}, {N} x {M}, D {D}, Dv 3) fp32",
+            kernels.attention_forward(q, k, v, D ** -0.5),
+            ref.attention(q, k, v, D ** -0.5)))
+    for (B, N, K) in ((32, 2048, 20), (3, 1001, 7)):
+        a1, Ws, params = dcp_edge_inputs(300 + N, B, N, K, device)
+        for i, (gl, wl) in enumerate(zip(kernels.edge_mlp_forward(a1, Ws, *params),
+                                         ref.edge_mlp_eval(a1, Ws, *params))):
+            err["edge_mlp"] = max(err["edge_mlp"], check_normwise(
+                f"edge_mlp ({B}, {N}, k {K}) layer {i}", gl, wl, EDGE_MLP_NORM))
+    torch.cuda.synchronize()
+    return err
+
+
+def _reg_batches(cfg):
+    spec = BatchSpec(int(cfg.batch_size))
+    return (engine.registration_dataset(cfg, "val", REG_DATA_DIR).steps_per_epoch(spec),
+            engine.registration_dataset(cfg, "test", REG_DATA_DIR).steps_per_epoch(spec))
+
+
+def drive_dcp_path(cfg, device):
+    """Phase 4 for DCP: the val pass and the test poses, as
+    registration/test_torch.py runs them, counts zeroed just before and read
+    just after, equal to DCP_PER_BATCH in every val and test batch."""
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    val = engine.run_registration_val(cfg, REG_DATA_DIR, device)
+    poses = submission.predict_registration_test(cfg, REG_DATA_DIR, device)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    expected = dict.fromkeys(KERNELS, 0)
+    expected.update({k: v * sum(_reg_batches(cfg)) for k, v in DCP_PER_BATCH.items()})
+    print(f"DCP main path launches ({seconds!r} s with the first calls' "
+          f"allocations): {launches}")
+    check(launches == expected, f"DCP: launches {launches}, expected {expected}")
+    return val, poses, launches
+
+
+def check_dcp_results(cfg, device, val, poses):
+    """The five metrics finite; the poses finite and rigid; the val metrics
+    equal to the ones recomputed on the card with the metrics module from
+    the test-branch poses of the val clouds (rtol 1e-6: the kernels are
+    deterministic, so the poses are the val pass's)."""
+    check(sorted(val) == sorted(engine.REG_METRICS), f"DCP val metrics {sorted(val)}")
+    check(all(np.isfinite(v) for v in val.values()), f"DCP val metrics {val}")
+    n = len(engine.registration_dataset(cfg, "test", REG_DATA_DIR))
+    check(poses.shape == (n, 4, 4) and bool(np.isfinite(poses).all()),
+          f"DCP test poses {poses.shape}")
+    R = torch.from_numpy(poses[:, :3, :3]).double()
+    rigid = float((R @ R.transpose(1, 2) - torch.eye(3, dtype=torch.float64)).abs().max())
+    det = float((torch.linalg.det(R) - 1).abs().max())
+    check(rigid < 1e-4 and det < 1e-4 and (poses[:, 3] == [0, 0, 0, 1]).all(),
+          f"DCP poses not rigid: |R R^T - I| {rigid}, |det - 1| {det}")
+
+    step = engine.make_registration_eval_step(engine.build_model(cfg, device), device)
+    dataset = engine.registration_dataset(cfg, "val", REG_DATA_DIR)
+    sums, total, first = dict.fromkeys(val, 0.0), 0, None
+    for batch in dataset.batches(BatchSpec(int(cfg.batch_size))):
+        c = int(batch["count"])
+        with torch.inference_mode():
+            T12 = step(batch, "test")
+            Tg = torch.from_numpy(batch["transform"]).to(device)
+            src = torch.from_numpy(batch["src"]).to(device)
+            rmse = rmse_loss(src, T12, Tg)
+            per = {"RotE": rotation_error(T12[:, :3, :3], Tg[:, :3, :3]),
+                   "transE": translation_error(T12[:, :3, 3], Tg[:, :3, 3]),
+                   "MSE": rotation_geodesic_error(T12[:, :3, :3], Tg[:, :3, :3])
+                   + translation_error(T12[:, :3, 3], Tg[:, :3, 3]),
+                   "RMSE": rmse, "recall": (rmse < 0.1).float()}
+        for m in sums:
+            sums[m] += float(per[m][:c].mean()) * c
+        total += c
+        if first is None:
+            first = batch
+    for m, v in val.items():
+        want = sums[m] / total
+        check(abs(v - want) <= 1e-6 * abs(want),
+              f"DCP {m}: val pass {v!r} vs recomputed from the poses {want!r}")
+    print(f"DCP val metrics == recomputed from the test-branch poses (rtol 1e-6): "
+          + ", ".join(f"{m} {v!r}" for m, v in val.items())
+          + f"; {n} test poses rigid (|R R^T - I| {rigid!r})")
+    return step, first
+
+
+def check_dcp_batch_on_cpu(cfg, step, first, clouds_cut=2):
+    """One full-width val batch cut to two clouds, on the card and on the
+    CPU (plain versions throughout), the same seeded weights: each output
+    within its bar in DCP_CPU_ATOL (RotE in degrees)."""
+    cpu = torch.device("cpu")
+    batch = {k: (v[:clouds_cut] if isinstance(v, np.ndarray) and v.ndim else v)
+             for k, v in first.items()}
+    want_step = engine.make_registration_eval_step(engine.build_model(cfg, cpu), cpu)
+    got = [o.cpu() for o in step(batch, "val")] + [step(batch, "test").cpu()]
+    want = list(want_step(batch, "val")) + [want_step(batch, "test")]
+    diffs = {}
+    for name, g, w in zip(("loss", "RotE", "transE", "RMSE", "MSE", "T_12"),
+                          got, want):
+        diffs[name] = float((g - w).abs().max())
+        check(diffs[name] <= DCP_CPU_ATOL[name],
+              f"DCP card vs CPU: {name} {diffs[name]} > {DCP_CPU_ATOL[name]}")
+    print(f"DCP card vs CPU on {clouds_cut} full-width clouds: max |diff| {diffs} "
+          f"(bars {DCP_CPU_ATOL}); "
+          f"RotE card {got[1].tolist()!r}, CPU {want[1].tolist()!r}")
+
+
+def time_dcp_passes(cfg, device, card, repeats=3):
+    """ms per val and test batch of DCP (host clock, batching and copies
+    included), after a warm-up pass."""
+    model = engine.build_model(cfg, device)
+    step = engine.make_registration_eval_step(model, device)
+    spec = BatchSpec(int(cfg.batch_size))
+    val_ds = engine.registration_dataset(cfg, "val", REG_DATA_DIR)
+    test_ds = engine.registration_dataset(cfg, "test", REG_DATA_DIR)
+    meters = {m: AverageValueMeter() for m in engine.REG_METRICS}
+    split = engine.registration_split_meters(cfg)
+    out = {}
+    for name, ds, run in (
+            ("val", val_ds, lambda: engine.val_registration(step, val_ds, spec,
+                                                            meters, split)),
+            ("test", test_ds, lambda: engine.predict_registration(step, test_ds, spec))):
+        run()
+        torch.cuda.synchronize()
+        each = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            each.append((time.perf_counter() - t0) * 1e3 / ds.steps_per_epoch(spec))
+        out[name] = sum(each) / repeats
+        print(f"DCP {name} pass: {out[name]!r} ms/batch (passes {each!r}; batch "
+              f"{spec.batch_size}, {int(cfg.num_points)} points) on {card}")
+    return out
 
 
 def drive_slice(cfg, device):
@@ -977,10 +1209,10 @@ def _iters(fn, budget_ms=150.0):
     return int(min(50, max(3, budget_ms / max(once, 1e-3)))), 2
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, peak=PEAK_FP32):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    fp32 operations over the fp32 peak."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
+    operations over the peak rate of their type (fp32 unless given)."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1148,20 +1380,60 @@ def geometry_timing_cases(device, emd_case):
     }
 
 
+def dcp_timing_cases(device):
+    """timing_cases of DCP's kernels at its path's shapes, with the peak of
+    their operations' type: bf16 tensor cores for the multi-head attention
+    and the edge chain (bf16 operands, fp32 sums), fp32 for the svd head.
+    Bytes: q, k, v read and the output written once (the edge chain: a1,
+    the bf16 weights and the four fp32 max-pools). Operations: 2 per
+    multiply-add of the two attention products (softmax not counted), of the
+    chain's four layers over every edge (BatchNorm and relu not counted).
+    The library calls: ``scaled_dot_product_attention`` on the same
+    tensors; none computes the edge chain."""
+    B, N, H, dk, D, K = 32, 2048, 4, 128, 512, 20
+    q, k, v = dcp_attention_inputs(400, B, N, N, H, device)
+    qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
+    g = torch.Generator(device=device).manual_seed(401)
+    sq = torch.randn(B, N, D, device=device, generator=g)
+    sk = torch.randn(B, N, D, device=device, generator=g)
+    sv = torch.rand(B, N, 3, device=device, generator=g)
+    a1, Ws, params = dcp_edge_inputs(402, B, N, K, device)
+    chain = sum(a * b for a, b in zip((6, 64, 64, 128), (64, 64, 128, 256)))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return {
+        "attention_bnhd": (f"({B}, {N} x {N}, H {H}, dk {dk}) bf16, heads in place",
+                           lambda: kernels.attention_bnhd_forward(q, k, v, dk ** -0.5),
+                           lambda: ref.attention_bnhd(q, k, v, dk ** -0.5),
+                           lambda: sdpa(qs, ks, vs),
+                           4 * B * N * H * dk * 2, 4 * B * H * N * N * dk, PEAK_BF16),
+        "attention": (f"({B}, {N} x {N}, D {D}, Dv 3) fp32",
+                      lambda: kernels.attention_forward(sq, sk, sv, D ** -0.5),
+                      lambda: ref.attention(sq, sk, sv, D ** -0.5),
+                      lambda: sdpa(sq, sk, sv),
+                      (2 * B * N * D + 2 * B * N * 3) * 4, 2 * B * N * N * (D + 3),
+                      PEAK_FP32),
+        "edge_mlp": (f"({B}, {N}, k {K}, 6) -> 64/64/128/256",
+                     lambda: kernels.edge_mlp_forward(a1, Ws, *params),
+                     lambda: ref.edge_mlp_eval(a1, Ws, *params), None,
+                     B * N * K * 6 * 2 + chain * 2 + B * N * 512 * 4,
+                     2 * B * N * K * chain, PEAK_BF16),
+    }
+
+
 def time_kernels(device, card, emd_case):
     """Each kernel against its plain version in the order plain, kernel,
     kernel, plain (CUDA events), and the library call where there is one."""
     out = {}
     cases = {**timing_cases(device), **backward_timing_cases(device),
-             **geometry_timing_cases(device, emd_case)}
-    for key, (shape, kern, plain, lib, nbytes, ops) in cases.items():
+             **geometry_timing_cases(device, emd_case), **dcp_timing_cases(device)}
+    for key, (shape, kern, plain, lib, nbytes, ops, *peak) in cases.items():
         it_k, it_p = _iters(kern), _iters(plain)
         runs = {"plain": [], "kernel": []}
         for which in ("plain", "kernel", "kernel", "plain"):
             fn, (n, warm) = (plain, it_p) if which == "plain" else (kern, it_k)
             runs[which].append(time_cuda(fn, n, warm))
         lib_ms = time_cuda(lib, *_iters(lib)) if lib is not None else None
-        bound_ms, bound_by = bound(nbytes, ops)
+        bound_ms, bound_by = bound(nbytes, ops, *peak)
         out[key] = {"ms": sum(runs["kernel"]) / 2, "plain_ms": sum(runs["plain"]) / 2,
                     "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by}
         print(f"{KERNELS[key]['name']} {shape}: kernel {runs['kernel']!r} ms, "
@@ -1197,6 +1469,7 @@ def main() -> int:
     max_abs.update(compare_backward_kernels_with_plain(device))
     geometry_err, emd_case = compare_geometry_kernels_with_plain(device)
     max_abs.update(geometry_err)
+    max_abs.update(compare_dcp_kernels_with_plain(device))
 
     paths = {}           # path -> its launch counts
     pcn = load_config(PCN_CFG)
@@ -1219,11 +1492,16 @@ def main() -> int:
     check_batch_on_cpu_as_cloud("VRCNet", vrc, step, first)
     pcn_emd = load_config(PCN_CFG, eval_emd=True)
     paths["PCN eval_emd"] = drive_emd_val("PCN", pcn_emd, device)
+    dcp = load_config(DCP_CFG)
+    val, poses, paths["DCP eval"] = drive_dcp_path(dcp, device)
+    step, first = check_dcp_results(dcp, device, val, poses)
+    check_dcp_batch_on_cpu(dcp, step, first)
     # before the train paths, as the eval-only runs of earlier versions
     time_passes("PCN", pcn, device, card)
     time_passes("ECG", ecg, device, card)
     time_passes("VRCNet", vrc, device, card)
     time_passes("PCN with eval_emd", pcn_emd, device, card, repeats=2)
+    time_dcp_passes(dcp, device, card)
 
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     for name, path, per_step, per_val in (

@@ -10,7 +10,7 @@ import torch
 
 COMPLETION_MODELS = ("pcn", "ecg", "vrcnet")
 REGISTRATION_MODELS = ("dcp", "deepgmr", "idam")
-PORTED_MODELS = ("pcn", "ecg", "vrcnet")
+PORTED_MODELS = ("pcn", "ecg", "vrcnet", "dcp")
 
 
 def get_model_module(name: str):

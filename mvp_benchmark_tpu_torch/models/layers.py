@@ -1,5 +1,5 @@
 """Shared building blocks for the ported models (port of
-``mvp_benchmark_tpu/models/layers.py``, the subset PCN, ECG and VRCNet
+``mvp_benchmark_tpu/models/layers.py``, the subset PCN, ECG, VRCNet and DCP
 use).
 
 Layout: point features are channels-last, (B, N, C), as in the JAX package, so
@@ -29,9 +29,10 @@ from mvp_benchmark_tpu_torch import ops
 #
 # Parameters always stay fp32. Under a bfloat16 policy the Dense layers would
 # compute and return bf16 activations, with coordinate heads pinned to fp32
-# by ``dtype=torch.float32``. Every eval config runs fp32, its default; the
-# bf16 mode (set only by the JAX package's train-step bench) comes with the
-# training slice.
+# by ``dtype=torch.float32``. Every config runs fp32, its default; the bf16
+# policy (set only by the JAX package's train-step bench) is Queue 1's item 6.
+# A layer given ``dtype=torch.bfloat16`` computes in bf16 whatever the policy:
+# DCP's transformer does (``models/dcp.py``, ``TRANSFORMER_BF16``).
 
 _COMPUTE_DTYPE = torch.float32
 
@@ -86,12 +87,15 @@ class MultiDense(nn.Module):
 
     Head i keeps its own ``weight{i}`` (out_i, in) and ``bias{i}``, each
     initialised as a TorchDense of the same widths, as the flax module keeps
-    ``kernel{i}``/``bias{i}``.
+    ``kernel{i}``/``bias{i}``. ``dtype=None`` follows the activation policy;
+    the bias is added at the output dtype, as in TorchDense.
     """
 
     def __init__(self, in_features: int, out_features: Sequence[int],
+                 dtype: Optional[torch.dtype] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.dtype = dtype
         self.heads = len(out_features)
         for i, f in enumerate(out_features):
             w = nn.Parameter(torch.empty(int(f), in_features))
@@ -103,7 +107,7 @@ class MultiDense(nn.Module):
             setattr(self, f"bias{i}", b)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = compute_dtype()
+        dt = self.dtype or compute_dtype()
         w = torch.cat([getattr(self, f"weight{i}") for i in range(self.heads)])
         b = torch.cat([getattr(self, f"bias{i}") for i in range(self.heads)])
         return F.linear(x.to(dt), w.to(dt)) + b.to(dt)
@@ -198,6 +202,94 @@ class DenseEdge(nn.Module):
         if self.bias is not None:
             y = y + self.bias
         return y.to(dt)
+
+
+class BatchNorm(nn.Module):
+    """torch-compatible BatchNorm over the last (channel) axis, eval mode
+    (``layers.py:277-300`` of the JAX package, flax ``nn.BatchNorm`` with
+    ``use_running_average``): ``(x - mean) * (rsqrt(var + eps) * weight) +
+    bias`` in fp32, in flax's order, then cast to the activation policy's
+    dtype. ``weight``/``bias`` are flax's ``scale``/``bias`` params,
+    ``mean``/``var`` its ``batch_stats`` (buffers).
+    """
+
+    def __init__(self, features: int, epsilon: float = 1e-5):
+        super().__init__()
+        self.epsilon = epsilon
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mul = torch.rsqrt(self.var + self.epsilon) * self.weight
+        y = (x.to(torch.float32) - self.mean) * mul + self.bias
+        return y.to(compute_dtype())
+
+
+class UnbiasedLayerNorm(nn.Module):
+    """LayerNorm with torch-std semantics, ``weight * (x - mean) /
+    (std_unbiased + eps) + bias`` (``layers.py:460-491`` of the JAX package,
+    the reference's hand-rolled LayerNorm, ``dcp.py:144-154``). Statistics
+    in fp32 in one pass, as written there: ``var = max(E[x^2] - E[x]^2, 0) *
+    d / (d - 1)``. ``dtype``: the output dtype (None: fp32)."""
+
+    def __init__(self, features: int, epsilon: float = 1e-6,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.epsilon = epsilon
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        d = x.shape[-1]
+        x = x.to(torch.float32)
+        mean = x.mean(dim=-1, keepdim=True)
+        msq = (x * x).mean(dim=-1, keepdim=True)
+        var = torch.clamp(msq - mean * mean, min=0.0) * (d / (d - 1))
+        y = self.weight * (x - mean) / (torch.sqrt(var) + self.epsilon) + self.bias
+        return y if self.dtype is None else y.to(self.dtype)
+
+
+def attention(query: torch.Tensor, key: torch.Tensor,
+              value: torch.Tensor) -> torch.Tensor:
+    """Scaled dot-product attention over (B, N, d) (reference dcp.py:26-32),
+    through the fused kernel on the card (``ops.attention``). Returns the
+    output only: no caller reads the attention weights."""
+    return ops.attention(query, key, value, 1.0 / math.sqrt(query.shape[-1]))
+
+
+def mha_attention(query: torch.Tensor, key: torch.Tensor,
+                  value: torch.Tensor) -> torch.Tensor:
+    """Multi-head attention core over the (B, H, N, D) layout."""
+    B, H, Nq, D = query.shape
+    M, Dv = key.shape[2], value.shape[-1]
+    out = attention(query.reshape(B * H, Nq, D), key.reshape(B * H, M, D),
+                    value.reshape(B * H, M, Dv))
+    return out.reshape(B, H, Nq, Dv)
+
+
+def mha_attention_bnhd(query: torch.Tensor, key: torch.Tensor,
+                       value: torch.Tensor) -> torch.Tensor:
+    """Multi-head attention over the projection-native (B, N, H, dk) layout,
+    the heads read in place by the kernel (``ops.attention_bnhd``)."""
+    return ops.attention_bnhd(query, key, value, 1.0 / math.sqrt(query.shape[-1]))
+
+
+def symmetric_svd_rotation(H: torch.Tensor) -> torch.Tensor:
+    """Batched Kabsch rotation from covariance H (B, 3, 3) with the
+    reflection fix (``layers.py:540-555`` of the JAX package): R = V
+    diag(1, 1, det) U^T via the sign-corrected last column of V, in fp32.
+    ``torch.linalg.svd`` is a library call: the JAX package has no kernel
+    here either."""
+    U, _, Vh = torch.linalg.svd(H.to(torch.float32))
+    V = Vh.transpose(-1, -2)
+    Ut = U.transpose(-1, -2)
+    det = torch.linalg.det(torch.matmul(V, Ut))
+    sign = torch.where(det < 0, -1.0, 1.0).to(V.dtype)
+    V = torch.cat([V[:, :, :2], V[:, :, 2:] * sign[:, None, None]], dim=2)
+    return torch.matmul(V, Ut)
 
 
 def gen_grid_up(up_ratio: int, grid_size: float = 0.2,

@@ -1,9 +1,12 @@
 """Parameter transplant from the JAX models into the ported torch modules.
 
 ``load_flax_params(model, variables)`` takes the JAX variables as nested
-dicts of numpy arrays -- ``{'params': {...}}`` as ``train/checkpoint.py``
-pickles them, or the ``params`` tree itself -- and copies every leaf into the
-torch module. flax kernels are (in, out); torch weights are (out, in).
+dicts of numpy arrays -- ``{'params': {...}, 'batch_stats': {...}}`` as
+``train/checkpoint.py`` pickles them, or the ``params`` tree itself -- and
+copies every leaf into the torch module. flax kernels are (in, out); torch
+weights are (out, in). ``batch_stats`` (BatchNorm running statistics, DCP's)
+go to the torch buffers of the same names in the same modules; a model with
+such buffers needs them, a model without refuses them.
 
 Each ported model has an explicit table from flax scope paths (flax names a
 module's children ``<Class>_<k>`` in the order it builds them) to torch
@@ -13,9 +16,11 @@ parameter left unfilled, and any shape that disagrees.
 
 Leaves by name: ``kernel``/``bias`` go to ``weight`` (transposed) and
 ``bias``; a MultiDense's ``kernel{i}``/``bias{i}`` to ``weight{i}``
-(transposed) and ``bias{i}``; VRCNet's raw SA parameters ``w_mlp1``,
-``w_mlp2`` and ``w_mlp2_bias`` to the torch parameters of the same name, in
-the flax orientation (they enter a product as ``w_in @ W1``).
+(transposed) and ``bias{i}``; a norm's ``scale`` to ``weight``; VRCNet's raw
+SA parameters ``w_mlp1``, ``w_mlp2`` and ``w_mlp2_bias`` and DCP's fused
+edge-chain parameters ``fused_W{i}``, ``fused_scale{i}`` and
+``fused_bias{i}`` to the torch parameters of the same name, in the flax
+orientation (they enter a product as ``x @ W``).
 
 VRCNet's prior net (``LinearResBlock_2``, ``prior_infer``) runs only in the
 train branch: a checkpoint written by training holds it, a tree made for eval
@@ -23,7 +28,8 @@ need not. ``load_flax_params`` accepts a tree without it unless
 ``for_training``, and leaves the port's prior net as it was.
 
 ``to_flax_params(model)`` is the inverse: the port's parameters as the flax
-variables ``{'params': {...}}`` of numpy float32 arrays, which
+variables ``{'params': {...}}`` of numpy float32 arrays, plus
+``'batch_stats'`` where the model keeps running statistics, which
 ``train/checkpoint.py`` pickles so that the JAX package loads the port's
 checkpoints and the port loads the JAX package's.
 """
@@ -36,7 +42,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-from mvp_benchmark_tpu_torch.models import ecg, pcn, vrcnet
+from mvp_benchmark_tpu_torch.models import dcp, ecg, layers, pcn, vrcnet
 
 _PCN_ENCODER = {
     "PCNEncoder_0/TorchDense_0": "encoder.fc1",
@@ -81,8 +87,6 @@ def _ecg_table() -> dict:
 
 
 _ECG = _ecg_table()
-
-_RAW_LEAVES = ("w_mlp1", "w_mlp2", "w_mlp2_bias")
 
 
 def _dense3(flax: str, torch_name: str) -> dict:
@@ -130,7 +134,34 @@ def _vrcnet_table(model: "vrcnet.Model") -> dict:
     return table
 
 
-FLAX_TO_TORCH = {pcn.Model: _PCN, ecg.Model: _ECG, vrcnet.Model: _vrcnet_table}
+def _dcp_table() -> dict:
+    table = {"DGCNN_0": "emb_nn", "DGCNN_0/TorchDense_0": "emb_nn.fc",
+             "DGCNN_0/BatchNorm_0/BatchNorm_0": "emb_nn.bn",
+             "Transformer_0/UnbiasedLayerNorm_0": "transformer.enc_norm",
+             "Transformer_0/UnbiasedLayerNorm_1": "transformer.dec_norm"}
+    for side, norms in (("Encoder", 2), ("Decoder", 3)):
+        flax = f"Transformer_0/{side}Layer_0"
+        tl = f"transformer.{side.lower()}.0"
+        table.update({f"{flax}/UnbiasedLayerNorm_{i}": f"{tl}.norm{i}"
+                      for i in range(norms)})
+        table[f"{flax}/MultiHeadedAttention_0/MultiDense_0"] = f"{tl}.self_attn.proj"
+        table[f"{flax}/MultiHeadedAttention_0/TorchDense_0"] = f"{tl}.self_attn.out"
+        table[f"{flax}/FeedForward_0/TorchDense_0"] = f"{tl}.ff.fc1"
+        table[f"{flax}/FeedForward_0/TorchDense_1"] = f"{tl}.ff.fc2"
+    cross, tc = ("Transformer_0/DecoderLayer_0/MultiHeadedAttention_1",
+                 "transformer.decoder.0.src_attn")
+    table.update({f"{cross}/TorchDense_0": f"{tc}.q",
+                  f"{cross}/MultiDense_0": f"{tc}.proj",
+                  f"{cross}/TorchDense_1": f"{tc}.out"})
+    return table
+
+
+_DCP = _dcp_table()
+_RAW_PATTERN = r"(w_mlp1|w_mlp2|w_mlp2_bias|fused_(W|scale|bias)\d+)"
+_NORMS = (layers.BatchNorm, layers.UnbiasedLayerNorm)
+
+FLAX_TO_TORCH = {pcn.Model: _PCN, ecg.Model: _ECG, vrcnet.Model: _vrcnet_table,
+                 dcp.Model: _DCP}
 # scopes that only a train branch runs, which an eval tree may lack
 _TRAIN_ONLY = ("LinearResBlock_2/",)
 
@@ -165,16 +196,69 @@ def _copy(param: torch.Tensor, value: np.ndarray, where: str) -> None:
         param.copy_(value)
 
 
+def _torch_attr(module: torch.nn.Module, key: str):
+    """(torch attribute, transpose?) of a flax param leaf of ``module``."""
+    m = re.fullmatch(r"(kernel|bias|scale)(\d*)", key)
+    if m is not None and not (m[1] == "scale" and not isinstance(module, _NORMS)):
+        attr = ("bias" if m[1] == "bias" else "weight") + m[2]
+        return attr, m[1] == "kernel"
+    if re.fullmatch(_RAW_PATTERN, key):
+        return key, False
+    return None, False
+
+
+def _flax_key(module: torch.nn.Module, attr: str):
+    """The flax leaf of a torch parameter, and whether to transpose it."""
+    m = re.fullmatch(r"(weight|bias)(\d*)", attr)
+    if m is not None and m[1] == "weight":
+        if isinstance(module, _NORMS):
+            return "scale", False
+        return f"kernel{m[2]}", True
+    if m is not None or re.fullmatch(_RAW_PATTERN, attr):
+        return attr, False
+    return None, False
+
+
+def _split(variables: Mapping[str, Any]):
+    """(params, batch_stats or None) of a variables dict or a bare params
+    tree; any other collection has no torch home."""
+    if "params" not in variables:
+        return variables, None
+    extra = sorted(k for k, v in variables.items()
+                   if k not in ("params", "batch_stats") and v)
+    if extra:
+        raise ValueError(f"collections {extra} have no torch home")
+    return variables["params"], variables.get("batch_stats") or None
+
+
+def _load_stats(model: torch.nn.Module, table: dict, stats) -> None:
+    buffers = dict(model.named_buffers())
+    if stats is None:
+        if buffers:
+            raise ValueError(f"{type(model).__name__} keeps running statistics "
+                             f"{sorted(buffers)}: the flax variables need "
+                             "'batch_stats'")
+        return
+    filled = set()
+    for path, arrays in _leaf_modules(stats).items():
+        if path not in table:
+            raise ValueError(f"batch_stats scope {path} has no torch home")
+        for key, value in arrays.items():
+            name = f"{table[path]}.{key}"
+            if name not in buffers:
+                raise ValueError(f"batch_stats {path}/{key}: "
+                                 f"{type(model).__name__} has no buffer {name}")
+            _copy(buffers[name], value, f"batch_stats {path}/{key}")
+            filled.add(name)
+    unfilled = sorted(set(buffers) - filled)
+    if unfilled:
+        raise ValueError(f"torch buffers not in batch_stats: {unfilled}")
+
+
 def load_flax_params(model: torch.nn.Module, variables: Mapping[str, Any],
                      for_training: bool = False) -> torch.nn.Module:
     table = _table(model)
-    if "params" in variables:
-        extra = sorted(k for k, v in variables.items() if k != "params" and v)
-        if extra:
-            raise ValueError(f"collections {extra} have no torch home")
-        params = variables["params"]
-    else:
-        params = variables
+    params, stats = _split(variables)
     leaves = _leaf_modules(params)
     unknown = sorted(set(leaves) - set(table))
     absent = [k for k in table if k not in leaves]
@@ -190,15 +274,11 @@ def load_flax_params(model: torch.nn.Module, variables: Mapping[str, Any],
         name = table[path]
         module = model.get_submodule(name)
         for key, value in arrays.items():
-            m = re.fullmatch(r"(kernel|bias)(\d*)", key)
-            if m is not None:
-                attr = ("weight" if m[1] == "kernel" else "bias") + m[2]
-                if m[1] == "kernel":
-                    value = np.asarray(value).T
-            elif key in _RAW_LEAVES:
-                attr = key
-            else:
+            attr, transpose = _torch_attr(module, key)
+            if attr is None:
                 raise ValueError(f"{path}/{key}: no torch counterpart")
+            if transpose:
+                value = np.asarray(value).T
             param = getattr(module, attr, None)
             if not isinstance(param, torch.nn.Parameter):
                 raise ValueError(f"{path}/{key}: {name} has no parameter {attr}")
@@ -209,30 +289,39 @@ def load_flax_params(model: torch.nn.Module, variables: Mapping[str, Any],
                       if n not in filled and not n.startswith(tuple(left)))
     if unfilled:
         raise ValueError(f"torch parameters not in the flax tree: {unfilled}")
+    _load_stats(model, table, stats)
     return model
 
 
 def to_flax_params(model: torch.nn.Module) -> Dict[str, Any]:
     """The inverse of ``load_flax_params``: {'params': nested dicts of numpy
-    float32 arrays in the flax layout} (kernels (in, out), raw SA leaves as
-    they are)."""
+    float32 arrays in the flax layout} (kernels (in, out), norms' ``scale``,
+    raw leaves as they are), with 'batch_stats' where the model keeps
+    running statistics."""
     tree: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
     done = set()
+    buffers = dict(model.named_buffers())
     for path, name in _table(model).items():
-        node = tree
-        for part in path.split("/"):
-            node = node.setdefault(part, {})
-        for attr, param in model.get_submodule(name).named_parameters(recurse=False):
-            value = param.detach().cpu().numpy().astype(np.float32)
-            m = re.fullmatch(r"(weight|bias)(\d*)", attr)
-            if m is not None and m[1] == "weight":
-                node[f"kernel{m[2]}"] = np.ascontiguousarray(value.T)
-            elif m is not None or attr in _RAW_LEAVES:
-                node[attr] = value
-            else:
+        module = model.get_submodule(name)
+        for attr, param in module.named_parameters(recurse=False):
+            key, transpose = _flax_key(module, attr)
+            if key is None:
                 raise ValueError(f"{name}.{attr}: no flax counterpart")
+            value = param.detach().cpu().numpy().astype(np.float32)
+            _node(tree, path)[key] = np.ascontiguousarray(value.T) if transpose else value
             done.add(f"{name}.{attr}")
-    left = sorted(n for n, _ in model.named_parameters() if n not in done)
+        for attr, buf in module.named_buffers(recurse=False):
+            _node(stats, path)[attr] = buf.detach().cpu().numpy().astype(np.float32)
+            done.add(f"{name}.{attr}")
+    left = sorted(n for n in [*dict(model.named_parameters()), *buffers]
+                  if n not in done)
     if left:
         raise ValueError(f"torch parameters without a flax scope: {left}")
-    return {"params": tree}
+    return {"params": tree, "batch_stats": stats} if stats else {"params": tree}
+
+
+def _node(tree: Dict[str, Any], path: str) -> Dict[str, Any]:
+    for part in path.split("/"):
+        tree = tree.setdefault(part, {})
+    return tree

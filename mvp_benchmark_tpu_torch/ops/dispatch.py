@@ -156,3 +156,33 @@ def emd_auction(xyz1: torch.Tensor, xyz2: torch.Tensor, eps: float = 0.005,
     assignment = kernels.emd_assignment(xyz1.detach().contiguous(),
                                         xyz2.detach().contiguous(), eps, iters)
     return ref.emd_distance(xyz1, xyz2, assignment), assignment
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              scale: float) -> torch.Tensor:
+    """softmax(q k^T * scale) v, q (B, Nq, D), k (B, M, D), v (B, M, Dv)
+    (see ref.attention). On the card: bf16 with D = Dv = 128, or fp32 with
+    D % 32 == 0 and Dv = 3 (the svd head); eval only until slice 7."""
+    if _route(q, k, v) == "cuda":
+        return kernels.AttentionFunction.apply(q.contiguous(), k.contiguous(),
+                                               v.contiguous(), float(scale))
+    return ref.attention(q, k, v, scale)
+
+
+def attention_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   scale: float) -> torch.Tensor:
+    """Attention per head over (B, N, H, dk), read in place on the card: the
+    heads may be slices of a wider fused projection row (see
+    ref.attention_bnhd)."""
+    if _route(q, k, v) == "cuda":
+        return kernels.AttentionBnhdFunction.apply(q, k, v, float(scale))
+    return ref.attention_bnhd(q, k, v, scale)
+
+
+def edge_mlp_eval(a1: torch.Tensor, Ws, gammas, betas, means, variances):
+    """DGCNN's per-edge chain with running statistics, a1 (B, N, k, 6) ->
+    the four per-layer max-pools over k (see ref.edge_mlp_eval)."""
+    params = (*Ws, *gammas, *betas, *means, *variances)
+    if _route(a1, *params) == "cuda":
+        return kernels.EdgeMlpEvalFunction.apply(a1.contiguous(), *params)
+    return ref.edge_mlp_eval(a1, Ws, gammas, betas, means, variances)

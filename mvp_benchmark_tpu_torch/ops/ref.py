@@ -343,6 +343,104 @@ def sa_attention_backward(g: torch.Tensor, proj: torch.Tensor, x1: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Attention (DCP's transformer and svd head)
+# ---------------------------------------------------------------------------
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              scale: float) -> torch.Tensor:
+    """softmax(q k^T * scale) v over (B, Nq, D) queries, (B, M, D) keys and
+    (B, M, Dv) values (Dv may differ from D) -> (B, Nq, Dv) in q's dtype.
+
+    bf16 inputs: the arithmetic of ``_attn_math_fwd``
+    (``pallas_kernels.py:2235-2249``): bf16 operands, fp32 scores, an exact
+    fp32 softmax (row max, exp, row sum, divide), p rounded to bf16 before
+    P.V, fp32 accumulation, one rounding of the output to bf16. fp32 inputs:
+    fp32 throughout (the TPU kernel would round them to bf16; the port keeps
+    its fp32 paths fp32, as its gathers and SA block do). The contract of
+    ``csrc/attention.cu``, whose online softmax normalises at the end and so
+    rounds p elsewhere: the two agree to a tolerance, not bitwise.
+    """
+    out_dtype = q.dtype
+    bf16 = q.dtype == torch.bfloat16
+    B, Nq, _ = q.shape
+    M = k.shape[1]
+    step = max(1, _MAX_PAIRS // max(1, Nq * M))
+    outs = []
+    for b0 in range(0, B, step):
+        qb, kb, vb = (x[b0:b0 + step].to(torch.float32) for x in (q, k, v))
+        s = torch.matmul(qb, kb.transpose(1, 2)) * scale
+        e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        p = e / e.sum(dim=-1, keepdim=True)
+        if bf16:
+            p = p.to(torch.bfloat16).to(torch.float32)
+        outs.append(torch.matmul(p, vb).to(out_dtype))
+    return torch.cat(outs, 0)
+
+
+def attention_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   scale: float) -> torch.Tensor:
+    """``attention`` per head over the projection-native layout: q
+    (B, Nq, H, dk), k/v (B, M, H, dk) -> (B, Nq, H, dk), the semantics of
+    ``fused_attention_bnhd`` (``pallas_kernels.py:2610``). The kernel reads
+    the heads in place; this plain version moves them to the batch axis."""
+    B, Nq, H, dk = q.shape
+    M, dv = k.shape[1], v.shape[-1]
+
+    def heads(x, n, d):
+        return x.permute(0, 2, 1, 3).reshape(B * H, n, d)
+
+    out = attention(heads(q, Nq, dk), heads(k, M, dk), heads(v, M, dv), scale)
+    return out.reshape(B, H, Nq, dv).permute(0, 2, 1, 3).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# DGCNN's fused edge chain
+# ---------------------------------------------------------------------------
+
+EDGE_MLP_EPS = 1e-5
+
+
+def bn_scale_shift(gammas, betas, means, variances):
+    """Per-layer eval BatchNorm folded to one multiply-add per element:
+    scale = gamma * rsqrt(var + eps), shift = beta - mean * scale, in fp32
+    (``_em_bn_fast``, ``pallas_kernels.py:2759-2769``). Computed once per call
+    and handed to both the kernel and ``edge_mlp_eval``, so the two share
+    them bitwise. Returns ((scale, shift), ...) per layer."""
+    out = []
+    for g, b, m, var in zip(gammas, betas, means, variances):
+        sc = g.to(torch.float32) * torch.rsqrt(var.to(torch.float32) + EDGE_MLP_EPS)
+        out.append((sc, b.to(torch.float32) - m.to(torch.float32) * sc))
+    return tuple(out)
+
+
+def edge_mlp_eval(a1: torch.Tensor, Ws, gammas, betas, means, variances):
+    """DGCNN's per-edge chain in eval mode, a1 (B, N, k, C1) edge features
+    [x_j | x_i] -> the max over k of every layer's activations, one
+    (B, N, ch_l) fp32 tensor a layer.
+
+    Per layer: h = bf16(a) @ bf16(W) with fp32 accumulation, then
+    relu(h * scale + shift) with the running-stat BatchNorm folded by
+    ``bn_scale_shift``, then the max over k. That is
+    ``edge_mlp_reference(train=False)`` (``pallas_kernels.py:3163-3193``) up
+    to the folding's one reassociation rounding, which the TPU's own
+    forward-only passes also take. The TPU kernel reads a slot-major
+    (B, k, N, 8) tensor padded to 8 lanes; the port's a1 is (B, N, k, 6) as
+    its gather gives it. The contract of ``csrc/edge_mlp.cu``, which sums the
+    products in another order: the two agree to a tolerance.
+    """
+    ss = bn_scale_shift(gammas, betas, means, variances)
+    a = a1
+    xs = []
+    for W, (sc, sh) in zip(Ws, ss):
+        h = torch.matmul(a.to(torch.bfloat16).to(torch.float32),
+                         W.to(torch.bfloat16).to(torch.float32))
+        a = torch.relu(h * sc + sh)
+        xs.append(a.amax(dim=2))
+    return tuple(xs)
+
+
+# ---------------------------------------------------------------------------
 # Ball query
 # ---------------------------------------------------------------------------
 

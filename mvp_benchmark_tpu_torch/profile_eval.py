@@ -1,8 +1,9 @@
 """Where the time of an eval pass, or of a train step, goes on the card:
-``torch.profiler`` over a few val passes (or train steps) of a completion
-config, after warm-up.
+``torch.profiler`` over a few val passes of a completion or registration
+config (or train steps of a completion config), after warm-up.
 
     python -m mvp_benchmark_tpu_torch.profile_eval -c completion/cfgs/ecg.yaml
+    python -m mvp_benchmark_tpu_torch.profile_eval -c registration/cfgs/dcp.yaml
     python -m mvp_benchmark_tpu_torch.profile_eval -c completion/cfgs/vrcnet.yaml
     python -m mvp_benchmark_tpu_torch.profile_eval -c completion/cfgs/vrcnet.yaml --train
     python -m mvp_benchmark_tpu_torch.profile_eval -c completion/cfgs/ecg.yaml --train
@@ -27,6 +28,7 @@ from torch.profiler import ProfilerActivity, profile
 from torch.utils.flop_counter import FlopCounterMode
 
 from mvp_benchmark_tpu_torch.data.mvp import BatchSpec, MVPCompletionDataset
+from mvp_benchmark_tpu_torch.models import REGISTRATION_MODELS
 from mvp_benchmark_tpu_torch.train import engine
 from mvp_benchmark_tpu_torch.train.config import load_config
 from mvp_benchmark_tpu_torch.train.meters import AverageValueMeter
@@ -39,8 +41,9 @@ PORT_KERNELS = ("chamfer_rowmin_kernel", "knn_kernel", "fps_kernel",
                 "chamfer_backward_kernel", "scatter_add_rows_kernel",
                 "group_max_backward_kernel", "three_interpolate_backward_kernel",
                 "three_interpolate_dweight_kernel", "sa_attention_backward_kernel",
-                "ball_query_kernel", "emd_kernel")
-GEMM_MARKS = ("gemm", "xmma", "cutlass", "sm90_", "sm80_")
+                "ball_query_kernel", "emd_kernel", "attention_bf16_kernel",
+                "attention_f32_kernel", "edge_mlp_kernel")
+GEMM_MARKS = ("gemm", "xmma", "cutlass", "nvjet", "sm90_", "sm80_")
 
 
 def _device_us(evt) -> float:
@@ -63,12 +66,26 @@ def profile_val(cfg_path: str, data_dir: str, passes: int = 5,
                 warmup: int = 3, top: int = 25) -> str:
     cfg = load_config(cfg_path)
     device = engine.resolve_device("cuda")
+    if cfg.model_name in REGISTRATION_MODELS:
+        return profile_registration_val(cfg, data_dir, device, passes, warmup, top)
     step = engine.make_eval_step(engine.build_model(cfg, device), device)
     spec = BatchSpec(int(cfg.batch_size))
     ds = MVPCompletionDataset("val", data_dir, int(cfg.num_points))
     meters = {m: AverageValueMeter() for m in engine.completion_metrics(cfg)}
     return _profile(cfg, lambda: step(next(iter(ds.batches(spec))), prefix="val"),
                     lambda: engine.val_completion(step, ds, spec, meters),
+                    ds.steps_per_epoch(spec), "val batches", passes, warmup, top)
+
+
+def profile_registration_val(cfg, data_dir: str, device: torch.device,
+                             passes: int, warmup: int, top: int) -> str:
+    step = engine.make_registration_eval_step(engine.build_model(cfg, device), device)
+    spec = BatchSpec(int(cfg.batch_size))
+    ds = engine.registration_dataset(cfg, "val", data_dir)
+    meters = {m: AverageValueMeter() for m in engine.REG_METRICS}
+    split = engine.registration_split_meters(cfg)
+    return _profile(cfg, lambda: step(next(iter(ds.batches(spec))), prefix="val"),
+                    lambda: engine.val_registration(step, ds, spec, meters, split),
                     ds.steps_per_epoch(spec), "val batches", passes, warmup, top)
 
 
@@ -133,14 +150,17 @@ def _profile(cfg, once, unit, batches_per_unit, what, units, warmup, top) -> str
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("-c", "--config", required=True)
-    parser.add_argument("--data-dir", default=os.path.join("completion", "data"))
+    parser.add_argument("--data-dir", default=None,
+                        help="default: the data/ folder beside the config's cfgs/")
     parser.add_argument("--passes", type=int, default=5,
                         help="val passes (train steps with --train) profiled")
     parser.add_argument("--train", action="store_true",
                         help="profile train steps instead of val passes")
     arg = parser.parse_args(argv)
     run = profile_train if arg.train else profile_val
-    print(run(arg.config, arg.data_dir, arg.passes))
+    data_dir = arg.data_dir or os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(arg.config))), "data")
+    print(run(arg.config, data_dir, arg.passes))
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
-"""Train and eval engine for the completion track (port of the completion
-part of ``mvp_benchmark_tpu/train/engine.py``).
+"""Train and eval engine (port of ``mvp_benchmark_tpu/train/engine.py``): the
+completion track, and the registration track's eval.
 
 PyTorch runs eagerly, so a step is the model called on an explicit device;
 there is nothing to jit. The eval step runs under ``torch.inference_mode()``.
@@ -17,6 +17,12 @@ writes ``best_<metric>_network.pkl``. A model that samples noise in train
 (VRCNet) gets it from ``draw_noise`` on the CPU, per step, from a
 ``torch.Generator`` seeded from ``manual_seed``. Multi-process data
 parallelism comes with a later slice.
+
+The registration val pass reproduces ``val_registration``
+(``engine.py:596-660``): RotE, transE, MSE (the model's fifth output,
+``rt_mse``), RMSE and recall at RMSE < 0.1, averaged over the real samples,
+and the same metrics split by rotation level and match level. Registration
+training comes with a later slice.
 """
 
 from __future__ import annotations
@@ -30,7 +36,8 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
-from mvp_benchmark_tpu_torch.data.mvp import BatchSpec, MVPCompletionDataset
+from mvp_benchmark_tpu_torch.data.mvp import (BatchSpec, MVPCompletionDataset,
+                                              MVPRegistrationDataset)
 from mvp_benchmark_tpu_torch.models import get_model
 from mvp_benchmark_tpu_torch.models.transplant import load_flax_params
 from mvp_benchmark_tpu_torch.train import checkpoint as ckpt
@@ -301,3 +308,95 @@ def train_completion(cfg: Config, log_dir: str, data_dir: str = "./data",
             history["val"].append(res)
     return {"best": best, "history": history, "model": model,
             "optimizer": optimizer}
+
+
+# ---------------------------------------------------------------------------
+# Registration track
+# ---------------------------------------------------------------------------
+
+REG_METRICS = ["RotE", "transE", "MSE", "RMSE", "recall"]
+
+
+def make_registration_eval_step(model: torch.nn.Module,
+                                device: torch.device) -> Callable:
+    """step(batch, prefix) for a numpy registration batch: "test" -> T_12
+    (B, 4, 4); "val" -> (loss, r_err, t_err, rmse, rt_mse)."""
+
+    def step(batch: Dict[str, np.ndarray], prefix: str = "val"):
+        with torch.inference_mode():
+            src = _to_device(batch["src"], device)
+            tgt = _to_device(batch["tgt"], device)
+            if prefix == "test":
+                return model(src, tgt, None, prefix="test")
+            T = _to_device(batch["transform"], device)
+            return model(src, tgt, T, prefix=prefix)
+
+    return step
+
+
+def registration_split_meters(cfg: Config):
+    """[rot_level][match_level] -> {metric: meter}."""
+    return [[{m: AverageValueMeter() for m in REG_METRICS}
+             for _ in range(int(cfg.num_corr_levels or 2))]
+            for _ in range(int(cfg.num_rot_levels or 2))]
+
+
+def val_registration(eval_step: Callable, dataset_val, spec: BatchSpec,
+                     val_meters: Dict[str, AverageValueMeter], split_meters,
+                     rmse_thresh: float = 0.1) -> Dict[str, float]:
+    """One val pass; returns {metric: average over the real samples} and
+    fills ``split_meters`` per (rot_level, match_level), logging both."""
+    for v in val_meters.values():
+        v.reset()
+    for row in split_meters:
+        for cell in row:
+            for v in cell.values():
+                v.reset()
+    pending = []
+    for batch in dataset_val.batches(spec):
+        _, r_err, t_err, rmse, mse = eval_step(batch, prefix="val")
+        pending.append(((r_err, t_err, rmse, mse),
+                        (int(batch["count"]), batch["rot_level"], batch["match_level"])))
+    for outs, (count, rot_level, match_level) in pending:
+        r_err, t_err, rmse, mse = (o.cpu().numpy() for o in outs)
+        recall = (rmse < rmse_thresh).astype(np.float32)
+        vals = {"RotE": r_err, "transE": t_err, "MSE": mse, "RMSE": rmse,
+                "recall": recall}
+        for m, arr in vals.items():
+            val_meters[m].update(float(arr[:count].mean()), count)
+        for i in range(count):
+            cell = split_meters[int(rot_level[i])][int(match_level[i])]
+            for m, arr in vals.items():
+                cell[m].update(float(arr[i]))
+    logger.info("".join(f"curr_{m}: {v.avg:f}; " for m, v in val_meters.items()))
+    for rl, row in enumerate(split_meters):
+        for ml, cell in enumerate(row):
+            logger.info("[rot_level %d, match_level %d] %s", rl, ml,
+                        "; ".join(f"curr_{m}: {v.avg:f}" for m, v in cell.items()))
+    return {m: meter.avg for m, meter in val_meters.items()}
+
+
+def registration_dataset(cfg: Config, prefix: str, data_dir: str):
+    return MVPRegistrationDataset(
+        prefix, max_angle=float(cfg.max_angle or 180.0),
+        max_trans=float(cfg.max_trans or 0.5), category=cfg.category,
+        data_dir=data_dir, num_points=int(cfg.num_points or 2048))
+
+
+def predict_registration(eval_step: Callable, dataset, spec: BatchSpec) -> np.ndarray:
+    """Test-branch poses T_12 for every real sample, (len(dataset), 4, 4)."""
+    outs = [(int(batch["count"]), eval_step(batch, prefix="test"))
+            for batch in dataset.batches(spec)]
+    return np.concatenate([T[:count].cpu().numpy() for count, T in outs], axis=0)
+
+
+def run_registration_val(cfg: Config, data_dir: str,
+                         device: torch.device) -> Dict[str, float]:
+    """The val pass over the val split (MVP_Test_RG) at ``cfg``'s size:
+    RotE, transE, MSE, RMSE, recall, and the rot/match split in the log."""
+    model = build_model(cfg, device)
+    meters = {m: AverageValueMeter() for m in REG_METRICS}
+    return val_registration(make_registration_eval_step(model, device),
+                            registration_dataset(cfg, "val", data_dir),
+                            BatchSpec(int(cfg.batch_size)), meters,
+                            registration_split_meters(cfg))

@@ -1,6 +1,7 @@
-"""Codalab-style submission writer (port of
-``mvp_benchmark_tpu/train/submission.py``, completion part): results.h5 with
-a ``results`` key + a ``submission.zip`` containing it."""
+"""Codalab-style submission writers (port of
+``mvp_benchmark_tpu/train/submission.py``): results.h5 with a ``results`` key
++ a ``submission.zip`` containing it, for the completion track's predicted
+clouds and the registration track's poses."""
 
 from __future__ import annotations
 
@@ -41,4 +42,23 @@ def run_completion_test(cfg, log_dir: str, data_dir: str,
     """Inference over the extra-test split + submission files (reference
     completion/test.py:23-64). Returns (zip path, results)."""
     results = predict_completion_test(cfg, data_dir, device)
+    return write_submission(log_dir, results), results
+
+
+def predict_registration_test(cfg, data_dir: str,
+                              device: torch.device) -> np.ndarray:
+    """Poses T_12 (n, 4, 4) over the extra-test split (reference
+    registration/test.py:27-54)."""
+    model = engine.build_model(cfg, device)
+    return engine.predict_registration(
+        engine.make_registration_eval_step(model, device),
+        engine.registration_dataset(cfg, "test", data_dir),
+        BatchSpec(int(cfg.batch_size)))
+
+
+def run_registration_test(cfg, log_dir: str, data_dir: str,
+                          device: torch.device):
+    """Pose prediction over the extra-test split + submission files
+    (reference registration/test.py:27-66). Returns (zip path, results)."""
+    results = predict_registration_test(cfg, data_dir, device)
     return write_submission(log_dir, results), results

@@ -116,3 +116,24 @@ def test_autograd_function_forward_and_backward(monkeypatch):
     want = ref.chamfer_backward(a.detach(), b, i1, torch.ones_like(d1), i2,
                                 torch.full_like(d2, 2.0))[0]
     torch.testing.assert_close(a.grad, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("shape", [(2, 256, 128), (2, 128, 256)])
+def test_backward_matches_the_gated_off_masked_reduction_kernel(shape):
+    """PERF.md row 3: ``_chamfer_bwd_dir`` (``pallas_kernels.py:222``, gated
+    off by ``CHAMFER_BWD_PALLAS``) computes the chamfer gradient as masked
+    reductions; ``ref.chamfer_backward``, the contract of row 2's kernel,
+    computes the same function (rtol 1e-5, atol 1e-6: sums in another
+    order)."""
+    a, b = clouds_without_near_ties(*shape)
+    d1, d2, i1, i2 = ref.chamfer_distance(torch.from_numpy(a), torch.from_numpy(b))
+    rng = np.random.default_rng(7)
+    g1 = rng.random(tuple(d1.shape), dtype=np.float64).astype(np.float32)
+    g2 = rng.random(tuple(d2.shape), dtype=np.float64).astype(np.float32)
+    i1n, i2n = i1.numpy(), i2.numpy()
+    want_a = np.asarray(pallas_kernels._chamfer_bwd_dir(a, b, i1n, g1, i2n, g2))
+    want_b = np.asarray(pallas_kernels._chamfer_bwd_dir(b, a, i2n, g2, i1n, g1))
+    da, db = ref.chamfer_backward(torch.from_numpy(a), torch.from_numpy(b), i1,
+                                  torch.from_numpy(g1), i2, torch.from_numpy(g2))
+    np.testing.assert_allclose(da.numpy(), want_a, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(db.numpy(), want_b, rtol=1e-5, atol=1e-6)

@@ -741,3 +741,119 @@ def test_ecg_train_step_on_card_equals_cpu(cuda):
     gw = torch.cat([g.reshape(-1) for g in g_cpu]).double()
     assert abs(float(gc.norm() - gw.norm())) <= 1e-3 * float(gw.norm())
     assert float(gc @ gw / (gc.norm() * gw.norm())) >= 0.9999
+
+
+# ---------------------------------------------------------------------------
+# DCP: attention (rows 14-15) and the edge chain (row 16)
+# ---------------------------------------------------------------------------
+
+def _normwise(got, want):
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / want.norm())
+
+
+@pytest.mark.parametrize("B,N,M,H", [(2, 2048, 2048, 4), (2, 1000, 777, 3),
+                                     (1, 5, 3, 1)])
+def test_attention_bnhd_kernel_matches_plain_version(cuda, B, N, M, H):
+    """bf16 heads read in place from fused projection rows; the online
+    softmax rounds p before its division by l, the plain version after, so
+    the bar is normwise 1e-2 (3.1e-3 measured at DCP's shape)."""
+    g = torch.Generator(device="cuda").manual_seed(N)
+    d = H * 128
+    y = torch.randn(B, N, 3 * d, device=cuda, generator=g).to(torch.bfloat16)
+    ym = torch.randn(B, M, 3 * d, device=cuda, generator=g).to(torch.bfloat16)
+    q = y[..., :d].reshape(B, N, H, 128)
+    k, v = ym[..., d:2 * d].reshape(B, M, H, 128), ym[..., 2 * d:].reshape(B, M, H, 128)
+    scale = 128 ** -0.5
+    before = kernels.ATTENTION_BNHD_LAUNCHES
+    got = dispatch.attention_bnhd(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert kernels.ATTENTION_BNHD_LAUNCHES == before + 1
+    want = ref.attention_bnhd(q, k, v, scale)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert _normwise(got, want) < 1e-2
+    _, m, l = kernels.attention_bnhd_forward(q, k, v, scale, stats=True)
+    s = torch.matmul(q.float().transpose(1, 2), k.float().permute(0, 2, 3, 1)) * scale
+    torch.testing.assert_close(m, s.amax(-1), rtol=0, atol=1e-4)
+    torch.testing.assert_close(l, torch.exp(s - s.amax(-1, keepdim=True)).sum(-1),
+                               rtol=1e-4, atol=0)
+
+
+@pytest.mark.parametrize("B,N,M,D", [(2, 2048, 2048, 512), (3, 1000, 777, 64)])
+def test_attention_f32_kernel_matches_plain_version(cuda, B, N, M, D):
+    """The svd head's fp32 correspondence with the 3-wide value, within
+    1e-5 + 1e-4 |plain| (another summation order)."""
+    g = torch.Generator(device="cuda").manual_seed(D)
+    q = torch.randn(B, N, D, device=cuda, generator=g)
+    k = torch.randn(B, M, D, device=cuda, generator=g)
+    v = torch.rand(B, M, 3, device=cuda, generator=g)
+    got = dispatch.attention(q, k, v, D ** -0.5)
+    want = ref.attention(q, k, v, D ** -0.5)
+    assert ((got - want).abs() <= 1e-5 + 1e-4 * want.abs()).all()
+
+
+@pytest.mark.parametrize("B,N,K", [(2, 2048, 20), (3, 1001, 7)])
+def test_edge_mlp_kernel_matches_plain_version(cuda, B, N, K):
+    """Normwise 1e-4 a layer (6.6e-6 measured at DCP's shape): a bf16
+    rounding of an activation may land on the other side."""
+    g = torch.Generator(device="cuda").manual_seed(K)
+    x = torch.rand(B, N, 3, device=cuda, generator=g)
+    nb = ref.gather_points(x, ref.knn_indices(x, K))
+    a1 = torch.cat([nb, x[:, :, None].expand_as(nb)], -1).to(torch.bfloat16)
+    chs, cins = (64, 64, 128, 256), (6, 64, 64, 128)
+    Ws = [(torch.rand(ci, c, device=cuda, generator=g) * 2 - 1) * ci ** -0.5
+          for ci, c in zip(cins, chs)]
+    params = [[1 + 0.1 * torch.randn(c, device=cuda, generator=g) for c in chs],
+              [0.1 * torch.randn(c, device=cuda, generator=g) for c in chs],
+              [0.1 * torch.randn(c, device=cuda, generator=g) for c in chs],
+              [0.5 + torch.rand(c, device=cuda, generator=g) for c in chs]]
+    before = kernels.EDGE_MLP_LAUNCHES
+    got = dispatch.edge_mlp_eval(a1, Ws, *params)
+    torch.cuda.synchronize()
+    assert kernels.EDGE_MLP_LAUNCHES == before + 1
+    for gl, wl in zip(got, ref.edge_mlp_eval(a1, Ws, *params)):
+        assert gl.shape == wl.shape and _normwise(gl, wl) < 1e-4
+
+
+def test_attention_and_edge_mlp_wrappers_reject_bad_inputs(cuda):
+    q = torch.zeros(1, 8, 2, 128, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="D = Dv = 128"):
+        kernels.attention_bnhd_forward(q[..., :64], q[..., :64], q[..., :64], 1.0)
+    with pytest.raises(ValueError, match="Dv = 3"):
+        kernels.attention_forward(q[:, :, 0].float(), q[:, :, 0].float(),
+                                  q[:, :, 0].float(), 1.0)
+    with pytest.raises(TypeError, match="share a dtype"):
+        kernels.attention_bnhd_forward(q, q.float(), q, 1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.attention_bnhd_forward(q.transpose(1, 2).contiguous().transpose(1, 2),
+                                       q, q, 1.0)
+    a1 = torch.zeros(1, 4, 3, 6, device=cuda, dtype=torch.bfloat16)
+    Ws = [torch.zeros(ci, c, device=cuda) for ci, c in
+          ((6, 64), (64, 64), (64, 128), (128, 256))]
+    ps = [[torch.ones(c, device=cuda) for c in (64, 64, 128, 256)]] * 4
+    with pytest.raises(TypeError, match="bfloat16"):
+        kernels.edge_mlp_forward(a1.float(), Ws, *ps)
+    with pytest.raises(ValueError, match="W2"):
+        kernels.edge_mlp_forward(a1, Ws[:2] + [Ws[1]] + Ws[3:], *ps)
+
+
+def test_dcp_on_card_equals_cpu(cuda):
+    """DCP at the smoke size, the same seeded weights on both devices: the
+    bf16 transformer's products round differently in cuBLAS and on the CPU.
+    Each output's bar (rtol, atol) is ~10x its gap on this batch measured on
+    an H100 (loss 2.7e-6, transE 2.5e-4, RMSE 7.0e-5, MSE 4.9e-4, T_12
+    2.6e-4); RotE, 0.014 degrees apart, keeps rtol 5e-3 + atol 5e-3."""
+    from mvp_benchmark_tpu_torch.train import engine
+    from mvp_benchmark_tpu_torch.train.config import load_config
+
+    cfg = load_config("registration/cfgs/dcp_smoke.yaml")
+    batch = next(engine.registration_dataset(cfg, "val", "nodata").batches(
+        engine.BatchSpec(4)))
+    outs = []
+    for device in (cuda, torch.device("cpu")):
+        step = engine.make_registration_eval_step(engine.build_model(cfg, device), device)
+        outs.append([o.cpu() for o in step(batch, "val")] + [step(batch, "test").cpu()])
+    bars = {"loss": (0, 3e-5), "RotE": (5e-3, 5e-3), "transE": (0, 2.5e-3),
+            "RMSE": (0, 7e-4), "MSE": (0, 5e-3), "T_12": (0, 2.5e-3)}
+    for (name, (rtol, atol)), g, w in zip(bars.items(), *outs):
+        torch.testing.assert_close(g, w, rtol=rtol, atol=atol, msg=name)

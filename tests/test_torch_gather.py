@@ -184,3 +184,18 @@ def test_autograd_functions_name_the_backward_they_wait_for(monkeypatch, fn,
                                [x for x in (fp, wp)[:args - 1] if x.requires_grad])
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("c1", [4, 16])
+def test_gather_then_split_equals_grouping_split(c1):
+    """PERF.md row 12: ``grouping_split`` (``pallas_kernels.py:1838``, no
+    model calls it) gathers rows and splits the channels at c1 in one
+    kernel; row 11's gather followed by a slice computes the same, bitwise
+    on bf16-valued features (its one-hot product rounds the table to bf16)."""
+    rng = np.random.default_rng(c1)
+    f = _bf16_values(_table(3, 2, 70, c1 + 20))
+    idx = rng.integers(0, 70, (2, 33, 5)).astype(np.int32)
+    want = pallas_kernels.grouping_split(jnp.asarray(f), jnp.asarray(idx), c1)
+    got = ref.gather_points(torch.from_numpy(f), torch.from_numpy(idx))
+    for g, w in zip((got[..., :c1], got[..., c1:]), want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w, np.float32))

@@ -17,13 +17,16 @@ SLICE_MODULES = [
     "mvp_benchmark_tpu_torch.ops.dispatch",
     "mvp_benchmark_tpu_torch.metrics",
     "mvp_benchmark_tpu_torch.metrics.completion",
+    "mvp_benchmark_tpu_torch.metrics.registration",
     "mvp_benchmark_tpu_torch.models",
     "mvp_benchmark_tpu_torch.models.layers",
     "mvp_benchmark_tpu_torch.models.pcn",
     "mvp_benchmark_tpu_torch.models.common",
     "mvp_benchmark_tpu_torch.models.ecg",
     "mvp_benchmark_tpu_torch.models.vrcnet",
+    "mvp_benchmark_tpu_torch.models.dcp",
     "mvp_benchmark_tpu_torch.models.transplant",
+    "mvp_benchmark_tpu_torch.data.augment",
     "mvp_benchmark_tpu_torch.data.mvp",
     "mvp_benchmark_tpu_torch.train.config",
     "mvp_benchmark_tpu_torch.train.checkpoint",
@@ -132,3 +135,27 @@ def test_ecg_train_step_and_emd_run_without_jax_flax_yaml_or_h5py():
         " if p.grad is not None)}))\n")
     assert out["u2"] > 0 and out["grads"]
     assert len(out["emd"]) == 2 and all(0 < e < 2 for e in out["emd"])
+
+
+def test_dcp_slice_runs_without_jax_flax_yaml_or_h5py(tmp_path):
+    """The DCP slice through the CLI's functions on the CPU: the kNN, the
+    gather, the edge chain and both attentions take their plain versions;
+    the val metrics and the test poses come out finite, the poses rigid."""
+    out = _run(
+        "import json, sys\n"
+        "for m in ('jax', 'flax', 'optax', 'yaml', 'h5py'): sys.modules[m] = None\n"
+        "import torch\n"
+        "from mvp_benchmark_tpu_torch.train import config, engine, submission\n"
+        "cfg = config.load_config('registration/cfgs/dcp_smoke.yaml')\n"
+        "cpu = torch.device('cpu')\n"
+        f"res = engine.run_registration_val(cfg, {str(tmp_path)!r}, cpu)\n"
+        f"T = torch.from_numpy(submission.predict_registration_test(cfg, {str(tmp_path)!r}, cpu))\n"
+        "R = T[:, :3, :3]\n"
+        "print(json.dumps({'val': res, 'shape': list(T.shape),\n"
+        "  'finite': bool(torch.isfinite(T).all()),\n"
+        "  'rigid': float((R @ R.transpose(1, 2) - torch.eye(3)).abs().max()),\n"
+        "  'det': float((torch.linalg.det(R) - 1).abs().max())}))\n")
+    assert sorted(out["val"]) == sorted(["RotE", "transE", "MSE", "RMSE", "recall"])
+    assert all(v == v and abs(v) != float("inf") for v in out["val"].values())
+    assert out["shape"] == [32, 4, 4] and out["finite"]
+    assert out["rigid"] < 1e-5 and out["det"] < 1e-5
