@@ -19,7 +19,11 @@ Phases, each of which raises on failure (exit code != 0):
    edge cases, and the auction EMD at the val metric's (32, 2048, eps 0.004,
    3000 iterations), at an iteration count that ends in the forced round
    and at an n that is not a multiple of 1024: indices and assignments
-   equal;
+   equal; DCP's kernels at its shapes: the attention forwards and the edge
+   chain's eval pass, and for training the attention backwards (bf16
+   normwise, fp32 within the SA bar) and the chain's stat, final and
+   backward passes against autograd of its plain version (normwise), two
+   runs of the latter bitwise equal;
 4. drives each main path through the functions ``completion/test_torch.py``
    and ``completion/train_torch.py`` call, with seeded weights, on the
    synthetic splits, each with the launch counts zeroed just before and read
@@ -29,9 +33,12 @@ Phases, each of which raises on failure (exit code != 0):
    (``vrcnet.yaml``); PCN's val pass with ``eval_emd: True`` (emd too);
    then ``engine.train_completion`` of PCN, VRCNet and ECG for one epoch of
    ``TRAIN_STEPS`` steps at batch 32 x 2048 points, with its val pass and
-   checkpoints; and the val pass (RotE, transE, MSE, RMSE, recall) and test
+   checkpoints; the val pass (RotE, transE, MSE, RMSE, recall) and test
    pass (32 poses) of full-width DCP (``registration/cfgs/dcp.yaml``), the
-   functions ``registration/test_torch.py`` calls;
+   functions ``registration/test_torch.py`` calls; and
+   ``engine.train_registration`` of DCP (what ``registration/train_torch.py``
+   runs) for the synthetic train split's two steps, its val pass and
+   checkpoints;
 5. checks the results: finite, of the expected shape, metrics equal to the
    ones recomputed with the plain chamfer on the card (rtol 1e-6), a val
    batch equal to the same model run on the CPU (PCN outputs atol 1e-5 /
@@ -45,9 +52,12 @@ Phases, each of which raises on failure (exit code != 0):
    the plain auction gives on the same predictions (rtol 1e-6); DCP's val
    metrics equal to the ones recomputed from its test-branch poses of the
    val clouds, its poses rigid, and a val batch cut to two full-width
-   clouds equal to the CPU's (``check_dcp_batch_on_cpu``);
+   clouds equal to the CPU's (``check_dcp_batch_on_cpu``); DCP's train
+   losses and gradients finite, its checkpoint reloading to the same val
+   metrics, and a train step on two full-width pairs equal to the CPU's
+   (``check_dcp_step_on_cpu``);
 6. times the val and test passes per batch, the train steps (ms and
-   points/s), and each kernel against its plain version (and a single
+   points/s; DCP's in pairs/s), and each kernel against its plain version (and a single
    PyTorch call computing the same function, where one exists) at a
    main-path shape, beside the least time the card could take
    (``bound_ms``).
@@ -70,6 +80,7 @@ from mvp_benchmark_tpu_torch.metrics import (calc_cd, fscore, rmse_loss,
                                              rotation_error,
                                              rotation_geodesic_error,
                                              translation_error)
+from mvp_benchmark_tpu_torch.models.dcp import SHIFT_INVARIANT as DCP_SHIFT_INVARIANT
 from mvp_benchmark_tpu_torch.ops import kernels, ref
 from mvp_benchmark_tpu_torch.data.mvp import BatchSpec, MVPCompletionDataset
 from mvp_benchmark_tpu_torch.train import engine, submission
@@ -140,6 +151,17 @@ KERNELS.update({
                        "replaces": f"{_PK}:2637"},
     "edge_mlp": {"name": "edge_mlp_eval", "source": f"{_CSRC}/edge_mlp.cu",
                  "replaces": f"{_PK}:3025"},
+    "attention_backward": {"name": "attention_backward",
+                           "source": f"{_CSRC}/attention_backward.cu",
+                           "replaces": f"{_PK}:2502"},
+    "attention_bnhd_backward": {"name": "attention_bnhd_backward",
+                                "source": f"{_CSRC}/attention_backward.cu",
+                                "replaces": f"{_PK}:2663"},
+    "edge_mlp_stat": {"name": "edge_mlp_stat", "source": f"{_CSRC}/edge_mlp.cu",
+                      "replaces": f"{_PK}:3009"},
+    "edge_mlp_backward": {"name": "edge_mlp_backward",
+                          "source": f"{_CSRC}/edge_mlp.cu",
+                          "replaces": f"{_PK}:3043"},
 })
 
 # ECG's kernel launches per forward pass, read off models/ecg.py and
@@ -207,6 +229,18 @@ ECG_PER_STEP = dict(ECG_PER_BATCH, knn=20, fps=6, gather=33, ball_query=10,
 # self- and cross-attention; the svd head one fp32 attention.
 DCP_PER_BATCH = {"knn": 2, "gather": 2, "edge_mlp": 2, "attention_bnhd": 6,
                  "attention": 1}
+# A DCP train step (engine.make_registration_train_step, prefix "train"):
+# the forward's kNN and gathers as in eval (the clouds need no gradient, so
+# no scatter), the edge chain in train mode on src and on tgt, each four
+# stat passes and the final pass, and the backward: the chain's five passes
+# a call (ten), each of the six bnhd attentions' backward, and the svd
+# head's (src and tgt embeddings; the target cloud asks for no dV). Each
+# attention backward call counts one, though it launches the dQ kernel and
+# the dK/dV kernel.
+DCP_PER_STEP = {"knn": 2, "gather": 2, "edge_mlp_stat": 8, "edge_mlp": 2,
+                "edge_mlp_backward": 10, "attention_bnhd": 6,
+                "attention_bnhd_backward": 6, "attention": 1,
+                "attention_backward": 1}
 TRAIN_STEPS = 3       # max_steps_per_epoch of each driven train path
 # The SA block's tolerance against its plain version on the card:
 # |kernel - plain| <= SA_ATOL + SA_RTOL |plain| (another summation order).
@@ -223,6 +257,28 @@ ATTN_BF16_NORM, EDGE_MLP_NORM = 1e-2, 1e-4
 # 0.028 degrees, transE 3.3e-4, RMSE 2.4e-4, MSE 8.1e-4, T_12 6.8e-4).
 DCP_CPU_ATOL = {"loss": 2e-4, "RotE": 0.25, "transE": 3e-3, "RMSE": 2.5e-3,
                 "MSE": 5e-3, "T_12": 5e-3}
+# DCP's train kernels against their plain versions on the card. The bf16
+# attention backward normwise (its p and ds round to bf16 as the plain
+# version's do; 1.7e-4 measured on an H100); the fp32 one within SA_ATOL +
+# SA_RTOL |plain| (bitwise equal measured: both sum with sequential FMAs in
+# key order). The train chain's forward normwise, its max-pools
+# EDGE_TRAIN_NORM (the kernel folds the batch statistics into a scale and
+# shift, the plain version does not: an activation may round to the other
+# bf16 neighbour; 2.1e-4 measured) and its statistics EDGE_STAT_NORM (4.2e-7
+# measured); its gradients normwise EDGE_GRAD_NORM against autograd of the
+# plain version, which rounds the carried cotangent to bf16 where the
+# kernel rounds dh (1.6e-2 measured for d_a1, <= 1e-2 for the others), at
+# the JAX test's own bar for its 4-layer kernel against its reference.
+ATTN_BF16_BWD_NORM = 1e-3
+EDGE_TRAIN_NORM, EDGE_STAT_NORM, EDGE_GRAD_NORM = 1e-3, 1e-5, 2e-2
+# A DCP train step on two full-width pairs, card against CPU
+# (check_dcp_step_on_cpu): the loss relative, the gradients' cosine outside
+# the edge chain, the running statistics absolute, the edge chain's leaves
+# by cosine and normwise against each leaf's own norm (bars that a zero or
+# sign-flipped gradient fails), each 6-30x its gap measured on an H100
+# (5.5e-5; 1 - 2.1e-5; 7.7e-7; 1 - 3.3e-6, 2.6e-3).
+DCP_STEP_BARS = {"loss": 5e-4, "cosine": 0.9998, "stats": 1e-5,
+                 "chain_cosine": 0.9999, "chain_normwise": 2e-2}
 
 
 class SmokeFailure(RuntimeError):
@@ -636,6 +692,98 @@ def compare_dcp_kernels_with_plain(device):
     return err
 
 
+def _attention_stats_inputs(seed, B, N, M, device, bnhd):
+    """Inputs of one attention backward: q, k, v, the kernel forward's
+    output and row stats, and a unit-normal cotangent of the output."""
+    if bnhd:
+        q, k, v = dcp_attention_inputs(seed, B, N, M, 4 if B == 32 else 3, device)
+        o, m, l = kernels.attention_bnhd_forward(q, k, v, 128 ** -0.5, stats=True)
+        scale = 128 ** -0.5
+    else:
+        g = torch.Generator(device=device).manual_seed(seed)
+        q = torch.randn(B, N, 512, device=device, generator=g)
+        k = torch.randn(B, M, 512, device=device, generator=g)
+        v = torch.rand(B, M, 3, device=device, generator=g)
+        scale = 512 ** -0.5
+        o, m, l = kernels.attention_forward(q, k, v, scale, stats=True)
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    d_out = torch.randn(o.shape, device=device, generator=g).to(o.dtype)
+    return q, k, v, o, m, l, d_out, scale
+
+
+def edge_train_inputs(seed, B, N, K, device):
+    """dcp_edge_inputs without the running statistics, and unit-normal
+    cotangents of the four max-pools."""
+    a1, Ws, params = dcp_edge_inputs(seed, B, N, K, device)
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    gxs = [torch.randn(B, N, c, device=device, generator=g)
+           for c in kernels.EDGE_MLP_CHANNELS[1:]]
+    return a1, Ws, params[0], params[1], gxs
+
+
+def compare_dcp_train_kernels_with_plain(device):
+    """Phase 3e: the backward kernels of DCP's attentions and the edge
+    chain's train passes at a train step's shapes (the transformer's (32,
+    2048, 4, 128) bf16 heads, the svd head's (32, 2048, 512) fp32
+    embeddings, the chain's (32, 2048, 20, 6) edges) plus ragged ones,
+    against ``ref.attention_backward`` and autograd of
+    ``ref.edge_mlp_train``; and two runs of the chain's stat and backward
+    passes bitwise equal. Returns {key: max |kernel - plain|}."""
+    err = dict.fromkeys(("attention_bnhd_backward", "attention_backward",
+                         "edge_mlp_stat", "edge_mlp_backward"), 0.0)
+    for (B, N, M) in ((32, 2048, 2048), (2, 1000, 777)):
+        *x, d_out, scale = _attention_stats_inputs(500 + N, B, N, M, device, True)
+        got = kernels.attention_bnhd_backward(*x, d_out, scale)
+        for name, g, w in zip(("dq", "dk", "dv"), got,
+                              ref.attention_backward(*x, d_out, scale)):
+            err["attention_bnhd_backward"] = max(err["attention_bnhd_backward"],
+                                                 check_normwise(
+                f"attention_bnhd_backward {name} ({B}, {N} x {M}) bf16", g, w,
+                ATTN_BF16_BWD_NORM))
+        del x, got
+    for (B, N, M) in ((32, 2048, 2048), (3, 1000, 777)):
+        *x, d_out, scale = _attention_stats_inputs(600 + N, B, N, M, device, False)
+        got = kernels.attention_backward(*x, d_out, scale)
+        for name, g, w in zip(("dq", "dk", "dv"), got,
+                              ref.attention_backward(*x, d_out, scale)):
+            err["attention_backward"] = max(err["attention_backward"], check_close(
+                f"attention_backward {name} ({B}, {N} x {M}, D 512, Dv 3) fp32", g, w))
+        del x, got
+    for (B, N, K) in ((32, 2048, 20), (3, 1001, 7)):
+        a1, Ws, gammas, betas, gxs = edge_train_inputs(700 + N, B, N, K, device)
+        xs, stats, slots = kernels.edge_mlp_train_forward(a1, Ws, gammas, betas)
+        leaves = [x.clone().requires_grad_() for x in (a1, *Ws, *gammas, *betas)]
+        want_xs, want_stats = ref.edge_mlp_train(leaves[0], leaves[1:5], leaves[5:9],
+                                                 leaves[9:])
+        for i, (g, w) in enumerate(zip(xs, want_xs)):
+            check_normwise(f"edge_mlp train ({B}, {N}, k {K}) layer {i}", g, w.detach(),
+                           EDGE_TRAIN_NORM)
+        for i, (g, w) in enumerate(zip(stats, want_stats)):
+            err["edge_mlp_stat"] = max(err["edge_mlp_stat"], check_normwise(
+                f"edge_mlp_stat ({B}, {N}, k {K}) layer {i}", g, w, EDGE_STAT_NORM))
+        want = torch.autograd.grad(want_xs, leaves, gxs)
+        d_a1, dWs, dgs, dbs = kernels.edge_mlp_train_backward(
+            a1, Ws, gammas, betas, stats, slots, gxs, need_a1=True)
+        names = ["d_a1"] + [f"{n}{i}" for n in ("dW", "dgamma", "dbeta") for i in range(4)]
+        for name, g, w in zip(names, (d_a1, *dWs, *dgs, *dbs), want):
+            err["edge_mlp_backward"] = max(err["edge_mlp_backward"], check_normwise(
+                f"edge_mlp_backward {name} ({B}, {N}, k {K})", g.float(), w.float(),
+                EDGE_GRAD_NORM))
+        again = (*kernels.edge_mlp_train_forward(a1, Ws, gammas, betas)[1],
+                 *[x for grp in kernels.edge_mlp_train_backward(
+                     a1, Ws, gammas, betas, stats, slots, gxs, need_a1=True)
+                   for x in (grp if isinstance(grp, tuple) else (grp,))])
+        first = (*stats, d_a1, *dWs, *dgs, *dbs)
+        check(all(torch.equal(a, b) for a, b in zip(first, again)),
+              f"edge_mlp ({B}, {N}, k {K}): two runs of the stat and backward "
+              "passes differ")
+        print(f"kernel == kernel: edge_mlp_stat and edge_mlp_backward ({B}, {N}, "
+              f"k {K}) bitwise equal over two runs")
+        del leaves, want_xs, want
+    torch.cuda.synchronize()
+    return err
+
+
 def _reg_batches(cfg):
     spec = BatchSpec(int(cfg.batch_size))
     return (engine.registration_dataset(cfg, "val", REG_DATA_DIR).steps_per_epoch(spec),
@@ -755,6 +903,102 @@ def time_dcp_passes(cfg, device, card, repeats=3):
         print(f"DCP {name} pass: {out[name]!r} ms/batch (passes {each!r}; batch "
               f"{spec.batch_size}, {int(cfg.num_points)} points) on {card}")
     return out
+
+
+def check_dcp_train_result(device, res, log_dir):
+    """Finite step losses and gradients, running statistics moved; the
+    epoch checkpoint and the five best_* on disk, and network.pkl loaded
+    back through the eval path gives the run's val metrics (rtol 1e-6)."""
+    losses = res["history"]["step_losses"][-1]
+    check(losses and all(np.isfinite(losses)), f"DCP train losses {losses}")
+    model = res["model"]
+    bad = [n for n, p in model.named_parameters()
+           if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+    check(not bad, f"DCP: parameters without a finite gradient: {bad}")
+    moved = float((model.emb_nn.fused_var3 - 1).abs().max())
+    check(moved > 0, "DCP: the running statistics did not move")
+    names = sorted(os.listdir(log_dir))
+    check({"network.pkl", *(f"best_{m}_network.pkl" for m in engine.REG_METRICS)}
+          <= set(names), f"DCP checkpoints {names}")
+    val = res["history"]["val"][-1]
+    again = engine.run_registration_val(
+        load_config(DCP_CFG, load_model=os.path.join(log_dir, "network.pkl")),
+        REG_DATA_DIR, device)
+    for m, v in val.items():
+        check(abs(again[m] - v) <= 1e-6 * abs(v),
+              f"DCP {m}: reloaded checkpoint {again[m]!r}, run {v!r}")
+    print(f"DCP train: step losses {losses!r}, every gradient finite, running "
+          f"statistics moved; val {val}; network.pkl reloads to the same val "
+          f"metrics (rtol 1e-6); checkpoints {names}")
+
+
+def _dcp_train_batch(cfg, clouds_cut):
+    batch = next(engine.registration_dataset(cfg, "train", REG_DATA_DIR).batches(
+        BatchSpec(int(cfg.batch_size), shuffle=True, seed=1)))
+    return {k: (v[:clouds_cut] if isinstance(v, np.ndarray) and v.ndim else v)
+            for k, v in batch.items()}
+
+
+def _dcp_step_on(cfg, device, batch, gamma_scale=1.0):
+    """One train step from the seeded weights (the edge chain's first
+    BatchNorm scale times ``gamma_scale``) on ``device`` -> (loss, {name:
+    gradient}, {name: running statistic}), on the host."""
+    model = engine.build_model(cfg, device, seed=1, for_training=True)
+    with torch.no_grad():
+        model.emb_nn.fused_scale0.mul_(gamma_scale)
+    step = engine.make_registration_train_step(
+        model, build_optimizer(cfg, model.parameters()), device)
+    loss = float(step(batch)["total_loss"])
+    return (loss, {n: p.grad.detach().double().cpu() for n, p in model.named_parameters()},
+            {n: b.detach().cpu() for n, b in model.named_buffers()})
+
+
+def check_dcp_step_on_cpu(cfg, device, clouds_cut=2):
+    """One DCP train step on two full-width pairs, card against CPU, the same
+    seeded weights: the loss, the updated running statistics, and every
+    gradient leaf: the key projections' biases (``DCP_SHIFT_INVARIANT``,
+    exactly 0) to 1e-5 of the whole gradient's norm, the edge chain's by
+    cosine and normwise against the leaf's norm, every other by cosine. Bars
+    in DCP_STEP_BARS. For each chain leaf it prints its share of the whole
+    gradient and the card's own move when the chain's first BatchNorm scale
+    moves by 1e-6: the bf16 roundings of the chain's activations make the
+    gradient a step function at that scale."""
+    batch = _dcp_train_batch(cfg, clouds_cut)
+    loss, g_card, st_card = _dcp_step_on(cfg, device, batch)
+    _, g_moved, _ = _dcp_step_on(cfg, device, batch, 1 + 1e-6)
+    want, g_cpu, st_cpu = _dcp_step_on(cfg, torch.device("cpu"), batch)
+    total = float(torch.sqrt(sum((g * g).sum() for g in g_cpu.values())))
+    cos, chain, shift = {}, {}, {}
+    for name, w in g_cpu.items():
+        g = g_card[name]
+        c = float((g.flatten() @ w.flatten()) / (g.norm() * w.norm()))
+        if name.endswith(DCP_SHIFT_INVARIANT):
+            shift[name] = float((g - w).norm()) / total
+        elif ".fused_" in name:
+            norm = float(w.norm())
+            chain[name] = (c, float((g - w).norm()) / norm,
+                           float((g_moved[name] - g).norm()) / norm, norm / total)
+        else:
+            cos[name] = c
+    stat_gap = max(float((st_card[n] - w).abs().max()) for n, w in st_cpu.items())
+    worst_cos = min(cos, key=cos.get)
+    print(f"DCP train step card vs CPU on {clouds_cut} full-width pairs: loss "
+          f"{loss!r} / {want!r}; gradient cosine >= {cos[worst_cos]!r} ({worst_cos}; "
+          f"bar {DCP_STEP_BARS['cosine']}); shift-invariant biases {shift!r} of the "
+          f"gradient (bar 1e-5); running statistics max |diff| {stat_gap!r} (bar "
+          f"{DCP_STEP_BARS['stats']})")
+    for name, (c, gap, moved, share) in chain.items():
+        print(f"DCP step edge chain {name}: cosine {c!r}, normwise {gap!r} (bars "
+              f"{DCP_STEP_BARS['chain_cosine']}, {DCP_STEP_BARS['chain_normwise']}); "
+              f"card's own move under the 1e-6 change {moved!r}; {share!r} of the "
+              f"whole gradient's norm")
+    check(abs(loss - want) <= DCP_STEP_BARS["loss"] * abs(want),
+          f"DCP step loss card {loss!r} CPU {want!r}")
+    check(cos[worst_cos] >= DCP_STEP_BARS["cosine"], f"DCP step {worst_cos}: cosine")
+    check(all(c >= DCP_STEP_BARS["chain_cosine"] and gap <= DCP_STEP_BARS["chain_normwise"]
+              for c, gap, _, _ in chain.values()), f"DCP step edge chain: {chain}")
+    check(max(shift.values()) <= 1e-5, f"DCP step shift-invariant biases: {shift}")
+    check(stat_gap <= DCP_STEP_BARS["stats"], f"DCP step running statistics {stat_gap!r}")
 
 
 def drive_slice(cfg, device):
@@ -954,26 +1198,23 @@ def check_f1_near(device, first):
           f"{float(want[2].mean())!r}")
 
 
-def drive_train_path(name, cfg, device, per_step, per_val_batch, log_dir):
-    """Phase 4 for a train path: ``engine.train_completion`` for one epoch
-    of ``TRAIN_STEPS`` steps and its val pass, counts zeroed just before and
-    read just after, equal to ``per_step`` per step plus ``per_val_batch``
-    and one chamfer per val batch."""
+def drive_train_path(name, train, steps, val_batches, per_step, per_val_batch):
+    """Phase 4 for a train path: ``train()`` (``engine.train_completion`` or
+    ``engine.train_registration``: one epoch of ``steps`` steps and its val
+    pass of ``val_batches`` batches), counts zeroed just before and read
+    just after, equal to ``per_step`` per step plus ``per_val_batch`` per
+    val batch."""
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    res = engine.train_completion(cfg, log_dir, DATA_DIR,
-                                  max_steps_per_epoch=TRAIN_STEPS, device=device)
+    res = train()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = kernels.launch_counts()
-    val_b = _batches(cfg)[0]
     expected = dict.fromkeys(KERNELS, 0)
-    for k, v in per_step.items():
-        expected[k] += v * TRAIN_STEPS
-    for k, v in per_val_batch.items():
-        expected[k] += v * val_b
-    expected["chamfer"] += val_b
-    print(f"{name} train path ({TRAIN_STEPS} steps + val pass, {seconds!r} s "
+    for counts, times in ((per_step, steps), (per_val_batch, val_batches)):
+        for k, v in counts.items():
+            expected[k] += v * times
+    print(f"{name} train path ({steps} steps + val pass, {seconds!r} s "
           f"with the first step's allocations) launches: {launches}")
     check(launches == expected, f"{name} train: launches {launches}, "
           f"expected {expected}")
@@ -1129,20 +1370,33 @@ def check_ecg_step_on_cpu(cfg, device, clouds_cut=2):
           f"ECG gradient card vs CPU: cosine {cosine}, norms {norm_rel}")
 
 
-def time_train_steps(name, cfg, device, card, steps=5):
-    """ms per train step (``engine.make_train_step`` with the step's noise
-    drawn on the host, as the train loop runs it) over ``steps`` steps after
-    two warm-up steps, host clock; points/s = batch x num_points per step."""
+def completion_step(cfg, device):
+    """One train step from the seeded weights as ``engine.train_completion``
+    runs it (``engine.make_train_step``, the step's noise drawn on the host)
+    -> (a call that runs it, points a step)."""
     model = engine.build_model(cfg, device, seed=1, for_training=True)
     step = engine.make_train_step(model.train(), build_optimizer(
         cfg, model.parameters()), device)
     batch = _train_batch(cfg, int(cfg.batch_size))
     gen = torch.Generator().manual_seed(1)
-    bs, n = int(cfg.batch_size), int(cfg.num_points)
+    bs = int(cfg.batch_size)
+    return (lambda: step(batch, 0.5, engine.draw_noise(model, bs, gen)),
+            bs * int(cfg.num_points))
 
-    def run():
-        return step(batch, 0.5, engine.draw_noise(model, bs, gen))
 
+def dcp_step(cfg, device):
+    """One DCP train step from the seeded weights
+    (``engine.make_registration_train_step``) -> (a call, pairs a step)."""
+    model = engine.build_model(cfg, device, seed=1, for_training=True)
+    step = engine.make_registration_train_step(
+        model, build_optimizer(cfg, model.parameters()), device)
+    batch = _dcp_train_batch(cfg, int(cfg.batch_size))
+    return (lambda: step(batch)), int(cfg.batch_size)
+
+
+def time_train_steps(name, cfg, card, run, per_step, unit, steps=5):
+    """ms per train step of ``run`` over ``steps`` steps after two warm-up
+    steps, host clock; ``unit``/s = ``per_step`` per step time."""
     for _ in range(2):
         run()
     torch.cuda.synchronize()
@@ -1151,10 +1405,10 @@ def time_train_steps(name, cfg, device, card, steps=5):
         run()
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / steps
-    pts = bs * n / (ms / 1e3)
-    print(f"{name} train step: {ms!r} ms, {pts!r} points/s (batch {bs} x {n} "
-          f"points, host clock over {steps} steps) on {card}")
-    return {"ms_per_step": ms, "points_per_s": pts}
+    rate = per_step / (ms / 1e3)
+    print(f"{name} train step: {ms!r} ms, {rate!r} {unit}/s (batch {int(cfg.batch_size)} "
+          f"x {int(cfg.num_points)} points, host clock over {steps} steps) on {card}")
+    return {"ms_per_step": ms, f"{unit}_per_s": rate}
 
 
 def time_passes(name, cfg, device, card, repeats=3):
@@ -1420,12 +1674,82 @@ def dcp_timing_cases(device):
     }
 
 
+def dcp_train_timing_cases(device):
+    """timing_cases of DCP's train kernels at a train step's shapes. Bytes:
+    each input read once, each output written once. Operations, 2 per
+    multiply-add, the least the function needs: the attention backwards
+    rebuild the scores once and form dP, dQ, dK (and dV for the heads; the
+    svd head's 3-wide dP and no dV), though the kernels form the scores and
+    dP twice; the stat passes recompute layers 0..l for layer l; the chain's
+    backward recomputes the forward once, forms every dW and pushes the
+    cotangent down to layer 0 (the kernel recomputes the chain in each of
+    its five passes). The library calls: the backward of
+    ``scaled_dot_product_attention`` on the same tensors
+    (``torch.autograd.grad`` on its output); none computes the chain."""
+    B, N, H, dk, D, K = 32, 2048, 4, 128, 512, 20
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    *hx, h_do, h_scale = _attention_stats_inputs(800, B, N, N, device, True)
+    hq, hk, hv = (x.transpose(1, 2).detach().requires_grad_() for x in hx[:3])
+    h_out = sdpa(hq, hk, hv)
+    h_dot = h_do.transpose(1, 2)
+    *fx, f_do, f_scale = _attention_stats_inputs(801, B, N, N, device, False)
+    fq, fk = (x.detach().requires_grad_() for x in fx[:2])
+    try:
+        f_out = sdpa(fq, fk, fx[2])
+        f_lib = lambda: torch.autograd.grad(f_out, (fq, fk), f_do, retain_graph=True)
+    except RuntimeError as e:
+        print(f"attention_backward: scaled_dot_product_attention refuses the svd "
+              f"head's shapes: {e}")
+        f_lib = None
+    a1, Ws, gammas, betas, gxs = edge_train_inputs(802, B, N, K, device)
+    ws = [w.to(torch.bfloat16).contiguous() for w in Ws]
+    _, stats, slots = kernels.edge_mlp_train_forward(a1, Ws, gammas, betas)
+    leaves = [x.clone().requires_grad_() for x in (*Ws, *gammas, *betas)]
+    plain_xs, _ = ref.edge_mlp_train(a1, leaves[:4], leaves[4:8], leaves[8:])
+    E = B * N * K
+    c = [a * b for a, b in zip(kernels.EDGE_MLP_CHANNELS[:-1],
+                               kernels.EDGE_MLP_CHANNELS[1:])]
+    chain, w_bytes = sum(c), sum(c) * 2
+    heads = B * N * H * dk * 2
+    return {
+        "attention_bnhd_backward": (
+            f"({B}, {N} x {N}, H {H}, dk {dk}) bf16, heads in place",
+            lambda: kernels.attention_bnhd_backward(*hx, h_do, h_scale),
+            lambda: ref.attention_backward(*hx, h_do, h_scale),
+            lambda: torch.autograd.grad(h_out, (hq, hk, hv), h_dot, retain_graph=True),
+            8 * heads + 2 * B * H * N * 4, 5 * 2 * B * H * N * N * dk, PEAK_BF16),
+        "attention_backward": (
+            f"({B}, {N} x {N}, D {D}, Dv 3) fp32, dq and dk",
+            lambda: kernels.attention_backward(*fx, f_do, f_scale, need=(True, True, False)),
+            lambda: ref.attention_backward(*fx, f_do, f_scale),
+            f_lib,
+            (4 * B * N * D + 3 * B * N * 3 + 2 * B * N) * 4,
+            2 * B * N * N * (3 * D + 3), PEAK_FP32),
+        "edge_mlp_stat": (
+            f"({B}, {N}, k {K}, 6) -> 64/64/128/256, four passes",
+            lambda: kernels.edge_mlp_batch_stats(a1, ws, gammas, betas),
+            lambda: ref.edge_mlp_train(a1, Ws, gammas, betas),
+            None,
+            E * 6 * 2 + w_bytes + 2 * 512 * 4,
+            2 * E * sum(sum(c[:i + 1]) for i in range(4)), PEAK_BF16),
+        "edge_mlp_backward": (
+            f"({B}, {N}, k {K}, 6) -> 64/64/128/256, five passes",
+            lambda: kernels.edge_mlp_train_backward(a1, Ws, gammas, betas, stats,
+                                                    slots, gxs),
+            lambda: torch.autograd.grad(plain_xs, leaves, gxs, retain_graph=True),
+            None,
+            E * 6 * 2 + B * N * 512 * (4 + 1) + w_bytes + (chain + 2 * 512) * 4,
+            2 * E * (2 * chain + sum(c[1:])), PEAK_BF16),
+    }
+
+
 def time_kernels(device, card, emd_case):
     """Each kernel against its plain version in the order plain, kernel,
     kernel, plain (CUDA events), and the library call where there is one."""
     out = {}
     cases = {**timing_cases(device), **backward_timing_cases(device),
-             **geometry_timing_cases(device, emd_case), **dcp_timing_cases(device)}
+             **geometry_timing_cases(device, emd_case), **dcp_timing_cases(device),
+             **dcp_train_timing_cases(device)}
     for key, (shape, kern, plain, lib, nbytes, ops, *peak) in cases.items():
         it_k, it_p = _iters(kern), _iters(plain)
         runs = {"plain": [], "kernel": []}
@@ -1470,6 +1794,7 @@ def main() -> int:
     geometry_err, emd_case = compare_geometry_kernels_with_plain(device)
     max_abs.update(geometry_err)
     max_abs.update(compare_dcp_kernels_with_plain(device))
+    max_abs.update(compare_dcp_train_kernels_with_plain(device))
 
     paths = {}           # path -> its launch counts
     pcn = load_config(PCN_CFG)
@@ -1511,16 +1836,34 @@ def main() -> int:
         cfg = load_config(path, nepoch=1)
         with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as log_dir:
             res, paths[f"{name} train"] = drive_train_path(
-                name, cfg, device, per_step, per_val, log_dir)
+                name, lambda: engine.train_completion(
+                    cfg, log_dir, DATA_DIR, max_steps_per_epoch=TRAIN_STEPS,
+                    device=device),
+                TRAIN_STEPS, _batches(cfg)[0], per_step,
+                {**per_val, "chamfer": per_val.get("chamfer", 0) + 1})
             check_train_result(name, path, device, res, log_dir)
         del res
+    dcp_train = load_config(DCP_CFG, nepoch=1)
+    # the synthetic train split's 64 pairs: two steps of 32
+    steps = min(TRAIN_STEPS, engine.registration_dataset(
+        dcp_train, "train", REG_DATA_DIR).steps_per_epoch(
+            BatchSpec(int(dcp_train.batch_size))))
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as log_dir:
+        res, paths["DCP train"] = drive_train_path(
+            "DCP", lambda: engine.train_registration(
+                dcp_train, log_dir, REG_DATA_DIR, max_steps_per_epoch=steps,
+                device=device),
+            steps, _reg_batches(dcp_train)[0], DCP_PER_STEP, DCP_PER_BATCH)
+        check_dcp_train_result(device, res, log_dir)
+    del res
     check_pcn_step_on_cpu(load_config(PCN_CFG), device)
     check_vrcnet_step_on_cpu(load_config(VRCNET_CFG), device)
     check_ecg_step_on_cpu(load_config(ECG_CFG), device)
+    check_dcp_step_on_cpu(load_config(DCP_CFG), device)
 
-    time_train_steps("PCN", pcn, device, card)
-    time_train_steps("VRCNet", vrc, device, card)
-    time_train_steps("ECG", ecg, device, card)
+    for name, cfg in (("PCN", pcn), ("VRCNet", vrc), ("ECG", ecg)):
+        time_train_steps(name, cfg, card, *completion_step(cfg, device), "points")
+    time_train_steps("DCP", dcp, card, *dcp_step(dcp, device), "pairs", steps=3)
     times = time_kernels(device, card, emd_case)
 
     launches = {k: sum(counts[k] for counts in paths.values()) for k in KERNELS}

@@ -1,23 +1,27 @@
-"""DCP-v2 registration model (port of ``mvp_benchmark_tpu/models/dcp.py``),
-eval branches.
+"""DCP-v2 registration model (port of ``mvp_benchmark_tpu/models/dcp.py``).
 
 Reference: ``registration/models/dcp.py`` -- DGCNN embedding (:269-301),
 transformer pointer (:304-328, the annotated-transformer encoder/decoder
 stack :69-243), softmax soft correspondence + weighted SVD head (:331-381),
 loss ``mse(T_12 @ T_gt^-1, I)`` (:420-430).
 
-On the card the path runs four hand-written kernels: the self-kNN (k 20) and
-the neighbour gather of DGCNN, its fused per-edge chain (``ops.edge_mlp_eval``),
-the transformer's six multi-head attentions a batch (``ops.attention_bnhd``,
-bf16) and the svd head's soft correspondence (``ops.attention``, fp32).
+On the card the path runs hand-written kernels: the self-kNN (k 20) and the
+neighbour gather of DGCNN, its fused per-edge chain (``ops.edge_mlp_eval``;
+in train ``ops.edge_mlp_train``: stat passes, final pass and backward
+passes), the transformer's six multi-head attentions a batch
+(``ops.attention_bnhd``, bf16) and the svd head's soft correspondence
+(``ops.attention``, fp32), each attention with its backward in train.
 
 As in the JAX package, the transformer's sublayers compute in bf16
 (``TRANSFORMER_BF16``) and its residual stream is stored in bf16
 (``TRANSFORMER_RESID_BF16``); both flags are read at every forward. The TPU
 casts the svd head's embeddings to bf16 to fit VMEM (``dcp.py:300-304``);
 the port keeps them fp32, which is what the JAX package's CPU path computes.
-The train branch (batch statistics, the kernels' backwards) comes with
-slice 7.
+
+The train branch (``prefix="train"``) uses batch statistics in DGCNN's edge
+chain and in its BatchNorm and moves their running statistics as flax's
+mutable ``batch_stats`` do: one DGCNN serves src and then tgt, so a step
+moves them twice, in that order. DCP draws no noise and has no dropout.
 """
 
 from __future__ import annotations
@@ -38,13 +42,21 @@ TRANSFORMER_RESID_BF16 = True
 
 KNN_K = 20
 
+# The key projections' biases: a bias added to every key moves every score of
+# a row alike, which the softmax ignores, so their exact gradient is 0 and
+# any computed one is rounding noise. Gradient checks hold them to the whole
+# gradient's norm.
+SHIFT_INVARIANT = ("self_attn.proj.bias1", "src_attn.proj.bias0")
+
 
 class DGCNN(nn.Module):
     """Edge-conv embedding, (B, N, 3) -> (B, N, emb) (JAX ``DGCNN``).
 
     The edge tensor [x_j | x_i] over the 20 nearest neighbours is built from
     the gather kernel's rows, in bf16, (B, N, k, 6); the four Dense -> BN ->
-    relu blocks and their max-pools over k run as one fused chain. Its
+    relu blocks and their max-pools over k run as one fused chain, with the
+    running statistics in eval and the batch's in train (which then move
+    the running ones, momentum 0.1, as ``dcp.py:92-99``). Its
     parameters keep the flax names and orientation: ``fused_W{i}`` (in, out),
     ``fused_scale{i}``/``fused_bias{i}``, and the running statistics
     ``fused_mean{i}``/``fused_var{i}`` as buffers.
@@ -70,18 +82,23 @@ class DGCNN(nn.Module):
     def _per_layer(self, name: str):
         return tuple(getattr(self, f"{name}{i}") for i in range(len(self.fused_chs)))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         idx = ops.knn_indices(x, KNN_K)                          # (B, N, k)
         neigh = ops.gather_points(x, idx)                        # (B, N, k, 3)
         a1 = torch.cat([neigh, x[:, :, None, :].expand_as(neigh)],
                        dim=-1).to(torch.bfloat16)
-        xs = ops.edge_mlp_eval(a1, self._per_layer("fused_W"),
-                               self._per_layer("fused_scale"),
-                               self._per_layer("fused_bias"),
-                               self._per_layer("fused_mean"),
-                               self._per_layer("fused_var"))
+        chain = (self._per_layer("fused_W"), self._per_layer("fused_scale"),
+                 self._per_layer("fused_bias"))
+        if train:
+            xs, stats = ops.edge_mlp_train(a1, *chain)
+            for st, m, v in zip(stats, self._per_layer("fused_mean"),
+                                self._per_layer("fused_var")):
+                layers.update_running_stats(m, v, st[0], st[1])
+        else:
+            xs = ops.edge_mlp_eval(a1, *chain, self._per_layer("fused_mean"),
+                                   self._per_layer("fused_var"))
         h = self.fc(torch.cat(xs, dim=-1))
-        return torch.relu(self.bn(h))
+        return torch.relu(self.bn(h, train))
 
 
 class MultiHeadedAttention(nn.Module):
@@ -248,8 +265,9 @@ def build(args=None, generator: Optional[torch.Generator] = None) -> "Model":
 class Model(nn.Module):
     """DCP-v2: forward(src, tgt, T_gt, prefix) like the JAX Model.
 
-    prefix "test" (or T_gt None) returns T_12 (B, 4, 4); "val" returns
-    (loss, r_err, t_err, rmse, rt_mse). One DGCNN serves src and tgt."""
+    prefix "test" (or T_gt None) returns T_12 (B, 4, 4); "val" and "train"
+    return (loss, r_err, t_err, rmse, rt_mse), "train" with batch statistics
+    (which move the running ones). One DGCNN serves src and tgt."""
 
     def __init__(self, emb_dims: int = 512,
                  generator: Optional[torch.Generator] = None):
@@ -259,12 +277,9 @@ class Model(nn.Module):
 
     def forward(self, src: torch.Tensor, tgt: torch.Tensor,
                 T_gt: Optional[torch.Tensor] = None, prefix: str = "train"):
-        if prefix == "train":
-            raise NotImplementedError(
-                "DCP's train branch comes with slice 7 (the backward kernels "
-                "of attention and the edge chain, and BatchNorm batch statistics)")
-        src_embedding = self.emb_nn(src)
-        tgt_embedding = self.emb_nn(tgt)
+        train = prefix == "train"
+        src_embedding = self.emb_nn(src, train)
+        tgt_embedding = self.emb_nn(tgt, train)
 
         self.transformer.set_dtypes(
             torch.bfloat16 if TRANSFORMER_BF16 else None,

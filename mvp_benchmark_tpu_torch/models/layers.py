@@ -205,12 +205,18 @@ class DenseEdge(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """torch-compatible BatchNorm over the last (channel) axis, eval mode
-    (``layers.py:277-300`` of the JAX package, flax ``nn.BatchNorm`` with
-    ``use_running_average``): ``(x - mean) * (rsqrt(var + eps) * weight) +
-    bias`` in fp32, in flax's order, then cast to the activation policy's
-    dtype. ``weight``/``bias`` are flax's ``scale``/``bias`` params,
-    ``mean``/``var`` its ``batch_stats`` (buffers).
+    """torch-compatible BatchNorm over the last (channel) axis
+    (``layers.py:277-300`` of the JAX package, flax ``nn.BatchNorm``):
+    ``(x - mean) * (rsqrt(var + eps) * weight) + bias`` in fp32, in flax's
+    order, then cast to the activation policy's dtype. ``weight``/``bias``
+    are flax's ``scale``/``bias`` params, ``mean``/``var`` its
+    ``batch_stats`` (buffers).
+
+    ``train``: the batch's statistics over every axis but the last, flax's
+    fast variance ``max(E[x^2] - E[x]^2, 0)`` (biased), differentiable; the
+    running statistics move as flax's, ``0.9 ra + 0.1 batch``, with the
+    biased variance (``F.batch_norm`` would use the unbiased one). Otherwise
+    the running statistics.
     """
 
     def __init__(self, features: int, epsilon: float = 1e-5):
@@ -221,10 +227,27 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.var + self.epsilon) * self.weight
-        y = (x.to(torch.float32) - self.mean) * mul + self.bias
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x = x.to(torch.float32)
+        if train:
+            dims = tuple(range(x.dim() - 1))
+            mean = x.mean(dim=dims)
+            var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
+            update_running_stats(self.mean, self.var, mean, var)
+        else:
+            mean, var = self.mean, self.var
+        mul = torch.rsqrt(var + self.epsilon) * self.weight
+        y = (x - mean) * mul + self.bias
         return y.to(compute_dtype())
+
+
+def update_running_stats(ra_mean: torch.Tensor, ra_var: torch.Tensor,
+                         mean: torch.Tensor, var: torch.Tensor) -> None:
+    """flax's running-statistics update in place, ``ra = 0.9 ra + 0.1
+    batch`` (flax's momentum 0.9, torch's 0.1), outside autograd."""
+    with torch.no_grad():
+        ra_mean.copy_(0.9 * ra_mean + 0.1 * mean.detach())
+        ra_var.copy_(0.9 * ra_var + 0.1 * var.detach())
 
 
 class UnbiasedLayerNorm(nn.Module):

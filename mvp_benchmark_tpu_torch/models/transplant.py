@@ -31,7 +31,9 @@ need not. ``load_flax_params`` accepts a tree without it unless
 variables ``{'params': {...}}`` of numpy float32 arrays, plus
 ``'batch_stats'`` where the model keeps running statistics, which
 ``train/checkpoint.py`` pickles so that the JAX package loads the port's
-checkpoints and the port loads the JAX package's.
+checkpoints and the port loads the JAX package's. ``to_flax_grads(model)``
+maps the parameters' ``.grad`` into the same flax tree, so that a gradient
+compares leaf by leaf with ``jax.grad`` of the JAX model.
 """
 
 from __future__ import annotations
@@ -298,6 +300,17 @@ def to_flax_params(model: torch.nn.Module) -> Dict[str, Any]:
     float32 arrays in the flax layout} (kernels (in, out), norms' ``scale``,
     raw leaves as they are), with 'batch_stats' where the model keeps
     running statistics."""
+    return _flax_tree(model, lambda p: p, with_stats=True)
+
+
+def to_flax_grads(model: torch.nn.Module) -> Dict[str, Any]:
+    """{'params': ...} of every parameter's ``.grad`` in the flax layout of
+    ``to_flax_params`` (zeros where a parameter has none)."""
+    return _flax_tree(model, lambda p: torch.zeros_like(p) if p.grad is None else p.grad,
+                      with_stats=False)
+
+
+def _flax_tree(model: torch.nn.Module, leaf, with_stats: bool) -> Dict[str, Any]:
     tree: Dict[str, Any] = {}
     stats: Dict[str, Any] = {}
     done = set()
@@ -308,7 +321,7 @@ def to_flax_params(model: torch.nn.Module) -> Dict[str, Any]:
             key, transpose = _flax_key(module, attr)
             if key is None:
                 raise ValueError(f"{name}.{attr}: no flax counterpart")
-            value = param.detach().cpu().numpy().astype(np.float32)
+            value = leaf(param).detach().cpu().numpy().astype(np.float32)
             _node(tree, path)[key] = np.ascontiguousarray(value.T) if transpose else value
             done.add(f"{name}.{attr}")
         for attr, buf in module.named_buffers(recurse=False):
@@ -318,7 +331,9 @@ def to_flax_params(model: torch.nn.Module) -> Dict[str, Any]:
                   if n not in done)
     if left:
         raise ValueError(f"torch parameters without a flax scope: {left}")
-    return {"params": tree, "batch_stats": stats} if stats else {"params": tree}
+    if with_stats and stats:
+        return {"params": tree, "batch_stats": stats}
+    return {"params": tree}
 
 
 def _node(tree: Dict[str, Any], path: str) -> Dict[str, Any]:

@@ -11,18 +11,18 @@ CUDA tensors and its plain PyTorch version for CPU tensors (``dispatch``);
   ``three_interpolate``;
 - ``sa_attention`` (VRCNet's SA block);
 - ``ball_query`` (ECG's uniform loss) and ``emd_auction`` (the EMD metric);
-- ``attention``, ``attention_bnhd`` and ``edge_mlp_eval`` (DCP's
-  transformer, svd head and DGCNN edge chain).
+- ``attention``, ``attention_bnhd``, ``edge_mlp_eval`` and
+  ``edge_mlp_train`` (DCP's transformer, svd head and DGCNN edge chain).
 """
 
 from mvp_benchmark_tpu_torch.ops.dispatch import (
     attention, attention_bnhd, ball_query, chamfer_distance, edge_mlp_eval,
-    emd_auction, furthest_point_sample, gather_points, group_max,
+    edge_mlp_train, emd_auction, furthest_point_sample, gather_points, group_max,
     grouping_operation, knn_indices, knn_points, sa_attention,
     three_interpolate, three_nn, three_nn_upsampling)
 from mvp_benchmark_tpu_torch.ops.ref import chamfer_distance as chamfer_distance_ref
 
 __all__ = ["attention", "attention_bnhd", "ball_query", "chamfer_distance",
-           "chamfer_distance_ref", "edge_mlp_eval", "emd_auction", "furthest_point_sample", "gather_points", "group_max",
+           "chamfer_distance_ref", "edge_mlp_eval", "edge_mlp_train", "emd_auction", "furthest_point_sample", "gather_points", "group_max",
            "grouping_operation", "knn_indices", "knn_points", "sa_attention",
            "three_interpolate", "three_nn", "three_nn_upsampling"]

@@ -162,7 +162,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               scale: float) -> torch.Tensor:
     """softmax(q k^T * scale) v, q (B, Nq, D), k (B, M, D), v (B, M, Dv)
     (see ref.attention). On the card: bf16 with D = Dv = 128, or fp32 with
-    D % 32 == 0 and Dv = 3 (the svd head); eval only until slice 7."""
+    D % 32 == 0 and Dv = 3 (the svd head), the backward with D = 512; the
+    backward kernels run for the inputs that need a gradient (see
+    ref.attention_backward)."""
     if _route(q, k, v) == "cuda":
         return kernels.AttentionFunction.apply(q.contiguous(), k.contiguous(),
                                                v.contiguous(), float(scale))
@@ -181,8 +183,21 @@ def attention_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def edge_mlp_eval(a1: torch.Tensor, Ws, gammas, betas, means, variances):
     """DGCNN's per-edge chain with running statistics, a1 (B, N, k, 6) ->
-    the four per-layer max-pools over k (see ref.edge_mlp_eval)."""
-    params = (*Ws, *gammas, *betas, *means, *variances)
-    if _route(a1, *params) == "cuda":
-        return kernels.EdgeMlpEvalFunction.apply(a1.contiguous(), *params)
+    the four per-layer max-pools over k (see ref.edge_mlp_eval). No
+    gradient: eval runs under ``torch.inference_mode``."""
+    if _route(a1, *Ws, *gammas, *betas, *means, *variances) == "cuda":
+        return kernels.edge_mlp_forward(a1.contiguous(), Ws, gammas, betas, means,
+                                        variances)
     return ref.edge_mlp_eval(a1, Ws, gammas, betas, means, variances)
+
+
+def edge_mlp_train(a1: torch.Tensor, Ws, gammas, betas):
+    """DGCNN's per-edge chain with batch statistics, a1 (B, N, k, 6) ->
+    (the four max-pools over k, the four (2, ch) [mean, biased variance]),
+    differentiable in a1, Ws, gammas and betas (see ref.edge_mlp_train). On
+    the card: the stat, final and backward passes of the kernel."""
+    params = (*Ws, *gammas, *betas)
+    if _route(a1, *params) == "cuda":
+        out = kernels.EdgeMlpTrainFunction.apply(a1.contiguous(), *params)
+        return tuple(out[:4]), tuple(out[4:])
+    return ref.edge_mlp_train(a1, Ws, gammas, betas)

@@ -394,6 +394,62 @@ def attention_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, H, Nq, dv).permute(0, 2, 1, 3).contiguous()
 
 
+def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       o: torch.Tensor, row_max: torch.Tensor,
+                       row_sum: torch.Tensor, d_out: torch.Tensor, scale: float):
+    """Gradients (dq, dk, dv) of ``attention`` given its output ``o``, the
+    softmax's final row max and row sum that the forward kernel saves, and
+    the output's cotangent ``d_out``: the split backward of
+    ``_attn_bwd_split`` (``pallas_kernels.py:2502``) step by step. Takes the
+    (B, N, D) layout with row stats (B, Nq), or the heads layout (B, N, H, D)
+    with row stats (B, H, Nq).
+
+      delta = rowsum(d_out * o)                 fp32
+      p     = exp(q k^T * scale - row_max) / row_sum
+      dp    = d_out v^T
+      ds    = (p * (dp - delta)) * scale
+      dq = ds k,  dk = ds^T q,  dv = p^T d_out
+
+    bf16 inputs: bf16 operands and fp32 sums, p and ds rounded to bf16
+    before their products (``_attn_bwd_dq_kernel`` :2308,
+    ``_attn_bwd_dkv_kernel`` :2331), each gradient rounded once to its
+    input's dtype. fp32 inputs: fp32 throughout, as the port's forward. The
+    contract of ``csrc/attention_backward.cu``, which sums in another order:
+    the two agree to a tolerance."""
+    if q.dim() == 4:
+        B, Nq, H, D = q.shape
+
+        def heads(x):
+            return x.permute(0, 2, 1, 3).reshape(B * H, x.shape[1], x.shape[3])
+
+        grads = attention_backward(heads(q), heads(k), heads(v), heads(o),
+                                   row_max.reshape(B * H, Nq),
+                                   row_sum.reshape(B * H, Nq), heads(d_out), scale)
+        return tuple(g.reshape(B, H, g.shape[1], g.shape[2]).permute(0, 2, 1, 3)
+                     .contiguous() for g in grads)
+    bf16 = q.dtype == torch.bfloat16
+    f32 = torch.float32
+
+    def rnd(x):
+        return x.to(torch.bfloat16).to(f32) if bf16 else x
+
+    B, Nq, _ = q.shape
+    M = k.shape[1]
+    step = max(1, _MAX_PAIRS // max(1, Nq * M))
+    dqs, dks, dvs = [], [], []
+    for b0 in range(0, B, step):
+        qb, kb, vb, ob, gb = (x[b0:b0 + step].to(f32) for x in (q, k, v, o, d_out))
+        delta = (gb * ob).sum(dim=-1, keepdim=True)
+        s = torch.matmul(qb, kb.transpose(1, 2)) * scale
+        p = torch.exp(s - row_max[b0:b0 + step, :, None]) / row_sum[b0:b0 + step, :, None]
+        dp = torch.matmul(gb, vb.transpose(1, 2))
+        ds = rnd((p * (dp - delta)) * scale)
+        dqs.append(torch.matmul(ds, kb).to(q.dtype))
+        dks.append(torch.matmul(ds.transpose(1, 2), qb).to(k.dtype))
+        dvs.append(torch.matmul(rnd(p).transpose(1, 2), gb).to(v.dtype))
+    return torch.cat(dqs, 0), torch.cat(dks, 0), torch.cat(dvs, 0)
+
+
 # ---------------------------------------------------------------------------
 # DGCNN's fused edge chain
 # ---------------------------------------------------------------------------
@@ -438,6 +494,36 @@ def edge_mlp_eval(a1: torch.Tensor, Ws, gammas, betas, means, variances):
         a = torch.relu(h * sc + sh)
         xs.append(a.amax(dim=2))
     return tuple(xs)
+
+
+def edge_mlp_train(a1: torch.Tensor, Ws, gammas, betas):
+    """DGCNN's per-edge chain in train mode, a1 (B, N, k, C1) -> (xs, stats):
+    the max over k of every layer's activations, (B, N, ch_l) fp32, and the
+    layers' batch statistics, (2, ch_l) [mean, biased variance], detached.
+
+    ``edge_mlp_reference(train=True)`` (``pallas_kernels.py:3163-3193``):
+    bf16-rounded matmul inputs and fp32 sums; per layer the mean and
+    ``max(E[h^2] - E[h]^2, 0)`` over all B N k edges (one pass, as JAX's);
+    ``(h - mu) rsqrt(var + eps) gamma + beta``, relu, and the max over k.
+    Differentiable by autograd, the gradient flowing through mu and var as
+    JAX's does. ``torch.max`` routes a tied max's gradient to the first
+    maximal slot, as the kernel does (the TPU kernel routes it to every tied
+    slot, JAX's CPU autodiff splits it; relu's zero ties carry no gradient).
+    The contract of the train passes of ``csrc/edge_mlp.cu``, which fold
+    the BatchNorm to one scale and shift a channel and sum in another order:
+    the two agree to a tolerance."""
+    f32 = torch.float32
+    a = a1
+    xs, stats = [], []
+    for W, g, b in zip(Ws, gammas, betas):
+        h = torch.matmul(a.to(torch.bfloat16).to(f32), W.to(torch.bfloat16).to(f32))
+        mu = h.mean(dim=(0, 1, 2))
+        var = torch.clamp((h * h).mean(dim=(0, 1, 2)) - mu * mu, min=0.0)
+        stats.append(torch.stack([mu, var]).detach())
+        a = torch.relu((h - mu) * torch.rsqrt(var + EDGE_MLP_EPS) * g.to(f32)
+                       + b.to(f32))
+        xs.append(a.max(dim=2).values)
+    return tuple(xs), tuple(stats)
 
 
 # ---------------------------------------------------------------------------

@@ -1,15 +1,17 @@
 """Where the time of an eval pass, or of a train step, goes on the card:
-``torch.profiler`` over a few val passes of a completion or registration
-config (or train steps of a completion config), after warm-up.
+``torch.profiler`` over a few val passes, or train steps, of a completion
+or registration config, after warm-up.
 
     python -m mvp_benchmark_tpu_torch.profile_eval -c completion/cfgs/ecg.yaml
     python -m mvp_benchmark_tpu_torch.profile_eval -c registration/cfgs/dcp.yaml
     python -m mvp_benchmark_tpu_torch.profile_eval -c completion/cfgs/vrcnet.yaml
     python -m mvp_benchmark_tpu_torch.profile_eval -c completion/cfgs/vrcnet.yaml --train
     python -m mvp_benchmark_tpu_torch.profile_eval -c completion/cfgs/ecg.yaml --train
+    python -m mvp_benchmark_tpu_torch.profile_eval -c registration/cfgs/dcp.yaml --train
 
 Prints, per val batch (per train step with ``--train``: forward, backward
-and the optimizer, as ``engine.make_train_step`` runs them): the device time
+and the optimizer, as ``engine.make_train_step`` and
+``make_registration_train_step`` run them): the device time
 by kernel group (the port's CUDA kernels by name, cuBLAS GEMMs, the rest of
 PyTorch's kernels), the wall time under the profiler and the share of it
 the device is busy, the matrix products' FLOPs (counted by
@@ -41,8 +43,10 @@ PORT_KERNELS = ("chamfer_rowmin_kernel", "knn_kernel", "fps_kernel",
                 "chamfer_backward_kernel", "scatter_add_rows_kernel",
                 "group_max_backward_kernel", "three_interpolate_backward_kernel",
                 "three_interpolate_dweight_kernel", "sa_attention_backward_kernel",
-                "ball_query_kernel", "emd_kernel", "attention_bf16_kernel",
-                "attention_f32_kernel", "edge_mlp_kernel")
+                "ball_query_kernel", "emd_kernel",
+                "attention_bf16_backward_kernel", "attention_f32_backward_kernel",
+                "attention_bf16_kernel", "attention_f32_kernel",
+                "edge_mlp_backward_kernel", "edge_mlp_kernel")
 GEMM_MARKS = ("gemm", "xmma", "cutlass", "nvjet", "sm90_", "sm80_")
 
 
@@ -94,9 +98,15 @@ def profile_train(cfg_path: str, data_dir: str, steps: int = 5,
     cfg = load_config(cfg_path)
     device = engine.resolve_device("cuda")
     model = engine.build_model(cfg, device, seed=1, for_training=True)
-    step = engine.make_train_step(model.train(), build_optimizer(
-        cfg, model.parameters()), device)
+    optimizer = build_optimizer(cfg, model.parameters())
     bs = int(cfg.batch_size)
+    if cfg.model_name in REGISTRATION_MODELS:
+        reg_step = engine.make_registration_train_step(model.train(), optimizer, device)
+        reg_batch = next(engine.registration_dataset(cfg, "train", data_dir).batches(
+            BatchSpec(bs, shuffle=True, seed=1)))
+        return _profile(cfg, lambda: reg_step(reg_batch), lambda: reg_step(reg_batch),
+                        1, "train steps", steps, warmup, top)
+    step = engine.make_train_step(model.train(), optimizer, device)
     batch = next(MVPCompletionDataset("train", data_dir, int(cfg.num_points))
                  .batches(BatchSpec(bs, shuffle=True, seed=1)))
     gen = torch.Generator().manual_seed(1)

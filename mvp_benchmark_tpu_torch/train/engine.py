@@ -1,5 +1,5 @@
 """Train and eval engine (port of ``mvp_benchmark_tpu/train/engine.py``): the
-completion track, and the registration track's eval.
+completion track and the registration track.
 
 PyTorch runs eagerly, so a step is the model called on an explicit device;
 there is nothing to jit. The eval step runs under ``torch.inference_mode()``.
@@ -22,7 +22,12 @@ The registration val pass reproduces ``val_registration``
 (``engine.py:596-660``): RotE, transE, MSE (the model's fifth output,
 ``rt_mse``), RMSE and recall at RMSE < 0.1, averaged over the real samples,
 and the same metrics split by rotation level and match level. Registration
-training comes with a later slice.
+training reproduces ``train_registration`` (``engine.py:460-595``): a train
+step of the forward with ``prefix="train"`` (batch statistics, which move
+the model's running ones), ``loss.mean()`` backward and an optimizer step;
+the plateau-managed learning rate set every epoch; the same flushes, epoch
+checkpoint and val pass with ``best_<metric>_network.pkl`` (recall highest,
+the others lowest).
 """
 
 from __future__ import annotations
@@ -43,8 +48,9 @@ from mvp_benchmark_tpu_torch.models.transplant import load_flax_params
 from mvp_benchmark_tpu_torch.train import checkpoint as ckpt
 from mvp_benchmark_tpu_torch.train.config import Config
 from mvp_benchmark_tpu_torch.train.meters import AverageValueMeter
-from mvp_benchmark_tpu_torch.train.optim import (alpha_for_epoch, build_optimizer,
-                                                 epoch_lr, set_learning_rate)
+from mvp_benchmark_tpu_torch.train.optim import (PlateauScheduler, alpha_for_epoch,
+                                                 build_optimizer, epoch_lr,
+                                                 set_learning_rate)
 
 logger = logging.getLogger(__name__)
 
@@ -212,14 +218,18 @@ def run_completion_val(cfg: Config, data_dir: str,
     return res
 
 
+# metrics whose best value is the highest; the others' is the lowest
+HIGHER_IS_BETTER = ("f1", "recall")
+
+
 def _record_best(best: Dict[str, tuple], res: Dict[str, float], epoch: int,
                  model: torch.nn.Module, log_dir: str) -> None:
-    """Keeps the best value of each metric (f1 highest, the others lowest)
-    and writes ``best_<metric>_network.pkl`` when it improves
-    (``engine.py:431-450`` of the JAX package)."""
+    """Keeps the best value of each metric (f1 and recall highest, the
+    others lowest) and writes ``best_<metric>_network.pkl`` when it improves
+    (``engine.py:431-450`` and ``:634-652`` of the JAX package)."""
     log, best_log = "", ""
     for m, value in res.items():
-        improved = value > best[m][1] if m == "f1" else value < best[m][1]
+        improved = value > best[m][1] if m in HIGHER_IS_BETTER else value < best[m][1]
         if improved:
             best[m] = (epoch, value)
             ckpt.save_model(os.path.join(log_dir, f"best_{m}_network.pkl"), model)
@@ -230,13 +240,41 @@ def _record_best(best: Dict[str, tuple], res: Dict[str, float], epoch: int,
     logger.info(best_log)
 
 
+def _initial_best(metrics) -> Dict[str, tuple]:
+    return {m: (0, 0.0) if m in HIGHER_IS_BETTER else (0, math.inf) for m in metrics}
+
+
+def _flusher(guard: "NanGuard", where: str, on_step: Callable):
+    """(pending, flush): the loop appends (step index, device outputs) to
+    ``pending``; ``flush()`` pulls them to the host at once, feeds each
+    total loss to the guard and calls ``on_step(j, outputs, loss, steps per
+    second)``."""
+    pending = []
+    t_flush = time.perf_counter()
+
+    def flush():
+        nonlocal t_flush
+        if not pending:
+            return
+        dt = time.perf_counter() - t_flush
+        sps = len(pending) / dt if dt > 0 else 0.0
+        for j, dev in pending:
+            loss = float(dev["total_loss"])
+            guard.check(loss, f"{where} step {j}")
+            on_step(j, dev, loss, sps)
+        pending.clear()
+        t_flush = time.perf_counter()
+
+    return pending, flush
+
+
 def train_completion(cfg: Config, log_dir: str, data_dir: str = "./data",
                      max_steps_per_epoch: Optional[int] = None,
                      device: torch.device = torch.device("cuda")) -> Dict[str, Any]:
     """Completion training loop (reference completion/train.py:21-153) ->
     {"best", "history", "model", "optimizer"}."""
     metrics = completion_metrics(cfg)
-    best = {m: (0, 0.0) if m == "f1" else (0, math.inf) for m in metrics}
+    best = _initial_best(metrics)
     train_meter = AverageValueMeter()
     val_meters = {m: AverageValueMeter() for m in metrics}
     num_points = int(cfg.num_points or 2048)
@@ -265,28 +303,17 @@ def train_completion(cfg: Config, log_dir: str, data_dir: str = "./data",
         lr = epoch_lr(cfg, epoch)
         set_learning_rate(optimizer, lr)
         model.train()
-        pending = []
-        t_flush = time.perf_counter()
 
-        def flush():
-            nonlocal t_flush
-            if not pending:
-                return
-            dt = time.perf_counter() - t_flush
-            sps = len(pending) / dt if dt > 0 else 0.0
-            for j, dev in pending:
-                loss = float(dev["total_loss"])
-                guard.check(loss, f"completion epoch {epoch} step {j}")
-                train_meter.update(loss)
-                if j % print_every == 0:
-                    logger.info(
-                        "train [%d: %d] loss_type: %s fine_loss: %f "
-                        "total_loss: %f lr: %f alpha: %s steps/s: %.2f",
-                        epoch, j, cfg.loss, float(dev["fine_loss"]), loss,
-                        lr, alpha, sps)
-            pending.clear()
-            t_flush = time.perf_counter()
+        def on_step(j, dev, loss, sps):
+            train_meter.update(loss)
+            if j % print_every == 0:
+                logger.info(
+                    "train [%d: %d] loss_type: %s fine_loss: %f "
+                    "total_loss: %f lr: %f alpha: %s steps/s: %.2f",
+                    epoch, j, cfg.loss, float(dev["fine_loss"]), loss,
+                    lr, alpha, sps)
 
+        pending, flush = _flusher(guard, f"completion epoch {epoch}", on_step)
         for i, batch in enumerate(dataset.batches(spec, epoch)):
             if max_steps_per_epoch and i >= max_steps_per_epoch:
                 break
@@ -400,3 +427,98 @@ def run_registration_val(cfg: Config, data_dir: str,
                             registration_dataset(cfg, "val", data_dir),
                             BatchSpec(int(cfg.batch_size)), meters,
                             registration_split_meters(cfg))
+
+
+def make_registration_train_step(model: torch.nn.Module,
+                                 optimizer: torch.optim.Optimizer,
+                                 device: torch.device) -> Callable:
+    """step(batch) -> {"total_loss", "r_err", "t_err", "rmse", "mse"} as
+    device scalars: the forward with ``prefix="train"``, ``loss.mean()``
+    backward and one optimizer step (``engine.py:186-240`` of the JAX
+    package, kind "registration")."""
+
+    def step(batch: Dict[str, np.ndarray]):
+        src = _to_device(batch["src"], device)
+        tgt = _to_device(batch["tgt"], device)
+        T = _to_device(batch["transform"], device)
+        optimizer.zero_grad(set_to_none=True)
+        loss, r_err, t_err, rmse, mse = model(src, tgt, T, prefix="train")
+        total = loss.mean()
+        total.backward()
+        optimizer.step()
+        return {"total_loss": total.detach(), "r_err": r_err.mean().detach(),
+                "t_err": t_err.mean().detach(), "rmse": rmse.mean().detach(),
+                "mse": mse.mean().detach()}
+
+    return step
+
+
+def train_registration(cfg: Config, log_dir: str, data_dir: str = "./data",
+                       max_steps_per_epoch: Optional[int] = None,
+                       device: torch.device = torch.device("cuda")) -> Dict[str, Any]:
+    """Registration training loop (reference registration/train.py:28-111)
+    -> {"best", "history", "model", "optimizer"}; ``history`` holds each
+    epoch's step losses and val metrics. The learning rate is
+    ``cfg.lr``, cut on an RMSE plateau only under ``lr_plateau_step`` (the
+    reference builds its scheduler but never steps it)."""
+    best = _initial_best(REG_METRICS)
+    val_meters = {m: AverageValueMeter() for m in REG_METRICS}
+    split_meters = registration_split_meters(cfg)
+    seed = int(cfg.manual_seed or 1)
+    dataset = MVPRegistrationDataset(
+        "train", max_angle=float(cfg.max_angle), max_trans=float(cfg.max_trans),
+        category=cfg.category, data_dir=data_dir,
+        num_points=int(cfg.num_points or 2048), seed=seed)
+    dataset_val = registration_dataset(cfg, "val", data_dir)
+    spec = BatchSpec(int(cfg.batch_size), shuffle=True, seed=seed)
+    val_spec = BatchSpec(int(cfg.batch_size))
+
+    model = build_model(cfg, device, seed=seed, for_training=True)
+    optimizer = build_optimizer(cfg, model.parameters())
+    train_step = make_registration_train_step(model, optimizer, device)
+    eval_step = make_registration_eval_step(model, device)
+    guard = NanGuard()
+    lr = float(cfg.lr)
+    plateau = PlateauScheduler(lr, float(cfg.lr_decay_rate or 0.5),
+                               float(cfg.lr_clip or 0.0))
+    print_every = int(cfg.step_interval_to_print or 100)
+    guard_every = min(print_every, 20)   # see train_completion
+
+    history = {"step_losses": [], "val": []}
+    for epoch in range(int(cfg.start_epoch or 0), int(cfg.nepoch)):
+        set_learning_rate(optimizer, lr)
+        model.train()
+        losses = []
+
+        def on_step(j, dev, loss, sps):
+            losses.append(loss)
+            if j % print_every == 0:
+                logger.info(
+                    "train [%d: %d] total_loss: %.4f rot: %.4f trans: %.4f "
+                    "rmse: %.4f mse: %.4f lr: %f steps/s: %.2f", epoch, j, loss,
+                    float(dev["r_err"]), float(dev["t_err"]), float(dev["rmse"]),
+                    float(dev["mse"]), lr, sps)
+
+        pending, flush = _flusher(guard, f"registration epoch {epoch}", on_step)
+        for i, batch in enumerate(dataset.batches(spec, epoch)):
+            if max_steps_per_epoch and i >= max_steps_per_epoch:
+                break
+            pending.append((i, train_step(batch)))
+            if len(pending) >= guard_every:
+                flush()
+        flush()
+        history["step_losses"].append(losses)
+
+        model.eval()
+        if epoch % int(cfg.epoch_interval_to_save or 1) == 0:
+            ckpt.save_model(os.path.join(log_dir, "network.pkl"), model, optimizer)
+        if (epoch % int(cfg.epoch_interval_to_val or 1) == 0
+                or epoch == int(cfg.nepoch) - 1):
+            res = val_registration(eval_step, dataset_val, val_spec, val_meters,
+                                   split_meters)
+            _record_best(best, res, epoch, model, log_dir)
+            history["val"].append(res)
+            if cfg.lr_plateau_step:
+                lr = plateau.step(res["RMSE"])
+    return {"best": best, "history": history, "model": model,
+            "optimizer": optimizer}

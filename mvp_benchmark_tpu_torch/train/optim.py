@@ -10,8 +10,9 @@
   (reference ``completion/train.py:110-120``); ``set_learning_rate`` edits
   the optimizer's ``param_groups``.
 - ``alpha_for_epoch``: the loss-weight schedule (``completion/train.py:101-108``).
-
-Registration's plateau scheduler comes with the registration slice.
+- ``PlateauScheduler``: registration's reduce-on-plateau learning rate
+  (``optim.py:106-127`` of the JAX package), stepped with the val RMSE only
+  under ``lr_plateau_step``, as the reference never steps its scheduler.
 """
 
 from __future__ import annotations
@@ -85,3 +86,30 @@ def alpha_for_epoch(cfg: Config, epoch: int) -> Optional[float]:
         if epoch < ep:
             return consts[ind]
     return consts[-1]
+
+
+class PlateauScheduler:
+    """torch's ReduceLROnPlateau (mode min, patience 10) on a plain learning
+    rate, as the JAX package's: ``step(metric)`` returns the rate, cut by
+    ``factor`` (not below ``min_lr``) after more than ``patience`` epochs
+    without a new best."""
+
+    def __init__(self, lr: float, factor: float, min_lr: float,
+                 patience: int = 10):
+        self.lr = lr
+        self.factor = factor
+        self.min_lr = min_lr
+        self.patience = patience
+        self.best = float("inf")
+        self.bad_epochs = 0
+
+    def step(self, metric: float) -> float:
+        if metric < self.best:
+            self.best = metric
+            self.bad_epochs = 0
+        else:
+            self.bad_epochs += 1
+            if self.bad_epochs > self.patience:
+                self.lr = max(self.lr * self.factor, self.min_lr)
+                self.bad_epochs = 0
+        return self.lr

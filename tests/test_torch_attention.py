@@ -17,12 +17,22 @@ lanes). The Pallas kernels run in interpret mode.
   JAX package's fp32 CPU path (``layers.attention``), and against the
   Pallas kernel at the bf16 bar of its roundings (normwise 1e-2).
 
-The CUDA kernel is held against these plain versions on the card
+Gradients: the fp32 ones of ``ref.attention``/``attention_bnhd`` under
+autograd against JAX's autodiff of its dense fp32 paths (``layers.attention``
+and ``svd_head``'s einsum form, ``dcp.py:306-314``) within 1e-5 + 1e-4 |x|;
+``ref.attention_backward`` (the split backward's arithmetic, the CUDA
+backward's contract) against autograd of the plain forward, fp32 within the
+same bar and bf16 normwise 1e-2 (it rounds p and ds where the forward's
+autograd does not: 3.4e-3 measured); and both dtypes against the Pallas
+backwards in interpret mode, normwise 1e-2 (they round every operand to
+bf16): ``fused_attention_bnhd``'s at the bnhd shape and ``fused_attention``'s
+split backward at B 2, Nq 256, M 128, D 512 with v zero-padded to 128 lanes.
+
+The CUDA kernels are held against these plain versions on the card
 (``test_torch_cuda.py``, ``chip_smoke.py``).
 """
 
-import types
-
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -127,7 +137,95 @@ def test_cpu_tensors_take_the_plain_version_and_the_kernels_refuse_them():
         kernels.attention_forward(t(q[:, :, 0]), t(k[:, :, 0]), t(v[:, :, 0]), scale)
 
 
-def test_backward_raises_until_the_training_slice():
-    ctx = types.SimpleNamespace(kernel="attention_bnhd")
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        kernels.AttentionBnhdFunction.backward(ctx, None)
+def _row_stats(q, k, scale):
+    """The forward's final row max and row sum, fp32, over (B, N, D) or
+    (B, N, H, D) (then (B, H, Nq))."""
+    if q.dim() == 4:
+        q, k = q.transpose(1, 2), k.transpose(1, 2)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    m = s.amax(-1)
+    return m, torch.exp(s - m[..., None]).sum(-1)
+
+
+def _cotangent(shape, seed):
+    return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+
+
+def _close(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape
+    assert (np.abs(got - want) <= 1e-5 + 1e-4 * np.abs(want)).all(), \
+        float(np.abs(got - want).max())
+
+
+@pytest.mark.parametrize("layout", ["bnhd", "bnd_svd_head"])
+def test_fp32_gradients_match_the_jax_cpu_path(layout):
+    q, k, v, scale = _inputs(layout, seed=5)
+    g = _cotangent(q.shape[:-1] + (v.shape[-1],), 6)
+    if layout == "bnhd":
+        sw = lambda x: jnp.swapaxes(x, 1, 2)
+        dense = lambda q, k, v: sw(jlayers.attention(sw(q), sw(k), sw(v))[0])
+        port = layers.mha_attention_bnhd
+    else:
+        def dense(q, k, v):   # svd_head's fp32 form (dcp.py:306-314)
+            s = jnp.einsum("bnd,bmd->bnm", q, k,
+                           preferred_element_type=jnp.float32) / np.sqrt(q.shape[-1])
+            return jnp.einsum("bnm,bmc->bnc", jax.nn.softmax(s, axis=2), v,
+                              preferred_element_type=jnp.float32)
+        port = layers.attention
+    _, vjp = jax.vjp(dense, q, k, v)
+    want = vjp(jnp.asarray(g))
+    qt, kt, vt = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    port(qt, kt, vt).backward(torch.from_numpy(g))
+    for x, w in zip((qt, kt, vt), want):
+        _close(x.grad, w)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", ["bnhd", "bnd_svd_head"])
+def test_backward_plain_equals_autograd_of_the_forward(layout, dtype):
+    dt = getattr(torch, dtype)
+    q, k, v, scale = (torch.from_numpy(x).to(dt) if isinstance(x, np.ndarray) else x
+                      for x in _inputs(layout, seed=7))
+    fwd = ref.attention_bnhd if layout == "bnhd" else ref.attention
+    xs = [x.clone().requires_grad_() for x in (q, k, v)]
+    o = fwd(*xs, scale)
+    g = torch.from_numpy(_cotangent(tuple(o.shape), 8)).to(dt)
+    want = torch.autograd.grad(o, xs, g)
+    got = ref.attention_backward(q, k, v, o.detach(), *_row_stats(q, k, scale), g, scale)
+    for a, w in zip(got, want):
+        assert a.dtype == w.dtype == dt and a.shape == w.shape
+        if dt == torch.float32:
+            _close(a, w)
+        else:
+            assert _normwise(a.float().numpy(), w.float().numpy()) < 1e-2
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", ["bnhd", "bnd_svd_head"])
+def test_backward_matches_pallas_interpret(layout, dtype):
+    """bnhd: ``fused_attention_bnhd``'s backward (B 2, Nq 256, M 128, H 2,
+    dk 128); the svd head: ``fused_attention``'s split backward (D 512, v
+    zero-padded to 128 lanes), both in interpret mode."""
+    q, k, v, scale = _inputs(layout, seed=9)
+    g = _cotangent(q.shape[:-1] + (v.shape[-1],), 10)
+    jdt = getattr(jnp, dtype)
+    cast = lambda x: jnp.asarray(x).astype(jdt)
+    if layout == "bnhd":
+        _, vjp = jax.vjp(lambda q, k, v: pallas_kernels.fused_attention_bnhd(q, k, v, scale),
+                         cast(q), cast(k), cast(v))
+        want = vjp(cast(g))
+    else:
+        pad = ((0, 0), (0, 0), (0, 125))
+        _, vjp = jax.vjp(lambda q, k, v: pallas_kernels.fused_attention(q, k, v, scale),
+                         cast(q), cast(k), cast(np.pad(v, pad)))
+        want = vjp(cast(np.pad(g, pad)))
+        want = (want[0], want[1], want[2][..., :3])
+    dt = getattr(torch, dtype)
+    qt, kt, vt, gt = (torch.from_numpy(x).to(dt) for x in (q, k, v, g))
+    o = (ref.attention_bnhd if layout == "bnhd" else ref.attention)(qt, kt, vt, scale)
+    got = ref.attention_backward(qt, kt, vt, o, *_row_stats(qt, kt, scale), gt, scale)
+    for a, w in zip(got, want):
+        w = np.asarray(w.astype(jnp.float32))
+        assert a.shape == w.shape
+        assert _normwise(a.float().numpy(), w) < 1e-2

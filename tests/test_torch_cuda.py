@@ -857,3 +857,153 @@ def test_dcp_on_card_equals_cpu(cuda):
             "RMSE": (0, 7e-4), "MSE": (0, 5e-3), "T_12": (0, 2.5e-3)}
     for (name, (rtol, atol)), g, w in zip(bars.items(), *outs):
         torch.testing.assert_close(g, w, rtol=rtol, atol=atol, msg=name)
+
+
+# ---------------------------------------------------------------------------
+# DCP training: the attention backwards (rows 14-15) and the edge chain's
+# stat and backward passes (row 16)
+# ---------------------------------------------------------------------------
+
+def _attention_case(cuda, B, N, M, H, dtype):
+    g = torch.Generator(device="cuda").manual_seed(N + H)
+    if dtype == torch.bfloat16:
+        d = H * 128
+        y = torch.randn(B, N, 3 * d, device=cuda, generator=g).to(dtype)
+        ym = torch.randn(B, M, 3 * d, device=cuda, generator=g).to(dtype)
+        q = y[..., :d].reshape(B, N, H, 128)
+        k, v = ym[..., d:2 * d].reshape(B, M, H, 128), ym[..., 2 * d:].reshape(B, M, H, 128)
+        scale = 128 ** -0.5
+        o, m, l = kernels.attention_bnhd_forward(q, k, v, scale, stats=True)
+    else:
+        q = torch.randn(B, N, 512, device=cuda, generator=g)
+        k = torch.randn(B, M, 512, device=cuda, generator=g)
+        v = torch.rand(B, M, 3, device=cuda, generator=g)
+        scale = 512 ** -0.5
+        o, m, l = kernels.attention_forward(q, k, v, scale, stats=True)
+    d_out = torch.randn(o.shape, device=cuda, generator=g).to(dtype)
+    return q, k, v, o, m, l, d_out, scale
+
+
+@pytest.mark.parametrize("B,N,M,H", [(2, 2048, 2048, 4), (2, 1000, 777, 3)])
+def test_attention_bnhd_backward_kernel_matches_plain_version(cuda, B, N, M, H):
+    """dq, dk, dv of the heads read in place, normwise 1e-3 against
+    ``ref.attention_backward`` (1.7e-4 measured at DCP's shape); only the
+    gradients asked for are computed."""
+    *x, d_out, scale = _attention_case(cuda, B, N, M, H, torch.bfloat16)
+    before = kernels.ATTENTION_BNHD_BWD_LAUNCHES
+    got = kernels.attention_bnhd_backward(*x, d_out, scale)
+    torch.cuda.synchronize()
+    assert kernels.ATTENTION_BNHD_BWD_LAUNCHES == before + 1
+    for g, w in zip(got, ref.attention_backward(*x, d_out, scale)):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        assert _normwise(g, w) < 1e-3
+    dq, dk, dv = kernels.attention_bnhd_backward(*x, d_out, scale, need=(True, False, False))
+    assert dk is None and dv is None and torch.equal(dq, got[0])
+
+
+@pytest.mark.parametrize("B,N,M", [(2, 2048, 2048), (3, 1000, 777)])
+def test_attention_f32_backward_kernel_matches_plain_version(cuda, B, N, M):
+    """The svd head's backward within 1e-5 + 1e-4 |plain| (bitwise equal
+    measured on an H100)."""
+    *x, d_out, scale = _attention_case(cuda, B, N, M, 1, torch.float32)
+    got = kernels.attention_backward(*x, d_out, scale)
+    for g, w in zip(got, ref.attention_backward(*x, d_out, scale)):
+        assert g.shape == w.shape
+        assert ((g - w).abs() <= 1e-5 + 1e-4 * w.abs()).all()
+    _, _, dv = kernels.attention_backward(*x, d_out, scale, need=(True, True, False))
+    assert dv is None
+
+
+@pytest.mark.parametrize("B,N,K", [(2, 2048, 20), (3, 1001, 7)])
+def test_edge_mlp_train_kernels_match_plain_version(cuda, B, N, K):
+    """The train chain's forward (max-pools normwise 1e-3, batch statistics
+    1e-5) and its five backward passes (every gradient normwise 2e-2:
+    another bf16 rounding of the carried cotangent; 1.6e-2 measured), with
+    launches counted, and two runs bitwise equal."""
+    g = torch.Generator(device="cuda").manual_seed(K)
+    x = torch.rand(B, N, 3, device=cuda, generator=g)
+    nb = ref.gather_points(x, ref.knn_indices(x, K))
+    a1 = torch.cat([nb, x[:, :, None].expand_as(nb)], -1).to(torch.bfloat16)
+    chs, cins = (64, 64, 128, 256), (6, 64, 64, 128)
+    Ws = [(torch.rand(ci, c, device=cuda, generator=g) * 2 - 1) * ci ** -0.5
+          for ci, c in zip(cins, chs)]
+    gammas = [1 + 0.1 * torch.randn(c, device=cuda, generator=g) for c in chs]
+    betas = [0.1 * torch.randn(c, device=cuda, generator=g) for c in chs]
+    gxs = [torch.randn(B, N, c, device=cuda, generator=g) for c in chs]
+    leaves = [t.clone().requires_grad_() for t in (a1, *Ws, *gammas, *betas)]
+    before = (kernels.EDGE_MLP_STAT_LAUNCHES, kernels.EDGE_MLP_LAUNCHES,
+              kernels.EDGE_MLP_BWD_LAUNCHES)
+    out = dispatch.edge_mlp_train(leaves[0], leaves[1:5], leaves[5:9], leaves[9:])
+    got = torch.autograd.grad(out[0], leaves, gxs)
+    torch.cuda.synchronize()
+    assert (kernels.EDGE_MLP_STAT_LAUNCHES, kernels.EDGE_MLP_LAUNCHES,
+            kernels.EDGE_MLP_BWD_LAUNCHES) == (before[0] + 4, before[1] + 1, before[2] + 5)
+    want_xs, want_stats = ref.edge_mlp_train(leaves[0], leaves[1:5], leaves[5:9], leaves[9:])
+    for gl, wl in zip(out[0], want_xs):
+        assert _normwise(gl, wl.detach()) < 1e-3
+    for gl, wl in zip(out[1], want_stats):
+        assert _normwise(gl, wl) < 1e-5
+    want = torch.autograd.grad(want_xs, leaves, gxs)
+    for gl, wl in zip(got, want):
+        assert gl.shape == wl.shape and _normwise(gl.float(), wl.float()) < 2e-2
+    again = torch.autograd.grad(dispatch.edge_mlp_train(
+        leaves[0], leaves[1:5], leaves[5:9], leaves[9:])[0], leaves, gxs)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_train_wrappers_reject_bad_inputs(cuda):
+    *x, d_out, scale = _attention_case(cuda, 1, 64, 64, 1, torch.float32)
+    q, k = (t[..., :256].contiguous() for t in x[:2])
+    with pytest.raises(ValueError, match="D = 512"):
+        kernels.attention_backward(q, k, *x[2:], d_out, scale)
+    with pytest.raises(ValueError, match="row_max"):
+        kernels.attention_backward(*x[:4], x[4][:, :10], x[5], d_out, scale)
+    a1 = torch.zeros(1, 4, 256, 6, device=cuda, dtype=torch.bfloat16)
+    Ws = [torch.zeros(ci, c, device=cuda) for ci, c in
+          ((6, 64), (64, 64), (64, 128), (128, 256))]
+    ps = [[torch.ones(c, device=cuda) for c in (64, 64, 128, 256)]] * 2
+    with pytest.raises(ValueError, match="k=256"):
+        kernels.edge_mlp_train_forward(a1, Ws, *ps)
+
+
+def test_dcp_train_step_on_card_equals_cpu(cuda):
+    """A DCP train step at the smoke size, the same seeded weights on both
+    devices: the loss (rtol 1e-3) and the updated running statistics (atol
+    1e-3); every gradient leaf by cosine 0.99 (0.99963 measured on an H100),
+    the edge chain's also normwise 2e-2 of the leaf's norm (5.3e-3
+    measured; a zero or sign-flipped gradient fails both), the key
+    projections' biases (exactly 0) to 1e-5 of the whole gradient's norm
+    (9.5e-7). chip_smoke.check_dcp_step_on_cpu holds the same at full
+    width."""
+    from mvp_benchmark_tpu_torch.models.dcp import SHIFT_INVARIANT
+    from mvp_benchmark_tpu_torch.train import engine
+    from mvp_benchmark_tpu_torch.train.config import load_config
+    from mvp_benchmark_tpu_torch.train.optim import build_optimizer
+
+    cfg = load_config("registration/cfgs/dcp_smoke.yaml")
+    batch = next(engine.registration_dataset(cfg, "train", "nodata").batches(
+        engine.BatchSpec(4)))
+    outs = []
+    for device in (cuda, torch.device("cpu")):
+        model = engine.build_model(cfg, device, seed=1, for_training=True)
+        out = engine.make_registration_train_step(
+            model, build_optimizer(cfg, model.parameters()), device)(batch)
+        outs.append((float(out["total_loss"]),
+                     {n: p.grad.double().cpu() for n, p in model.named_parameters()},
+                     {n: b.cpu() for n, b in model.named_buffers()}))
+    (loss, g_card, st_card), (want, g_cpu, st_cpu) = outs
+    assert abs(loss - want) <= 1e-3 * abs(want)
+    for n, w in st_cpu.items():
+        torch.testing.assert_close(st_card[n], w, rtol=0, atol=1e-3, msg=n)
+    total = float(torch.sqrt(sum((w * w).sum() for w in g_cpu.values())))
+    for n, w in g_cpu.items():
+        g = g_card[n].flatten()
+        w = w.flatten()
+        gap = float((g - w).norm())
+        if n.endswith(SHIFT_INVARIANT):
+            assert gap <= 1e-5 * total, n
+            continue
+        cos = float(g @ w / (g.norm() * w.norm()))
+        assert cos >= 0.99, (n, cos)
+        if ".fused_" in n:
+            assert gap <= 2e-2 * float(w.norm()), (n, cos, gap / float(w.norm()))

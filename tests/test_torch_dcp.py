@@ -21,6 +21,9 @@ Two comparisons:
   kernel (fp32 scores, exact fp32 softmax). Measured here: T_12 within
   4.6e-4, the metrics within 5e-4 relative; bars T_12 atol 2e-3 and the
   metrics rtol 2e-3 / atol 2e-3.
+
+The train branch's parity is in test_torch_dcp_train.py; the launch counts
+of a protocol train step are here, beside the eval branches'.
 """
 
 import contextlib
@@ -37,6 +40,7 @@ from mvp_benchmark_tpu.models import dcp as jdcp
 from mvp_benchmark_tpu_torch.models import dcp as tdcp
 from mvp_benchmark_tpu_torch.models import pcn as tpcn
 from mvp_benchmark_tpu_torch.models.transplant import load_flax_params, to_flax_params
+from tests.test_torch_attention import _row_stats
 from tests.util_clouds import grid_points
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -160,46 +164,90 @@ def test_transplant_refuses_missing_or_homeless_batch_stats(pair):
             "mean": np.zeros(3, np.float32)}}})
 
 
-def test_train_branch_waits_for_its_slice(pair):
-    _, _, tm, (src, tgt, T) = pair
-    t = torch.from_numpy
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        tm(t(src), t(tgt), t(T), prefix="train")
-
-
-@pytest.mark.parametrize("prefix", ["val", "test"])
+@pytest.mark.parametrize("prefix", ["val", "test", "train"])
 def test_protocol_batch_launches_what_chip_smoke_derives(monkeypatch, prefix):
     """One batch of ``cfgs/dcp.yaml`` (full width, one cloud of 2048
     points), every tensor routed as a CUDA tensor would be and each kernel
     launcher replaced by a counting stand-in around its plain version: the
-    launches equal ``chip_smoke.DCP_PER_BATCH`` in both branches."""
+    launches equal ``chip_smoke.DCP_PER_BATCH`` in the val and test
+    branches, and ``chip_smoke.DCP_PER_STEP`` in a train step
+    (``engine.make_registration_train_step``). The train chain's stand-ins
+    count what its wrappers launch: four stat passes and the final pass a
+    forward, five passes a backward."""
     import chip_smoke
     from mvp_benchmark_tpu_torch.ops import dispatch, kernels, ref
     from mvp_benchmark_tpu_torch.train import engine
     from mvp_benchmark_tpu_torch.train.config import load_config
+    from mvp_benchmark_tpu_torch.train.optim import build_optimizer
 
     counts = {}
 
+    def count(key, n=1):
+        counts[key] = counts.get(key, 0) + n
+
     def counted(key, fn):
         def launch(*a, **kw):
-            counts[key] = counts.get(key, 0) + 1
+            count(key)
             return fn(*a, **kw)
         return launch
 
-    for launcher, key, fn in (
-            ("knn", "knn", ref.knn), ("gather_rows", "gather", ref.gather_points),
-            ("edge_mlp_forward", "edge_mlp", ref.edge_mlp_eval),
-            ("attention_forward", "attention", ref.attention),
-            ("attention_bnhd_forward", "attention_bnhd", ref.attention_bnhd)):
-        monkeypatch.setattr(kernels, launcher, counted(key, fn))
+    def attention_fwd(key, plain):
+        def launch(q, k, v, scale, stats=False):
+            count(key)
+            out = plain(q, k, v, scale)
+            return (out, *_row_stats(q, k, scale)) if stats else out
+        return launch
+
+    def attention_bwd(key):
+        def launch(q, k, v, o, m, l, d_out, scale, need=(True, True, True)):
+            count(key)
+            grads = ref.attention_backward(q, k, v, o, m, l, d_out, scale)
+            return tuple(g if n else None for g, n in zip(grads, need))
+        return launch
+
+    def edge_train_fwd(a1, Ws, gammas, betas):
+        count("edge_mlp_stat", 4)
+        count("edge_mlp")
+        xs, stats = ref.edge_mlp_train(a1, Ws, gammas, betas)
+        return xs, stats, torch.zeros((*a1.shape[:2], 512), dtype=torch.uint8)
+
+    def edge_train_bwd(a1, Ws, gammas, betas, stats, slots, gxs, need_a1=False):
+        count("edge_mlp_backward", 5)
+        with torch.enable_grad():
+            leaves = [x.detach().requires_grad_() for x in (*Ws, *gammas, *betas)]
+            xs, _ = ref.edge_mlp_train(a1, leaves[:4], leaves[4:8], leaves[8:])
+            grads = torch.autograd.grad(xs, leaves, gxs)
+        return None, grads[:4], grads[4:8], grads[8:]
+
+    for launcher, fn in (
+            ("knn", counted("knn", ref.knn)),
+            ("gather_rows", counted("gather", ref.gather_points)),
+            ("edge_mlp_forward", counted("edge_mlp", ref.edge_mlp_eval)),
+            ("attention_forward", attention_fwd("attention", ref.attention)),
+            ("attention_bnhd_forward", attention_fwd("attention_bnhd", ref.attention_bnhd)),
+            ("attention_backward", attention_bwd("attention_backward")),
+            ("attention_bnhd_backward", attention_bwd("attention_bnhd_backward")),
+            ("edge_mlp_train_forward", edge_train_fwd),
+            ("edge_mlp_train_backward", edge_train_bwd)):
+        monkeypatch.setattr(kernels, launcher, fn)
     monkeypatch.setattr(dispatch, "_route", lambda *xs: "cuda")
     cfg = load_config(chip_smoke.DCP_CFG, batch_size=1)
     cpu = torch.device("cpu")
-    step = engine.make_registration_eval_step(engine.build_model(cfg, cpu), cpu)
-    batch = next(engine.registration_dataset(cfg, "val", os.path.join(ROOT, "nodata"))
+    split = "train" if prefix == "train" else "val"
+    batch = next(engine.registration_dataset(cfg, split, os.path.join(ROOT, "nodata"))
                  .batches(engine.BatchSpec(1)))
-    out = step(batch, prefix)
-    assert counts == chip_smoke.DCP_PER_BATCH
+    if prefix == "train":
+        model = engine.build_model(cfg, cpu, for_training=True)
+        out = engine.make_registration_train_step(
+            model, build_optimizer(cfg, model.parameters()), cpu)(batch)
+        assert counts == chip_smoke.DCP_PER_STEP
+        out = tuple(out.values())
+        assert all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+                   for p in model.parameters())
+    else:
+        step = engine.make_registration_eval_step(engine.build_model(cfg, cpu), cpu)
+        out = step(batch, prefix)
+        assert counts == chip_smoke.DCP_PER_BATCH
     assert all(bool(torch.isfinite(o).all()) for o in
                (out if isinstance(out, tuple) else (out,)))
 

@@ -159,13 +159,16 @@ def test_transplant_rejects_a_tree_that_does_not_fit(pair):
 
 @pytest.mark.parametrize("name", ["dcp", "deepgmr", "idam"])
 def test_unported_models_raise(name):
-    """DeepGMR and IDAM are not ported; DCP is, in eval only: its train
-    branch raises until its training slice."""
+    """DeepGMR and IDAM are not ported; DCP is, eval and train: its train
+    branch returns the val branch's five outputs (its parity with JAX is in
+    test_torch_dcp.py)."""
     if name == "dcp":
-        model = get_model(name, Config(model_name=name))
-        x = torch.zeros(1, 32, 3)
-        with pytest.raises(NotImplementedError, match="slice 7"):
-            model(x, x, torch.eye(4)[None], prefix="train")
+        g = torch.Generator().manual_seed(0)
+        model = get_model(name, Config(model_name=name), generator=g)
+        x, y = torch.rand(1, 32, 3, generator=g), torch.rand(1, 32, 3, generator=g)
+        out = model(x, y, torch.eye(4)[None], prefix="train")
+        assert len(out) == 5 and all(o.shape == (1,) or o.dim() == 0 for o in out)
+        assert all(bool(torch.isfinite(o).all()) for o in out)
         return
     with pytest.raises(NotImplementedError, match="not yet ported"):
         get_model(name, Config(model_name=name))

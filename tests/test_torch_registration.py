@@ -191,3 +191,58 @@ def test_dcp_is_ported_at_the_jax_parameter_count():
                       generator=torch.Generator().manual_seed(0))
     assert sum(p.numel() for p in model.parameters()) == 5_568_896
     assert sum(b.numel() for b in model.buffers()) == 2 * (512 + 512)
+
+
+def test_batch_norm_train_matches_flax_over_two_calls():
+    """Train mode: batch statistics (fp32, flax's biased fast variance), the
+    output and its gradients, and the running statistics after two calls
+    (``0.9 ra + 0.1 batch`` twice, DCP's src then tgt), against flax's
+    ``nn.BatchNorm`` with mutable ``batch_stats``: atol 1e-5 / rtol 1e-5
+    (1e-7 relative measured)."""
+    rng = np.random.default_rng(10)
+    xs = [(3 * rng.standard_normal((2, 40, 16)) + 1).astype(np.float32) for _ in range(2)]
+    cot = rng.standard_normal((2, 40, 16)).astype(np.float32)
+    jl = jlayers.BatchNorm()
+    v = jax.tree.map(np.array, jl.init(jax.random.PRNGKey(0), xs[0], False))
+    p = v["params"]["BatchNorm_0"]
+    p["scale"] = (1 + 0.1 * rng.standard_normal(16)).astype(np.float32)
+    p["bias"] = (0.1 * rng.standard_normal(16)).astype(np.float32)
+    stats = v["batch_stats"]
+    tl = layers.BatchNorm(16)
+    with torch.no_grad():
+        tl.weight.copy_(T(p["scale"]))
+        tl.bias.copy_(T(p["bias"]))
+    for x in xs:
+        def loss(x, params):
+            y, new = jl.apply({"params": params, "batch_stats": stats}, x, True,
+                              mutable=["batch_stats"])
+            return jnp.sum(y * cot), (y, new)
+        (_, (want, new)), (gx, gp) = jax.value_and_grad(
+            loss, argnums=(0, 1), has_aux=True)(x, v["params"])
+        stats = new["batch_stats"]
+        xt = T(x).requires_grad_()
+        tl.weight.grad = tl.bias.grad = None
+        got = tl(xt, train=True)
+        (got * T(cot)).sum().backward()
+        np.testing.assert_allclose(got.detach().numpy(), want, **TOL)
+        np.testing.assert_allclose(xt.grad.numpy(), gx, **TOL)
+        np.testing.assert_allclose(tl.weight.grad.numpy(), gp["BatchNorm_0"]["scale"], **TOL)
+        np.testing.assert_allclose(tl.bias.grad.numpy(), gp["BatchNorm_0"]["bias"], **TOL)
+    np.testing.assert_allclose(tl.mean.numpy(), stats["BatchNorm_0"]["mean"], **TOL)
+    np.testing.assert_allclose(tl.var.numpy(), stats["BatchNorm_0"]["var"], **TOL)
+    assert not np.allclose(tl.var.numpy(), 1.0)
+
+
+def test_plateau_scheduler_equals_jax():
+    """The learning rates of an RMSE sequence with plateaus, cuts and the
+    floor, step by step, equal the JAX package's."""
+    from mvp_benchmark_tpu.train import optim as joptim
+    from mvp_benchmark_tpu_torch.train import optim as toptim
+    rng = np.random.default_rng(11)
+    metrics = np.concatenate([np.linspace(1, 0.5, 5), 0.6 + rng.random(40) * 0.1,
+                              [0.4], 0.5 + rng.random(60) * 0.1])
+    j, t = joptim.PlateauScheduler(1e-3, 0.5, 1e-4), toptim.PlateauScheduler(1e-3, 0.5, 1e-4)
+    got = [t.step(float(m)) for m in metrics]
+    want = [j.step(float(m)) for m in metrics]
+    assert got == want
+    assert min(got) == 1e-4 and len(set(got)) > 2
