@@ -23,7 +23,8 @@ Phases, each of which raises on failure (exit code != 0):
    chain's eval pass, and for training the attention backwards (bf16
    normwise, fp32 within the SA bar) and the chain's stat, final and
    backward passes against autograd of its plain version (normwise), two
-   runs of the latter bitwise equal;
+   runs of the latter bitwise equal; IDAM's edge block and similarity MLP
+   at its shapes plus ragged and tie cases, bitwise;
 4. drives each main path through the functions ``completion/test_torch.py``
    and ``completion/train_torch.py`` call, with seeded weights, on the
    synthetic splits, each with the launch counts zeroed just before and read
@@ -38,7 +39,9 @@ Phases, each of which raises on failure (exit code != 0):
    functions ``registration/test_torch.py`` calls; and
    ``engine.train_registration`` of DCP (what ``registration/train_torch.py``
    runs) for the synthetic train split's two steps, its val pass and
-   checkpoints;
+   checkpoints; the val pass and test pass of full-width IDAM
+   (``registration/cfgs/idam.yaml``: 32 pairs x 2048 points, M 341, 3
+   iterations);
 5. checks the results: finite, of the expected shape, metrics equal to the
    ones recomputed with the plain chamfer on the card (rtol 1e-6), a val
    batch equal to the same model run on the CPU (PCN outputs atol 1e-5 /
@@ -55,7 +58,9 @@ Phases, each of which raises on failure (exit code != 0):
    clouds equal to the CPU's (``check_dcp_batch_on_cpu``); DCP's train
    losses and gradients finite, its checkpoint reloading to the same val
    metrics, and a train step on two full-width pairs equal to the CPU's
-   (``check_dcp_step_on_cpu``);
+   (``check_dcp_step_on_cpu``); IDAM's val metrics recomputed from its
+   poses as DCP's, and a val batch cut to two pairs against the CPU, its
+   selection flips counted (``check_idam_batch_on_cpu``);
 6. times the val and test passes per batch, the train steps (ms and
    points/s; DCP's in pairs/s), and each kernel against its plain version (and a single
    PyTorch call computing the same function, where one exists) at a
@@ -91,6 +96,7 @@ from mvp_benchmark_tpu_torch.train.optim import build_optimizer
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PCN_CFG = os.path.join(ROOT, "completion", "cfgs", "pcn.yaml")
 DCP_CFG = os.path.join(ROOT, "registration", "cfgs", "dcp.yaml")
+IDAM_CFG = os.path.join(ROOT, "registration", "cfgs", "idam.yaml")
 REG_DATA_DIR = os.path.join(ROOT, "registration", "data")   # its test_torch.py's
 ECG_CFG = os.path.join(ROOT, "completion", "cfgs", "ecg.yaml")
 VRCNET_CFG = os.path.join(ROOT, "completion", "cfgs", "vrcnet.yaml")
@@ -162,6 +168,13 @@ KERNELS.update({
     "edge_mlp_backward": {"name": "edge_mlp_backward",
                           "source": f"{_CSRC}/edge_mlp.cu",
                           "replaces": f"{_PK}:3043"},
+    # gnn_propagate_eval runs the edge build (:4370) and gnn_edge_eval
+    # (:4242); the kernel fuses the two
+    "gnn_propagate": {"name": "gnn_propagate_eval",
+                      "source": f"{_CSRC}/gnn_propagate.cu",
+                      "replaces": f"{_PK}:4466"},
+    "sim_mlp": {"name": "sim_mlp_eval", "source": f"{_CSRC}/sim_mlp.cu",
+                "replaces": f"{_PK}:3727"},
 })
 
 # ECG's kernel launches per forward pass, read off models/ecg.py and
@@ -241,6 +254,12 @@ DCP_PER_STEP = {"knn": 2, "gather": 2, "edge_mlp_stat": 8, "edge_mlp": 2,
                 "edge_mlp_backward": 10, "attention_bnhd": 6,
                 "attention_bnhd_backward": 6, "attention": 1,
                 "attention_backward": 1}
+# IDAM's, read off models/idam.py at registration/cfgs/idam.yaml (emb 64,
+# 3 iterations): the GNN runs once on tgt and once on src, each a self-kNN
+# (k 12) and five Propagate edge blocks; each iteration one similarity MLP.
+# The top-k, the kept points' takes and the correspondences are plain
+# indexing (no gather kernel), as in JAX.
+IDAM_PER_BATCH = {"knn": 2, "gnn_propagate": 10, "sim_mlp": 3}
 TRAIN_STEPS = 3       # max_steps_per_epoch of each driven train path
 # The SA block's tolerance against its plain version on the card:
 # |kernel - plain| <= SA_ATOL + SA_RTOL |plain| (another summation order).
@@ -279,6 +298,25 @@ EDGE_TRAIN_NORM, EDGE_STAT_NORM, EDGE_GRAD_NORM = 1e-3, 1e-5, 2e-2
 # (5.5e-5; 1 - 2.1e-5; 7.7e-7; 1 - 3.3e-6, 2.6e-3).
 DCP_STEP_BARS = {"loss": 5e-4, "cosine": 0.9998, "stats": 1e-5,
                  "chain_cosine": 0.9999, "chain_normwise": 2e-2}
+# IDAM's two kernels equal their plain versions bitwise (check_equal): the
+# plain versions sum in the kernels' channel order and round each other
+# operation on its own. IDAM on the card against the CPU, two full-width
+# pairs, the same weights: the GNN rounds its gather table to bf16, so the
+# one-ulp differences of cuBLAS's and the CPU's projection products move
+# some table entries to the other bf16 neighbour, 2^-8 of their value, and
+# the embeddings are held normwise (IDAM_EMB_NORM, the CPU test's bar against
+# JAX, tests/test_torch_idam.py). The kept points and the correspondences
+# may then flip where scores or similarities nearly tie (with seeded weights
+# and the initial running statistics the significance scores are nearly
+# flat, so near-ties are many): the flips are counted; with the card's kept
+# points handed to the CPU too, a pair's pose and metrics are held to
+# IDAM_CPU_ATOL where no correspondence flipped: the bars of the CPU test
+# against JAX, whose T_12 moved 2.2e-4 by bf16 roundings of the similarity
+# MLP's activations (measured card vs CPU on an H100: T_12 1.9e-6, RotE
+# 2.3e-5 degrees, transE 1.6e-6, RMSE 4.2e-7, MSE 2.0e-6).
+IDAM_EMB_NORM = 2e-2
+IDAM_CPU_ATOL = {"RotE": 0.05, "transE": 1e-3, "RMSE": 1e-3, "MSE": 1e-3,
+                 "T_12": 1e-3}
 
 
 class SmokeFailure(RuntimeError):
@@ -784,16 +822,165 @@ def compare_dcp_train_kernels_with_plain(device):
     return err
 
 
+def idam_propagate_inputs(seed, B, N, k, C, device, dup=False):
+    """The Propagate edge block's inputs: a unit-normal projection p, the
+    self-kNN of a uniform cloud (``dup``: the second half of each row's
+    neighbours repeats the first, so the max over them ties), W and b at
+    torch's init scale, BatchNorm parameters and running statistics near
+    their initial values."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    idx = ref.knn_indices(torch.rand(B, N, 3, device=device, generator=g), k)
+    if dup:
+        idx[:, :, k - k // 2:] = idx[:, :, :k // 2]
+    p = torch.randn(B, N, C, device=device, generator=g)
+    u = lambda *s: (torch.rand(*s, device=device, generator=g) * 2 - 1) * C ** -0.5
+    vec = lambda sd, mu: mu + sd * torch.randn(C, device=device, generator=g)
+    return (p, idx, u(C, C), u(C), vec(0.1, 1.0), vec(0.1, 0.0), vec(0.1, 0.0),
+            0.5 + torch.rand(C, device=device, generator=g))
+
+
+def idam_sim_inputs(seed, B, M, device, emb=64, ties=False):
+    """The similarity kernel's inputs (``ref.sim_mlp_core``'s arguments):
+    the projections of unit-normal embeddings, uniform positions (``ties``:
+    the second quarter of the targets repeats the first, embeddings too, so
+    the max over j ties), weights at torch's init scale, BatchNorm
+    parameters and running statistics near their initial values."""
+    C = kernels.SIM_MLP_C
+    g = torch.Generator(device=device).manual_seed(seed)
+    src, tgt = (torch.rand(B, M, 3, device=device, generator=g) for _ in range(2))
+    semb, temb = (torch.randn(B, M, emb, device=device, generator=g) for _ in range(2))
+    if ties:
+        h = M // 4
+        tgt[:, h:2 * h], temb[:, h:2 * h] = tgt[:, :h], temb[:, :h]
+    u = lambda *s: (torch.rand(*s, device=device, generator=g) * 2 - 1) * s[0] ** -0.5
+    vec = lambda sd, mu: mu + sd * torch.randn(C, device=device, generator=g)
+    Wcat = u(2 * emb + 4, C)
+    sp, tp = ref.sim_projections(semb, temb, Wcat)
+    return (sp, tp, src, tgt, *ref.sim_mlp_split(Wcat, emb), u(C, C),
+            u(C), u(C, C), u(C, 1), vec(0.1, 1.0), vec(0.1, 0.0),
+            vec(0.1, 1.0), vec(0.1, 0.0), vec(0.1, 0.0),
+            0.5 + torch.rand(C, device=device, generator=g), vec(0.1, 0.0),
+            0.5 + torch.rand(C, device=device, generator=g))
+
+
+def compare_idam_kernels_with_plain(device):
+    """Phase 3f: IDAM's two kernels at its path's shapes (the edge block's
+    (32, 2048, k 12, C 64); the similarity MLP's (32, 341, emb 64, C 32))
+    plus ragged ones (N 1001 and 37, C 32, k 5; M 37 and 1) and ties
+    (repeated neighbours; repeated target points), against ``ref`` on the
+    card: bitwise. Returns {key: max |kernel - plain|}."""
+    err = {"gnn_propagate": 0.0, "sim_mlp": 0.0}
+    for (B, N, k, C, dup) in ((32, 2048, 12, 64, False), (3, 1001, 12, 32, False),
+                              (2, 37, 5, 64, False), (2, 300, 12, 64, True)):
+        x = idam_propagate_inputs(1000 + N, B, N, k, C, device, dup)
+        err["gnn_propagate"] = max(err["gnn_propagate"], check_equal(
+            f"gnn_propagate ({B}, {N}, k {k}, C {C}{', ties' if dup else ''})",
+            [kernels.gnn_propagate_forward(*x)], [ref.gnn_propagate_eval(*x)]))
+    for (B, M, ties) in ((32, 341, False), (3, 37, False), (2, 64, True), (1, 1, False)):
+        x = idam_sim_inputs(2000 + M, B, M, device, ties=ties)
+        err["sim_mlp"] = max(err["sim_mlp"], check_equal(
+            f"sim_mlp ({B}, {M}, C 32{', ties' if ties else ''}) simr, wmax",
+            kernels.sim_mlp_forward(*x), ref.sim_mlp_core(*x)))
+    torch.cuda.synchronize()
+    return err
+
+
+def _idam_on(cfg, device, batch, kept=None):
+    """IDAM's val outputs, T_12, embeddings (tgt, src) and selections on
+    ``device``, on the host: the kept points (src_idx, tgt_idx) and each
+    iteration's correspondences as indices of the whole target cloud
+    (tgt_idx[corr_idx]). ``kept``: src_idx and tgt_idx to use instead of the
+    model's own top-k."""
+    from mvp_benchmark_tpu_torch.models import idam
+
+    model = engine.build_model(cfg, device)
+    step = engine.make_registration_eval_step(model, device)
+    taken, take, top_k = [], idam._batch_take, idam._top_k_indices
+    forced = list(kept or [])
+    idam._batch_take = lambda x, i: (taken.append(i.cpu()), take(x, i))[1]
+    if kept is not None:
+        idam._top_k_indices = lambda score, k: forced.pop(0).to(score.device)
+    try:
+        val = [o.cpu() for o in step(batch, "val")]
+        forced = list(kept or [])
+        T = step(batch, "test").cpu()
+    finally:
+        idam._batch_take, idam._top_k_indices = take, top_k
+    with torch.inference_mode():
+        embs = [model.gnn(torch.from_numpy(batch[k]).to(device)).cpu()
+                for k in ("tgt", "src")]
+    src_idx, tgt_idx = taken[0], taken[2]
+    corr = [torch.gather(tgt_idx, 1, c) for c in taken[4:4 + int(cfg.num_iters)]]
+    return val, T, embs, [src_idx, tgt_idx], corr
+
+
+def _corr_flips(got_kept, got_corr, want_kept, want_corr, b):
+    """Correspondences that differ per iteration, over the source points
+    both runs kept, by the target point (of the whole cloud) each picks."""
+    g = {int(s): i for i, s in enumerate(got_kept[0][b])}
+    w = {int(s): i for i, s in enumerate(want_kept[0][b])}
+    common = sorted(set(g) & set(w))
+    return [sum(int(gc[b, g[s]] != wc[b, w[s]]) for s in common)
+            for gc, wc in zip(got_corr, want_corr)]
+
+
+def check_idam_batch_on_cpu(cfg, device, first, clouds_cut=2):
+    """One full-width val batch cut to two pairs, on the card and on the
+    CPU (plain versions throughout), the same seeded weights. The GNN
+    embeddings are held normwise within IDAM_EMB_NORM. Run free, the kept
+    points flipped (of 341 a cloud) and the correspondences flipped (over
+    the source points both kept) are counted and printed. Then the CPU runs
+    again with the card's kept points: its correspondence flips are counted,
+    and each pair with none is held to IDAM_CPU_ATOL (T_12 and metrics)."""
+    batch = {k: (v[:clouds_cut] if isinstance(v, np.ndarray) and v.ndim else v)
+             for k, v in first.items()}
+    cpu = torch.device("cpu")
+    got, got_T, got_emb, got_kept, got_corr = _idam_on(cfg, device, batch)
+    _, want_T, want_emb, want_kept, want_corr = _idam_on(cfg, cpu, batch)
+    emb_gap = [float((g - w).double().norm() / w.double().norm())
+               for g, w in zip(got_emb, want_emb)]
+    kept = [[len(set(g[b].tolist()) - set(w[b].tolist())) for g, w in
+             zip(got_kept, want_kept)] for b in range(clouds_cut)]
+    corr = [_corr_flips(got_kept, got_corr, want_kept, want_corr, b)
+            for b in range(clouds_cut)]
+    M = got_kept[0].shape[1]
+    print(f"IDAM card vs CPU on {clouds_cut} pairs of {batch['src'].shape[1]} points: "
+          f"embeddings (tgt, src) "
+          f"normwise {emb_gap!r} (bar {IDAM_EMB_NORM}); run free: kept points "
+          f"flipped per pair (src, tgt; of {M}) {kept}, correspondences flipped per "
+          f"pair and iteration {corr}, T_12 max |diff| "
+          f"{float((got_T - want_T).abs().max())!r}")
+    check(max(emb_gap) <= IDAM_EMB_NORM, f"IDAM card vs CPU: embeddings {emb_gap}")
+    want, want_T, _, _, want_corr = _idam_on(cfg, cpu, batch, kept=got_kept)
+    corr = [_corr_flips(got_kept, got_corr, got_kept, want_corr, b)
+            for b in range(clouds_cut)]
+    held = [b for b in range(clouds_cut) if not any(corr[b])]
+    diffs = {}
+    for b in held:
+        for name, g, w in zip(("RotE", "transE", "RMSE", "MSE", "T_12"),
+                              (got[1], got[2], got[3], got[4], got_T),
+                              (want[1], want[2], want[3], want[4], want_T)):
+            diffs[name] = max(diffs.get(name, 0.0), float((g[b] - w[b]).abs().max()))
+    print(f"IDAM card vs CPU with the card's kept points on both: correspondences "
+          f"flipped per pair and iteration {corr}; pairs held {held}: max |diff| "
+          f"{diffs} (bars {IDAM_CPU_ATOL}); RotE card {got[1].tolist()!r}, CPU "
+          f"{want[1].tolist()!r}")
+    for name, d in diffs.items():
+        check(d <= IDAM_CPU_ATOL[name], f"IDAM card vs CPU: {name} {d} > "
+              f"{IDAM_CPU_ATOL[name]}")
+
+
 def _reg_batches(cfg):
     spec = BatchSpec(int(cfg.batch_size))
     return (engine.registration_dataset(cfg, "val", REG_DATA_DIR).steps_per_epoch(spec),
             engine.registration_dataset(cfg, "test", REG_DATA_DIR).steps_per_epoch(spec))
 
 
-def drive_dcp_path(cfg, device):
-    """Phase 4 for DCP: the val pass and the test poses, as
+def drive_registration_path(name, cfg, device, per_batch):
+    """Phase 4 for a registration model: the val pass and the test poses, as
     registration/test_torch.py runs them, counts zeroed just before and read
-    just after, equal to DCP_PER_BATCH in every val and test batch."""
+    just after, equal to ``per_batch`` (DCP_PER_BATCH, IDAM_PER_BATCH) in
+    every val and test batch."""
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     val = engine.run_registration_val(cfg, REG_DATA_DIR, device)
@@ -802,28 +989,28 @@ def drive_dcp_path(cfg, device):
     seconds = time.perf_counter() - t0
     launches = kernels.launch_counts()
     expected = dict.fromkeys(KERNELS, 0)
-    expected.update({k: v * sum(_reg_batches(cfg)) for k, v in DCP_PER_BATCH.items()})
-    print(f"DCP main path launches ({seconds!r} s with the first calls' "
+    expected.update({k: v * sum(_reg_batches(cfg)) for k, v in per_batch.items()})
+    print(f"{name} main path launches ({seconds!r} s with the first calls' "
           f"allocations): {launches}")
-    check(launches == expected, f"DCP: launches {launches}, expected {expected}")
+    check(launches == expected, f"{name}: launches {launches}, expected {expected}")
     return val, poses, launches
 
 
-def check_dcp_results(cfg, device, val, poses):
+def check_registration_results(name, cfg, device, val, poses):
     """The five metrics finite; the poses finite and rigid; the val metrics
     equal to the ones recomputed on the card with the metrics module from
     the test-branch poses of the val clouds (rtol 1e-6: the kernels are
     deterministic, so the poses are the val pass's)."""
-    check(sorted(val) == sorted(engine.REG_METRICS), f"DCP val metrics {sorted(val)}")
-    check(all(np.isfinite(v) for v in val.values()), f"DCP val metrics {val}")
+    check(sorted(val) == sorted(engine.REG_METRICS), f"{name} val metrics {sorted(val)}")
+    check(all(np.isfinite(v) for v in val.values()), f"{name} val metrics {val}")
     n = len(engine.registration_dataset(cfg, "test", REG_DATA_DIR))
     check(poses.shape == (n, 4, 4) and bool(np.isfinite(poses).all()),
-          f"DCP test poses {poses.shape}")
+          f"{name} test poses {poses.shape}")
     R = torch.from_numpy(poses[:, :3, :3]).double()
     rigid = float((R @ R.transpose(1, 2) - torch.eye(3, dtype=torch.float64)).abs().max())
     det = float((torch.linalg.det(R) - 1).abs().max())
     check(rigid < 1e-4 and det < 1e-4 and (poses[:, 3] == [0, 0, 0, 1]).all(),
-          f"DCP poses not rigid: |R R^T - I| {rigid}, |det - 1| {det}")
+          f"{name} poses not rigid: |R R^T - I| {rigid}, |det - 1| {det}")
 
     step = engine.make_registration_eval_step(engine.build_model(cfg, device), device)
     dataset = engine.registration_dataset(cfg, "val", REG_DATA_DIR)
@@ -848,8 +1035,8 @@ def check_dcp_results(cfg, device, val, poses):
     for m, v in val.items():
         want = sums[m] / total
         check(abs(v - want) <= 1e-6 * abs(want),
-              f"DCP {m}: val pass {v!r} vs recomputed from the poses {want!r}")
-    print(f"DCP val metrics == recomputed from the test-branch poses (rtol 1e-6): "
+              f"{name} {m}: val pass {v!r} vs recomputed from the poses {want!r}")
+    print(f"{name} val metrics == recomputed from the test-branch poses (rtol 1e-6): "
           + ", ".join(f"{m} {v!r}" for m, v in val.items())
           + f"; {n} test poses rigid (|R R^T - I| {rigid!r})")
     return step, first
@@ -876,20 +1063,20 @@ def check_dcp_batch_on_cpu(cfg, step, first, clouds_cut=2):
           f"RotE card {got[1].tolist()!r}, CPU {want[1].tolist()!r}")
 
 
-def time_dcp_passes(cfg, device, card, repeats=3):
-    """ms per val and test batch of DCP (host clock, batching and copies
-    included), after a warm-up pass."""
+def time_registration_passes(name, cfg, device, card, repeats=3):
+    """ms per val and test batch of a registration model (host clock,
+    batching and copies included), after a warm-up pass."""
     model = engine.build_model(cfg, device)
     step = engine.make_registration_eval_step(model, device)
     spec = BatchSpec(int(cfg.batch_size))
     val_ds = engine.registration_dataset(cfg, "val", REG_DATA_DIR)
     test_ds = engine.registration_dataset(cfg, "test", REG_DATA_DIR)
     meters = {m: AverageValueMeter() for m in engine.REG_METRICS}
-    split = engine.registration_split_meters(cfg)
+    split_meters = engine.registration_split_meters(cfg)
     out = {}
-    for name, ds, run in (
+    for split, ds, run in (
             ("val", val_ds, lambda: engine.val_registration(step, val_ds, spec,
-                                                            meters, split)),
+                                                            meters, split_meters)),
             ("test", test_ds, lambda: engine.predict_registration(step, test_ds, spec))):
         run()
         torch.cuda.synchronize()
@@ -899,8 +1086,8 @@ def time_dcp_passes(cfg, device, card, repeats=3):
             run()
             torch.cuda.synchronize()
             each.append((time.perf_counter() - t0) * 1e3 / ds.steps_per_epoch(spec))
-        out[name] = sum(each) / repeats
-        print(f"DCP {name} pass: {out[name]!r} ms/batch (passes {each!r}; batch "
+        out[split] = sum(each) / repeats
+        print(f"{name} {split} pass: {out[split]!r} ms/batch (passes {each!r}; batch "
               f"{spec.batch_size}, {int(cfg.num_points)} points) on {card}")
     return out
 
@@ -1743,13 +1930,46 @@ def dcp_train_timing_cases(device):
     }
 
 
+def idam_timing_cases(device):
+    """timing_cases of IDAM's kernels at its path's shapes. Bytes: each
+    input read once (the edge block's p, idx and parameters; the similarity
+    kernel's projections, positions and parameters), each output written
+    once (the (B, N, C) max-pool; the (B, M, M) logits and (B, M, C) wmax).
+    Operations, 2 per multiply-add: the bf16-input products (W of every
+    edge; Wxyz, W2 and W3 of every pair) at the bf16 peak, and the fp32
+    operations at the fp32 peak (the edge: its subtraction, the BatchNorm's
+    four, the bias; a pair: 13 for the distance and direction, 15 a channel
+    for h0, the two BatchNorms, b2 and the W4 logit; relu and max not
+    counted), counted as bf16-peak operations (times 989 / 67) so that one
+    peak bounds their sum."""
+    B, N, k, C = 32, 2048, 12, 64
+    M, SC = N // 6, kernels.SIM_MLP_C
+    pa = idam_propagate_inputs(900, B, N, k, C, device)
+    sa = idam_sim_inputs(901, B, M, device)
+    E, P = B * N * k, B * M * M
+    f32 = PEAK_BF16 / PEAK_FP32
+    return {
+        "gnn_propagate": (f"({B}, {N}, k {k}, C {C})",
+                          lambda: kernels.gnn_propagate_forward(*pa),
+                          lambda: ref.gnn_propagate_eval(*pa), None,
+                          2 * B * N * C * 4 + E * 4 + (C * C + 5 * C) * 4,
+                          2 * E * C * C + 6 * E * C * f32, PEAK_BF16),
+        "sim_mlp": (f"({B}, {M} x {M}, emb 64, C {SC})",
+                    lambda: kernels.sim_mlp_forward(*sa),
+                    lambda: ref.sim_mlp_core(*sa), None,
+                    (2 * B * M * (SC + 3) + P + B * M * SC + 2496) * 4,
+                    2 * P * (3 * SC + 2 * SC * SC) + P * (13 + 15 * SC) * f32,
+                    PEAK_BF16),
+    }
+
+
 def time_kernels(device, card, emd_case):
     """Each kernel against its plain version in the order plain, kernel,
     kernel, plain (CUDA events), and the library call where there is one."""
     out = {}
     cases = {**timing_cases(device), **backward_timing_cases(device),
              **geometry_timing_cases(device, emd_case), **dcp_timing_cases(device),
-             **dcp_train_timing_cases(device)}
+             **dcp_train_timing_cases(device), **idam_timing_cases(device)}
     for key, (shape, kern, plain, lib, nbytes, ops, *peak) in cases.items():
         it_k, it_p = _iters(kern), _iters(plain)
         runs = {"plain": [], "kernel": []}
@@ -1795,6 +2015,7 @@ def main() -> int:
     max_abs.update(geometry_err)
     max_abs.update(compare_dcp_kernels_with_plain(device))
     max_abs.update(compare_dcp_train_kernels_with_plain(device))
+    max_abs.update(compare_idam_kernels_with_plain(device))
 
     paths = {}           # path -> its launch counts
     pcn = load_config(PCN_CFG)
@@ -1818,15 +2039,22 @@ def main() -> int:
     pcn_emd = load_config(PCN_CFG, eval_emd=True)
     paths["PCN eval_emd"] = drive_emd_val("PCN", pcn_emd, device)
     dcp = load_config(DCP_CFG)
-    val, poses, paths["DCP eval"] = drive_dcp_path(dcp, device)
-    step, first = check_dcp_results(dcp, device, val, poses)
+    val, poses, paths["DCP eval"] = drive_registration_path("DCP", dcp, device,
+                                                            DCP_PER_BATCH)
+    step, first = check_registration_results("DCP", dcp, device, val, poses)
     check_dcp_batch_on_cpu(dcp, step, first)
+    idam_cfg = load_config(IDAM_CFG)
+    val, poses, paths["IDAM eval"] = drive_registration_path("IDAM", idam_cfg, device,
+                                                             IDAM_PER_BATCH)
+    _, first = check_registration_results("IDAM", idam_cfg, device, val, poses)
+    check_idam_batch_on_cpu(idam_cfg, device, first)
     # before the train paths, as the eval-only runs of earlier versions
     time_passes("PCN", pcn, device, card)
     time_passes("ECG", ecg, device, card)
     time_passes("VRCNet", vrc, device, card)
     time_passes("PCN with eval_emd", pcn_emd, device, card, repeats=2)
-    time_dcp_passes(dcp, device, card)
+    time_registration_passes("DCP", dcp, device, card)
+    time_registration_passes("IDAM", idam_cfg, device, card)
 
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     for name, path, per_step, per_val in (

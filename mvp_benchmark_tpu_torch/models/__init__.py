@@ -10,7 +10,9 @@ import torch
 
 COMPLETION_MODELS = ("pcn", "ecg", "vrcnet")
 REGISTRATION_MODELS = ("dcp", "deepgmr", "idam")
-PORTED_MODELS = ("pcn", "ecg", "vrcnet", "dcp")
+PORTED_MODELS = ("pcn", "ecg", "vrcnet", "dcp", "idam")
+# the ported models whose train branch is ported too (IDAM's is not yet)
+TRAIN_PORTED_MODELS = ("pcn", "ecg", "vrcnet", "dcp")
 
 
 def get_model_module(name: str):

@@ -17,10 +17,12 @@ parameter left unfilled, and any shape that disagrees.
 Leaves by name: ``kernel``/``bias`` go to ``weight`` (transposed) and
 ``bias``; a MultiDense's ``kernel{i}``/``bias{i}`` to ``weight{i}``
 (transposed) and ``bias{i}``; a norm's ``scale`` to ``weight``; VRCNet's raw
-SA parameters ``w_mlp1``, ``w_mlp2`` and ``w_mlp2_bias`` and DCP's fused
+SA parameters ``w_mlp1``, ``w_mlp2`` and ``w_mlp2_bias``, DCP's fused
 edge-chain parameters ``fused_W{i}``, ``fused_scale{i}`` and
-``fused_bias{i}`` to the torch parameters of the same name, in the flax
-orientation (they enter a product as ``x @ W``).
+``fused_bias{i}``, and IDAM's Propagate ``edge_*`` and similarity-MLP
+``sim{i}_*`` parameters (the latter at the model's root scope, "" in its
+table) to the torch parameters of the same name, in the flax orientation
+(they enter a product as ``x @ W``).
 
 VRCNet's prior net (``LinearResBlock_2``, ``prior_infer``) runs only in the
 train branch: a checkpoint written by training holds it, a tree made for eval
@@ -44,7 +46,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-from mvp_benchmark_tpu_torch.models import dcp, ecg, layers, pcn, vrcnet
+from mvp_benchmark_tpu_torch.models import dcp, ecg, idam, layers, pcn, vrcnet
 
 _PCN_ENCODER = {
     "PCNEncoder_0/TorchDense_0": "encoder.fc1",
@@ -159,11 +161,35 @@ def _dcp_table() -> dict:
 
 
 _DCP = _dcp_table()
-_RAW_PATTERN = r"(w_mlp1|w_mlp2|w_mlp2_bias|fused_(W|scale|bias)\d+)"
+
+
+def _idam_table(model: "idam.Model") -> dict:
+    """IDAM's scopes; the root scope "" holds the similarity MLPs' raw
+    parameters and running statistics (``sim{i}_*``), each Propagate its edge
+    block's (``edge_*``)."""
+    table = {"": ""}
+    for p in range(len(model.gnn.props)):
+        fp, tp = f"GNN_0/Propagate_{p}", f"gnn.props.{p}"
+        table[fp] = tp
+        table[f"{fp}/TorchDense_0"] = f"{tp}.fc"
+        table[f"{fp}/ConvBlock_0/TorchDense_0"] = f"{tp}.conv.denses.0"
+    blocks = [("ConvBlock_0", "significance_fc", model.significance_fc)]
+    blocks += [(f"ConvBlock_{i + 1}", f"weight_fcs.{i}", blk)
+               for i, blk in enumerate(model.weight_fcs)]
+    for fb, tb, blk in blocks:
+        table.update({f"{fb}/TorchDense_{n}": f"{tb}.denses.{n}"
+                      for n in range(len(blk.denses))})
+        table.update({f"{fb}/BatchNorm_{n}/BatchNorm_0": f"{tb}.bns.{n}"
+                      for n in range(len(blk.bns))})
+    return table
+
+
+_RAW_PATTERN = (r"(w_mlp1|w_mlp2|w_mlp2_bias|fused_(W|scale|bias)\d+|edge_(W|b|scale|bias)"
+                r"|sim\d+_(Wcat|W2|b2|W3|W4|b4|scale1|bias1|scale2|bias2))")
 _NORMS = (layers.BatchNorm, layers.UnbiasedLayerNorm)
 
 FLAX_TO_TORCH = {pcn.Model: _PCN, ecg.Model: _ECG, vrcnet.Model: _vrcnet_table,
-                 dcp.Model: _DCP}
+                 dcp.Model: _DCP, idam.Model: _idam_table}
 # scopes that only a train branch runs, which an eval tree may lack
 _TRAIN_ONLY = ("LinearResBlock_2/",)
 
@@ -175,6 +201,12 @@ def _table(model: torch.nn.Module) -> dict:
             f"no flax->torch table for {type(model).__module__}."
             f"{type(model).__name__}")
     return table(model) if callable(table) else table
+
+
+def _join(module_name: str, attr: str) -> str:
+    """The torch name of ``attr`` of the submodule ``module_name`` ("" is
+    the model itself)."""
+    return f"{module_name}.{attr}" if module_name else attr
 
 
 def _leaf_modules(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, dict]:
@@ -246,7 +278,7 @@ def _load_stats(model: torch.nn.Module, table: dict, stats) -> None:
         if path not in table:
             raise ValueError(f"batch_stats scope {path} has no torch home")
         for key, value in arrays.items():
-            name = f"{table[path]}.{key}"
+            name = _join(table[path], key)
             if name not in buffers:
                 raise ValueError(f"batch_stats {path}/{key}: "
                                  f"{type(model).__name__} has no buffer {name}")
@@ -285,7 +317,7 @@ def load_flax_params(model: torch.nn.Module, variables: Mapping[str, Any],
             if not isinstance(param, torch.nn.Parameter):
                 raise ValueError(f"{path}/{key}: {name} has no parameter {attr}")
             _copy(param, value, f"{path}/{key}")
-            filled.add(f"{name}.{attr}")
+            filled.add(_join(name, attr))
     left = {f"{table[k]}." for k in skipped}
     unfilled = sorted(n for n, _ in model.named_parameters()
                       if n not in filled and not n.startswith(tuple(left)))
@@ -323,10 +355,10 @@ def _flax_tree(model: torch.nn.Module, leaf, with_stats: bool) -> Dict[str, Any]
                 raise ValueError(f"{name}.{attr}: no flax counterpart")
             value = leaf(param).detach().cpu().numpy().astype(np.float32)
             _node(tree, path)[key] = np.ascontiguousarray(value.T) if transpose else value
-            done.add(f"{name}.{attr}")
+            done.add(_join(name, attr))
         for attr, buf in module.named_buffers(recurse=False):
             _node(stats, path)[attr] = buf.detach().cpu().numpy().astype(np.float32)
-            done.add(f"{name}.{attr}")
+            done.add(_join(name, attr))
     left = sorted(n for n in [*dict(model.named_parameters()), *buffers]
                   if n not in done)
     if left:
@@ -337,6 +369,6 @@ def _flax_tree(model: torch.nn.Module, leaf, with_stats: bool) -> Dict[str, Any]
 
 
 def _node(tree: Dict[str, Any], path: str) -> Dict[str, Any]:
-    for part in path.split("/"):
+    for part in filter(None, path.split("/")):
         tree = tree.setdefault(part, {})
     return tree

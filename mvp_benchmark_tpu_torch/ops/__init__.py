@@ -12,17 +12,19 @@ CUDA tensors and its plain PyTorch version for CPU tensors (``dispatch``);
 - ``sa_attention`` (VRCNet's SA block);
 - ``ball_query`` (ECG's uniform loss) and ``emd_auction`` (the EMD metric);
 - ``attention``, ``attention_bnhd``, ``edge_mlp_eval`` and
-  ``edge_mlp_train`` (DCP's transformer, svd head and DGCNN edge chain).
+  ``edge_mlp_train`` (DCP's transformer, svd head and DGCNN edge chain);
+- ``gnn_propagate`` and ``sim_mlp`` (IDAM's GNN edge block and similarity
+  MLP, eval).
 """
 
 from mvp_benchmark_tpu_torch.ops.dispatch import (
     attention, attention_bnhd, ball_query, chamfer_distance, edge_mlp_eval,
     edge_mlp_train, emd_auction, furthest_point_sample, gather_points, group_max,
-    grouping_operation, knn_indices, knn_points, sa_attention,
-    three_interpolate, three_nn, three_nn_upsampling)
+    gnn_propagate, grouping_operation, knn_indices, knn_points, sa_attention,
+    sim_mlp, three_interpolate, three_nn, three_nn_upsampling)
 from mvp_benchmark_tpu_torch.ops.ref import chamfer_distance as chamfer_distance_ref
 
 __all__ = ["attention", "attention_bnhd", "ball_query", "chamfer_distance",
-           "chamfer_distance_ref", "edge_mlp_eval", "edge_mlp_train", "emd_auction", "furthest_point_sample", "gather_points", "group_max",
-           "grouping_operation", "knn_indices", "knn_points", "sa_attention",
-           "three_interpolate", "three_nn", "three_nn_upsampling"]
+           "chamfer_distance_ref", "edge_mlp_eval", "edge_mlp_train", "emd_auction", "furthest_point_sample", "gather_points",
+           "gnn_propagate", "group_max", "grouping_operation", "knn_indices",
+           "knn_points", "sa_attention", "sim_mlp", "three_interpolate", "three_nn", "three_nn_upsampling"]

@@ -527,6 +527,130 @@ def edge_mlp_train(a1: torch.Tensor, Ws, gammas, betas):
 
 
 # ---------------------------------------------------------------------------
+# IDAM: the GNN's Propagate edge block and the similarity-matrix MLP
+# ---------------------------------------------------------------------------
+#
+# Eval mode, running statistics. Arithmetic shared with csrc/gnn_propagate.cu
+# and csrc/sim_mlp.cu: bf16-rounded product inputs summed in fp32 in channel
+# order (``_bf16_dot``; the product of two bf16 values is exact in fp32, so
+# the kernels' fma rounds as the add here does); BatchNorm in ``_em_bn``'s
+# order (``pallas_kernels.py:2749``), ``((h - mean) * inv) * gamma + beta``
+# with ``inv = bn_inv(var)``; every other operation a PyTorch operation of
+# its own, so rounded on its own. The kernels then equal these functions
+# bitwise on the card, given the same ``inv`` (torch.rsqrt on the card).
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def bn_inv(var: torch.Tensor) -> torch.Tensor:
+    """rsqrt(var + 1e-5) in fp32, once per call for the kernel and its plain
+    version alike."""
+    return torch.rsqrt(var.to(torch.float32) + EDGE_MLP_EPS)
+
+
+def _bn_relu(h, mean, inv, gamma, beta):
+    return torch.relu((h - mean.to(torch.float32)) * inv * gamma.to(torch.float32)
+                      + beta.to(torch.float32))
+
+
+def _bf16_dot(x: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+    """bf16(x) @ bf16(W) over the last axis, summed in fp32 in channel order:
+    (..., K) x (K, D) -> (..., D)."""
+    x, W = _bf16(x), _bf16(W)
+    acc = x[..., 0:1] * W[0]
+    for c in range(1, W.shape[0]):
+        acc = acc + x[..., c:c + 1] * W[c]
+    return acc
+
+
+def gnn_propagate_eval(p: torch.Tensor, idx: torch.Tensor, W: torch.Tensor,
+                       b: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                       mean: torch.Tensor, var: torch.Tensor) -> torch.Tensor:
+    """IDAM's Propagate edge block in eval mode, p (B, N, C) projected point
+    features and idx (B, N, k) neighbours -> (B, N, C) fp32:
+    ``gnn_propagate_reference(train=False)`` (``pallas_kernels.py:4472`` and
+    ``gnn_edge_reference`` :4259). The edge ``bf16(p)[idx] - p_center`` is
+    stored bf16, as the TPU's edge-build kernel stores it; then
+    ``relu(((e - mean) * inv) * gamma + beta)``, ``bf16(x1) @ bf16(W) + b``
+    and the max over the k neighbours. The contract of
+    ``csrc/gnn_propagate.cu``."""
+    p = p.to(torch.float32)
+    edge = (grouping_operation(_bf16(p), idx) - p[:, :, None, :]).to(torch.bfloat16)
+    x1 = _bn_relu(edge.to(torch.float32), mean, bn_inv(var), gamma, beta)
+    h = _bf16_dot(x1, W) + b.to(torch.float32)
+    return h.amax(dim=2)
+
+
+def sim_projections(semb: torch.Tensor, temb: torch.Tensor, Wcat: torch.Tensor):
+    """The per-point halves of the similarity MLP's first layer, sp =
+    bf16(semb) @ bf16(Wcat[:emb]) and tp likewise with Wcat[emb:2 emb], fp32
+    (``_sm_prep``, ``pallas_kernels.py:3880-3897``). A plain product on
+    either device, outside the kernel, as the TPU leaves it to XLA."""
+    emb = semb.shape[-1]
+    sp = torch.matmul(_bf16(semb), _bf16(Wcat[:emb]))
+    tp = torch.matmul(_bf16(temb), _bf16(Wcat[emb:2 * emb]))
+    return sp, tp
+
+
+def sim_h0(sp, tp, src, tgt, w0, wxyz) -> torch.Tensor:
+    """The first layer over every pair, (B, M, M, C): ``(sp_i + tp_j) +
+    (dist * w0 + bf16(diff / (dist + 1e-8)) @ bf16(wxyz))``."""
+    f32 = torch.float32
+    diff = src.to(f32)[:, :, None, :] - tgt.to(f32)[:, None, :, :]
+    d2 = diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1]
+    dist = torch.sqrt(d2 + diff[..., 2] * diff[..., 2])[..., None]
+    dproj = dist * w0.to(f32) + _bf16_dot(diff / (dist + 1e-8), wxyz)
+    return (sp[:, :, None, :] + tp[:, None, :, :]) + dproj
+
+
+def sim_mlp_core(sp, tp, src, tgt, w0, wxyz, W2, b2, W3, W4, g1, be1, g2, be2,
+                 mean1, var1, mean2, var2):
+    """The similarity MLP over every (i, j) pair from the projections sp, tp
+    (B, M, C) and positions src, tgt (B, M, 3) -> (simr (B, M, M) pre-bias
+    logits, wmax (B, M, C) max over j of the middle Dense), fp32. The
+    contract of ``csrc/sim_mlp.cu``; see ``sim_mlp_eval``. Materialises the
+    (B, M, M, C) intermediates."""
+    f32 = torch.float32
+    x1 = _bn_relu(sim_h0(sp, tp, src, tgt, w0, wxyz), mean1, bn_inv(var1), g1, be1)
+    h1 = _bf16_dot(x1, W2) + b2.to(f32)
+    x2 = _bn_relu(_bf16_dot(h1, W3), mean2, bn_inv(var2), g2, be2)
+    w4 = W4.reshape(-1).to(f32)
+    simr = x2[..., 0] * w4[0]
+    for c in range(1, w4.shape[0]):
+        simr = simr + x2[..., c] * w4[c]
+    return simr, h1.amax(dim=2)
+
+
+def sim_logits(simr: torch.Tensor, b4: torch.Tensor) -> torch.Tensor:
+    """clip(simr + b4, -20, 20), the similarity logits."""
+    return torch.clamp(simr + b4.reshape(()).to(torch.float32), -20.0, 20.0)
+
+
+def sim_mlp_split(Wcat: torch.Tensor, emb: int):
+    """(w0, Wxyz) of the first layer's weight: the rows of the distance and
+    of the direction, (C,) and (3, C)."""
+    return Wcat[2 * emb], Wcat[2 * emb + 1:2 * emb + 4]
+
+
+def sim_mlp_eval(src, tgt, semb, temb, Wcat, W2, b2, W3, W4, b4, g1, be1, g2, be2,
+                 mean1, var1, mean2, var2):
+    """IDAM's similarity-matrix MLP in eval mode -> (sim (B, M, M) clipped
+    logits, wmax (B, M, C)): ``sim_mlp_reference(train=False)``
+    (``pallas_kernels.py:3961``). Per pair, ``h0 = sp_i + tp_j + dist * w0
+    + bf16(diff / (dist + 1e-8)) @ bf16(Wxyz)``, BatchNorm 1 and relu,
+    ``h1 = bf16(x1) @ bf16(W2) + b2`` (wmax its max over j), ``h2 =
+    bf16(h1) @ bf16(W3)``, BatchNorm 2 and relu, ``simr = sum_c x2 W4`` in
+    fp32, ``sim = clip(simr + b4, -20, 20)``."""
+    sp, tp = sim_projections(semb, temb, Wcat)
+    w0, wxyz = sim_mlp_split(Wcat, semb.shape[-1])
+    simr, wmax = sim_mlp_core(sp, tp, src, tgt, w0, wxyz, W2, b2, W3, W4, g1, be1,
+                              g2, be2, mean1, var1, mean2, var2)
+    return sim_logits(simr, b4), wmax
+
+
+# ---------------------------------------------------------------------------
 # Ball query
 # ---------------------------------------------------------------------------
 

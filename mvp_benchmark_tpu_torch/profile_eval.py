@@ -4,6 +4,7 @@ or registration config, after warm-up.
 
     python -m mvp_benchmark_tpu_torch.profile_eval -c completion/cfgs/ecg.yaml
     python -m mvp_benchmark_tpu_torch.profile_eval -c registration/cfgs/dcp.yaml
+    python -m mvp_benchmark_tpu_torch.profile_eval -c registration/cfgs/idam.yaml
     python -m mvp_benchmark_tpu_torch.profile_eval -c completion/cfgs/vrcnet.yaml
     python -m mvp_benchmark_tpu_torch.profile_eval -c completion/cfgs/vrcnet.yaml --train
     python -m mvp_benchmark_tpu_torch.profile_eval -c completion/cfgs/ecg.yaml --train
@@ -46,7 +47,8 @@ PORT_KERNELS = ("chamfer_rowmin_kernel", "knn_kernel", "fps_kernel",
                 "ball_query_kernel", "emd_kernel",
                 "attention_bf16_backward_kernel", "attention_f32_backward_kernel",
                 "attention_bf16_kernel", "attention_f32_kernel",
-                "edge_mlp_backward_kernel", "edge_mlp_kernel")
+                "edge_mlp_backward_kernel", "edge_mlp_kernel",
+                "gnn_propagate_kernel", "sim_mlp_kernel")
 GEMM_MARKS = ("gemm", "xmma", "cutlass", "nvjet", "sm90_", "sm80_")
 
 

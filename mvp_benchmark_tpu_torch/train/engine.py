@@ -43,7 +43,7 @@ import torch
 
 from mvp_benchmark_tpu_torch.data.mvp import (BatchSpec, MVPCompletionDataset,
                                               MVPRegistrationDataset)
-from mvp_benchmark_tpu_torch.models import get_model
+from mvp_benchmark_tpu_torch.models import TRAIN_PORTED_MODELS, get_model
 from mvp_benchmark_tpu_torch.models.transplant import load_flax_params
 from mvp_benchmark_tpu_torch.train import checkpoint as ckpt
 from mvp_benchmark_tpu_torch.train.config import Config
@@ -101,6 +101,11 @@ def build_model(cfg: Config, device: torch.device, seed: int = 0,
             f"compute_dtype {cfg.compute_dtype!r}: the port runs fp32 so far")
     model = get_model(cfg.model_name, cfg,
                       generator=torch.Generator().manual_seed(seed))
+    if for_training and cfg.model_name not in TRAIN_PORTED_MODELS:
+        raise NotImplementedError(
+            f"training {cfg.model_name!r} is not yet ported to "
+            f"mvp_benchmark_tpu_torch (its val and test passes are; trains: "
+            f"{', '.join(TRAIN_PORTED_MODELS)})")
     if cfg.load_model:
         load_flax_params(model, ckpt.load_model(cfg.load_model)["net_state_dict"],
                          for_training=for_training)

@@ -3,6 +3,8 @@
 
     python test_torch.py -c cfgs/dcp.yaml          # results.h5 + submission.zip
     python test_torch.py -c cfgs/dcp.yaml --val    # val pass: RotE, transE, MSE, RMSE, recall
+    python test_torch.py -c cfgs/idam.yaml --val   # IDAM (eval only so far)
+    python test_torch.py -c cfgs/idam_smoke.yaml --val --device cpu
 
 ``--device`` defaults to ``cuda`` and raises when CUDA is absent; pass
 ``--device cpu`` to run the plain versions of the kernels on the CPU. Writing

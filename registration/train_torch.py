@@ -4,6 +4,9 @@
     python train_torch.py -c cfgs/dcp.yaml
     python train_torch.py -c cfgs/dcp_smoke.yaml --device cpu
 
+IDAM's training is not ported yet: ``-c cfgs/idam.yaml`` raises
+NotImplementedError before the first step (``engine.build_model``).
+
 Writes ``train.log``, ``network.pkl`` every ``epoch_interval_to_save`` epochs
 and ``best_<metric>_network.pkl`` (RotE, transE, MSE, RMSE, recall) after each
 val pass into ``<work_dir>/<model>_<benchmark>_<flag>_torch_<time>/`` (or

@@ -1007,3 +1007,110 @@ def test_dcp_train_step_on_card_equals_cpu(cuda):
         assert cos >= 0.99, (n, cos)
         if ".fused_" in n:
             assert gap <= 2e-2 * float(w.norm()), (n, cos, gap / float(w.norm()))
+
+
+# ---------------------------------------------------------------------------
+# IDAM evaluation: the Propagate edge block (rows 18-19) and the similarity
+# MLP (row 17)
+# ---------------------------------------------------------------------------
+
+def _propagate_case(cuda, B, N, k, C, dup=False):
+    g = torch.Generator(device="cuda").manual_seed(N + k + C)
+    idx = ref.knn_indices(torch.rand(B, N, 3, device=cuda, generator=g), k)
+    if dup:
+        idx[:, :, k - k // 2:] = idx[:, :, :k // 2]
+    u = lambda *s: (torch.rand(*s, device=cuda, generator=g) * 2 - 1) * C ** -0.5
+    vec = lambda sd, mu: mu + sd * torch.randn(C, device=cuda, generator=g)
+    return (torch.randn(B, N, C, device=cuda, generator=g), idx, u(C, C), u(C),
+            vec(0.1, 1.0), vec(0.1, 0.0), vec(0.1, 0.0),
+            0.5 + torch.rand(C, device=cuda, generator=g))
+
+
+@pytest.mark.parametrize("B,N,k,C,dup", [(2, 2048, 12, 64, False), (3, 1001, 12, 32, False),
+                                         (2, 37, 5, 64, False), (2, 300, 12, 64, True)])
+def test_gnn_propagate_kernel_equals_plain_version(cuda, B, N, k, C, dup):
+    """Bitwise: the plain version sums in the kernel's channel order and
+    rounds every other operation on its own."""
+    x = _propagate_case(cuda, B, N, k, C, dup)
+    before = kernels.GNN_PROPAGATE_LAUNCHES
+    got, stats = dispatch.gnn_propagate(*x, train=False)
+    torch.cuda.synchronize()
+    assert stats is None and kernels.GNN_PROPAGATE_LAUNCHES == before + 1
+    torch.testing.assert_close(got, ref.gnn_propagate_eval(*x), rtol=0, atol=0)
+
+
+def _sim_case(cuda, B, M, emb=64, ties=False):
+    g = torch.Generator(device="cuda").manual_seed(M + emb)
+    C = kernels.SIM_MLP_C
+    src, tgt = (torch.rand(B, M, 3, device=cuda, generator=g) for _ in range(2))
+    semb, temb = (torch.randn(B, M, emb, device=cuda, generator=g) for _ in range(2))
+    if ties:
+        h = M // 4
+        tgt[:, h:2 * h], temb[:, h:2 * h] = tgt[:, :h], temb[:, :h]
+    u = lambda *s: (torch.rand(*s, device=cuda, generator=g) * 2 - 1) * s[0] ** -0.5
+    vec = lambda sd, mu: mu + sd * torch.randn(C, device=cuda, generator=g)
+    var = lambda: 0.5 + torch.rand(C, device=cuda, generator=g)
+    return (src, tgt, semb, temb, u(2 * emb + 4, C), u(C, C), u(C), u(C, C), u(C, 1),
+            u(1), vec(0.1, 1.0), vec(0.1, 0.0), vec(0.1, 1.0), vec(0.1, 0.0),
+            vec(0.1, 0.0), var(), vec(0.1, 0.0), var())
+
+
+@pytest.mark.parametrize("B,M,ties", [(2, 341, False), (3, 37, False), (2, 64, True),
+                                      (1, 1, False)])
+def test_sim_mlp_kernel_equals_plain_version(cuda, B, M, ties):
+    """Bitwise, sim and wmax: the projections are the same plain product on
+    both paths, and the kernel sums in the plain version's channel order."""
+    x = _sim_case(cuda, B, M, ties=ties)
+    before = kernels.SIM_MLP_LAUNCHES
+    sim, wmax, stats = dispatch.sim_mlp(*x, train=False)
+    torch.cuda.synchronize()
+    assert stats is None and kernels.SIM_MLP_LAUNCHES == before + 1
+    want_sim, want_wmax = ref.sim_mlp_eval(*x)
+    torch.testing.assert_close(sim, want_sim, rtol=0, atol=0)
+    torch.testing.assert_close(wmax, want_wmax, rtol=0, atol=0)
+
+
+def test_idam_wrappers_reject_bad_inputs_and_bad_indices_give_nan(cuda):
+    p, idx, *rest = _propagate_case(cuda, 1, 40, 4, 64)
+    with pytest.raises(ValueError, match="channels"):
+        kernels.gnn_propagate_forward(p[..., :48].contiguous(), idx, *rest)
+    with pytest.raises(TypeError, match="int32"):
+        kernels.gnn_propagate_forward(p, idx.long(), *rest)
+    with pytest.raises(ValueError, match="W must be"):
+        kernels.gnn_propagate_forward(p, idx, rest[0][:32], *rest[1:])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.gnn_propagate_forward(p.cpu(), idx, *rest)
+    bad = idx.clone()
+    bad[0, 3, 1] = 40
+    out = kernels.gnn_propagate_forward(p, bad, *rest)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(out[0, 3]).all()) and bool(torch.isfinite(out[0, 4:]).all())
+    x = list(_sim_case(cuda, 1, 8))
+    sp, tp = ref.sim_projections(x[2], x[3], x[4])
+    w0, wxyz = ref.sim_mlp_split(x[4], 64)
+    core = [sp, tp, x[0], x[1], w0, wxyz, *x[5:8], x[8], *x[10:]]
+    with pytest.raises(ValueError, match="limit"):
+        big = torch.zeros(1, kernels.SIM_MLP_MAX_M + 1, 32, device=cuda)
+        pos = torch.zeros(1, kernels.SIM_MLP_MAX_M + 1, 3, device=cuda)
+        kernels.sim_mlp_forward(big, big, pos, pos, *core[4:])
+    with pytest.raises(ValueError, match="W4"):
+        kernels.sim_mlp_forward(*core[:9], core[9].reshape(1, 32), *core[10:])
+    with pytest.raises(ValueError, match="tp must be"):
+        kernels.sim_mlp_forward(sp, tp[:, :4].contiguous(), *core[2:])
+
+
+def test_idam_on_card_against_cpu(cuda):
+    """IDAM at the smoke size (emb 32, 2 iterations, 4 pairs of 128 points,
+    M 21), the same seeded weights on both devices, held as
+    chip_smoke.check_idam_batch_on_cpu holds two full-width pairs: the GNN
+    embeddings normwise within 2e-2; kept points and correspondences
+    flipped counted; with the card's kept points on both devices, each pair
+    without a flipped correspondence within chip_smoke.IDAM_CPU_ATOL."""
+    import chip_smoke
+    from mvp_benchmark_tpu_torch.train import engine
+    from mvp_benchmark_tpu_torch.train.config import load_config
+
+    cfg = load_config("registration/cfgs/idam_smoke.yaml")
+    batch = next(engine.registration_dataset(cfg, "val", "nodata").batches(
+        engine.BatchSpec(4)))
+    chip_smoke.check_idam_batch_on_cpu(cfg, cuda, batch, clouds_cut=4)

@@ -25,6 +25,7 @@ SLICE_MODULES = [
     "mvp_benchmark_tpu_torch.models.ecg",
     "mvp_benchmark_tpu_torch.models.vrcnet",
     "mvp_benchmark_tpu_torch.models.dcp",
+    "mvp_benchmark_tpu_torch.models.idam",
     "mvp_benchmark_tpu_torch.models.transplant",
     "mvp_benchmark_tpu_torch.data.augment",
     "mvp_benchmark_tpu_torch.data.mvp",
@@ -138,16 +139,16 @@ def test_ecg_train_step_and_emd_run_without_jax_flax_yaml_or_h5py():
     assert len(out["emd"]) == 2 and all(0 < e < 2 for e in out["emd"])
 
 
-def test_dcp_slice_runs_without_jax_flax_yaml_or_h5py(tmp_path):
-    """The DCP slice through the CLI's functions on the CPU: the kNN, the
-    gather, the edge chain and both attentions take their plain versions;
-    the val metrics and the test poses come out finite, the poses rigid."""
+def _registration_slice(cfg, tmp_path):
+    """A registration slice through the CLI's functions on the CPU with jax,
+    flax, optax, PyYAML and h5py blocked: the val metrics and the test poses
+    come out finite, the poses rigid."""
     out = _run(
         "import json, sys\n"
         "for m in ('jax', 'flax', 'optax', 'yaml', 'h5py'): sys.modules[m] = None\n"
         "import torch\n"
         "from mvp_benchmark_tpu_torch.train import config, engine, submission\n"
-        "cfg = config.load_config('registration/cfgs/dcp_smoke.yaml')\n"
+        f"cfg = config.load_config({cfg!r})\n"
         "cpu = torch.device('cpu')\n"
         f"res = engine.run_registration_val(cfg, {str(tmp_path)!r}, cpu)\n"
         f"T = torch.from_numpy(submission.predict_registration_test(cfg, {str(tmp_path)!r}, cpu))\n"
@@ -160,6 +161,18 @@ def test_dcp_slice_runs_without_jax_flax_yaml_or_h5py(tmp_path):
     assert all(v == v and abs(v) != float("inf") for v in out["val"].values())
     assert out["shape"] == [32, 4, 4] and out["finite"]
     assert out["rigid"] < 1e-5 and out["det"] < 1e-5
+
+
+def test_dcp_slice_runs_without_jax_flax_yaml_or_h5py(tmp_path):
+    """The DCP slice: the kNN, the gather, the edge chain and both
+    attentions take their plain versions."""
+    _registration_slice("registration/cfgs/dcp_smoke.yaml", tmp_path)
+
+
+def test_idam_slice_runs_without_jax_flax_yaml_or_h5py(tmp_path):
+    """The IDAM slice (emb 32, 2 iterations): the kNN, the Propagate edge
+    block and the similarity MLP take their plain versions."""
+    _registration_slice("registration/cfgs/idam_smoke.yaml", tmp_path)
 
 
 def test_dcp_train_path_runs_without_jax_flax_yaml_or_h5py(tmp_path):

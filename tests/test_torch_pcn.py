@@ -159,9 +159,17 @@ def test_transplant_rejects_a_tree_that_does_not_fit(pair):
 
 @pytest.mark.parametrize("name", ["dcp", "deepgmr", "idam"])
 def test_unported_models_raise(name):
-    """DeepGMR and IDAM are not ported; DCP is, eval and train: its train
-    branch returns the val branch's five outputs (its parity with JAX is in
-    test_torch_dcp.py)."""
+    """DeepGMR is not ported; IDAM's eval is and its train branch raises
+    (its parity with JAX is in test_torch_idam.py); DCP is, eval and train:
+    its train branch returns the val branch's five outputs (its parity with
+    JAX is in test_torch_dcp.py)."""
+    if name == "idam":
+        g = torch.Generator().manual_seed(0)
+        model = get_model(name, Config(model_name=name), generator=g)
+        x, y = torch.rand(1, 32, 3, generator=g), torch.rand(1, 32, 3, generator=g)
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            model(x, y, torch.eye(4)[None], prefix="train")
+        return
     if name == "dcp":
         g = torch.Generator().manual_seed(0)
         model = get_model(name, Config(model_name=name), generator=g)
