@@ -24,7 +24,10 @@ Phases, each of which raises on failure (exit code != 0):
    normwise, fp32 within the SA bar) and the chain's stat, final and
    backward passes against autograd of its plain version (normwise), two
    runs of the latter bitwise equal; IDAM's edge block and similarity MLP
-   at its shapes plus ragged and tie cases, bitwise;
+   at its shapes plus ragged and tie cases, bitwise, and for training their
+   stat passes (normwise), train final passes (bitwise, given the kernels'
+   statistics) and backward passes (normwise against ``ref``'s written-out
+   backward), two runs of the stat and backward passes bitwise equal;
 4. drives each main path through the functions ``completion/test_torch.py``
    and ``completion/train_torch.py`` call, with seeded weights, on the
    synthetic splits, each with the launch counts zeroed just before and read
@@ -41,7 +44,8 @@ Phases, each of which raises on failure (exit code != 0):
    runs) for the synthetic train split's two steps, its val pass and
    checkpoints; the val pass and test pass of full-width IDAM
    (``registration/cfgs/idam.yaml``: 32 pairs x 2048 points, M 341, 3
-   iterations);
+   iterations), and ``engine.train_registration`` of IDAM for the train
+   split's two steps, its val pass and checkpoints (``IDAM_PER_STEP``);
 5. checks the results: finite, of the expected shape, metrics equal to the
    ones recomputed with the plain chamfer on the card (rtol 1e-6), a val
    batch equal to the same model run on the CPU (PCN outputs atol 1e-5 /
@@ -60,9 +64,13 @@ Phases, each of which raises on failure (exit code != 0):
    metrics, and a train step on two full-width pairs equal to the CPU's
    (``check_dcp_step_on_cpu``); IDAM's val metrics recomputed from its
    poses as DCP's, and a val batch cut to two pairs against the CPU, its
-   selection flips counted (``check_idam_batch_on_cpu``);
+   selection flips counted (``check_idam_batch_on_cpu``); IDAM's train
+   losses and gradients finite, its checkpoint reloading to the same val
+   metrics, and a train step on two full-width pairs against the CPU with
+   the same kept points, its gt-match and correspondence flips counted,
+   then held with the card's selections on both (``check_idam_step_on_cpu``);
 6. times the val and test passes per batch, the train steps (ms and
-   points/s; DCP's in pairs/s), and each kernel against its plain version (and a single
+   points/s; DCP's and IDAM's in pairs/s), and each kernel against its plain version (and a single
    PyTorch call computing the same function, where one exists) at a
    main-path shape, beside the least time the card could take
    (``bound_ms``).
@@ -175,6 +183,19 @@ KERNELS.update({
                       "replaces": f"{_PK}:4466"},
     "sim_mlp": {"name": "sim_mlp_eval", "source": f"{_CSRC}/sim_mlp.cu",
                 "replaces": f"{_PK}:3727"},
+    # IDAM's train passes: the edge block's batch statistics (XLA reduces
+    # over the edge tensor before the final pass, :4163-4166), its backward
+    # (:4430 and :4444); the similarity MLP's stat passes and backward passes
+    "gnn_propagate_stat": {"name": "gnn_propagate_stat",
+                           "source": f"{_CSRC}/gnn_propagate.cu",
+                           "replaces": f"{_PK}:4160"},
+    "gnn_propagate_backward": {"name": "gnn_propagate_backward",
+                               "source": f"{_CSRC}/gnn_propagate.cu",
+                               "replaces": f"{_PK}:4420"},
+    "sim_mlp_stat": {"name": "sim_mlp_stat", "source": f"{_CSRC}/sim_mlp.cu",
+                     "replaces": f"{_PK}:3741"},
+    "sim_mlp_backward": {"name": "sim_mlp_backward", "source": f"{_CSRC}/sim_mlp.cu",
+                         "replaces": f"{_PK}:3806"},
 })
 
 # ECG's kernel launches per forward pass, read off models/ecg.py and
@@ -260,6 +281,16 @@ DCP_PER_STEP = {"knn": 2, "gather": 2, "edge_mlp_stat": 8, "edge_mlp": 2,
 # The top-k, the kept points' takes and the correspondences are plain
 # indexing (no gather kernel), as in JAX.
 IDAM_PER_BATCH = {"knn": 2, "gnn_propagate": 10, "sim_mlp": 3}
+# An IDAM train step (engine.make_registration_train_step, prefix "train"):
+# the forward's two self-kNN as in eval; each of the ten Propagate edge
+# blocks in train mode, a stat pass and the final pass, and in the backward
+# its three passes (S/dW/db, the edges' da, the d_p gather; every layer's p
+# needs its gradient); each of the three similarity MLPs two stat passes and
+# the final pass, and three backward passes. The gt matches, the sampled
+# kept points, the takes and the correspondences are plain torch.
+IDAM_PER_STEP = {"knn": 2, "gnn_propagate_stat": 10, "gnn_propagate": 10,
+                 "gnn_propagate_backward": 30, "sim_mlp_stat": 6, "sim_mlp": 3,
+                 "sim_mlp_backward": 9}
 TRAIN_STEPS = 3       # max_steps_per_epoch of each driven train path
 # The SA block's tolerance against its plain version on the card:
 # |kernel - plain| <= SA_ATOL + SA_RTOL |plain| (another summation order).
@@ -315,6 +346,29 @@ DCP_STEP_BARS = {"loss": 5e-4, "cosine": 0.9998, "stats": 1e-5,
 # MLP's activations (measured card vs CPU on an H100: T_12 1.9e-6, RotE
 # 2.3e-5 degrees, transE 1.6e-6, RMSE 4.2e-7, MSE 2.0e-6).
 IDAM_EMB_NORM = 2e-2
+# IDAM's train kernels against their plain versions on the card, normwise:
+# the stat passes sum per-block partials (another order), the backward
+# passes sum in other orders too, and a cotangent near a bf16 boundary may
+# round to the other neighbour (dx1, dh1, da).
+# Measured on an H100 80GB HBM3 at 700 W: stat passes 1.4e-6 at most,
+# backward passes 2.4e-5.
+IDAM_STAT_NORM = 1e-5
+IDAM_GRAD_NORM = 2e-4
+# An IDAM train step on two full-width pairs, card against CPU
+# (check_idam_step_on_cpu), the same weights and kept source points, and
+# the card's gt matches and correspondences handed to the CPU: the loss
+# relative, every gradient leaf by cosine and normwise against its own
+# norm, the shift-invariant leaves against the whole gradient's norm, the
+# running statistics relative to each one's largest magnitude. Measured on
+# an H100 80GB HBM3 at 700 W: 1.9e-4; cosine >= 0.983 and normwise <= 0.186
+# (weight_fcs.2's first Dense); 3.9e-4; 4.3e-3. The card's own gradient
+# moves by up to 0.23
+# normwise a leaf when the first edge block's BatchNorm scale moves by
+# 1e-6: with activations rounded to bf16 the gradient is a step function
+# at the scale of the two devices' one-ulp differences, so the leaves are
+# held at about twice the measured gaps, not at the kernels' bars.
+IDAM_STEP_BARS = {"loss": 1e-3, "cosine": 0.95, "normwise": 0.4, "shift": 5e-3,
+                  "stats": 2e-2}
 IDAM_CPU_ATOL = {"RotE": 0.05, "transE": 1e-3, "RMSE": 1e-3, "MSE": 1e-3,
                  "T_12": 1e-3}
 
@@ -661,7 +715,9 @@ def check_normwise(name, got, want, bar):
     check(got.shape == want.shape and got.dtype == want.dtype,
           f"{name}: {got.shape}/{got.dtype} vs {want.shape}/{want.dtype}")
     g, w = got.double(), want.double()
-    rel = float((g - w).norm() / w.norm())
+    gap, norm = float((g - w).norm()), float(w.norm())
+    # a plain value of exactly zero (a one-pair batch's BatchNorm) asks for 0
+    rel = gap / norm if norm > 0 else (0.0 if gap == 0 else float("inf"))
     max_abs = float((g - w).abs().max())
     check(rel <= bar, f"{name}: normwise {rel!r} above {bar}")
     print(f"kernel ~ plain: {name}: normwise {rel!r} (bar {bar}), max |diff| "
@@ -885,6 +941,77 @@ def compare_idam_kernels_with_plain(device):
     return err
 
 
+def compare_idam_train_kernels_with_plain(device):
+    """Phase 3g: IDAM's train kernels at its train step's shapes (the edge
+    block's (32, 2048, k 12, C 64), the similarity MLP's (32, 341, C 32))
+    plus ragged ones (N 1001 C 32, N 37 k 5; M 37 and 1) and ties (repeated
+    neighbours; repeated target points), against ``ref`` on the card: the
+    stat passes normwise (IDAM_STAT_NORM), the train final passes given the
+    kernels' statistics bitwise (outputs and saved slots), the backward
+    passes against ``ref.*_backward`` given the same statistics and slots
+    normwise (IDAM_GRAD_NORM), and two runs of the stat and backward passes
+    bitwise equal. Returns {key: max |kernel - plain|}."""
+    err = dict.fromkeys(("gnn_propagate_stat", "gnn_propagate_backward", "sim_mlp_stat",
+                         "sim_mlp_backward"), 0.0)
+    for (B, N, k, C, dup) in ((32, 2048, 12, 64, False), (3, 1001, 12, 32, False),
+                              (2, 37, 5, 64, False), (2, 300, 12, 64, True)):
+        what = f"({B}, {N}, k {k}, C {C}{', ties' if dup else ''})"
+        p, idx, W, b, gamma, beta, _, _ = idam_propagate_inputs(3000 + N, B, N, k, C,
+                                                                device, dup)
+        dx = torch.randn(p.shape, device=device,
+                         generator=torch.Generator(device=device).manual_seed(N))
+        x, stats, slot = kernels.gnn_propagate_train_forward(p, idx, W, b, gamma, beta)
+        err["gnn_propagate_stat"] = max(err["gnn_propagate_stat"], check_normwise(
+            f"gnn_propagate_stat {what}", stats, ref.gnn_propagate_stats(p, idx),
+            IDAM_STAT_NORM))
+        want_x, want_slot = ref.gnn_propagate_slots(p, idx, W, b, gamma, beta, stats[0],
+                                                    stats[1])
+        check_equal(f"gnn_propagate train final pass {what} x, slot", [x, slot],
+                    [want_x, want_slot])
+        got = kernels.gnn_propagate_train_backward(p, idx, W, gamma, beta, stats, slot, dx)
+        want = ref.gnn_propagate_backward(p, idx, W, gamma, beta, stats, slot, dx)
+        for name, g, w in zip(("d_p", "dW", "db", "dgamma", "dbeta"), got, want):
+            err["gnn_propagate_backward"] = max(err["gnn_propagate_backward"], check_normwise(
+                f"gnn_propagate_backward {name} {what}", g, w, IDAM_GRAD_NORM))
+        again = (kernels.gnn_propagate_batch_stats(p, idx),
+                 *kernels.gnn_propagate_train_backward(p, idx, W, gamma, beta, stats, slot,
+                                                       dx))
+        check(all(torch.equal(a, b) for a, b in zip((stats, *got), again)),
+              f"gnn_propagate {what}: two runs of the stat and backward passes differ")
+        print(f"kernel == kernel: gnn_propagate_stat and gnn_propagate_backward {what} "
+              "bitwise equal over two runs")
+        del got, want, again
+    for (B, M, ties) in ((32, 341, False), (3, 37, False), (2, 64, True), (1, 1, False)):
+        what = f"({B}, {M}, C 32{', ties' if ties else ''})"
+        x = idam_sim_inputs(4000 + M, B, M, device, ties=ties)[:14]
+        g = torch.Generator(device=device).manual_seed(M)
+        dsimr = torch.randn((B, M, M), device=device, generator=g)
+        dwmax = torch.randn((B, M, kernels.SIM_MLP_C), device=device, generator=g)
+        simr, wmax, st1, st2, argj = kernels.sim_mlp_train_forward(*x)
+        for name, gs, ws in zip(("st1", "st2"), (st1, st2),
+                                ref.sim_mlp_batch_stats(*x[:9], *x[10:12])):
+            err["sim_mlp_stat"] = max(err["sim_mlp_stat"], check_normwise(
+                f"sim_mlp_stat {name} {what}", gs, ws, IDAM_STAT_NORM))
+        check_equal(f"sim_mlp train final pass {what} simr, wmax, argj",
+                    [simr, wmax, argj], ref.sim_mlp_slots(*x, st1, st2))
+        got = kernels.sim_mlp_train_backward(*x, st1, st2, argj, dsimr, dwmax)
+        want = ref.sim_mlp_backward(*x, st1, st2, argj, dsimr, dwmax)
+        names = ("dsp", "dtp", "dw0", "dwxyz", "dW2", "db2", "dW3", "dW4", "dg1", "dbe1",
+                 "dg2", "dbe2")
+        for name, gg, ww in zip(names, got, want):
+            err["sim_mlp_backward"] = max(err["sim_mlp_backward"], check_normwise(
+                f"sim_mlp_backward {name} {what}", gg, ww, IDAM_GRAD_NORM))
+        again = (*kernels.sim_mlp_batch_stats(*x),
+                 *kernels.sim_mlp_train_backward(*x, st1, st2, argj, dsimr, dwmax))
+        check(all(torch.equal(a, b) for a, b in zip((st1, st2, *got), again)),
+              f"sim_mlp {what}: two runs of the stat and backward passes differ")
+        print(f"kernel == kernel: sim_mlp_stat and sim_mlp_backward {what} bitwise equal "
+              "over two runs")
+        del got, want, again
+    torch.cuda.synchronize()
+    return err
+
+
 def _idam_on(cfg, device, batch, kept=None):
     """IDAM's val outputs, T_12, embeddings (tgt, src) and selections on
     ``device``, on the host: the kept points (src_idx, tgt_idx) and each
@@ -1092,29 +1219,30 @@ def time_registration_passes(name, cfg, device, card, repeats=3):
     return out
 
 
-def check_dcp_train_result(device, res, log_dir):
-    """Finite step losses and gradients, running statistics moved; the
-    epoch checkpoint and the five best_* on disk, and network.pkl loaded
-    back through the eval path gives the run's val metrics (rtol 1e-6)."""
+def check_registration_train_result(name, cfg_path, device, res, log_dir, var):
+    """Finite step losses and gradients, running statistics moved (``var``
+    of the model, a running variance that starts at 1); the epoch
+    checkpoint and the five best_* on disk, and network.pkl loaded back
+    through the eval path gives the run's val metrics (rtol 1e-6)."""
     losses = res["history"]["step_losses"][-1]
-    check(losses and all(np.isfinite(losses)), f"DCP train losses {losses}")
+    check(losses and all(np.isfinite(losses)), f"{name} train losses {losses}")
     model = res["model"]
     bad = [n for n, p in model.named_parameters()
            if p.grad is None or not bool(torch.isfinite(p.grad).all())]
-    check(not bad, f"DCP: parameters without a finite gradient: {bad}")
-    moved = float((model.emb_nn.fused_var3 - 1).abs().max())
-    check(moved > 0, "DCP: the running statistics did not move")
+    check(not bad, f"{name}: parameters without a finite gradient: {bad}")
+    moved = float((var(model) - 1).abs().max())
+    check(moved > 0, f"{name}: the running statistics did not move")
     names = sorted(os.listdir(log_dir))
     check({"network.pkl", *(f"best_{m}_network.pkl" for m in engine.REG_METRICS)}
-          <= set(names), f"DCP checkpoints {names}")
+          <= set(names), f"{name} checkpoints {names}")
     val = res["history"]["val"][-1]
     again = engine.run_registration_val(
-        load_config(DCP_CFG, load_model=os.path.join(log_dir, "network.pkl")),
+        load_config(cfg_path, load_model=os.path.join(log_dir, "network.pkl")),
         REG_DATA_DIR, device)
     for m, v in val.items():
         check(abs(again[m] - v) <= 1e-6 * abs(v),
-              f"DCP {m}: reloaded checkpoint {again[m]!r}, run {v!r}")
-    print(f"DCP train: step losses {losses!r}, every gradient finite, running "
+              f"{name} {m}: reloaded checkpoint {again[m]!r}, run {v!r}")
+    print(f"{name} train: step losses {losses!r}, every gradient finite, running "
           f"statistics moved; val {val}; network.pkl reloads to the same val "
           f"metrics (rtol 1e-6); checkpoints {names}")
 
@@ -1186,6 +1314,115 @@ def check_dcp_step_on_cpu(cfg, device, clouds_cut=2):
               for c, gap, _, _ in chain.values()), f"DCP step edge chain: {chain}")
     check(max(shift.values()) <= 1e-5, f"DCP step shift-invariant biases: {shift}")
     check(stat_gap <= DCP_STEP_BARS["stats"], f"DCP step running statistics {stat_gap!r}")
+
+
+def _idam_step_on(cfg, device, batch, src_idx, forced=None, gamma_scale=1.0):
+    """One IDAM train step's forward and backward from the seeded weights
+    (the first edge block's BatchNorm scale times ``gamma_scale``) on
+    ``device``, keeping the source points ``src_idx`` -> (loss, {name:
+    gradient}, {name: running statistic}, what it selected: the gt matches
+    (min_idx, match labels) and each iteration's correspondences), on the
+    host. ``forced``: the selections of another run, used instead of this
+    run's own."""
+    from mvp_benchmark_tpu_torch.models import idam
+
+    model = engine.build_model(cfg, device, seed=1, for_training=True).train()
+    with torch.no_grad():
+        model.gnn.props[0].edge_scale.mul_(gamma_scale)
+    gt_matches, corr = idam._gt_matches, idam._correspondences
+    seen = {"gt": None, "corr": []}
+    queue = list(forced["corr"]) if forced else []
+
+    def gt(src, tgt, T):
+        out = ([x.to(src.device) for x in forced["gt"]] if forced
+               else gt_matches(src, tgt, T))
+        seen["gt"] = [x.cpu() for x in out]
+        return out
+
+    def correspondences(sim):
+        c = queue.pop(0).to(sim.device) if forced else corr(sim)
+        seen["corr"].append(c.cpu())
+        return c
+
+    idam._gt_matches, idam._correspondences = gt, correspondences
+    try:
+        t = lambda k: torch.from_numpy(batch[k]).to(device)
+        loss = model(t("src"), t("tgt"), t("transform"), prefix="train",
+                     src_idx=src_idx)[0]
+        loss.mean().backward()
+    finally:
+        idam._gt_matches, idam._correspondences = gt_matches, corr
+    return (float(loss.detach()), {n: p.grad.detach().double().cpu()
+                                   for n, p in model.named_parameters()},
+            {n: b.detach().cpu() for n, b in model.named_buffers()}, seen)
+
+
+def check_idam_step_on_cpu(cfg, device, clouds_cut=2):
+    """One IDAM train step on two full-width pairs of the train split, card
+    against CPU, the same seeded weights and the same kept source points
+    (drawn by ``idam.sample_src_idx`` from the CPU's gt matches). Run free,
+    the gt-match flips (the expansion's products differ in cuBLAS and on
+    the CPU) and the correspondence flips per iteration are counted. Then
+    the CPU runs again with the card's gt matches and correspondences, and
+    is held to IDAM_STEP_BARS: the loss (relative), the updated running
+    statistics (relative to each one's largest magnitude), the
+    shift-invariant leaves (``idam.SHIFT_INVARIANT``, rounding noise)
+    against the whole gradient's norm, every other leaf by cosine and
+    normwise against its own norm. For each leaf it prints the card's own
+    move when the first edge block's BatchNorm scale moves by 1e-6: the
+    bf16 roundings of the activations make the gradient a step function at
+    that scale, which is what bounds the agreement."""
+    from mvp_benchmark_tpu_torch.models import idam
+
+    batch = _dcp_train_batch(cfg, clouds_cut)
+    cpu = torch.device("cpu")
+    t = lambda k: torch.from_numpy(batch[k])
+    _, match = idam._gt_matches(t("src"), t("tgt"), t("transform"))
+    src_idx = idam.sample_src_idx(match, batch["src"].shape[1] // 6,
+                                  torch.Generator().manual_seed(1))
+    loss, g_card, st_card, sel = _idam_step_on(cfg, device, batch, src_idx)
+    _, _, _, sel_cpu = _idam_step_on(cfg, cpu, batch, src_idx)
+    gt_flips = [int((g != w).sum()) for g, w in zip(sel["gt"], sel_cpu["gt"])]
+    corr_flips = [[int((g[b] != w[b]).sum()) for g, w in zip(sel["corr"], sel_cpu["corr"])]
+                  for b in range(clouds_cut)]
+    _, g_moved, _, _ = _idam_step_on(cfg, device, batch, src_idx, forced=sel,
+                                     gamma_scale=1 + 1e-6)
+    want, g_cpu, st_cpu, _ = _idam_step_on(cfg, cpu, batch, src_idx, forced=sel)
+    total = float(torch.sqrt(sum((g * g).sum() for g in g_cpu.values())))
+    rows, shift = {}, {}
+    for name, w in g_cpu.items():
+        g = g_card[name]
+        if name.endswith(idam.SHIFT_INVARIANT):
+            shift[name] = float((g - w).norm()) / total
+            continue
+        norm = float(w.norm())
+        rows[name] = (float((g.flatten() @ w.flatten()) / (g.norm() * w.norm())),
+                      float((g - w).norm()) / norm,
+                      float((g_moved[name] - g).norm()) / norm, norm / total)
+    stat_gap = max(float((st_card[n] - w).abs().max() / w.abs().max().clamp_min(1e-12))
+                   for n, w in st_cpu.items())
+    worst_cos = min(rows, key=lambda n: rows[n][0])
+    worst_norm = max(rows, key=lambda n: rows[n][1])
+    M = src_idx.shape[1]
+    print(f"IDAM train step card vs CPU on {clouds_cut} pairs of {batch['src'].shape[1]} "
+          f"points, the same {M} kept source points a pair: run free, gt matches "
+          f"flipped (min_idx, labels of {batch['src'].shape[1]} a pair) {gt_flips}, "
+          f"correspondences flipped per pair and iteration {corr_flips}; with the "
+          f"card's selections on the CPU: loss {loss!r} / {want!r}, gradient cosine "
+          f">= {rows[worst_cos][0]!r} ({worst_cos}), normwise <= "
+          f"{rows[worst_norm][1]!r} ({worst_norm}), shift-invariant leaves <= "
+          f"{max(shift.values())!r} of the whole norm, running statistics relative "
+          f"{stat_gap!r} (bars {IDAM_STEP_BARS})")
+    for name, (c, gap, moved, share) in rows.items():
+        print(f"IDAM step {name}: cosine {c!r}, normwise {gap!r}; card's own move under "
+              f"the 1e-6 change {moved!r}; {share!r} of the whole gradient's norm")
+    check(abs(loss - want) <= IDAM_STEP_BARS["loss"] * abs(want),
+          f"IDAM step loss card {loss!r} CPU {want!r}")
+    check(rows[worst_cos][0] >= IDAM_STEP_BARS["cosine"], f"IDAM step {worst_cos}: cosine")
+    check(rows[worst_norm][1] <= IDAM_STEP_BARS["normwise"],
+          f"IDAM step {worst_norm}: normwise")
+    check(max(shift.values()) <= IDAM_STEP_BARS["shift"], f"IDAM step shift: {shift}")
+    check(stat_gap <= IDAM_STEP_BARS["stats"], f"IDAM step running statistics {stat_gap!r}")
 
 
 def drive_slice(cfg, device):
@@ -1571,9 +1808,10 @@ def completion_step(cfg, device):
             bs * int(cfg.num_points))
 
 
-def dcp_step(cfg, device):
-    """One DCP train step from the seeded weights
-    (``engine.make_registration_train_step``) -> (a call, pairs a step)."""
+def registration_step(cfg, device):
+    """One registration train step from the seeded weights
+    (``engine.make_registration_train_step``; IDAM's kept points drawn from
+    its generator) -> (a call, pairs a step)."""
     model = engine.build_model(cfg, device, seed=1, for_training=True)
     step = engine.make_registration_train_step(
         model, build_optimizer(cfg, model.parameters()), device)
@@ -1963,13 +2201,75 @@ def idam_timing_cases(device):
     }
 
 
+def idam_train_timing_cases(device):
+    """timing_cases of IDAM's train kernels at its train step's shapes.
+    Bytes: each input read once, each output written once (the edge block's
+    stat pass reads p and idx; its backward p, idx, the cotangent and the
+    slots, and writes d_p; the similarity MLP's stat passes read the
+    projections and positions; its backward those, the cotangents of simr
+    and wmax and argj, and writes dsp and dtp). Operations, 2 per
+    multiply-add, the least the function needs on this data: the edge
+    block's stat pass builds the edges (a subtraction) and sums e and e^2;
+    its backward recomputes the edges and BatchNorm, and forms dW and dx1
+    from the one routed slot a channel (C^2 each a point) and da; the
+    similarity MLP's stat passes recompute h0, then h0 to h2; its backward
+    recomputes the chain to x2 and forms dh1, dx1, dW3 and dW2 (C^2 each a
+    pair). Products with two bf16 inputs at the bf16 peak; those with an fp32
+    cotangent (JAX's rounding rule, ops/ref.py) and the other fp32
+    operations at the fp32 peak, counted as bf16-peak operations (times 989
+    / 67) so that one peak bounds their sum. No library call computes
+    them."""
+    B, N, k, C = 32, 2048, 12, 64
+    M, SC = N // 6, kernels.SIM_MLP_C
+    p, idx, W, b, gamma, beta, _, _ = idam_propagate_inputs(910, B, N, k, C, device)
+    dx = torch.randn(p.shape, device=device,
+                     generator=torch.Generator(device=device).manual_seed(911))
+    _, stats, slot = kernels.gnn_propagate_train_forward(p, idx, W, b, gamma, beta)
+    xs = idam_sim_inputs(912, B, M, device)[:14]
+    g = torch.Generator(device=device).manual_seed(913)
+    dsimr = torch.randn((B, M, M), device=device, generator=g)
+    dwmax = torch.randn((B, M, SC), device=device, generator=g)
+    _, _, st1, st2, argj = kernels.sim_mlp_train_forward(*xs)
+    E, P, f32 = B * N * k, B * M * M, PEAK_BF16 / PEAK_FP32
+    pts = B * N * C * 4
+    sim_in = (2 * B * M * (SC + 3) + 2496) * 4
+    return {
+        "gnn_propagate_stat": (
+            f"({B}, {N}, k {k}, C {C})",
+            lambda: kernels.gnn_propagate_batch_stats(p, idx),
+            lambda: ref.gnn_propagate_stats(p, idx), None,
+            pts + E * 4, 4 * E * C * f32, PEAK_BF16),
+        "gnn_propagate_backward": (
+            f"({B}, {N}, k {k}, C {C}), three passes",
+            lambda: kernels.gnn_propagate_train_backward(p, idx, W, gamma, beta, stats,
+                                                         slot, dx),
+            lambda: ref.gnn_propagate_backward(p, idx, W, gamma, beta, stats, slot, dx),
+            None, 3 * pts + E * 4 + B * N * C + (C * C + 4 * C) * 4,
+            (4 * B * N * C * C + 14 * E * C) * f32, PEAK_BF16),
+        "sim_mlp_stat": (
+            f"({B}, {M} x {M}, C {SC}), two passes",
+            lambda: kernels.sim_mlp_batch_stats(*xs),
+            lambda: ref.sim_mlp_batch_stats(*xs[:9], *xs[10:12]), None,
+            sim_in, 2 * P * (3 * SC) * 2 + 2 * P * 2 * SC * SC
+            + P * (13 + 15 * SC) * 2 * f32 + P * 6 * SC * f32, PEAK_BF16),
+        "sim_mlp_backward": (
+            f"({B}, {M} x {M}, C {SC}), three passes",
+            lambda: kernels.sim_mlp_train_backward(*xs, st1, st2, argj, dsimr, dwmax),
+            lambda: ref.sim_mlp_backward(*xs, st1, st2, argj, dsimr, dwmax), None,
+            sim_in + (P + 2 * B * M * SC) * 4 + 2 * B * M * SC * 4,
+            2 * P * (3 * SC + 2 * SC * SC) + (2 * P * 4 * SC * SC
+                                              + P * (13 + 30 * SC)) * f32, PEAK_BF16),
+    }
+
+
 def time_kernels(device, card, emd_case):
     """Each kernel against its plain version in the order plain, kernel,
     kernel, plain (CUDA events), and the library call where there is one."""
     out = {}
     cases = {**timing_cases(device), **backward_timing_cases(device),
              **geometry_timing_cases(device, emd_case), **dcp_timing_cases(device),
-             **dcp_train_timing_cases(device), **idam_timing_cases(device)}
+             **dcp_train_timing_cases(device), **idam_timing_cases(device),
+             **idam_train_timing_cases(device)}
     for key, (shape, kern, plain, lib, nbytes, ops, *peak) in cases.items():
         it_k, it_p = _iters(kern), _iters(plain)
         runs = {"plain": [], "kernel": []}
@@ -2016,6 +2316,7 @@ def main() -> int:
     max_abs.update(compare_dcp_kernels_with_plain(device))
     max_abs.update(compare_dcp_train_kernels_with_plain(device))
     max_abs.update(compare_idam_kernels_with_plain(device))
+    max_abs.update(compare_idam_train_kernels_with_plain(device))
 
     paths = {}           # path -> its launch counts
     pcn = load_config(PCN_CFG)
@@ -2082,16 +2383,30 @@ def main() -> int:
                 dcp_train, log_dir, REG_DATA_DIR, max_steps_per_epoch=steps,
                 device=device),
             steps, _reg_batches(dcp_train)[0], DCP_PER_STEP, DCP_PER_BATCH)
-        check_dcp_train_result(device, res, log_dir)
+        check_registration_train_result("DCP", DCP_CFG, device, res, log_dir,
+                                        lambda m: m.emb_nn.fused_var3)
+    del res
+    idam_train = load_config(IDAM_CFG, nepoch=1)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as log_dir:
+        res, paths["IDAM train"] = drive_train_path(
+            "IDAM", lambda: engine.train_registration(
+                idam_train, log_dir, REG_DATA_DIR, max_steps_per_epoch=steps,
+                device=device),
+            steps, _reg_batches(idam_train)[0], IDAM_PER_STEP, IDAM_PER_BATCH)
+        check_registration_train_result("IDAM", IDAM_CFG, device, res, log_dir,
+                                        lambda m: m.sim0_var2)
     del res
     check_pcn_step_on_cpu(load_config(PCN_CFG), device)
     check_vrcnet_step_on_cpu(load_config(VRCNET_CFG), device)
     check_ecg_step_on_cpu(load_config(ECG_CFG), device)
     check_dcp_step_on_cpu(load_config(DCP_CFG), device)
+    check_idam_step_on_cpu(load_config(IDAM_CFG), device)
 
     for name, cfg in (("PCN", pcn), ("VRCNet", vrc), ("ECG", ecg)):
         time_train_steps(name, cfg, card, *completion_step(cfg, device), "points")
-    time_train_steps("DCP", dcp, card, *dcp_step(dcp, device), "pairs", steps=3)
+    time_train_steps("DCP", dcp, card, *registration_step(dcp, device), "pairs", steps=3)
+    time_train_steps("IDAM", idam_cfg, card, *registration_step(idam_cfg, device), "pairs",
+                     steps=3)
     times = time_kernels(device, card, emd_case)
 
     launches = {k: sum(counts[k] for counts in paths.values()) for k in KERNELS}

@@ -14,7 +14,8 @@ CUDA tensors and its plain PyTorch version for CPU tensors (``dispatch``);
 - ``attention``, ``attention_bnhd``, ``edge_mlp_eval`` and
   ``edge_mlp_train`` (DCP's transformer, svd head and DGCNN edge chain);
 - ``gnn_propagate`` and ``sim_mlp`` (IDAM's GNN edge block and similarity
-  MLP, eval).
+  MLP, eval and train) and ``square_distance`` (the expansion, IDAM's
+  ground-truth matches).
 """
 
 from mvp_benchmark_tpu_torch.ops.dispatch import (
@@ -23,8 +24,9 @@ from mvp_benchmark_tpu_torch.ops.dispatch import (
     gnn_propagate, grouping_operation, knn_indices, knn_points, sa_attention,
     sim_mlp, three_interpolate, three_nn, three_nn_upsampling)
 from mvp_benchmark_tpu_torch.ops.ref import chamfer_distance as chamfer_distance_ref
+from mvp_benchmark_tpu_torch.ops.ref import square_distance
 
 __all__ = ["attention", "attention_bnhd", "ball_query", "chamfer_distance",
            "chamfer_distance_ref", "edge_mlp_eval", "edge_mlp_train", "emd_auction", "furthest_point_sample", "gather_points",
            "gnn_propagate", "group_max", "grouping_operation", "knn_indices",
-           "knn_points", "sa_attention", "sim_mlp", "three_interpolate", "three_nn", "three_nn_upsampling"]
+           "knn_points", "sa_attention", "sim_mlp", "square_distance", "three_interpolate", "three_nn", "three_nn_upsampling"]

@@ -207,15 +207,17 @@ def gnn_propagate(p: torch.Tensor, idx: torch.Tensor, W, b, gamma, beta, mean, v
                   train: bool):
     """IDAM's Propagate edge block (reference idam.py:115-128; JAX
     ``dispatch.gnn_propagate``), p (B, N, C) projected features and idx
-    (B, N, k) neighbours -> (x (B, N, C), None) in eval, with the running
-    statistics (see ref.gnn_propagate_eval). No gradient: eval runs under
-    ``torch.inference_mode``."""
+    (B, N, k) neighbours -> (x (B, N, C), stats): in eval with the running
+    statistics (see ref.gnn_propagate_eval) and stats None, under
+    ``torch.inference_mode``; in train with the batch statistics, stats the
+    (2, C) [mean, biased var] of the edges, differentiable in p, W, b, gamma
+    and beta (see ref.gnn_propagate_train; on the card the stat, final and
+    backward passes of the kernel)."""
     if train:
-        raise NotImplementedError(
-            "gnn_propagate(train=True) is not yet ported: its batch-statistics "
-            "pass and backward kernels (pallas_kernels.py `_gnn_edge_forward` "
-            ":4160, `_ge_bwd1_kernel` :4057, `_gp_bwd2_kernel` :4324) are the next "
-            "slice's")
+        if _route(p, idx, W, b, gamma, beta) == "cuda":
+            return kernels.GnnPropagateTrainFunction.apply(
+                p.contiguous(), idx.to(torch.int32).contiguous(), W, b, gamma, beta)
+        return ref.gnn_propagate_train(p, idx, W, b, gamma, beta)
     if _route(p, idx, W, b, gamma, beta, mean, var) == "cuda":
         return kernels.gnn_propagate_forward(
             p.contiguous(), idx.to(torch.int32).contiguous(), W, b, gamma, beta, mean,
@@ -226,22 +228,29 @@ def gnn_propagate(p: torch.Tensor, idx: torch.Tensor, W, b, gamma, beta, mean, v
 def sim_mlp(src, tgt, semb, temb, Wcat, W2, b2, W3, W4, b4, g1, be1, g2, be2,
             mean1, var1, mean2, var2, train: bool):
     """IDAM's similarity-matrix MLP (reference idam.py:267-279; JAX
-    ``dispatch.sim_mlp``) -> (sim (B, M, M), wmax (B, M, C), None) in eval,
-    with the running statistics (see ref.sim_mlp_eval). On the card the
-    per-point projections are a plain product and the pairwise chain the
-    kernel; the bias and clip are plain torch on either device."""
-    if train:
-        raise NotImplementedError(
-            "sim_mlp(train=True) is not yet ported: its two stat passes and three "
-            "backward passes (pallas_kernels.py `_sm_stat_kernel` :3439, "
-            "`_sm_bwd1/2/3_kernel` :3497/:3537/:3575) are the next slice's")
-    args = (src, tgt, semb, temb, Wcat, W2, b2, W3, W4, b4, g1, be1, g2, be2,
-            mean1, var1, mean2, var2)
-    if _route(*args) == "cpu":
-        return (*ref.sim_mlp_eval(*args), None)
+    ``dispatch.sim_mlp``) -> (sim (B, M, M), wmax (B, M, C), stats): in eval
+    with the running statistics (see ref.sim_mlp_eval) and stats None; in
+    train with the batch statistics, stats (st1, st2) the two (2, C) [mean,
+    biased var], differentiable in the embeddings and parameters, not in the
+    positions (see ref.sim_mlp_train). On the card the per-point projections
+    are a plain product and the pairwise chain the kernel (the stat, final
+    and backward passes in train); the bias and clip are plain torch on
+    either device."""
+    args = (src, tgt, semb, temb, Wcat, W2, b2, W3, W4, b4, g1, be1, g2, be2)
+    stats = (mean1, var1, mean2, var2)
+    if _route(*args, *(() if train else stats)) == "cpu":
+        if train:
+            return ref.sim_mlp_train(*args)
+        return (*ref.sim_mlp_eval(*args, *stats), None)
     sp, tp = ref.sim_projections(semb, temb, Wcat)
     w0, wxyz = ref.sim_mlp_split(Wcat, semb.shape[-1])
-    simr, wmax = kernels.sim_mlp_forward(
-        sp, tp, src.to(torch.float32).contiguous(), tgt.to(torch.float32).contiguous(),
-        w0, wxyz, W2, b2, W3, W4, g1, be1, g2, be2, mean1, var1, mean2, var2)
+    pos = (src.detach().to(torch.float32).contiguous(),
+           tgt.detach().to(torch.float32).contiguous())
+    if train:
+        simr, wmax, st1, st2 = kernels.SimMlpTrainFunction.apply(
+            sp.contiguous(), tp.contiguous(), *pos, w0, wxyz, W2, b2, W3, W4, g1, be1,
+            g2, be2)
+        return ref.sim_logits(simr, b4), wmax, (st1, st2)
+    simr, wmax = kernels.sim_mlp_forward(sp, tp, *pos, w0, wxyz, W2, b2, W3, W4, g1,
+                                         be1, g2, be2, *stats)
     return ref.sim_logits(simr, b4), wmax, None

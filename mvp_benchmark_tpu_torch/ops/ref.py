@@ -10,7 +10,8 @@ Arithmetic shared by every distance here: exact per-coordinate differences,
 on its own -- the arithmetic of the reference CUDA ops and of ``csrc/*.cu``.
 Unlike ``jnp_ref.square_distance`` nothing uses the |a|^2+|b|^2-2a.b
 expansion, whose rounding moves near-tie neighbours and leaves self
-distances that are not 0.
+distances that are not 0 -- but ``square_distance``, which is that
+expansion, for IDAM's ground-truth matches, where the JAX model uses it.
 """
 
 from __future__ import annotations
@@ -167,6 +168,17 @@ def gather_points(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     flat = idx.reshape(B, -1).long()
     rows = torch.arange(B, device=features.device)[:, None]
     return features[rows, flat].reshape(*idx.shape, features.shape[-1])
+
+
+def square_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(..., N, D) x (..., M, D) -> (..., N, M) squared distances by the
+    expansion ``|a|^2 + |b|^2 - 2 a.b``, clamped at 0
+    (``jnp_ref.square_distance``): IDAM's train branch finds its
+    ground-truth matches with it. A plain product on either device."""
+    a2 = (a * a).sum(dim=-1, keepdim=True)
+    b2 = (b * b).sum(dim=-1, keepdim=True)
+    inner = torch.einsum("...nd,...md->...nm", a, b)
+    return torch.clamp(a2 + b2.transpose(-1, -2) - 2.0 * inner, min=0.0)
 
 
 def _check_range(idx: torch.Tensor, n: int) -> None:
@@ -576,11 +588,7 @@ def gnn_propagate_eval(p: torch.Tensor, idx: torch.Tensor, W: torch.Tensor,
     ``relu(((e - mean) * inv) * gamma + beta)``, ``bf16(x1) @ bf16(W) + b``
     and the max over the k neighbours. The contract of
     ``csrc/gnn_propagate.cu``."""
-    p = p.to(torch.float32)
-    edge = (grouping_operation(_bf16(p), idx) - p[:, :, None, :]).to(torch.bfloat16)
-    x1 = _bn_relu(edge.to(torch.float32), mean, bn_inv(var), gamma, beta)
-    h = _bf16_dot(x1, W) + b.to(torch.float32)
-    return h.amax(dim=2)
+    return gnn_propagate_slots(p, idx, W, b, gamma, beta, mean, var)[0]
 
 
 def sim_projections(semb: torch.Tensor, temb: torch.Tensor, Wcat: torch.Tensor):
@@ -594,14 +602,21 @@ def sim_projections(semb: torch.Tensor, temb: torch.Tensor, Wcat: torch.Tensor):
     return sp, tp
 
 
-def sim_h0(sp, tp, src, tgt, w0, wxyz) -> torch.Tensor:
-    """The first layer over every pair, (B, M, M, C): ``(sp_i + tp_j) +
-    (dist * w0 + bf16(diff / (dist + 1e-8)) @ bf16(wxyz))``."""
+def _sim_geometry(src: torch.Tensor, tgt: torch.Tensor):
+    """(dist (B, M, M, 1), bf16(diff / (dist + 1e-8)) (B, M, M, 3)) of every
+    pair, as ``sim_h0`` computes them."""
     f32 = torch.float32
     diff = src.to(f32)[:, :, None, :] - tgt.to(f32)[:, None, :, :]
     d2 = diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1]
     dist = torch.sqrt(d2 + diff[..., 2] * diff[..., 2])[..., None]
-    dproj = dist * w0.to(f32) + _bf16_dot(diff / (dist + 1e-8), wxyz)
+    return dist, _bf16(diff / (dist + 1e-8))
+
+
+def sim_h0(sp, tp, src, tgt, w0, wxyz) -> torch.Tensor:
+    """The first layer over every pair, (B, M, M, C): ``(sp_i + tp_j) +
+    (dist * w0 + bf16(diff / (dist + 1e-8)) @ bf16(wxyz))``."""
+    dist, ndiff = _sim_geometry(src, tgt)
+    dproj = dist * w0.to(torch.float32) + _bf16_dot(ndiff, wxyz)
     return (sp[:, :, None, :] + tp[:, None, :, :]) + dproj
 
 
@@ -612,15 +627,8 @@ def sim_mlp_core(sp, tp, src, tgt, w0, wxyz, W2, b2, W3, W4, g1, be1, g2, be2,
     logits, wmax (B, M, C) max over j of the middle Dense), fp32. The
     contract of ``csrc/sim_mlp.cu``; see ``sim_mlp_eval``. Materialises the
     (B, M, M, C) intermediates."""
-    f32 = torch.float32
-    x1 = _bn_relu(sim_h0(sp, tp, src, tgt, w0, wxyz), mean1, bn_inv(var1), g1, be1)
-    h1 = _bf16_dot(x1, W2) + b2.to(f32)
-    x2 = _bn_relu(_bf16_dot(h1, W3), mean2, bn_inv(var2), g2, be2)
-    w4 = W4.reshape(-1).to(f32)
-    simr = x2[..., 0] * w4[0]
-    for c in range(1, w4.shape[0]):
-        simr = simr + x2[..., c] * w4[c]
-    return simr, h1.amax(dim=2)
+    return sim_mlp_slots(sp, tp, src, tgt, w0, wxyz, W2, b2, W3, W4, g1, be1, g2, be2,
+                         (mean1, var1), (mean2, var2))[:2]
 
 
 def sim_logits(simr: torch.Tensor, b4: torch.Tensor) -> torch.Tensor:
@@ -648,6 +656,276 @@ def sim_mlp_eval(src, tgt, semb, temb, Wcat, W2, b2, W3, W4, b4, g1, be1, g2, be
     simr, wmax = sim_mlp_core(sp, tp, src, tgt, w0, wxyz, W2, b2, W3, W4, g1, be1,
                               g2, be2, mean1, var1, mean2, var2)
     return sim_logits(simr, b4), wmax
+
+
+# ---------------------------------------------------------------------------
+# IDAM in train mode: batch statistics and the backward
+# ---------------------------------------------------------------------------
+#
+# Forward: the eval arithmetic above with the batch's statistics, one pass
+# each, biased: ``mean = sum / E``, ``var = max(sum_sq / E - mean^2, 0)``
+# over the E edges or pairs (``_gnn_edge_forward``, ``pallas_kernels.py:
+# 4160-4166``; ``_sim_mlp_forward`` :3741-3770), detached. The max over the
+# neighbours (the edge block) and over j (wmax) also gives the first maximal
+# slot, which routes the max's cotangent (torch.max's rule; the TPU kernels
+# route it to every tied slot by float equality, JAX's CPU autodiff splits
+# it evenly).
+#
+# Backward, written out (``*_backward``) and shared with the kernels: the
+# gradient flows through the batch mean and variance, BatchNorm's
+# ``dh = gamma inv (dy - S0 / E - hhat S1 / E)`` with ``S = [sum dy, sum dy
+# hhat]`` (``_em_bnbwd`` :2847; dgamma = S1, dbeta = S0). Where bf16 rounds:
+# as JAX's CPU autodiff of ``gnn_propagate_reference`` and
+# ``sim_mlp_reference`` rounds (jax.grad of ``dot(bf16(x), bf16(W),
+# preferred_element_type=f32)`` gives the bf16 roundings of the fp32 sums
+# ``dy W^T`` and ``x^T dy``): the cotangent of every bf16 product input
+# (dx1, the cotangent of bf16(h1), of the stored bf16 edge, of the bf16
+# gather table) and every product weight's gradient (W, W2, W3, Wxyz) are
+# the bf16 roundings of their fp32 sums; the cotangents those products get
+# and every other sum stay fp32. (The TPU kernels instead round dy_h to bf16
+# before the products and keep dW in fp32, :4072-4080.) The kernels sum in
+# other orders, so they agree with these functions to a tolerance, and a
+# value that lies near a bf16 boundary may round the other way.
+
+
+def _batch_stats(h: torch.Tensor) -> torch.Tensor:
+    """(2, C) [mean, max(E[h^2] - mean^2, 0)] over every axis but the last."""
+    dims = tuple(range(h.dim() - 1))
+    mean = h.mean(dim=dims)
+    return torch.stack([mean, torch.clamp((h * h).mean(dim=dims) - mean * mean, min=0.0)])
+
+
+def _first_max(h: torch.Tensor, dim: int):
+    """(max, index of the first maximal entry) along ``dim``, by definition
+    (the least index that holds the max), whatever the device."""
+    top = h.amax(dim=dim, keepdim=True)
+    shape = [1] * h.dim()
+    shape[dim] = h.shape[dim]
+    pos = torch.arange(h.shape[dim], device=h.device).reshape(shape)
+    first = torch.where(h == top, pos, h.shape[dim]).amin(dim=dim)
+    return top.squeeze(dim), first
+
+
+def _bn_backward(dy, hhat, inv, gamma, E: float):
+    """BatchNorm's backward in train mode -> (dh, S0, S1)."""
+    f32 = torch.float32
+    dims = tuple(range(dy.dim() - 1))
+    S0, S1 = dy.sum(dim=dims), (dy * hhat).sum(dim=dims)
+    dh = (gamma.to(f32) * inv) * ((dy - S0 / E) - hhat * (S1 / E))
+    return dh, S0, S1
+
+
+def gnn_edges(p: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The Propagate block's edges ``bf16(bf16(p)[idx] - p_center)``, (B, N,
+    k, C) as fp32 values."""
+    p = p.to(torch.float32)
+    return _bf16(grouping_operation(_bf16(p), idx) - p[:, :, None, :])
+
+
+def gnn_propagate_stats(p: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The (2, C) batch statistics [mean, biased var] of the bf16 edges over
+    the B N k edges. The contract of ``gnn_propagate_stat`` in
+    ``csrc/gnn_propagate.cu``, which sums per-block partials."""
+    return _batch_stats(gnn_edges(p, idx))
+
+
+def gnn_propagate_slots(p, idx, W, b, gamma, beta, mean, var):
+    """The edge block with the statistics mean, var -> (x (B, N, C), the
+    first maximal neighbour slot of every output (B, N, C) uint8). The
+    contract of the final pass of ``csrc/gnn_propagate.cu``: with the
+    running statistics (``gnn_propagate_eval``) or the batch's."""
+    return gnn_edge_slots(gnn_edges(p, idx), W, b, gamma, beta, mean, var)
+
+
+def gnn_edge_slots(edge, W, b, gamma, beta, mean, var):
+    """The edge block on given bf16-valued edges (B, N, k, C) with given
+    statistics -> (x (B, N, C), the first maximal slot (B, N, C) uint8)."""
+    x1 = _bn_relu(edge, mean, bn_inv(var), gamma, beta)
+    x, slot = _first_max(_bf16_dot(x1, W) + b.to(torch.float32), 2)
+    return x, slot.to(torch.uint8)
+
+
+def gnn_edge_backward(edge, W, gamma, beta, stats, slot, dx):
+    """The edge block's backward in train mode on the bf16-valued edges
+    (B, N, k, C), its batch statistics and slots and the cotangent dx
+    (B, N, C) -> (da, dW, db, dgamma, dbeta), fp32 (see the rounding rule
+    above):
+
+        dh  = dx at the saved slot, 0 elsewhere          (B, N, k, C)
+        db  = sum dh,   dW = bf16(sum x1^T dh),   dx1 = bf16(dh W^T)
+        dy  = dx1 where BatchNorm's output > 0
+        da  = bf16(BatchNorm's backward of dy)           the edges' cotangent.
+
+    ``_ge_bwd1_kernel`` (``pallas_kernels.py:4057``) and the da of
+    ``_ge_bwd2_kernel`` :4103 / ``_gp_bwd2_kernel`` :4324."""
+    f32 = torch.float32
+    B, N, k, C = edge.shape
+    inv = bn_inv(stats[1])
+    hhat = (edge - stats[0]) * inv
+    y = hhat * gamma.to(f32) + beta.to(f32)
+    x1 = _bf16(torch.relu(y))
+    dh = torch.zeros((B, N, k, C), dtype=f32, device=edge.device).scatter_(
+        2, slot.long()[:, :, None, :], dx.to(f32)[:, :, None, :])
+    dW = _bf16(x1.reshape(-1, C).t() @ dh.reshape(-1, C))
+    dy = torch.where(y > 0, _bf16(dh @ _bf16(W).t()), 0.0)
+    da, S0, S1 = _bn_backward(dy, hhat, inv, gamma, float(B * N * k))
+    return _bf16(da), dW, dh.sum(dim=(0, 1, 2)), S1, S0
+
+
+def gnn_propagate_backward(p, idx, W, gamma, beta, stats, slot, dx):
+    """The Propagate block's backward in train mode: the forward's inputs,
+    its batch statistics and slots, and the cotangent dx (B, N, C) ->
+    (d_p, dW, db, dgamma, dbeta), fp32: ``gnn_edge_backward`` on the edges,
+    then ``d_p = bf16(sum of da over the edges whose neighbour is the
+    point) - sum over k of da at the point as the centre`` (the bf16 gather
+    table's cotangent rounds; the centre's does not). The contract of the
+    backward passes of ``csrc/gnn_propagate.cu`` (``_ge_bwd1_kernel``
+    :4057, ``_gp_bwd2_kernel`` :4324)."""
+    B, N, k = idx.shape
+    C = p.shape[-1]
+    da, dW, db, dgamma, dbeta = gnn_edge_backward(gnn_edges(p, idx), W, gamma, beta,
+                                                  stats, slot, dx)
+    d_p = _bf16(scatter_add_rows(da.reshape(B, N * k, C), idx.reshape(B, N * k), N))
+    return d_p - da.sum(dim=2), dW, db, dgamma, dbeta
+
+
+class _GnnPropagateTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, p, idx, W, b, gamma, beta):
+        stats = gnn_propagate_stats(p, idx)
+        x, slot = gnn_propagate_slots(p, idx, W, b, gamma, beta, stats[0], stats[1])
+        ctx.save_for_backward(p, idx, W, gamma, beta, stats, slot)
+        ctx.mark_non_differentiable(stats)
+        return x, stats
+
+    @staticmethod
+    def backward(ctx, dx, _):
+        p, idx, W, gamma, beta, stats, slot = ctx.saved_tensors
+        d_p, dW, db, dgamma, dbeta = gnn_propagate_backward(p, idx, W, gamma, beta,
+                                                            stats, slot, dx)
+        return d_p, None, dW, db, dgamma, dbeta
+
+
+def gnn_propagate_train(p: torch.Tensor, idx: torch.Tensor, W: torch.Tensor,
+                        b: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor):
+    """IDAM's Propagate edge block in train mode -> (x (B, N, C), stats (2, C)
+    [mean, biased var] of the bf16 edges, detached):
+    ``gnn_propagate_reference(train=True)`` (``pallas_kernels.py:4472``),
+    differentiable in p, W, b, gamma and beta by ``gnn_propagate_backward``.
+    """
+    return _GnnPropagateTrain.apply(p.to(torch.float32), idx, W, b, gamma, beta)
+
+
+def sim_mlp_batch_stats(sp, tp, src, tgt, w0, wxyz, W2, b2, W3, g1, be1):
+    """The similarity MLP's two (2, C) batch statistics [mean, biased var]
+    over the B M M pairs: of h0, then of h2 with BatchNorm 1 on the first.
+    The contract of the two stat passes of ``csrc/sim_mlp.cu``
+    (``_sm_stat_kernel`` :3439, levels 0 and 1)."""
+    h0 = sim_h0(sp, tp, src, tgt, w0, wxyz)
+    st1 = _batch_stats(h0)
+    x1 = _bn_relu(h0, st1[0], bn_inv(st1[1]), g1, be1)
+    return st1, _batch_stats(_bf16_dot(_bf16_dot(x1, W2) + b2.to(torch.float32), W3))
+
+
+def sim_mlp_slots(sp, tp, src, tgt, w0, wxyz, W2, b2, W3, W4, g1, be1, g2, be2,
+                  st1, st2):
+    """The pairwise chain with the BatchNorms' statistics st1, st2 ([mean,
+    var] each) -> (simr, wmax, the first j of each wmax (B, M, C) int32).
+    The contract of the final passes of ``csrc/sim_mlp.cu``: with the
+    running statistics (``sim_mlp_core``) or the batch's."""
+    f32 = torch.float32
+    x1 = _bn_relu(sim_h0(sp, tp, src, tgt, w0, wxyz), st1[0], bn_inv(st1[1]), g1, be1)
+    h1 = _bf16_dot(x1, W2) + b2.to(f32)
+    x2 = _bn_relu(_bf16_dot(h1, W3), st2[0], bn_inv(st2[1]), g2, be2)
+    w4 = W4.reshape(-1).to(f32)
+    simr = x2[..., 0] * w4[0]
+    for c in range(1, w4.shape[0]):
+        simr = simr + x2[..., c] * w4[c]
+    wmax, argj = _first_max(h1, 2)
+    return simr, wmax, argj.to(torch.int32)
+
+
+def sim_mlp_backward(sp, tp, src, tgt, w0, wxyz, W2, b2, W3, W4, g1, be1, g2, be2,
+                     st1, st2, argj, dsimr, dwmax):
+    """The similarity MLP's backward in train mode, from the cotangents of
+    simr (B, M, M) and wmax (B, M, C) -> (dsp, dtp, dw0, dwxyz, dW2, db2,
+    dW3, dW4, dg1, dbe1, dg2, dbe2), fp32 (see the rounding rule above):
+
+        dy2 = dsimr W4 where BatchNorm 2's output > 0;  dW4 = sum x2 dsimr
+        dh2 = BatchNorm 2's backward (S2 = [sum dy2, sum dy2 hhat2])
+        dh1 = bf16(dh2 W3^T) + dwmax at the saved j;  dW3 = bf16(sum bf16(h1)^T dh2)
+        dy1 = bf16(dh1 W2^T) where BatchNorm 1's output > 0
+        db2 = sum dh1;  dW2 = bf16(sum x1^T dh1)
+        dh0 = BatchNorm 1's backward (S1);  dsp = sum_j dh0, dtp = sum_i dh0,
+        dw0 = sum dist dh0,  dwxyz = bf16(sum bf16(diff / (dist + 1e-8))^T dh0).
+
+    Positions get no gradient (``_sm_prep`` :3904-3907). The contract of
+    the three backward passes of ``csrc/sim_mlp.cu`` (``_sm_bwd1/2/3_kernel``
+    :3497/:3537/:3575)."""
+    f32 = torch.float32
+    B, M, C = sp.shape
+    E = float(B * M * M)
+    dist, ndiff = _sim_geometry(src, tgt)
+    h0 = sim_h0(sp, tp, src, tgt, w0, wxyz)
+    inv1, inv2 = bn_inv(st1[1]), bn_inv(st2[1])
+    hhat1 = (h0 - st1[0]) * inv1
+    y1 = hhat1 * g1.to(f32) + be1.to(f32)
+    x1 = _bf16(torch.relu(y1))
+    h1b = _bf16(_bf16_dot(x1, W2) + b2.to(f32))
+    hhat2 = (_bf16_dot(h1b, W3) - st2[0]) * inv2
+    y2 = hhat2 * g2.to(f32) + be2.to(f32)
+    x2 = torch.relu(y2)
+    ds = dsimr.to(f32)[..., None]
+    dy2 = torch.where(y2 > 0, ds * W4.reshape(-1).to(f32), 0.0)
+    dW4 = (x2 * ds).sum(dim=(0, 1, 2)).reshape(C, 1)
+    dh2, S2_0, S2_1 = _bn_backward(dy2, hhat2, inv2, g2, E)
+    route = torch.zeros((B, M, M, C), dtype=f32, device=sp.device).scatter_(
+        2, argj.long()[:, :, None, :], dwmax.to(f32)[:, :, None, :])
+    dh1 = _bf16(dh2 @ _bf16(W3).t()) + route
+    dW3 = _bf16(h1b.reshape(-1, C).t() @ dh2.reshape(-1, C))
+    dW2 = _bf16(x1.reshape(-1, C).t() @ dh1.reshape(-1, C))
+    dy1 = torch.where(y1 > 0, _bf16(dh1 @ _bf16(W2).t()), 0.0)
+    dh0, S1_0, S1_1 = _bn_backward(dy1, hhat1, inv1, g1, E)
+    dwxyz = _bf16(ndiff.reshape(-1, 3).t() @ dh0.reshape(-1, C))
+    return (dh0.sum(dim=2), dh0.sum(dim=1), (dist * dh0).sum(dim=(0, 1, 2)), dwxyz,
+            dW2, dh1.sum(dim=(0, 1, 2)), dW3, dW4, S1_1, S1_0, S2_1, S2_0)
+
+
+class _SimMlpCoreTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, sp, tp, src, tgt, w0, wxyz, W2, b2, W3, W4, g1, be1, g2, be2):
+        st1, st2 = sim_mlp_batch_stats(sp, tp, src, tgt, w0, wxyz, W2, b2, W3, g1, be1)
+        simr, wmax, argj = sim_mlp_slots(sp, tp, src, tgt, w0, wxyz, W2, b2, W3, W4,
+                                         g1, be1, g2, be2, st1, st2)
+        ctx.save_for_backward(sp, tp, src, tgt, w0, wxyz, W2, b2, W3, W4, g1, be1, g2,
+                              be2, st1, st2, argj)
+        ctx.mark_non_differentiable(st1, st2)
+        return simr, wmax, st1, st2
+
+    @staticmethod
+    def backward(ctx, dsimr, dwmax, _1, _2):
+        (sp, tp, src, tgt, w0, wxyz, W2, b2, W3, W4, g1, be1, g2, be2, st1, st2,
+         argj) = ctx.saved_tensors
+        (dsp, dtp, dw0, dwxyz, dW2, db2, dW3, dW4, dg1, dbe1, dg2,
+         dbe2) = sim_mlp_backward(sp, tp, src, tgt, w0, wxyz, W2, b2, W3, W4, g1, be1,
+                                  g2, be2, st1, st2, argj, dsimr, dwmax)
+        return (dsp, dtp, None, None, dw0, dwxyz, dW2, db2, dW3, dW4, dg1, dbe1, dg2,
+                dbe2)
+
+
+def sim_mlp_train(src, tgt, semb, temb, Wcat, W2, b2, W3, W4, b4, g1, be1, g2, be2):
+    """IDAM's similarity-matrix MLP in train mode -> (sim (B, M, M), wmax
+    (B, M, C), (st1, st2) detached batch statistics):
+    ``sim_mlp_reference(train=True)`` (``pallas_kernels.py:3961``). The
+    projections and the bias and clip are plain autograd (``sim_projections``,
+    ``sim_logits``); the pairwise chain is differentiable by
+    ``sim_mlp_backward``; positions get no gradient."""
+    sp, tp = sim_projections(semb, temb, Wcat)
+    w0, wxyz = sim_mlp_split(Wcat, semb.shape[-1])
+    simr, wmax, st1, st2 = _SimMlpCoreTrain.apply(
+        sp, tp, src.detach().to(torch.float32), tgt.detach().to(torch.float32), w0,
+        wxyz, W2, b2, W3, W4, g1, be1, g2, be2)
+    return sim_logits(simr, b4), wmax, (st1, st2)
 
 
 # ---------------------------------------------------------------------------

@@ -48,7 +48,11 @@ PORT_KERNELS = ("chamfer_rowmin_kernel", "knn_kernel", "fps_kernel",
                 "attention_bf16_backward_kernel", "attention_f32_backward_kernel",
                 "attention_bf16_kernel", "attention_f32_kernel",
                 "edge_mlp_backward_kernel", "edge_mlp_kernel",
-                "gnn_propagate_kernel", "sim_mlp_kernel")
+                "gnn_propagate_kernel", "gnn_propagate_stat_kernel",
+                "gnn_propagate_backward1_kernel", "gnn_propagate_backward2_kernel",
+                "gnn_propagate_scatter_kernel", "sim_mlp_kernel<2>", "sim_mlp_kernel<3>",
+                "sim_mlp_kernel", "sim_mlp_backward_kernel<1>",
+                "sim_mlp_backward_kernel<2>", "sim_mlp_backward_kernel<3>")
 GEMM_MARKS = ("gemm", "xmma", "cutlass", "nvjet", "sm90_", "sm80_")
 
 

@@ -27,7 +27,9 @@ step of the forward with ``prefix="train"`` (batch statistics, which move
 the model's running ones), ``loss.mean()`` backward and an optimizer step;
 the plateau-managed learning rate set every epoch; the same flushes, epoch
 checkpoint and val pass with ``best_<metric>_network.pkl`` (recall highest,
-the others lowest).
+the others lowest). A model that samples in its train branch (IDAM's kept
+points, ``samples_in_train``) gets a ``torch.Generator`` seeded from
+``manual_seed``, drawn from on the CPU at every step.
 """
 
 from __future__ import annotations
@@ -436,18 +438,24 @@ def run_registration_val(cfg: Config, data_dir: str,
 
 def make_registration_train_step(model: torch.nn.Module,
                                  optimizer: torch.optim.Optimizer,
-                                 device: torch.device) -> Callable:
+                                 device: torch.device,
+                                 generator: Optional[torch.Generator] = None) -> Callable:
     """step(batch) -> {"total_loss", "r_err", "t_err", "rmse", "mse"} as
     device scalars: the forward with ``prefix="train"``, ``loss.mean()``
     backward and one optimizer step (``engine.py:186-240`` of the JAX
-    package, kind "registration")."""
+    package, kind "registration"). A model that samples in its train branch
+    (``samples_in_train``: IDAM) draws from ``generator``, a CPU generator
+    seeded 1 unless given, as JAX's step splits its ``sample`` key."""
+    kw = {}
+    if getattr(model, "samples_in_train", False):
+        kw["generator"] = generator or torch.Generator().manual_seed(1)
 
     def step(batch: Dict[str, np.ndarray]):
         src = _to_device(batch["src"], device)
         tgt = _to_device(batch["tgt"], device)
         T = _to_device(batch["transform"], device)
         optimizer.zero_grad(set_to_none=True)
-        loss, r_err, t_err, rmse, mse = model(src, tgt, T, prefix="train")
+        loss, r_err, t_err, rmse, mse = model(src, tgt, T, prefix="train", **kw)
         total = loss.mean()
         total.backward()
         optimizer.step()
@@ -480,7 +488,8 @@ def train_registration(cfg: Config, log_dir: str, data_dir: str = "./data",
 
     model = build_model(cfg, device, seed=seed, for_training=True)
     optimizer = build_optimizer(cfg, model.parameters())
-    train_step = make_registration_train_step(model, optimizer, device)
+    train_step = make_registration_train_step(model, optimizer, device,
+                                              torch.Generator().manual_seed(seed))
     eval_step = make_registration_eval_step(model, device)
     guard = NanGuard()
     lr = float(cfg.lr)

@@ -2,10 +2,11 @@
 ``mvp_benchmark_tpu_torch`` port, on the same ``cfgs/*.yaml``.
 
     python train_torch.py -c cfgs/dcp.yaml
-    python train_torch.py -c cfgs/dcp_smoke.yaml --device cpu
+    python train_torch.py -c cfgs/idam.yaml
+    python train_torch.py -c cfgs/idam_smoke.yaml --device cpu
 
-IDAM's training is not ported yet: ``-c cfgs/idam.yaml`` raises
-NotImplementedError before the first step (``engine.build_model``).
+IDAM draws its kept source points at every step from a generator seeded
+``manual_seed`` (``engine.make_registration_train_step``).
 
 Writes ``train.log``, ``network.pkl`` every ``epoch_interval_to_save`` epochs
 and ``best_<metric>_network.pkl`` (RotE, transE, MSE, RMSE, recall) after each

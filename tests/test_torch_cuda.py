@@ -1114,3 +1114,168 @@ def test_idam_on_card_against_cpu(cuda):
     batch = next(engine.registration_dataset(cfg, "val", "nodata").batches(
         engine.BatchSpec(4)))
     chip_smoke.check_idam_batch_on_cpu(cfg, cuda, batch, clouds_cut=4)
+
+
+# ---------------------------------------------------------------------------
+# IDAM training: the edge block's and the similarity MLP's stat, train final
+# and backward passes (rows 17-19)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,N,k,C,dup", [(2, 2048, 12, 64, False), (3, 1001, 12, 32, False),
+                                         (2, 37, 5, 64, False), (2, 300, 12, 64, True)])
+def test_gnn_propagate_train_kernels_match_plain_version(cuda, B, N, k, C, dup):
+    """Through ``dispatch.gnn_propagate(train=True)`` and autograd: the
+    statistics normwise within chip_smoke.IDAM_STAT_NORM of the plain
+    version's, the output bitwise the plain version's given them, every
+    gradient normwise within chip_smoke.IDAM_GRAD_NORM of
+    ``ref.gnn_propagate_backward``'s on the kernels' statistics and slots;
+    launches: one stat, one final pass, three backward; two runs bitwise
+    equal."""
+    import chip_smoke
+
+    p, idx, W, b, gamma, beta, mean, var = _propagate_case(cuda, B, N, k, C, dup)
+    leaves = [x.clone().requires_grad_() for x in (p, W, b, gamma, beta)]
+    dx = torch.randn(p.shape, device=cuda, generator=torch.Generator(device="cuda").manual_seed(1))
+    runs = []
+    for _ in range(2):
+        before = kernels.launch_counts()
+        x, stats = dispatch.gnn_propagate(leaves[0], idx, *leaves[1:], mean, var, train=True)
+        grads = torch.autograd.grad(x, leaves, dx)
+        torch.cuda.synchronize()
+        after = kernels.launch_counts()
+        assert {key: after[key] - before[key] for key in after if after[key] != before[key]} == {
+            "gnn_propagate_stat": 1, "gnn_propagate": 1, "gnn_propagate_backward": 3}
+        runs.append((x, stats, *grads))
+    assert all(torch.equal(a, c) for a, c in zip(*runs))
+    x, stats, *grads = runs[0]
+    rel = lambda g, w: float((g - w).double().norm() / w.double().norm())
+    assert rel(stats, ref.gnn_propagate_stats(p, idx)) <= chip_smoke.IDAM_STAT_NORM
+    want_x, slot = ref.gnn_propagate_slots(p, idx, W, b, gamma, beta, stats[0], stats[1])
+    torch.testing.assert_close(x, want_x, rtol=0, atol=0)
+    want = ref.gnn_propagate_backward(p, idx, W, gamma, beta, stats, slot, dx)
+    gaps = {name: rel(g, w) for name, g, w in
+            zip(("d_p", "dW", "db", "dgamma", "dbeta"), grads, want)}
+    assert max(gaps.values()) <= chip_smoke.IDAM_GRAD_NORM, gaps
+
+
+@pytest.mark.parametrize("B,M,ties", [(2, 341, False), (3, 37, False), (2, 64, True),
+                                      (1, 2, False)])
+def test_sim_mlp_train_kernels_match_plain_version(cuda, B, M, ties):
+    """Through ``dispatch.sim_mlp(train=True)`` and autograd: the two
+    statistics normwise within chip_smoke.IDAM_STAT_NORM, sim and wmax
+    bitwise the plain version's on the kernels' statistics, the gradients of
+    the embeddings and of every parameter normwise within 5e-3 of the plain
+    version's on the kernels' statistics and argmax (``ref.sim_mlp_backward``
+    under the same projections): the weights' gradients and those of the
+    embeddings through the bf16 projections round to bf16, where the
+    kernel's and the plain version's fp32 sums may fall on either side of a
+    boundary (4.1e-4 measured on an H100 80GB HBM3 at 700 W; the pairwise
+    chain's own outputs are held within chip_smoke.IDAM_GRAD_NORM in
+    chip_smoke.py); launches: two stat, one final pass, three backward; two
+    runs bitwise equal."""
+    import chip_smoke
+
+    x = _sim_case(cuda, B, M, ties=ties)
+    leaves = [t.clone().requires_grad_() for t in x[2:14]]
+    g = torch.Generator(device="cuda").manual_seed(M)
+    dsim = torch.randn((B, M, M), device=cuda, generator=g)
+    dwmax = torch.randn((B, M, 32), device=cuda, generator=g)
+    runs = []
+    for _ in range(2):
+        before = kernels.launch_counts()
+        sim, wmax, (st1, st2) = dispatch.sim_mlp(x[0], x[1], *leaves, *x[14:], train=True)
+        grads = torch.autograd.grad((sim, wmax), leaves, (dsim, dwmax))
+        torch.cuda.synchronize()
+        after = kernels.launch_counts()
+        assert {key: after[key] - before[key] for key in after if after[key] != before[key]} == {
+            "sim_mlp_stat": 2, "sim_mlp": 1, "sim_mlp_backward": 3}
+        runs.append((sim, wmax, st1, st2, *grads))
+    assert all(torch.equal(a, c) for a, c in zip(*runs))
+    sim, wmax, st1, st2, *grads = runs[0]
+    rel = lambda a, w: float((a - w).double().norm() / w.double().norm())
+    sp, tp = ref.sim_projections(x[2], x[3], x[4])
+    core = (sp, tp, x[0], x[1], *ref.sim_mlp_split(x[4], 64), *x[5:9], *x[10:14])
+    for got, want in zip((st1, st2), ref.sim_mlp_batch_stats(*core[:9], *core[10:12])):
+        assert rel(got, want) <= chip_smoke.IDAM_STAT_NORM
+    simr, want_wmax, argj = ref.sim_mlp_slots(*core, st1, st2)
+    torch.testing.assert_close(sim, ref.sim_logits(simr, x[9]), rtol=0, atol=0)
+    torch.testing.assert_close(wmax, want_wmax, rtol=0, atol=0)
+    # the plain chain's backward on the kernels' statistics, then autograd of
+    # the projections and the logits' bias and clip
+    plain = [t.clone().requires_grad_() for t in x[2:14]]
+    sp, tp = ref.sim_projections(plain[0], plain[1], plain[2])
+    w0, wxyz = ref.sim_mlp_split(plain[2], 64)
+    simr_p = simr.clone().requires_grad_()
+    dsimr, = torch.autograd.grad(ref.sim_logits(simr_p, plain[7]), simr_p, dsim)
+    back = ref.sim_mlp_backward(sp.detach(), tp.detach(), x[0], x[1], w0.detach(),
+                                wxyz.detach(), *x[5:9], *x[10:14], st1, st2, argj, dsimr,
+                                dwmax)
+    dsp, dtp, dw0, dwxyz, dW2, db2, dW3, dW4, dg1, dbe1, dg2, dbe2 = back
+    outs = (sp, tp, w0, wxyz, ref.sim_logits(simr_p, plain[7]))
+    want = torch.autograd.grad(outs, plain, (dsp, dtp, dw0, dwxyz, dsim), allow_unused=True)
+    extra = {3: dW2, 4: db2, 5: dW3, 6: dW4, 8: dg1, 9: dbe1, 10: dg2, 11: dbe2}
+    names = ("semb", "temb", "Wcat", "W2", "b2", "W3", "W4", "b4", "g1", "be1", "g2", "be2")
+    gaps = {name: rel(got, extra.get(i, want[i])) for i, (name, got) in
+            enumerate(zip(names, grads))}
+    assert max(gaps.values()) <= 5e-3, gaps
+
+
+def test_idam_train_wrappers_reject_bad_inputs(cuda):
+    p, idx, W, b, gamma, beta, _, _ = _propagate_case(cuda, 1, 40, 4, 64)
+    _, stats, slot = kernels.gnn_propagate_train_forward(p, idx, W, b, gamma, beta)
+    with pytest.raises(ValueError, match="limit"):
+        big = idx.repeat(1, 1, 9)
+        kernels.gnn_propagate_train_forward(p, big.contiguous(), W, b, gamma, beta)
+    with pytest.raises(TypeError, match="uint8"):
+        kernels.gnn_propagate_train_backward(p, idx, W, gamma, beta, stats, slot.int(), p)
+    with pytest.raises(ValueError, match="dx must be"):
+        kernels.gnn_propagate_train_backward(p, idx, W, gamma, beta, stats, slot,
+                                             p[:, :20].contiguous())
+    x = list(_sim_case(cuda, 1, 8))
+    sp, tp = ref.sim_projections(x[2], x[3], x[4])
+    core = [sp, tp, x[0], x[1], *ref.sim_mlp_split(x[4], 64), *x[5:9], *x[10:14]]
+    simr, wmax, st1, st2, argj = kernels.sim_mlp_train_forward(*core)
+    with pytest.raises(ValueError, match="dsimr must be"):
+        kernels.sim_mlp_train_backward(*core, st1, st2, argj, simr[:, :4].contiguous(), wmax)
+    with pytest.raises(TypeError, match="int32"):
+        kernels.sim_mlp_train_backward(*core, st1, st2, argj.long(), simr, wmax)
+
+
+def test_idam_train_step_on_card_against_cpu(cuda):
+    """An IDAM train step at the smoke size (emb 32, 2 iterations, 4 pairs
+    of 128 points of the train split, M 21), held as
+    chip_smoke.check_idam_step_on_cpu holds two full-width pairs: the same
+    kept points, gt-match and correspondence flips counted, then with the
+    card's selections on the CPU the loss, every gradient leaf and the
+    running statistics within chip_smoke.IDAM_STEP_BARS."""
+    import chip_smoke
+    from mvp_benchmark_tpu_torch.train.config import load_config
+
+    cfg = load_config("registration/cfgs/idam_smoke.yaml")
+    saved = chip_smoke.REG_DATA_DIR
+    chip_smoke.REG_DATA_DIR = "nodata"
+    try:
+        chip_smoke.check_idam_step_on_cpu(cfg, cuda, clouds_cut=4)
+    finally:
+        chip_smoke.REG_DATA_DIR = saved
+
+
+def test_sim_mlp_train_backward_skips_the_inputs_pass_when_not_asked(cuda):
+    """Only the parameters after the first layer need a gradient: the third
+    backward pass (dsp, dtp, dw0, dWxyz) is not launched, and W2's gradient
+    equals the one a full backward gives, bitwise."""
+    x = list(_sim_case(cuda, 2, 64))
+    W2 = x[5].clone().requires_grad_()
+    sim, wmax, _ = dispatch.sim_mlp(*x[:5], W2, *x[6:], train=True)
+    before = kernels.SIM_MLP_BWD_LAUNCHES
+    (g,) = torch.autograd.grad(sim.sum() + wmax.sum(), W2)
+    torch.cuda.synchronize()
+    assert kernels.SIM_MLP_BWD_LAUNCHES == before + 2
+    semb = x[2].clone().requires_grad_()
+    W2b = x[5].clone().requires_grad_()
+    sim, wmax, _ = dispatch.sim_mlp(*x[:2], semb, *x[3:5], W2b, *x[6:], train=True)
+    before = kernels.SIM_MLP_BWD_LAUNCHES
+    _, g_full = torch.autograd.grad(sim.sum() + wmax.sum(), (semb, W2b))
+    torch.cuda.synchronize()
+    assert kernels.SIM_MLP_BWD_LAUNCHES == before + 3
+    torch.testing.assert_close(g, g_full, rtol=0, atol=0)

@@ -82,6 +82,17 @@ def test_duplicate_neighbour_ties_give_the_same_value():
 
 
 def test_train_mode_raises_naming_the_next_slice():
-    args = list(map(torch.from_numpy, _inputs(9, 1, 16, 4, 16)))
-    with pytest.raises(NotImplementedError, match="next slice"):
-        dispatch.gnn_propagate(*args, train=True)
+    """Train mode is ported (this test once checked that it raised): on a CPU
+    tensor it is ``ref.gnn_propagate_train``, the batch statistics returned
+    detached (its parity with JAX: tests/test_torch_idam_train.py)."""
+    from mvp_benchmark_tpu_torch.ops import ref
+
+    p, idx, W, b, gamma, beta, _, _ = map(torch.from_numpy, _inputs(9, 1, 16, 4, 16))
+    p.requires_grad_()
+    x, stats = dispatch.gnn_propagate(p, idx, W, b, gamma, beta, None, None, train=True)
+    want_x, want_stats = ref.gnn_propagate_train(p, idx, W, b, gamma, beta)
+    assert torch.equal(x, want_x) and torch.equal(stats, want_stats)
+    assert stats.shape == (2, 16) and not stats.requires_grad
+    assert torch.equal(stats, ref.gnn_propagate_stats(p.detach(), idx))
+    (g,) = torch.autograd.grad(x.sum(), p)
+    assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0

@@ -37,7 +37,8 @@ Hence:
   which reaches the weights and then the three poses.
 
 Plus: the transplant covers every leaf (87,943 parameters, 1,408 running
-statistics) and round-trips; ``prefix="train"`` and ``use_fpfh`` raise; the
+statistics) and round-trips; the train branch runs (its parity with JAX:
+test_torch_idam_train.py) and ``use_fpfh`` raises; the
 launch counts of a protocol batch (full width, one pair of 2048 points),
 computed as ``tests/test_torch_dcp.py`` computes DCP's.
 """
@@ -296,17 +297,36 @@ def test_transplant_covers_every_leaf_and_round_trips(pair):
 
 
 def test_train_branch_train_path_and_fpfh_raise(pair, tmp_path):
+    """The train branch and the train path run (this test once checked that
+    they raised; their parity with JAX is in test_torch_idam_train.py, the
+    whole train loop in test_torch_import_registration.py): the train branch
+    without kept points or a generator raises, with a generator it returns
+    five finite outputs and moves the running statistics;
+    ``engine.build_model(for_training=True)`` builds IDAM and its train step
+    runs; ``use_fpfh`` still raises."""
+    import copy
+
     from mvp_benchmark_tpu_torch.train import engine
     from mvp_benchmark_tpu_torch.train.config import load_config
+    from mvp_benchmark_tpu_torch.train.optim import build_optimizer
 
     _, _, tm, (src, tgt, T) = pair
+    tm = copy.deepcopy(tm).train()
     t = torch.from_numpy
-    with pytest.raises(NotImplementedError, match="next slice"):
+    with pytest.raises(ValueError, match="generator or src_idx"):
         tm(t(src), t(tgt), t(T), prefix="train")
+    before = tm.sim0_var1.clone()
+    out = tm(t(src), t(tgt), t(T), prefix="train", generator=torch.Generator().manual_seed(0))
+    assert len(out) == 5 and all(bool(torch.isfinite(o).all()) for o in out)
+    assert not torch.equal(before, tm.sim0_var1)
     cfg = load_config(os.path.join(ROOT, "registration", "cfgs", "idam_smoke.yaml"))
-    with pytest.raises(NotImplementedError, match="training 'idam' is not yet ported"):
-        engine.train_registration(cfg, str(tmp_path), os.path.join(ROOT, "nodata"),
-                                  device=torch.device("cpu"))
+    cpu = torch.device("cpu")
+    model = engine.build_model(cfg, cpu, for_training=True).train()
+    batch = next(engine.registration_dataset(cfg, "train", str(tmp_path)).batches(
+        engine.BatchSpec(int(cfg.batch_size))))
+    dev = engine.make_registration_train_step(
+        model, build_optimizer(cfg, model.parameters()), cpu)(batch)
+    assert all(bool(torch.isfinite(v)) for v in dev.values())
     with pytest.raises(NotImplementedError, match="use_fpfh"):
         tidam.build(Config(model_name="idam", use_fpfh=True))
     m = tidam.build(Config(model_name="idam", descriptor_size=32, num_iters=2))

@@ -83,6 +83,18 @@ def test_core_is_the_kernel_contract():
 
 
 def test_train_mode_raises_naming_the_next_slice():
+    """Train mode is ported (this test once checked that it raised): on CPU
+    tensors it is ``ref.sim_mlp_train``, (sim, wmax, (st1, st2)) with the
+    batch statistics detached and no gradient to the positions (its parity
+    with JAX: tests/test_torch_idam_train.py)."""
     args = list(map(torch.from_numpy, _inputs(6, M=8)))
-    with pytest.raises(NotImplementedError, match="next slice"):
-        dispatch.sim_mlp(*args, train=True)
+    args[2].requires_grad_()
+    args[0].requires_grad_()
+    sim, wmax, (st1, st2) = dispatch.sim_mlp(*args, train=True)
+    want = ref.sim_mlp_train(*args[:14])
+    assert torch.equal(sim, want[0]) and torch.equal(wmax, want[1])
+    assert torch.equal(st1, want[2][0]) and torch.equal(st2, want[2][1])
+    assert st1.shape == st2.shape == (2, 32) and not st1.requires_grad
+    g_src, g_semb = torch.autograd.grad(sim.sum() + wmax.sum(), (args[0], args[2]),
+                                        allow_unused=True)
+    assert g_src is None and bool(torch.isfinite(g_semb).all())
