@@ -21,13 +21,15 @@ Phases, each of which raises on failure (exit code != 0):
    and at an n that is not a multiple of 1024: indices and assignments
    equal; DCP's kernels at its shapes: the attention forwards and the edge
    chain's eval pass, and for training the attention backwards (bf16
-   normwise, fp32 within the SA bar) and the chain's stat, final and
-   backward passes against autograd of its plain version (normwise), two
-   runs of the latter bitwise equal; IDAM's edge block and similarity MLP
-   at its shapes plus ragged and tie cases, bitwise, and for training their
-   stat passes (normwise), train final passes (bitwise, given the kernels'
-   statistics) and backward passes (normwise against ``ref``'s written-out
-   backward), two runs of the stat and backward passes bitwise equal;
+   normwise, fp32 within the SA bar, also at ragged shapes that cut a
+   tile) and the chain's stat, final and backward passes against autograd
+   of its plain version (normwise), two runs of the attention backwards
+   and of the chain's passes bitwise equal; IDAM's edge block and
+   similarity MLP at its shapes plus ragged and tie cases, bitwise, and
+   for training their stat passes (normwise), train final passes (bitwise,
+   given the kernels' statistics) and backward passes (normwise against
+   ``ref``'s written-out backward), two runs of the stat and backward
+   passes bitwise equal;
 4. drives each main path through the functions ``completion/test_torch.py``
    and ``completion/train_torch.py`` call, with seeded weights, on the
    synthetic splits, each with the launch counts zeroed just before and read
@@ -115,6 +117,9 @@ DATA_DIR = os.path.join(ROOT, "completion", "data")   # test_torch.py's default
 PEAK_FP32 = 67e12
 PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
+# TF32 dense on the tensor cores: the svd head's backward runs its fp32
+# products as 3xTF32 there (three TF32 products each).
+PEAK_TF32 = 495e12
 
 _PK = "mvp_benchmark_tpu/ops/pallas_kernels.py"
 _CSRC = "mvp_benchmark_tpu_torch/ops/csrc"
@@ -310,15 +315,17 @@ DCP_CPU_ATOL = {"loss": 2e-4, "RotE": 0.25, "transE": 3e-3, "RMSE": 2.5e-3,
 # DCP's train kernels against their plain versions on the card. The bf16
 # attention backward normwise (its p and ds round to bf16 as the plain
 # version's do; 1.7e-4 measured on an H100); the fp32 one within SA_ATOL +
-# SA_RTOL |plain| (bitwise equal measured: both sum with sequential FMAs in
-# key order). The train chain's forward normwise, its max-pools
-# EDGE_TRAIN_NORM (the kernel folds the batch statistics into a scale and
-# shift, the plain version does not: an activation may round to the other
-# bf16 neighbour; 2.1e-4 measured) and its statistics EDGE_STAT_NORM (4.2e-7
-# measured); its gradients normwise EDGE_GRAD_NORM against autograd of the
-# plain version, which rounds the carried cotangent to bf16 where the
-# kernel rounds dh (1.6e-2 measured for d_a1, <= 1e-2 for the others), at
-# the JAX test's own bar for its 4-layer kernel against its reference.
+# SA_RTOL |plain| (3xTF32 on the tensor cores, in another order than the
+# plain version's fp32 products: max |diff| 3.9e-7 measured on an H100 at
+# DCP's shape). Two runs of each bitwise equal (no atomics). The train
+# chain's forward normwise, its max-pools EDGE_TRAIN_NORM (the kernel folds
+# the batch statistics into a scale and shift, the plain version does not:
+# an activation may round to the other bf16 neighbour; 2.1e-4 measured) and
+# its statistics EDGE_STAT_NORM (4.2e-7 measured); its gradients normwise
+# EDGE_GRAD_NORM against autograd of the plain version, which rounds the
+# carried cotangent to bf16 where the kernel rounds dh (1.6e-2 measured for
+# d_a1, <= 1e-2 for the others), at the JAX test's own bar for its 4-layer
+# kernel against its reference.
 ATTN_BF16_BWD_NORM = 1e-3
 EDGE_TRAIN_NORM, EDGE_STAT_NORM, EDGE_GRAD_NORM = 1e-3, 1e-5, 2e-2
 # A DCP train step on two full-width pairs, card against CPU
@@ -815,17 +822,27 @@ def edge_train_inputs(seed, B, N, K, device):
     return a1, Ws, params[0], params[1], gxs
 
 
+def check_rerun_bitwise(name, first, second):
+    """Two runs of a kernel on the same inputs give bitwise-equal outputs."""
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    check(same, f"{name}: two runs differ")
+    print(f"kernel run twice: {name}: bitwise equal")
+
+
 def compare_dcp_train_kernels_with_plain(device):
     """Phase 3e: the backward kernels of DCP's attentions and the edge
     chain's train passes at a train step's shapes (the transformer's (32,
     2048, 4, 128) bf16 heads, the svd head's (32, 2048, 512) fp32
-    embeddings, the chain's (32, 2048, 20, 6) edges) plus ragged ones,
-    against ``ref.attention_backward`` and autograd of
-    ``ref.edge_mlp_train``; and two runs of the chain's stat and backward
-    passes bitwise equal. Returns {key: max |kernel - plain|}."""
+    embeddings, the chain's (32, 2048, 20, 6) edges) plus ragged ones (the
+    attention backwards at (2|3, 1000 x 777) and (1, 129 x 65), cutting a
+    tile), against ``ref.attention_backward`` and autograd of
+    ``ref.edge_mlp_train``; and two runs of the attention backwards and of
+    the chain's stat and backward passes bitwise equal. Returns {key: max
+    |kernel - plain|}."""
     err = dict.fromkeys(("attention_bnhd_backward", "attention_backward",
                          "edge_mlp_stat", "edge_mlp_backward"), 0.0)
-    for (B, N, M) in ((32, 2048, 2048), (2, 1000, 777)):
+    for (B, N, M) in ((32, 2048, 2048), (2, 1000, 777), (1, 129, 65)):
         *x, d_out, scale = _attention_stats_inputs(500 + N, B, N, M, device, True)
         got = kernels.attention_bnhd_backward(*x, d_out, scale)
         for name, g, w in zip(("dq", "dk", "dv"), got,
@@ -834,14 +851,18 @@ def compare_dcp_train_kernels_with_plain(device):
                                                  check_normwise(
                 f"attention_bnhd_backward {name} ({B}, {N} x {M}) bf16", g, w,
                 ATTN_BF16_BWD_NORM))
+        check_rerun_bitwise(f"attention_bnhd_backward ({B}, {N} x {M}) bf16", got,
+                            kernels.attention_bnhd_backward(*x, d_out, scale))
         del x, got
-    for (B, N, M) in ((32, 2048, 2048), (3, 1000, 777)):
+    for (B, N, M) in ((32, 2048, 2048), (3, 1000, 777), (1, 129, 65)):
         *x, d_out, scale = _attention_stats_inputs(600 + N, B, N, M, device, False)
         got = kernels.attention_backward(*x, d_out, scale)
         for name, g, w in zip(("dq", "dk", "dv"), got,
                               ref.attention_backward(*x, d_out, scale)):
             err["attention_backward"] = max(err["attention_backward"], check_close(
                 f"attention_backward {name} ({B}, {N} x {M}, D 512, Dv 3) fp32", g, w))
+        check_rerun_bitwise(f"attention_backward ({B}, {N} x {M}, D 512, Dv 3) fp32",
+                            got, kernels.attention_backward(*x, d_out, scale))
         del x, got
     for (B, N, K) in ((32, 2048, 20), (3, 1001, 7)):
         a1, Ws, gammas, betas, gxs = edge_train_inputs(700 + N, B, N, K, device)
@@ -1821,19 +1842,23 @@ def registration_step(cfg, device):
 
 def time_train_steps(name, cfg, card, run, per_step, unit, steps=5):
     """ms per train step of ``run`` over ``steps`` steps after two warm-up
-    steps, host clock; ``unit``/s = ``per_step`` per step time."""
+    steps, host clock; ``unit``/s = ``per_step`` per step time; the peak of
+    allocated device memory over the timed steps."""
     for _ in range(2):
         run()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for _ in range(steps):
         run()
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / steps
     rate = per_step / (ms / 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"{name} train step: {ms!r} ms, {rate!r} {unit}/s (batch {int(cfg.batch_size)} "
-          f"x {int(cfg.num_points)} points, host clock over {steps} steps) on {card}")
-    return {"ms_per_step": ms, f"{unit}_per_s": rate}
+          f"x {int(cfg.num_points)} points, host clock over {steps} steps), peak "
+          f"allocated {peak!r} GiB on {card}")
+    return {"ms_per_step": ms, f"{unit}_per_s": rate, "peak_gib": peak}
 
 
 def time_passes(name, cfg, device, card, repeats=3):
@@ -2104,8 +2129,11 @@ def dcp_train_timing_cases(device):
     each input read once, each output written once. Operations, 2 per
     multiply-add, the least the function needs: the attention backwards
     rebuild the scores once and form dP, dQ, dK (and dV for the heads; the
-    svd head's 3-wide dP and no dV), though the kernels form the scores and
-    dP twice; the stat passes recompute layers 0..l for layer l; the chain's
+    svd head's 3-wide dP and no dV), though the heads' kernels form the
+    scores and dP twice; the svd head's three D-wide products as 3xTF32,
+    three TF32 products each, at the TF32 peak (its 3-wide dP counted in
+    TF32-peak equivalents, times 495 / 67), its bound on fp32 cores in the
+    label; the stat passes recompute layers 0..l for layer l; the chain's
     backward recomputes the forward once, forms every dW and pushes the
     cotangent down to layer 0 (the kernel recomputes the chain in each of
     its five passes). The library calls: the backward of
@@ -2136,6 +2164,7 @@ def dcp_train_timing_cases(device):
                                kernels.EDGE_MLP_CHANNELS[1:])]
     chain, w_bytes = sum(c), sum(c) * 2
     heads = B * N * H * dk * 2
+    svd_ops = 2 * B * N * N * (3 * D + 3)
     return {
         "attention_bnhd_backward": (
             f"({B}, {N} x {N}, H {H}, dk {dk}) bf16, heads in place",
@@ -2144,12 +2173,14 @@ def dcp_train_timing_cases(device):
             lambda: torch.autograd.grad(h_out, (hq, hk, hv), h_dot, retain_graph=True),
             8 * heads + 2 * B * H * N * 4, 5 * 2 * B * H * N * N * dk, PEAK_BF16),
         "attention_backward": (
-            f"({B}, {N} x {N}, D {D}, Dv 3) fp32, dq and dk",
+            f"({B}, {N} x {N}, D {D}, Dv 3) fp32, dq and dk; 3xTF32, bound at the "
+            f"TF32 peak (on fp32 cores {svd_ops / PEAK_FP32 * 1e3!r} ms)",
             lambda: kernels.attention_backward(*fx, f_do, f_scale, need=(True, True, False)),
             lambda: ref.attention_backward(*fx, f_do, f_scale),
             f_lib,
             (4 * B * N * D + 3 * B * N * 3 + 2 * B * N) * 4,
-            2 * B * N * N * (3 * D + 3), PEAK_FP32),
+            3 * 2 * B * N * N * 3 * D + 2 * B * N * N * 3 * PEAK_TF32 / PEAK_FP32,
+            PEAK_TF32),
         "edge_mlp_stat": (
             f"({B}, {N}, k {K}, 6) -> 64/64/128/256, four passes",
             lambda: kernels.edge_mlp_batch_stats(a1, ws, gammas, betas),

@@ -8,61 +8,94 @@
 // of `fused_attention_bnhd` :2610. Per head, with the forward's output o and
 // the row max m and row sum l that attention.cu saves:
 //
-//   delta[n] = sum_c dO[n, c] o[n, c]                  (computed by the caller)
+//   delta[n] = sum_c dO[n, c] o[n, c]
 //   p[n, j]  = exp(q[n] . k[j] * scale - m[n]) / l[n]
 //   ds[n, j] = (p[n, j] (dO[n] . v[j] - delta[n])) * scale
 //   dq[n] = sum_j ds[n, j] k[j]
 //   dk[j] = sum_n ds[n, j] q[n],   dv[j] = sum_n p[n, j] dO[n]
 //
 // the semantics of ops/ref.py `attention_backward`. The TPU's bnhd backward
-// (and its monolithic narrow-D one) adds every q-tile's dK/dV into one
-// output block, relying on the TPU grid running in order; on a GPU that is a
-// race. Both instantiations here take the split form for both layouts: a dQ
-// pass whose block owns a tile of query rows and walks the keys, and a dK/dV
-// pass whose block owns a tile of keys and walks the queries, each writing
-// its own tiles once. No atomics: the results are the same from run to run.
-// The two passes are one kernel with the roles of the operands swapped
-// (kKV): the block's own rows X with partner Y (q with dO; k with v), the
-// walked tiles Z with W (k with v; q with dO); the row statistics belong to
-// the queries, so to the own rows in the dQ pass and to the walked columns
-// in the dK/dV pass.
+// adds every q-tile's dK/dV into one output block, relying on the TPU grid
+// running in order; on a GPU that is a race, and fp32 atomics (as
+// FlashAttention-3 adds dQ) would make two runs differ. Here every output
+// tile is written once, by one block, from sums in a fixed order: two runs
+// are bitwise equal.
 //
 // Layout: q (B, Nq, H, D), k (B, M, H, D), v (B, M, H, Dv), read in place
 // with each tensor's batch and row strides in elements (the last axis
-// contiguous); dO (B, Nq, H, Dv), m, l and delta (B, H, Nq) contiguous; dq,
+// contiguous); o and dO (B, Nq, H, Dv), m and l (B, H, Nq) contiguous; dq,
 // dk, dv contiguous in the inputs' layouts.
 //
 // 1. bf16, D = Dv = 128: the transformer's heads (B 32, N = M = 2048, H 4;
-//    six calls a step). Tensor cores through mma.sync.m16n8k16 (bf16
-//    operands, fp32 accumulation): 4 warps a block, 16 own rows a warp
-//    (64 a block), walked tiles of 32 staged by cp.async in two stages. A
-//    warp computes its 16 x 32 score and dP tiles, turns them into p and ds
-//    in registers, rounds them to bf16 straight into A fragments (as the
-//    forward does with p) and accumulates ds . Z (and p . W for dV) into
-//    16 x 128 fp32 tiles in registers. ldmatrix reads every fragment from
-//    shared memory, .trans for the products over the walked rows. As
-//    `_attn_bwd_dq_kernel`/`_attn_bwd_dkv_kernel`: bf16 operands, fp32
+//    six calls a step). Bound: operations. The split form (no atomics)
+//    forms S and dP in both passes, 7 products of 2 B H N M D = 137 GFLOP:
+//    0.96 TFLOP, 0.97 ms at the 989 TFLOP/s bf16 dense peak (the least the
+//    function needs, 5 products, 0.69 ms); the bytes (q, k, v, o, dO read,
+//    dq, dk, dv written: 8 x 67 MB) 0.16 ms. The first version ran at 3.1x
+//    SDPA's backward: mma.sync, which on Hopper does not reach the tensor
+//    cores' rate; every fragment re-read from shared memory through
+//    ldmatrix behind a barrier pair per 32-row tile; 8-12 warps an SM
+//    behind two cp.async stages. This one:
+//    - a statistics kernel forms delta (fp32 products of dO and o in a
+//      fixed tree) and a table of the queries' m log2(e), 1 / l and delta,
+//      64 queries a row, zeros past Nq;
+//    - a block owns 128 rows (keys in the dK/dV pass, queries in the dQ
+//      pass), 64 for each of two consumer warpgroups, loaded once by TMA
+//      into 128-byte-swizzled shared memory; one producer thread streams
+//      the walked tiles (64 rows of both walked operands, by TMA; in the
+//      dK/dV pass also their queries' table row, by a bulk copy) through a
+//      ring of 3 stages, each an mbarrier pair (full: the bytes; empty:
+//      the 256 consumer threads); setmaxnreg gives the consumers 240
+//      registers and the producer 24;
+//    - a consumer forms its 64 x 64 scores, then dP, as two groups of
+//      wgmma.m64n64k16 from shared memory (K-major A and B, no fragment
+//      loads), forms p (exp2 of the scaled score less m log2(e), times 1 /
+//      l) while dP is on the tensor cores, rounds p and ds to bf16 straight
+//      into A fragments, and accumulates ds . Z (and p . W for dV) into
+//      64 x 128 fp32 tiles in registers with wgmma.m64n128k16 (A from
+//      registers, B MN-major: the walked tile as it lies), dV while ds is
+//      formed. The tiles leave as bf16 once, at the end. A walked row past
+//      the end arrives as zeros: its query's 1 / l is 0 in the table (dK/dV
+//      pass); the dQ pass masks its last tile's keys, a branch a tile (a
+//      select an element made the compiler branch around each exp, and the
+//      call took ~1.4x as long).
+//    As `_attn_bwd_dq_kernel`/`_attn_bwd_dkv_kernel`: bf16 operands, fp32
 //    scores, p from the saved statistics in fp32, p and ds rounded to bf16
 //    before their products, each gradient rounded to bf16 once.
 //
 // 2. fp32, D = 512, Dv = 3: the svd head's correspondence (B 32,
 //    N = M = 2048, D 512, v the target cloud, whose gradient the model never
-//    asks for). CUDA cores, 256 threads a block, 64 own rows by 64 walked
-//    rows a tile: the score tile as the forward's (D in chunks of 32 staged
-//    transposed, a 4 x 4 register tile a thread), p and ds into shared
-//    memory, then the own rows' 64 x D gradient, held in registers (4 rows
-//    x 32 columns a thread), gains ds . Z with Z staged 16 rows at a time.
-//    dv (64 x 3 a block) sums p . dO from shared memory, only when asked.
-//
-// What bounds them on an H100: operations. (1) One call at DCP's shapes is
-// 7 products of 2 B H N M D = 137 GFLOP (S, dP and dQ; S^T, dP^T, dK and
-// dV): 0.96 TFLOP, 0.97 ms at the 989 TFLOP/s bf16 dense peak; the bytes
-// (q, k, v, o, dO read, dq, dk, dv written: 8 x 67 MB) take 0.16 ms.
-// mma.sync and 4 warps a block reach only part of that peak; wgmma and TMA
-// are later work. (2) 4 products of 2 B N M D = 137 GFLOP plus the 3-wide
-// ones: 0.55 TFLOP of fp32, 8.2 ms at 67 TFLOP/s; the bytes (4 x 134 MB)
-// 0.16 ms.
+//    asks for). The first version ran at 3.8x SDPA's backward: it formed
+//    the scores in both of its passes (4 products of 137 GFLOP where 3
+//    suffice) on CUDA cores from a 4 x 4 register tile (8 shared floats for
+//    16 FMAs), one block of 8 warps an SM, every D chunk loaded, synced and
+//    consumed with no copy in flight, k read twice per walked tile. This
+//    one forms the scores once, in three products on the tensor cores:
+//    (a) the ds pass: a block owns a 128 x 128 (query, key) tile, forms S
+//        over D = 512, then p, the 3-wide dP, and ds, which it writes to an
+//        fp32 scratch (B H, Nq, Mp) (Mp = M rounded up to 4; 537 MB at
+//        DCP's shape, written once, read by (b)); when dv is asked for, it
+//        also writes pT . dO over its 128 queries as a partial
+//        (B H, ceil(Nq / 128), M, 3) that the caller sums in a fixed order;
+//    (b) the gradient pass, one launch over both problems: dq = ds . k and
+//        dk = dsT . q, a block a 128 x 128 output tile summed over all of
+//        the other axis.
+//    The core of both is 3xTF32 (CUTLASS's fp32-accurate "fast F32"): each
+//    fp32 operand x splits into hi = tf32(x) and lo = x - hi, and
+//    hi . hi + hi . lo + lo . hi accumulate in fp32 on
+//    mma.sync.m16n8k8.tf32; the dropped lo . lo term and lo's truncation
+//    are ~2^-22 of a product, so no product is rounded to TF32's precision.
+//    The split runs in registers on every fragment it loads, two integer
+//    operations and a subtraction: with cvt.rna.tf32 it took ~1.17x as long.
+//    4 warps a block of 64 x 64 each, depth staged 32 at a time by cp.async
+//    through 3 stages, 2 blocks an SM. Bound: operations. 3 products of
+//    137 GFLOP = 412 GFLOP, 6.17 ms at the 67 TFLOP/s fp32 peak; as 3xTF32
+//    on the tensor cores 1.24 TFLOP, 2.50 ms at the 495 TFLOP/s TF32 peak;
+//    the bytes (q, k read, dq, dk written: 4 x 134 MB) 0.16 ms, the scratch
+//    ~1.6 GB of traffic ~0.5 ms more. (wgmma takes TF32 operands K-major
+//    only, and the gradient products read k and q along their rows.)
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -70,25 +103,190 @@
 
 namespace {
 
-// ---- (1) bf16 tensor cores, D = Dv = 128 ----------------------------------
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- (1) bf16 on wgmma, D = Dv = 128 --------------------------------------
 
 constexpr int kD = 128;
-constexpr int kBR = 64;                  // own rows a block, 16 a warp
-constexpr int kBC = 32;                  // walked rows a tile
-constexpr int kThreadsB = 128;
-constexpr int kRowB = kD + 8;            // bf16 a staged row (272 bytes)
-constexpr int kOwnB = kBR * kRowB;       // bf16 an own tile (X or Y)
-constexpr int kTileB = kBC * kRowB;      // bf16 a walked tile (Z or W), a stage
-constexpr size_t kSmemB = sizeof(__nv_bfloat16) * (2 * kOwnB + 4 * kTileB) +
-                          sizeof(float) * 2 * 3 * kBC;   // + m, l, delta x 2 stages
+constexpr int kOwn = 128;                // own rows a block, 64 a consumer warpgroup
+constexpr int kWalk = 64;                // walked rows a stage
+constexpr int kStages = 3;
+constexpr int kConsumers = 2;            // consumer warpgroups; the producer is the third
+constexpr int kThreadsB = 128 * (kConsumers + 1);
+constexpr int kBox = 64 * 128;           // bytes of a TMA box: 64 rows of 64 bf16 (128 bytes)
+constexpr int kOwnHalf = 2 * kBox;       // one column half of an own tile (128 rows)
+constexpr int kOwnBytes = 2 * kOwnHalf;  // an own tile, 128 x 128 bf16
+constexpr int kWalkBytes = 2 * kBox;     // a walked tile, 64 x 128 bf16
+constexpr size_t kSmemB = 1024 +         // slack to align the tiles to 1024 bytes
+                          2 * kOwnBytes + 2 * kStages * kWalkBytes +
+                          sizeof(float) * kStages * 3 * kWalk +
+                          sizeof(uint64_t) * (2 * kStages + 1);
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Waits for the phase of the given parity to complete. A wait that has not
+// ended after ~2^34 cycles (~9 s) traps: a fault, not a hung card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  long long start = -1;
+  while (true) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start < 0) {
+      start = clock64();
+    } else if (clock64() - start > (1ll << 34)) {
+      __trap();
+    }
+  }
+}
+
+// One 64-row box (64 columns) of a (128, H, N, B) bf16 tensor map into
+// shared memory at dst, 128-byte swizzled; rows past N arrive as zeros.
+__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map, int col,
+                                        int head, int row, int batch, uint32_t bar) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(head), "r"(row), "r"(batch),
+      "r"(bar)
+      : "memory");
+}
+
+// bytes (a multiple of 16) from global src to shared dst (both 16-byte
+// aligned), completing on bar
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled tile: start address,
+// leading and stride byte offsets (in 16-byte units), layout 1 (128B swizzle).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// K-major operand (rows of 64 bf16 = 128 bytes, 8-row groups 1024 bytes apart)
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t addr) {
+  return sw128_desc(addr, 16, 1024);
+}
+
+// MN-major operand: the walked tile as it lies, K = its rows (8-row groups
+// 1024 bytes apart), N = its 128 columns in two 64-wide halves kBox apart
+__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t addr) {
+  return sw128_desc(addr, kBox, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// waits until at most N committed groups of this warpgroup are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving accumulator registers across an
+// asynchronous wgmma
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d (64 x 64, fp32) (+)= A (64 x 16, shared, K-major) . B (64 x 16, shared, K-major)^T
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da,
+                                                   uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 128, fp32) (+)= A (64 x 16, bf16 in registers) . B (16 x 128, shared, MN-major)
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4],
+                                                   uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -96,435 +294,553 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+// A fragments (64 x 16 bf16, rows of this thread's accumulator) of k-step kk
+// of a 64 x 64 fp32 accumulator: n8 tiles 2 kk and 2 kk + 1
+__device__ __forceinline__ void to_a_frag(const float (&c)[32], int kk, uint32_t (&a)[4]) {
+  a[0] = pack_bf16(c[8 * kk + 0], c[8 * kk + 1]);
+  a[1] = pack_bf16(c[8 * kk + 2], c[8 * kk + 3]);
+  a[2] = pack_bf16(c[8 * kk + 4], c[8 * kk + 5]);
+  a[3] = pack_bf16(c[8 * kk + 6], c[8 * kk + 7]);
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// 16 x 32 product of the warp's 16 own rows of `own` (rows at stride kRowB)
-// with the 32 walked rows of `walk`, over D: acc[nt] holds walked rows
-// nt * 8 .. nt * 8 + 7.
-__device__ __forceinline__ void rows_by_tile(const __nv_bfloat16* own,
-                                             const __nv_bfloat16* walk,
-                                             float (&acc)[kBC / 8][4], int lane) {
-  const int mi = lane >> 3, ri = lane & 7;
+// The statistics of the queries, per head in tiles of kWalk: stats[((bh T +
+// t) 3 + c) kWalk + i] for query n = t kWalk + i (T = ceil(Nq / kWalk)),
+// c = 0: m log2(e), 1: 1 / l, 2: delta = sum_c dO[n, c] o[n, c] (fp32
+// products summed in a fixed tree); zeros past Nq. 16 threads a query, 8
+// channels each.
+__global__ void __launch_bounds__(256)
+attention_bf16_stats_kernel(const __nv_bfloat16* __restrict__ o,
+                            const __nv_bfloat16* __restrict__ d_out,
+                            const float* __restrict__ row_max,
+                            const float* __restrict__ row_sum, int heads, int nq,
+                            int n_tiles, float* __restrict__ stats) {
+  const int bh = blockIdx.y;
+  const int b = bh / heads, h = bh - b * heads;
+  const int n = blockIdx.x * 16 + (threadIdx.x >> 4), part = threadIdx.x & 15;
+  float acc = 0.f;
+  if (n < nq) {
+    const long long row = ((static_cast<long long>(b) * nq + n) * heads + h) * kD + part * 8;
+    const uint4 ov = *reinterpret_cast<const uint4*>(o + row);
+    const uint4 gv = *reinterpret_cast<const uint4*>(d_out + row);
+    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+    const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
 #pragma unroll
-  for (int nt = 0; nt < kBC / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) {
-    uint32_t af[4];   // matrices: rows 0-7 / 8-15 at columns +0, then +8
-    ldsm_x4(af, own + ((mi & 1) * 8 + ri) * kRowB + kk * 16 + (mi >> 1) * 8);
-#pragma unroll
-    for (int np = 0; np < kBC / 16; ++np) {
-      uint32_t bf[4];
-      ldsm_x4(bf, walk + (np * 16 + (mi >> 1) * 8 + ri) * kRowB + kk * 16 + (mi & 1) * 8);
-      mma_bf16(acc[2 * np], af, bf[0], bf[1]);
-      mma_bf16(acc[2 * np + 1], af, bf[2], bf[3]);
+    for (int i = 0; i < 4; ++i) {
+      const float2 of = __bfloat1622float2(o2[i]), gf = __bfloat1622float2(g2[i]);
+      acc = fmaf(gf.x, of.x, acc);
+      acc = fmaf(gf.y, of.y, acc);
     }
+  }
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (part == 0 && n < n_tiles * kWalk) {
+    const bool ok = n < nq;
+    const long long stat = static_cast<long long>(bh) * nq + n;
+    float* dst = stats + (static_cast<long long>(bh) * n_tiles + n / kWalk) * 3 * kWalk + n % kWalk;
+    dst[0] = ok ? row_max[stat] * kLog2e : 0.f;
+    dst[kWalk] = ok ? 1.f / row_sum[stat] : 0.f;
+    dst[2 * kWalk] = ok ? acc : 0.f;
   }
 }
 
-// acc (16 x 128) += P (16 x 32, bf16 A fragments from the register tile
-// `src`) . walk (32 x 128, read transposed out of its row-major tile).
-__device__ __forceinline__ void tile_by_walk(const float (&src)[kBC / 8][4],
-                                             const __nv_bfloat16* walk,
-                                             float (&acc)[kD / 8][4], int lane) {
-  const int mi = lane >> 3, ri = lane & 7;
-#pragma unroll
-  for (int kk = 0; kk < kBC / 16; ++kk) {
-    const uint32_t pa[4] = {pack_bf16(src[2 * kk][0], src[2 * kk][1]),
-                            pack_bf16(src[2 * kk][2], src[2 * kk][3]),
-                            pack_bf16(src[2 * kk + 1][0], src[2 * kk + 1][1]),
-                            pack_bf16(src[2 * kk + 1][2], src[2 * kk + 1][3])};
-#pragma unroll
-    for (int np = 0; np < kD / 16; ++np) {
-      uint32_t bf[4];
-      ldsm_x4_trans(bf, walk + (kk * 16 + (mi & 1) * 8 + ri) * kRowB + np * 16 + (mi >> 1) * 8);
-      mma_bf16(acc[2 * np], pa, bf[0], bf[1]);
-      mma_bf16(acc[2 * np + 1], pa, bf[2], bf[3]);
-    }
-  }
-}
-
-// Rows r0 + g and r0 + g + 8 of a (N, row_stride) bf16 output whose row n
-// starts at out + n * row_stride, rows past n_rows skipped.
-__device__ __forceinline__ void store_rows_bf16(const float (&acc)[kD / 8][4],
-                                                __nv_bfloat16* out,
-                                                long long row_stride, int r0,
-                                                int n_rows, int g, int t) {
+// A consumer thread's rows r0 and r0 + 8 of a 64 x 128 fp32 accumulator
+// (element i: row r0 + 8 ((i >> 1) & 1), column (i >> 2) * 8 + 2 t4 + (i & 1))
+// as bf16 into out, (B, N_own, H, 128) contiguous; rows past n_own skipped.
+__device__ __forceinline__ void store_rows_bf16(const float (&acc)[64], __nv_bfloat16* out,
+                                                int b, int h, int heads, int n_own, int r0,
+                                                int t4) {
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const int n = r0 + g + 8 * half;
-    if (n >= n_rows) continue;
-    __nv_bfloat16* op = out + n * row_stride;
+    const int n = r0 + 8 * half;
+    if (n >= n_own) continue;
+    __nv_bfloat16* op = out + ((static_cast<long long>(b) * n_own + n) * heads + h) * kD;
 #pragma unroll
     for (int nt = 0; nt < kD / 8; ++nt) {
-      *reinterpret_cast<uint32_t*>(op + nt * 8 + 2 * t) =
-          pack_bf16(acc[nt][2 * half], acc[nt][2 * half + 1]);
+      *reinterpret_cast<uint32_t*>(op + nt * 8 + 2 * t4) =
+          pack_bf16(acc[4 * nt + 2 * half], acc[4 * nt + 2 * half + 1]);
     }
   }
 }
 
 // Own rows X (with partner Y), walked rows Z (with W): the dQ pass (kKV
 // false: X = q, Y = dO, Z = k, W = v) or the dK/dV pass (kKV true: X = k,
-// Y = v, Z = q, W = dO). out0 = dq or dk, out1 = dv (kKV) or unused; the
-// outputs are (B, N_own, H, 128) contiguous, written where not null.
+// Y = v, Z = q, W = dO), each a (128, H, N, B) tensor map with 64 x 64
+// boxes. out0 = dq or dk, out1 = dv (kKV) or unused; the outputs are
+// (B, N_own, H, 128) contiguous, written where not null.
 template <bool kKV>
-__global__ void __launch_bounds__(kThreadsB)
-attention_bf16_backward_kernel(
-    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ y,
-    const __nv_bfloat16* __restrict__ z, const __nv_bfloat16* __restrict__ w,
-    const float* __restrict__ row_max, const float* __restrict__ row_sum,
-    const float* __restrict__ delta, int heads, int n_own, int n_walk,
-    long long xb, long long xr, long long yb, long long yr, long long zb,
-    long long zr, long long wb, long long wr, int nq, float scale,
-    __nv_bfloat16* __restrict__ out0, __nv_bfloat16* __restrict__ out1) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sx = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sy = sx + kOwnB;
-  __nv_bfloat16* sz = sy + kOwnB;                   // 2 stages
-  __nv_bfloat16* sw = sz + 2 * kTileB;              // 2 stages
-  float* sstat = reinterpret_cast<float*>(sw + 2 * kTileB);   // [stage][m, l, delta][kBC]
+__global__ void __launch_bounds__(kThreadsB, 1)
+attention_bf16_backward_kernel(const __grid_constant__ CUtensorMap xmap,
+                               const __grid_constant__ CUtensorMap ymap,
+                               const __grid_constant__ CUtensorMap zmap,
+                               const __grid_constant__ CUtensorMap wmap,
+                               const float* __restrict__ stats, int heads, int n_own,
+                               int n_walk, int nq, float scale,
+                               __nv_bfloat16* __restrict__ out0,
+                               __nv_bfloat16* __restrict__ out1) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const uint32_t sx = smem_addr(base);
+  const uint32_t sy = sx + kOwnBytes;
+  const uint32_t sz = sy + kOwnBytes;                       // [stage] kWalkBytes
+  const uint32_t sw = sz + kStages * kWalkBytes;            // [stage] kWalkBytes
+  float* sstat = reinterpret_cast<float*>(base + 2 * kOwnBytes + 2 * kStages * kWalkBytes);
+  const uint32_t bars = smem_addr(sstat + kStages * 3 * kWalk);
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (kStages + s); };
+  const uint32_t own_bar = bars + 8 * 2 * kStages;
+
   const int bh = blockIdx.y;
   const int b = bh / heads, h = bh - b * heads;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int own0 = blockIdx.x * kBR;
-  const int r0 = own0 + warp * 16;                  // this warp's first own row
-  const __nv_bfloat16* xh = x + b * xb + static_cast<long long>(h) * kD;
-  const __nv_bfloat16* yh = y + b * yb + static_cast<long long>(h) * kD;
-  const __nv_bfloat16* zh = z + b * zb + static_cast<long long>(h) * kD;
-  const __nv_bfloat16* wh = w + b * wb + static_cast<long long>(h) * kD;
-  const float* mh = row_max + static_cast<long long>(bh) * nq;
-  const float* lh = row_sum + static_cast<long long>(bh) * nq;
-  const float* dh = delta + static_cast<long long>(bh) * nq;
+  const int own0 = blockIdx.x * kOwn;
+  const int n_tiles = (n_walk + kWalk - 1) / kWalk;
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  // this head's statistics table, (T, 3, kWalk)
+  const float* sth = stats + static_cast<long long>(bh) * ((nq + kWalk - 1) / kWalk) * 3 * kWalk;
 
-  // the own tiles, rows past n_own zero
-  for (int i = threadIdx.x; i < kBR * (kD / 8); i += kThreadsB) {
-    const int r = i / (kD / 8), c = (i % (kD / 8)) * 8;
-    const bool ok = own0 + r < n_own;
-    const long long row = ok ? own0 + r : 0;
-    cp_async16(sx + r * kRowB + c, xh + row * xr + c, ok);
-    cp_async16(sy + r * kRowB + c, yh + row * yr + c, ok);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 128 * kConsumers);
+    }
+    mbar_init(own_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  asm volatile("cp.async.commit_group;\n" ::);
-  // walked rows j0 .. j0 + 31 into stage s (rows past n_walk zero); in the
-  // dK/dV pass also their queries' statistics
-  auto stage = [&](int s, int j0) {
-    for (int i = threadIdx.x; i < kBC * (kD / 8); i += kThreadsB) {
-      const int r = i / (kD / 8), c = (i % (kD / 8)) * 8;
-      const bool ok = j0 + r < n_walk;
-      const long long row = ok ? j0 + r : 0;
-      cp_async16(sz + s * kTileB + r * kRowB + c, zh + row * zr + c, ok);
-      cp_async16(sw + s * kTileB + r * kRowB + c, wh + row * wr + c, ok);
-    }
-    if (kKV && threadIdx.x < kBC) {
-      const int n = j0 + threadIdx.x;
-      const bool ok = n < n_walk;
-      float* st = sstat + s * 3 * kBC;
-      st[threadIdx.x] = ok ? mh[n] : 0.f;
-      st[kBC + threadIdx.x] = ok ? lh[n] : 1.f;
-      st[2 * kBC + threadIdx.x] = ok ? dh[n] : 0.f;
-    }
-    asm volatile("cp.async.commit_group;\n" ::);
-  };
-  stage(0, 0);
+  __syncthreads();
 
-  // the dQ pass's own rows g and g + 8 carry the statistics
-  float m_row[2] = {0.f, 0.f}, l_row[2] = {1.f, 1.f}, d_row[2] = {0.f, 0.f};
-  if (!kKV) {
+  if (wg == kConsumers) {
+    // ---- producer: one thread issues the TMA copies ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (tid != 0) return;
+    mbar_arrive_expect_tx(own_bar, 2 * kOwnBytes);
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int n = r0 + g + 8 * half;
-      if (n < n_own) {
-        m_row[half] = mh[n];
-        l_row[half] = lh[n];
-        d_row[half] = dh[n];
+#pragma unroll
+      for (int rb = 0; rb < 2; ++rb) {
+        const uint32_t off = half * kOwnHalf + rb * kBox;
+        tma_box(sx + off, &xmap, half * 64, h, own0 + rb * 64, b, own_bar);
+        tma_box(sy + off, &ymap, half * 64, h, own0 + rb * 64, b, own_bar);
       }
     }
-  }
-  float acc0[kD / 8][4], acc1[kKV ? kD / 8 : 1][4];
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % kStages;
+      mbar_wait(empty(s), ((t / kStages) & 1) ^ 1);
+      const int j0 = t * kWalk;
+      constexpr uint32_t kStatBytes = sizeof(float) * 3 * kWalk;
+      mbar_arrive_expect_tx(full(s), 2 * kWalkBytes + (kKV ? kStatBytes : 0));
 #pragma unroll
-  for (int i = 0; i < kD / 8; ++i) acc0[i][0] = acc0[i][1] = acc0[i][2] = acc0[i][3] = 0.f;
-#pragma unroll
-  for (int i = 0; i < (kKV ? kD / 8 : 1); ++i) acc1[i][0] = acc1[i][1] = acc1[i][2] = acc1[i][3] = 0.f;
-  const __nv_bfloat16* sxw = sx + warp * 16 * kRowB;
-  const __nv_bfloat16* syw = sy + warp * 16 * kRowB;
-
-  for (int j0 = 0, s = 0; j0 < n_walk; j0 += kBC, s ^= 1) {
-    if (j0 + kBC < n_walk) {
-      stage(s ^ 1, j0 + kBC);
-      asm volatile("cp.async.wait_group 1;\n" ::);
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
+      for (int half = 0; half < 2; ++half) {
+        tma_box(sz + s * kWalkBytes + half * kBox, &zmap, half * 64, h, j0, b, full(s));
+        tma_box(sw + s * kWalkBytes + half * kBox, &wmap, half * 64, h, j0, b, full(s));
+      }
+      // in the dK/dV pass the walked queries' statistics
+      if (kKV) {
+        bulk_copy(smem_addr(sstat + s * 3 * kWalk), sth + t * 3 * kWalk, kStatBytes, full(s));
+      }
     }
-    __syncthreads();
-    const __nv_bfloat16* zs = sz + s * kTileB;
-    const __nv_bfloat16* ws = sw + s * kTileB;
-    const float* st = sstat + s * 3 * kBC;
-
-    float p[kBC / 8][4], ds[kBC / 8][4];
-    rows_by_tile(sxw, zs, p, lane);       // scores, unscaled
-    rows_by_tile(syw, ws, ds, lane);      // dP
+  } else {
+    // ---- consumers: warpgroup wg owns rows own0 + 64 wg .. + 63 ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const float scale_log2 = scale * kLog2e;
+    const int r0 = own0 + wg * 64 + warp * 16 + g;   // this thread's rows r0, r0 + 8
+    // the dQ pass's own rows carry the statistics
+    float m_row[2] = {0.f, 0.f}, linv_row[2] = {0.f, 0.f}, d_row[2] = {0.f, 0.f};
+    if (!kKV) {
 #pragma unroll
-    for (int nt = 0; nt < kBC / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nt * 8 + 2 * t + (e & 1);
-        const int half = e >> 1;
-        const bool ok = j0 + col < n_walk;
-        float mq, lq, dq;
-        if (kKV) {
-          mq = st[col];
-          lq = st[kBC + col];
-          dq = st[2 * kBC + col];
-        } else {
-          mq = m_row[half];
-          lq = l_row[half];
-          dq = d_row[half];
+      for (int half = 0; half < 2; ++half) {
+        const int n = r0 + 8 * half;
+        if (n < n_own) {
+          const float* sn = sth + (n / kWalk) * 3 * kWalk + n % kWalk;
+          m_row[half] = sn[0];
+          linv_row[half] = sn[kWalk];
+          d_row[half] = sn[2 * kWalk];
         }
-        const float pv = ok ? expf(__fmul_rn(p[nt][e], scale) - mq) / lq : 0.f;
-        p[nt][e] = pv;
-        ds[nt][e] = (pv * (ds[nt][e] - dq)) * scale;
       }
     }
-    tile_by_walk(ds, zs, acc0, lane);     // dq += ds . k  |  dk += ds^T . q
-    if constexpr (kKV) tile_by_walk(p, ws, acc1, lane);   // dv += p^T . dO
-    __syncthreads();                      // stage s consumed before it is refilled
-  }
+    float acc0[64], acc1[kKV ? 64 : 1];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc0[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < (kKV ? 64 : 1); ++i) acc1[i] = 0.f;
+    const uint32_t xa = sx + wg * kBox, ya = sy + wg * kBox;   // rows 64 wg .. of each half
+    mbar_wait(own_bar, 0);
 
-  // out row n of head h at ((b N_own + n) H + h) 128
-  const long long head0 = (static_cast<long long>(b) * n_own * heads + h) * kD;
-  if (out0 != nullptr) store_rows_bf16(acc0, out0 + head0, heads * kD, r0, n_own, g, t);
-  if constexpr (kKV) {
-    if (out1 != nullptr) store_rows_bf16(acc1, out1 + head0, heads * kD, r0, n_own, g, t);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int s = t % kStages;
+      const int j0 = t * kWalk;
+      mbar_wait(full(s), (t / kStages) & 1);
+      const uint32_t za = sz + s * kWalkBytes, wa = sw + s * kWalkBytes;
+      const float* st = sstat + s * 3 * kWalk;
+
+      // S (or S^T) and dP (or dP^T) as two groups: p is formed while dP
+      // is still on the tensor cores, and in the dK/dV pass ds while dV is
+      float sc[32], dp[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk) {
+        const uint32_t own_off = (kk >> 2) * kOwnHalf + (kk & 3) * 32;
+        const uint32_t walk_off = (kk >> 2) * kBox + (kk & 3) * 32;
+        wgmma_m64n64k16_ss(sc, desc_kmajor(xa + own_off), desc_kmajor(za + walk_off), kk > 0);
+      }
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk) {
+        const uint32_t own_off = (kk >> 2) * kOwnHalf + (kk & 3) * 32;
+        const uint32_t walk_off = (kk >> 2) * kBox + (kk & 3) * 32;
+        wgmma_m64n64k16_ss(dp, desc_kmajor(ya + own_off), desc_kmajor(wa + walk_off), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+      pin(sc);
+
+      // element i of an accumulator: row r0 + 8 ((i >> 1) & 1), walked
+      // column (i >> 2) * 8 + 2 t4 + (i & 1). A walked row past n_walk is
+      // zeros (TMA's fill): in the dK/dV pass its query's 1 / l is 0 in the
+      // table, so p is 0; in the dQ pass the last tile masks its keys (a
+      // branch per tile: a select per element costs a branch per element)
+      if (kKV || j0 + kWalk <= n_walk) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int col = (i >> 2) * 8 + 2 * t4 + (i & 1);
+          const float mq = kKV ? st[col] : m_row[(i >> 1) & 1];
+          const float linv = kKV ? st[kWalk + col] : linv_row[(i >> 1) & 1];
+          sc[i] = exp2f(fmaf(sc[i], scale_log2, -mq)) * linv;
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int col = (i >> 2) * 8 + 2 * t4 + (i & 1);
+          const float p = exp2f(fmaf(sc[i], scale_log2, -m_row[(i >> 1) & 1])) *
+                          linv_row[(i >> 1) & 1];
+          sc[i] = j0 + col < n_walk ? p : 0.f;
+        }
+      }
+      uint32_t pa[4][4], da[4][4];
+      if constexpr (kKV) {   // dV += p^T . dO, walked rows 16 kk .. 16 kk + 15 the K
+#pragma unroll
+        for (int kk = 0; kk < kWalk / 16; ++kk) to_a_frag(sc, kk, pa[kk]);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kWalk / 16; ++kk) {
+          wgmma_m64n128k16_rs(acc1, pa[kk], desc_mnmajor(wa + kk * 16 * 128), 1);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();
+      } else {
+        wgmma_wait<0>();
+      }
+      pin(dp);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = (i >> 2) * 8 + 2 * t4 + (i & 1);
+        const float dq = kKV ? st[2 * kWalk + col] : d_row[(i >> 1) & 1];
+        dp[i] = (sc[i] * (dp[i] - dq)) * scale;
+      }
+#pragma unroll
+      for (int kk = 0; kk < kWalk / 16; ++kk) to_a_frag(dp, kk, da[kk]);
+      pin(acc0);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWalk / 16; ++kk) {   // dQ += ds . k  |  dK += ds^T . q
+        wgmma_m64n128k16_rs(acc0, da[kk], desc_mnmajor(za + kk * 16 * 128), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(acc0);
+      pin(acc1);
+      mbar_arrive(empty(s));
+    }
+
+    if (out0 != nullptr) store_rows_bf16(acc0, out0, b, h, heads, n_own, r0, t4);
+    if constexpr (kKV) {
+      if (out1 != nullptr) store_rows_bf16(acc1, out1, b, h, heads, n_own, r0, t4);
+    }
   }
 }
 
-// ---- (2) fp32 CUDA cores, D = 512, Dv = 3 ---------------------------------
+
+// ---- (2) fp32 as 3xTF32 on mma.sync, D = 512, Dv = 3 ----------------------
 
 constexpr int kDF = 512;
 constexpr int kDv = 3;
-constexpr int kFR = 64;                  // own rows a block
-constexpr int kFC = 64;                  // walked rows a tile
-constexpr int kChunk = 32;               // D a staging step of the scores
-constexpr int kFZ = 16;                  // walked rows a staging step of the gradient
-constexpr int kThreadsF = 256;           // 16 x 16
-constexpr int kCols4 = kDF / 64;         // float4 columns of the gradient a thread
-constexpr size_t kSmemF = sizeof(float) * (2 * kChunk * kFR + 2 * kFC * kFR +
-                                           kFZ * kDF + kFC * (3 + kDv) + kFR * kDv);
+constexpr int kFT = 128;                 // output tile rows and columns
+constexpr int kFK = 32;                  // depth a stage
+constexpr int kFStages = 3;
+constexpr int kThreadsF = 128;           // 2 x 2 warps of 64 x 64
+constexpr int kLdK = kFK + 4;            // a (row, k) stage with k contiguous: 36 floats a row
+constexpr int kLdR = kFT + 8;            // a (k, row) stage with rows contiguous: 136 floats a k
+constexpr int kSlotF = kFT * kLdK;       // floats an operand stage (>= kFK * kLdR)
+constexpr size_t kSmemF = sizeof(float) * kFStages * 2 * kSlotF;
+static_assert(kFK * kLdR <= kSlotF, "a (k, row) stage fits an operand slot");
+static_assert(kFT * (kFT + 1) + kFT * 10 <= kFStages * 2 * kSlotF,
+              "the ds pass's epilogue fits the stages");
 
-template <bool kKV>
-__global__ void __launch_bounds__(kThreadsF)
-attention_f32_backward_kernel(
-    const float* __restrict__ x, const float* __restrict__ z,
-    const float* __restrict__ v, const float* __restrict__ d_out,
-    const float* __restrict__ row_max, const float* __restrict__ row_sum,
-    const float* __restrict__ delta, int heads, int n_own, int n_walk,
-    long long xb, long long xr, long long zb, long long zr, long long vb,
-    long long vr, int nq, float scale, float* __restrict__ out0,
-    float* __restrict__ out1) {
-  extern __shared__ __align__(16) float smem_f[];
-  float* sxc = smem_f;                        // (D chunk, own row)
-  float* szc = sxc + kChunk * kFR;            // (D chunk, walked row)
-  float* sds = szc + kChunk * kFC;            // (walked, own): ds
-  float* sp = sds + kFC * kFR;                // (walked, own): p, for dv
-  float* sz = sp + kFC * kFR;                 // kFZ walked rows of Z, D wide
-  float* swalk = sz + kFZ * kDF;              // per walked row: m, l, delta | v or dO
-  float* sown = swalk + kFC * (3 + kDv);      // per own row: dO (dQ) or v (dK/dV)
-  const int bh = blockIdx.y;
-  const int b = bh / heads, h = bh - b * heads;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int own0 = blockIdx.x * kFR;
-  const float* xh = x + b * xb + static_cast<long long>(h) * kDF;
-  const float* zh = z + b * zb + static_cast<long long>(h) * kDF;
-  const float* vh = v + b * vb + static_cast<long long>(h) * kDv;
-  const float* doh = d_out + static_cast<long long>(b) * nq * heads * kDv + h * kDv;
-  const float* mh = row_max + static_cast<long long>(bh) * nq;
-  const float* lh = row_sum + static_cast<long long>(bh) * nq;
-  const float* dh = delta + static_cast<long long>(bh) * nq;
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0));
+}
 
-  // the own rows' 3-wide partner: dO of the queries (dQ), v of the keys
-  // (dK/dV); the dQ pass's own statistics
-  for (int i = threadIdx.x; i < kFR * kDv; i += kThreadsF) {
-    const int r = i / kDv, c = i % kDv;
-    const int n = own0 + r;
-    float val = 0.f;
-    if (n < n_own) {
-      val = kKV ? vh[static_cast<long long>(n) * vr + c]
-                : doh[static_cast<long long>(n) * heads * kDv + c];
+// x = hi + lo: hi, x rounded to TF32's 10 mantissa bits (half an ulp added,
+// then the low 13 bits cleared: two integer operations where cvt.rna.tf32
+// is a longer sequence), lo = x - hi exactly, |lo| <= 2^-11 |x|, handed to
+// the tensor cores as it is (they read the top 19 bits of a TF32 operand,
+// so lo keeps 11 significant bits: x to ~2^-23 of its value)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// One operand of a 128-row tile product: element (row r, depth k) at
+// p + r ld + k (kKContig) or p + k ld + r; rows < rows and k < depth are
+// read, the rest staged as zeros (16-byte chunks along the contiguous axis,
+// whose extent is a multiple of 4).
+struct TileOperand {
+  const float* p;
+  long long ld;
+  int rows;
+  int depth;
+};
+
+template <bool kKContig>
+__device__ __forceinline__ void stage_operand(float* dst, const TileOperand& op, int k0) {
+  if (kKContig) {
+    for (int i = threadIdx.x; i < kFT * (kFK / 4); i += kThreadsF) {
+      const int r = i >> 3, c = (i & 7) * 4;
+      const bool ok = r < op.rows && k0 + c < op.depth;
+      cp_async16(dst + r * kLdK + c, ok ? op.p + r * op.ld + k0 + c : op.p, ok);
     }
-    sown[i] = val;
-  }
-  float m_own[4], l_own[4], d_own[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int n = own0 + ty * 4 + i;
-    const bool ok = !kKV && n < n_own;
-    m_own[i] = ok ? mh[n] : 0.f;
-    l_own[i] = ok ? lh[n] : 1.f;
-    d_own[i] = ok ? dh[n] : 0.f;
-  }
-  float acc[4][4 * kCols4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int c = 0; c < 4 * kCols4; ++c) acc[i][c] = 0.f;
-  }
-  float dv_acc = 0.f;                          // dv[key threadIdx / 3][threadIdx % 3]
-
-  for (int j0 = 0; j0 < n_walk; j0 += kFC) {
-    __syncthreads();                           // the previous tile consumed
-    // the walked rows' statistics (in the dK/dV pass they are the queries)
-    // and 3-wide partner: v of the keys (dQ), dO of the queries (dK/dV)
-    for (int i = threadIdx.x; i < kFC; i += kThreadsF) {
-      const int n = j0 + i;
-      const bool ok = kKV && n < n_walk;
-      swalk[i] = ok ? mh[n] : 0.f;
-      swalk[kFC + i] = ok ? lh[n] : 1.f;
-      swalk[2 * kFC + i] = ok ? dh[n] : 0.f;
+  } else {
+    for (int i = threadIdx.x; i < kFK * (kFT / 4); i += kThreadsF) {
+      const int kr = i >> 5, c = (i & 31) * 4;
+      const bool ok = c < op.rows && k0 + kr < op.depth;
+      cp_async16(dst + kr * kLdR + c, ok ? op.p + (k0 + kr) * op.ld + c : op.p, ok);
     }
-    for (int i = threadIdx.x; i < kFC * kDv; i += kThreadsF) {
-      const int r = i / kDv, c = i % kDv;
-      const int n = j0 + r;
-      float val = 0.f;
-      if (n < n_walk) {
-        val = kKV ? doh[static_cast<long long>(n) * heads * kDv + c]
-                  : vh[static_cast<long long>(n) * vr + c];
+  }
+}
+
+template <bool kKContig>
+__device__ __forceinline__ float staged(const float* s, int row, int k) {
+  return kKContig ? s[row * kLdK + k] : s[k * kLdR + row];
+}
+
+// acc (128 x 128, a warp's 64 x 64: element [i][j][e] at row wm + 16 i + g +
+// 8 (e >> 1), column wn + 8 j + 2 t + (e & 1)) += A . B^T over depth, A and B
+// 128-row operands, in 3xTF32. Leaves the stages free (synchronised).
+template <bool kAK, bool kBK>
+__device__ __forceinline__ void tile_product_3xtf32(float (&acc)[4][8][4], const TileOperand& a,
+                                                    const TileOperand& b, int depth,
+                                                    float* smem) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = (warp >> 1) * 64, wn = (warp & 1) * 64;
+  const int nk = (depth + kFK - 1) / kFK;
+#pragma unroll
+  for (int s = 0; s < kFStages - 1; ++s) {
+    if (s < nk) {
+      stage_operand<kAK>(smem + s * 2 * kSlotF, a, s * kFK);
+      stage_operand<kBK>(smem + s * 2 * kSlotF + kSlotF, b, s * kFK);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kFStages - 2));
+    __syncthreads();   // stage kt landed; stage kt - 1 consumed by every warp
+    const int nxt = kt + kFStages - 1;
+    if (nxt < nk) {
+      float* slot = smem + (nxt % kFStages) * 2 * kSlotF;
+      stage_operand<kAK>(slot, a, nxt * kFK);
+      stage_operand<kBK>(slot + kSlotF, b, nxt * kFK);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+    const float* sa = smem + (kt % kFStages) * 2 * kSlotF;
+    const float* sb = sa + kSlotF;
+#pragma unroll
+    for (int kk = 0; kk < kFK; kk += 8) {
+      uint32_t ahi[4][4], alo[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = wm + 16 * i + g;
+        split_tf32(staged<kAK>(sa, r, kk + t), ahi[i][0], alo[i][0]);
+        split_tf32(staged<kAK>(sa, r + 8, kk + t), ahi[i][1], alo[i][1]);
+        split_tf32(staged<kAK>(sa, r, kk + t + 4), ahi[i][2], alo[i][2]);
+        split_tf32(staged<kAK>(sa, r + 8, kk + t + 4), ahi[i][3], alo[i][3]);
       }
-      swalk[3 * kFC + i] = val;
-    }
-    // scores, own rows ty * 4 + i by walked rows tx * 4 + jj
-    float sc[4][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) sc[i][0] = sc[i][1] = sc[i][2] = sc[i][3] = 0.f;
-    for (int c0 = 0; c0 < kDF; c0 += kChunk) {
-      __syncthreads();
-      for (int i = threadIdx.x; i < kFR * kChunk / 4; i += kThreadsF) {
-        const int r = i % kFR, c = (i / kFR) * 4;
-        float4 a = make_float4(0.f, 0.f, 0.f, 0.f), e = a;
-        if (own0 + r < n_own) {
-          a = *reinterpret_cast<const float4*>(xh + static_cast<long long>(own0 + r) * xr + c0 + c);
-        }
-        if (j0 + r < n_walk) {
-          e = *reinterpret_cast<const float4*>(zh + static_cast<long long>(j0 + r) * zr + c0 + c);
-        }
-        sxc[(c + 0) * kFR + r] = a.x;
-        sxc[(c + 1) * kFR + r] = a.y;
-        sxc[(c + 2) * kFR + r] = a.z;
-        sxc[(c + 3) * kFR + r] = a.w;
-        szc[(c + 0) * kFC + r] = e.x;
-        szc[(c + 1) * kFC + r] = e.y;
-        szc[(c + 2) * kFC + r] = e.z;
-        szc[(c + 3) * kFC + r] = e.w;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int c = 0; c < kChunk; ++c) {
-        const float4 a = *reinterpret_cast<const float4*>(sxc + c * kFR + ty * 4);
-        const float4 e = *reinterpret_cast<const float4*>(szc + c * kFC + tx * 4);
-        const float av[4] = {a.x, a.y, a.z, a.w};
-        const float ev[4] = {e.x, e.y, e.z, e.w};
+      for (int j = 0; j < 8; ++j) {
+        const int n = wn + 8 * j + g;
+        uint32_t bhi[2], blo[2];
+        split_tf32(staged<kBK>(sb, n, kk + t), bhi[0], blo[0]);
+        split_tf32(staged<kBK>(sb, n, kk + t + 4), bhi[1], blo[1]);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj) sc[i][jj] = fmaf(av[i], ev[jj], sc[i][jj]);
-        }
-      }
-    }
-    // p and ds, stored (walked, own)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int c = tx * 4 + jj;
-        const bool ok = j0 + c < n_walk;
-        const float mq = kKV ? swalk[c] : m_own[i];
-        const float lq = kKV ? swalk[kFC + c] : l_own[i];
-        const float dq = kKV ? swalk[2 * kFC + c] : d_own[i];
-        const float* a3 = sown + r * kDv;
-        const float* b3 = swalk + 3 * kFC + c * kDv;
-        const float dp = fmaf(a3[2], b3[2], fmaf(a3[1], b3[1], a3[0] * b3[0]));
-        const float p = ok ? expf(__fmul_rn(sc[i][jj], scale) - mq) / lq : 0.f;
-        sds[c * kFR + r] = (p * (dp - dq)) * scale;
-        if (kKV) sp[c * kFR + r] = p;
-      }
-    }
-    __syncthreads();
-    if (kKV && out1 != nullptr && threadIdx.x < kFR * kDv) {
-      const int key = threadIdx.x / kDv, c = threadIdx.x % kDv;
-      for (int q = 0; q < kFC; ++q) {
-        dv_acc = fmaf(sp[q * kFR + key], swalk[3 * kFC + q * kDv + c], dv_acc);
-      }
-    }
-    // the own rows' gradient += ds . Z, Z staged kFZ rows at a time
-    for (int z0 = 0; z0 < kFC; z0 += kFZ) {
-      __syncthreads();
-      for (int i = threadIdx.x; i < kFZ * kDF / 4; i += kThreadsF) {
-        const int r = i / (kDF / 4), c = (i % (kDF / 4)) * 4;
-        float4 e = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (j0 + z0 + r < n_walk) {
-          e = *reinterpret_cast<const float4*>(zh + static_cast<long long>(j0 + z0 + r) * zr + c);
-        }
-        *reinterpret_cast<float4*>(sz + r * kDF + c) = e;
-      }
-      __syncthreads();
-#pragma unroll 2
-      for (int r = 0; r < kFZ; ++r) {
-        const float4 a = *reinterpret_cast<const float4*>(sds + (z0 + r) * kFR + ty * 4);
-        const float av[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-        for (int c4 = 0; c4 < kCols4; ++c4) {
-          const float4 e = *reinterpret_cast<const float4*>(sz + r * kDF + c4 * 64 + tx * 4);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            acc[i][c4 * 4 + 0] = fmaf(av[i], e.x, acc[i][c4 * 4 + 0]);
-            acc[i][c4 * 4 + 1] = fmaf(av[i], e.y, acc[i][c4 * 4 + 1]);
-            acc[i][c4 * 4 + 2] = fmaf(av[i], e.z, acc[i][c4 * 4 + 2]);
-            acc[i][c4 * 4 + 3] = fmaf(av[i], e.w, acc[i][c4 * 4 + 3]);
-          }
+          mma_tf32(acc[i][j], alo[i], bhi);
+          mma_tf32(acc[i][j], ahi[i], blo);
+          mma_tf32(acc[i][j], ahi[i], bhi);
         }
       }
     }
   }
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();
+}
 
-  // out row n of head h at ((b N_own + n) H + h) D
-  const long long head0 = static_cast<long long>(b) * n_own * heads + h;
-  if (out0 != nullptr) {
+// Pass (a): block (key tile, query tile, b H + h) forms S = q . k^T over
+// D, p, dP = dO . v^T and ds; writes ds (B H, Nq, mp) fp32 where not null
+// (columns M .. mp - 1 as zeros) and, where dv_part is not null, its keys'
+// pT . dO over its 128 queries to dv_part (B H, ceil(Nq / 128), M, 3).
+__global__ void __launch_bounds__(kThreadsF)
+attention_f32_ds_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const float* __restrict__ d_out,
+                        const float* __restrict__ row_max, const float* __restrict__ row_sum,
+                        const float* __restrict__ delta, int heads, int nq, int m, int mp,
+                        long long qb, long long qr, long long kb, long long kr, long long vb,
+                        long long vr, float scale, float* __restrict__ ds,
+                        float* __restrict__ dv_part) {
+  extern __shared__ __align__(16) float smem_f[];
+  const int bh = blockIdx.z;
+  const int b = bh / heads, h = bh - b * heads;
+  const int q0 = blockIdx.y * kFT, k0 = blockIdx.x * kFT;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = (warp >> 1) * 64, wn = (warp & 1) * 64;
+
+  float acc[4][8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int n = own0 + ty * 4 + i;
-      if (n >= n_own) continue;
-      float* op = out0 + (head0 + static_cast<long long>(n) * heads) * kDF;
+  for (int i = 0; i < 4; ++i) {
 #pragma unroll
-      for (int c4 = 0; c4 < kCols4; ++c4) {
-        *reinterpret_cast<float4*>(op + c4 * 64 + tx * 4) =
-            make_float4(acc[i][c4 * 4], acc[i][c4 * 4 + 1], acc[i][c4 * 4 + 2],
-                        acc[i][c4 * 4 + 3]);
+    for (int j = 0; j < 8; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+  }
+  const TileOperand qa{q + b * qb + static_cast<long long>(h) * kDF + q0 * qr, qr, nq - q0, kDF};
+  const TileOperand kbo{k + b * kb + static_cast<long long>(h) * kDF + k0 * kr, kr, m - k0, kDF};
+  tile_product_3xtf32<true, true>(acc, qa, kbo, kDF, smem_f);
+
+  // the epilogue's operands, in the free stages: per query m, 1 / l (0 past
+  // Nq), delta, dO[3]; per key v[3] and a bias added to the scaled score
+  // (-inf past M); p for the dv partials. p is 0 past Nq (1 / l is, and the
+  // score is 0) and past M (its exp is): a product, not a select, which the
+  // compiler would turn into a branch around every exp
+  float* s_row = smem_f;                   // [kFT][6]
+  float* s_col = s_row + kFT * 6;          // [kFT][4]
+  float* s_p = s_col + kFT * 4;            // [kFT][kFT + 1]
+  const long long stat0 = static_cast<long long>(bh) * nq;
+  for (int i = threadIdx.x; i < kFT; i += kThreadsF) {
+    const int n = q0 + i;
+    const bool ok = n < nq;
+    s_row[i * 6 + 0] = ok ? row_max[stat0 + n] : 0.f;
+    s_row[i * 6 + 1] = ok ? 1.f / row_sum[stat0 + n] : 0.f;
+    s_row[i * 6 + 2] = ok ? delta[stat0 + n] : 0.f;
+    const float* dor = d_out + ((static_cast<long long>(b) * nq + n) * heads + h) * kDv;
+    const int j = k0 + i;
+    const float* vrow = v + b * vb + static_cast<long long>(j) * vr + h * kDv;
+#pragma unroll
+    for (int c = 0; c < kDv; ++c) {
+      s_row[i * 6 + 3 + c] = ok ? dor[c] : 0.f;
+      s_col[i * 4 + c] = j < m ? vrow[c] : 0.f;
+    }
+    s_col[i * 4 + 3] = j < m ? 0.f : -CUDART_INF_F;
+  }
+  __syncthreads();
+  float* dsb = ds == nullptr ? nullptr : ds + (stat0 + q0) * mp + k0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = wm + 16 * i + g + 8 * half;
+      const float* rr = s_row + r * 6;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = wn + 8 * j + 2 * t;
+        float out[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float* cc = s_col + (c + e) * 4;
+          const float dp = fmaf(rr[5], cc[2], fmaf(rr[4], cc[1], rr[3] * cc[0]));
+          const float p = expf(__fmul_rn(acc[i][j][2 * half + e], scale) - rr[0] + cc[3]) * rr[1];
+          out[e] = (p * (dp - rr[2])) * scale;
+          if (dv_part != nullptr) s_p[r * (kFT + 1) + c + e] = p;
+        }
+        if (dsb != nullptr && q0 + r < nq && k0 + c < mp) {
+          *reinterpret_cast<float2*>(dsb + static_cast<long long>(r) * mp + c) =
+              make_float2(out[0], out[1]);
+        }
       }
     }
   }
-  if (kKV && out1 != nullptr && threadIdx.x < kFR * kDv) {
-    const int key = own0 + threadIdx.x / kDv;
-    if (key < n_own) {
-      out1[(head0 + static_cast<long long>(key) * heads) * kDv + threadIdx.x % kDv] = dv_acc;
+  if (dv_part != nullptr) {
+    __syncthreads();
+    const int key = k0 + threadIdx.x;   // a thread a key (kFT == kThreadsF), queries in order
+    float sum[kDv] = {0.f, 0.f, 0.f};
+    for (int r = 0; r < kFT; ++r) {
+      const float p = s_p[r * (kFT + 1) + threadIdx.x];
+#pragma unroll
+      for (int c = 0; c < kDv; ++c) sum[c] = fmaf(p, s_row[r * 6 + 3 + c], sum[c]);
+    }
+    if (key < m) {
+      float* dst =
+          dv_part + ((static_cast<long long>(bh) * gridDim.y + blockIdx.y) * m + key) * kDv;
+#pragma unroll
+      for (int c = 0; c < kDv; ++c) dst[c] = sum[c];
+    }
+  }
+}
+
+// Pass (b): dq = ds . k (blockIdx.x < 4 when dq is asked for) and dk =
+// dsT . q, a block a 128 x 128 tile (columns c0 = 128 (blockIdx.x % 4),
+// rows 128 blockIdx.y) of one b H + h.
+__global__ void __launch_bounds__(kThreadsF)
+attention_f32_grad_kernel(const float* __restrict__ ds, const float* __restrict__ q,
+                          const float* __restrict__ k, int heads, int nq, int m, int mp,
+                          long long qb, long long qr, long long kb, long long kr,
+                          float* __restrict__ dq, float* __restrict__ dk) {
+  extern __shared__ __align__(16) float smem_f[];
+  const bool is_dk = dq == nullptr || blockIdx.x >= kDF / kFT;
+  const int bh = blockIdx.z;
+  const int b = bh / heads, h = bh - b * heads;
+  const int c0 = (blockIdx.x % (kDF / kFT)) * kFT, r0 = blockIdx.y * kFT;
+  const int n_rows = is_dk ? m : nq;
+  if (r0 >= n_rows) return;
+  const float* dsb = ds + static_cast<long long>(bh) * nq * mp;
+  float acc[4][8][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+  }
+  if (!is_dk) {   // A(r, j) = ds[r0 + r, j], B(c, j) = k[j, c0 + c]
+    const TileOperand a{dsb + static_cast<long long>(r0) * mp, mp, nq - r0, mp};
+    const TileOperand bo{k + b * kb + static_cast<long long>(h) * kDF + c0, kr, kDF - c0, m};
+    tile_product_3xtf32<true, false>(acc, a, bo, m, smem_f);
+  } else {        // A(r, n) = ds[n, r0 + r], B(c, n) = q[n, c0 + c]
+    const TileOperand a{dsb + r0, mp, mp - r0, nq};
+    const TileOperand bo{q + b * qb + static_cast<long long>(h) * kDF + c0, qr, kDF - c0, nq};
+    tile_product_3xtf32<false, false>(acc, a, bo, nq, smem_f);
+  }
+  float* out = is_dk ? dk : dq;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = (warp >> 1) * 64, wn = (warp & 1) * 64;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int n = r0 + wm + 16 * i + g + 8 * half;
+      if (n >= n_rows) continue;
+      float* op = out + ((static_cast<long long>(b) * n_rows + n) * heads + h) * kDF + c0 + wn;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        *reinterpret_cast<float2*>(op + 8 * j + 2 * t) =
+            make_float2(acc[i][j][2 * half], acc[i][j][2 * half + 1]);
+      }
     }
   }
 }
@@ -540,92 +856,150 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// cuTensorMapEncodeTiled from libcuda, looked up through the runtime (the library
+// links only cudart)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled tensor_map_encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// (128, H, rows, B) bf16 at ptr, heads adjacent, row and batch strides in
+// elements; 64 x 64 boxes, 128-byte swizzle, rows out of range read as zeros
+bool head_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int heads, int rows,
+              int batch, long long row_stride, long long batch_stride) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(kD), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {kD * 2, static_cast<cuuint64_t>(row_stride) * 2,
+                                 static_cast<cuuint64_t>(batch_stride) * 2};
+  const cuuint32_t box[4] = {64, 1, 64, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 }  // namespace
 
 extern "C" {
 
 // The backward of attention_bf16_forward: q (B, Nq, H, 128), k and v
 // (B, M, H, 128) bf16 with their batch and row strides in elements (16-byte
-// aligned rows, the last axis contiguous), d_out (B, Nq, H, 128) bf16
-// contiguous, row_max, row_sum (the forward's) and delta = rowsum(d_out o)
-// (B, H, Nq) fp32 -> dq (B, Nq, H, 128), dk and dv (B, M, H, 128) bf16
-// contiguous. The dQ pass runs when dq is not null, the dK/dV pass when dk
-// or dv is not null. Launches on `stream` without synchronising; returns
-// cudaGetLastError(), or cudaErrorInvalidValue for an empty input or
-// B * H > 65535.
-int attention_bf16_backward(const void* q, const void* k, const void* v,
+// aligned rows, the last axis contiguous), the forward's output o and the
+// output's cotangent d_out (B, Nq, H, 128) bf16 contiguous, its row_max
+// and row_sum (B, H, Nq) fp32; stats, a (B H, ceil(Nq / 64), 3, 64) fp32
+// scratch for the queries' m, 1 / l and delta -> dq (B, Nq, H, 128), dk
+// and dv (B, M, H, 128) bf16 contiguous. The dQ pass runs when dq is not
+// null, the dK/dV pass when dk or dv is not null. Launches on `stream`
+// without synchronising; returns cudaGetLastError(), cudaErrorInvalidValue
+// for an empty input, B * H > 65535 or strides a tensor map refuses,
+// cudaErrorNotSupported where libcuda lacks cuTensorMapEncodeTiled.
+int attention_bf16_backward(const void* q, const void* k, const void* v, const void* o,
                             const void* d_out, const float* row_max,
-                            const float* row_sum, const float* delta, int batch,
-                            int heads, int nq, int m, long long qb, long long qr,
-                            long long kb, long long kr, long long vb, long long vr,
-                            float scale, void* dq, void* dk, void* dv,
-                            void* stream) {
+                            const float* row_sum, int batch, int heads, int nq, int m,
+                            long long qb, long long qr, long long kb, long long kr,
+                            long long vb, long long vr, float scale, float* stats,
+                            void* dq, void* dk, void* dv, void* stream) {
   if (bad_shape(batch, heads, nq, m)) return static_cast<int>(cudaErrorInvalidValue);
+  if (dq == nullptr && dk == nullptr && dv == nullptr) return static_cast<int>(cudaSuccess);
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap qm, km, vm, om;
+  if (!head_map(encode, &qm, q, heads, nq, batch, qr, qb) ||
+      !head_map(encode, &km, k, heads, m, batch, kr, kb) ||
+      !head_map(encode, &vm, v, heads, m, batch, vr, vb) ||
+      !head_map(encode, &om, d_out, heads, nq, batch, static_cast<long long>(heads) * kD,
+                static_cast<long long>(nq) * heads * kD)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   using bf = __nv_bfloat16;
-  const bf* q16 = static_cast<const bf*>(q);
-  const bf* k16 = static_cast<const bf*>(k);
-  const bf* v16 = static_cast<const bf*>(v);
-  const bf* o16 = static_cast<const bf*>(d_out);
-  const long long ob = static_cast<long long>(nq) * heads * kD, orow = heads * kD;
-  cudaError_t err;
+  const int n_tiles = (nq + kWalk - 1) / kWalk;
+  attention_bf16_stats_kernel<<<dim3(n_tiles * kWalk / 16, batch * heads), 256, 0, s>>>(
+      static_cast<const bf*>(o), static_cast<const bf*>(d_out), row_max, row_sum, heads, nq,
+      n_tiles, stats);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
   if (dq != nullptr) {
     if ((err = allow_smem(attention_bf16_backward_kernel<false>, kSmemB)) != cudaSuccess) {
       return static_cast<int>(err);
     }
-    dim3 grid((nq + kBR - 1) / kBR, batch * heads);
+    dim3 grid((nq + kOwn - 1) / kOwn, batch * heads);
     attention_bf16_backward_kernel<false><<<grid, kThreadsB, kSmemB, s>>>(
-        q16, o16, k16, v16, row_max, row_sum, delta, heads, nq, m, qb, qr, ob,
-        orow, kb, kr, vb, vr, nq, scale, static_cast<bf*>(dq), nullptr);
+        qm, om, km, vm, stats, heads, nq, m, nq, scale,
+        static_cast<bf*>(dq), nullptr);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   }
   if (dk != nullptr || dv != nullptr) {
     if ((err = allow_smem(attention_bf16_backward_kernel<true>, kSmemB)) != cudaSuccess) {
       return static_cast<int>(err);
     }
-    dim3 grid((m + kBR - 1) / kBR, batch * heads);
+    dim3 grid((m + kOwn - 1) / kOwn, batch * heads);
     attention_bf16_backward_kernel<true><<<grid, kThreadsB, kSmemB, s>>>(
-        k16, v16, q16, o16, row_max, row_sum, delta, heads, m, nq, kb, kr, vb,
-        vr, qb, qr, ob, orow, nq, scale, static_cast<bf*>(dk), static_cast<bf*>(dv));
+        km, vm, qm, om, stats, heads, m, nq, nq, scale,
+        static_cast<bf*>(dk), static_cast<bf*>(dv));
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // The backward of attention_f32_forward at D = 512: q (B, Nq, H, 512) and k
 // (B, M, H, 512) fp32 with 16-byte aligned rows, v (B, M, H, 3), strides as
-// above; d_out (B, Nq, H, 3) fp32 contiguous, row stats and delta as above
-// -> dq (B, Nq, H, 512), dk (B, M, H, 512), dv (B, M, H, 3) fp32
-// contiguous, each computed where not null (dk and dv in one pass).
+// above; d_out (B, Nq, H, 3) fp32 contiguous, row stats and delta as above.
+// ds: a (B H, Nq, mp) fp32 scratch (mp >= M, a multiple of 4), needed for
+// dq or dk; dv_part: (B H, ceil(Nq / 128), M, 3) fp32, dv's partials over
+// blocks of 128 queries, written where not null, for the caller to sum over
+// its second axis -> dq (B, Nq, H, 512), dk (B, M, H, 512) fp32 contiguous,
+// each computed where not null.
 int attention_f32_backward(const float* q, const float* k, const float* v,
                            const float* d_out, const float* row_max,
                            const float* row_sum, const float* delta, int batch,
                            int heads, int nq, int m, int d, long long qb,
                            long long qr, long long kb, long long kr, long long vb,
-                           long long vr, float scale, float* dq, float* dk,
-                           float* dv, void* stream) {
-  if (bad_shape(batch, heads, nq, m) || d != kDF) {
+                           long long vr, float scale, int mp, float* ds, float* dv_part,
+                           float* dq, float* dk, void* stream) {
+  const bool grads = dq != nullptr || dk != nullptr;
+  if (bad_shape(batch, heads, nq, m) || d != kDF || mp < m || mp % 4 != 0 ||
+      (grads && ds == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (!grads && dv_part == nullptr) return static_cast<int>(cudaSuccess);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (dq != nullptr) {
-    if ((err = allow_smem(attention_f32_backward_kernel<false>, kSmemF)) != cudaSuccess) {
-      return static_cast<int>(err);
-    }
-    dim3 grid((nq + kFR - 1) / kFR, batch * heads);
-    attention_f32_backward_kernel<false><<<grid, kThreadsF, kSmemF, s>>>(
-        q, k, v, d_out, row_max, row_sum, delta, heads, nq, m, qb, qr, kb, kr,
-        vb, vr, nq, scale, dq, nullptr);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  if ((err = allow_smem(attention_f32_ds_kernel, kSmemF)) != cudaSuccess) {
+    return static_cast<int>(err);
   }
-  if (dk != nullptr || dv != nullptr) {
-    if ((err = allow_smem(attention_f32_backward_kernel<true>, kSmemF)) != cudaSuccess) {
+  const dim3 grid_a((m + kFT - 1) / kFT, (nq + kFT - 1) / kFT, batch * heads);
+  attention_f32_ds_kernel<<<grid_a, kThreadsF, kSmemF, s>>>(
+      q, k, v, d_out, row_max, row_sum, delta, heads, nq, m, mp, qb, qr, kb, kr, vb, vr,
+      scale, grads ? ds : nullptr, dv_part);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  if (grads) {
+    if ((err = allow_smem(attention_f32_grad_kernel, kSmemF)) != cudaSuccess) {
       return static_cast<int>(err);
     }
-    dim3 grid((m + kFR - 1) / kFR, batch * heads);
-    attention_f32_backward_kernel<true><<<grid, kThreadsF, kSmemF, s>>>(
-        k, q, v, d_out, row_max, row_sum, delta, heads, m, nq, kb, kr, qb, qr,
-        vb, vr, nq, scale, dk, dv);
+    const int problems = (dq != nullptr) + (dk != nullptr);
+    const int rows = (nq > m ? nq : m);
+    const dim3 grid_b(problems * (kDF / kFT), (rows + kFT - 1) / kFT, batch * heads);
+    attention_f32_grad_kernel<<<grid_b, kThreadsF, kSmemF, s>>>(
+        ds, q, k, heads, nq, m, mp, qb, qr, kb, kr, dq, dk);
   }
   return static_cast<int>(cudaGetLastError());
 }

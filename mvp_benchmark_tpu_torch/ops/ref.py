@@ -406,6 +406,26 @@ def attention_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, H, Nq, dv).permute(0, 2, 1, 3).contiguous()
 
 
+def _heads(x: torch.Tensor) -> torch.Tensor:
+    """(B, N, H, D) -> (B H, N, D)."""
+    B, N, H, D = x.shape
+    return x.permute(0, 2, 1, 3).reshape(B * H, N, D)
+
+
+def _attention_p_ds(qb, kb, vb, ob, gb, row_max, row_sum, scale, bf16):
+    """p and ds of a batch chunk, fp32 operands: p = exp(q k^T scale -
+    row_max) / row_sum, ds = (p (d_out v^T - delta)) scale with delta =
+    rowsum(d_out o); ds rounded to bf16 for bf16 inputs."""
+    delta = (gb * ob).sum(dim=-1, keepdim=True)
+    s = torch.matmul(qb, kb.transpose(1, 2)) * scale
+    p = torch.exp(s - row_max[:, :, None]) / row_sum[:, :, None]
+    dp = torch.matmul(gb, vb.transpose(1, 2))
+    ds = (p * (dp - delta)) * scale
+    if bf16:
+        ds = ds.to(torch.bfloat16).to(torch.float32)
+    return p, ds
+
+
 def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        o: torch.Tensor, row_max: torch.Tensor,
                        row_sum: torch.Tensor, d_out: torch.Tensor, scale: float):
@@ -419,7 +439,7 @@ def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
       delta = rowsum(d_out * o)                 fp32
       p     = exp(q k^T * scale - row_max) / row_sum
       dp    = d_out v^T
-      ds    = (p * (dp - delta)) * scale
+      ds    = (p * (dp - delta)) * scale        (``attention_backward_ds``)
       dq = ds k,  dk = ds^T q,  dv = p^T d_out
 
     bf16 inputs: bf16 operands and fp32 sums, p and ds rounded to bf16
@@ -430,36 +450,70 @@ def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the two agree to a tolerance."""
     if q.dim() == 4:
         B, Nq, H, D = q.shape
-
-        def heads(x):
-            return x.permute(0, 2, 1, 3).reshape(B * H, x.shape[1], x.shape[3])
-
-        grads = attention_backward(heads(q), heads(k), heads(v), heads(o),
+        grads = attention_backward(_heads(q), _heads(k), _heads(v), _heads(o),
                                    row_max.reshape(B * H, Nq),
-                                   row_sum.reshape(B * H, Nq), heads(d_out), scale)
+                                   row_sum.reshape(B * H, Nq), _heads(d_out), scale)
         return tuple(g.reshape(B, H, g.shape[1], g.shape[2]).permute(0, 2, 1, 3)
                      .contiguous() for g in grads)
     bf16 = q.dtype == torch.bfloat16
     f32 = torch.float32
-
-    def rnd(x):
-        return x.to(torch.bfloat16).to(f32) if bf16 else x
-
     B, Nq, _ = q.shape
     M = k.shape[1]
     step = max(1, _MAX_PAIRS // max(1, Nq * M))
     dqs, dks, dvs = [], [], []
     for b0 in range(0, B, step):
         qb, kb, vb, ob, gb = (x[b0:b0 + step].to(f32) for x in (q, k, v, o, d_out))
-        delta = (gb * ob).sum(dim=-1, keepdim=True)
-        s = torch.matmul(qb, kb.transpose(1, 2)) * scale
-        p = torch.exp(s - row_max[b0:b0 + step, :, None]) / row_sum[b0:b0 + step, :, None]
-        dp = torch.matmul(gb, vb.transpose(1, 2))
-        ds = rnd((p * (dp - delta)) * scale)
+        p, ds = _attention_p_ds(qb, kb, vb, ob, gb, row_max[b0:b0 + step],
+                                row_sum[b0:b0 + step], scale, bf16)
+        if bf16:
+            p = p.to(torch.bfloat16).to(f32)
         dqs.append(torch.matmul(ds, kb).to(q.dtype))
         dks.append(torch.matmul(ds.transpose(1, 2), qb).to(k.dtype))
-        dvs.append(torch.matmul(rnd(p).transpose(1, 2), gb).to(v.dtype))
+        dvs.append(torch.matmul(p.transpose(1, 2), gb).to(v.dtype))
     return torch.cat(dqs, 0), torch.cat(dks, 0), torch.cat(dvs, 0)
+
+
+def attention_backward_ds(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          o: torch.Tensor, row_max: torch.Tensor,
+                          row_sum: torch.Tensor, d_out: torch.Tensor, scale: float,
+                          dv_block: Optional[int] = None):
+    """Pass (a) of the svd head's backward kernel (``csrc/attention_backward.cu``):
+    ds of ``attention_backward``, (B, Nq, M) fp32 (bf16-rounded values for
+    bf16 inputs), and with ``dv_block`` also dv's partials over blocks of
+    ``dv_block`` queries, (B, ceil(Nq / dv_block), M, Dv) fp32: p^T d_out
+    over each block (p rounded to bf16 for bf16 inputs). dq = ds k, dk =
+    ds^T q (``torch.matmul``, the plain version of pass (b)), and the
+    partials summed over the blocks in order give ``attention_backward``'s
+    gradients. The heads layout (B, N, H, D) gives ds (B, H, Nq, M) and
+    partials (B, H, nb, M, Dv)."""
+    if q.dim() == 4:
+        B, Nq, H, D = q.shape
+        res = attention_backward_ds(_heads(q), _heads(k), _heads(v), _heads(o),
+                                    row_max.reshape(B * H, Nq),
+                                    row_sum.reshape(B * H, Nq), _heads(d_out), scale,
+                                    dv_block)
+        if dv_block is None:
+            return res.reshape(B, H, *res.shape[1:])
+        return tuple(x.reshape(B, H, *x.shape[1:]) for x in res)
+    bf16 = q.dtype == torch.bfloat16
+    f32 = torch.float32
+    B, Nq, _ = q.shape
+    M = k.shape[1]
+    step = max(1, _MAX_PAIRS // max(1, Nq * M))
+    dss, parts = [], []
+    for b0 in range(0, B, step):
+        qb, kb, vb, ob, gb = (x[b0:b0 + step].to(f32) for x in (q, k, v, o, d_out))
+        p, ds = _attention_p_ds(qb, kb, vb, ob, gb, row_max[b0:b0 + step],
+                                row_sum[b0:b0 + step], scale, bf16)
+        dss.append(ds)
+        if dv_block is not None:
+            if bf16:
+                p = p.to(torch.bfloat16).to(f32)
+            parts.append(torch.stack(
+                [torch.matmul(p[:, i:i + dv_block].transpose(1, 2), gb[:, i:i + dv_block])
+                 for i in range(0, Nq, dv_block)], 1))
+    ds = torch.cat(dss, 0)
+    return ds if dv_block is None else (ds, torch.cat(parts, 0))
 
 
 # ---------------------------------------------------------------------------

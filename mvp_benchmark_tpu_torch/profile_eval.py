@@ -45,7 +45,8 @@ PORT_KERNELS = ("chamfer_rowmin_kernel", "knn_kernel", "fps_kernel",
                 "group_max_backward_kernel", "three_interpolate_backward_kernel",
                 "three_interpolate_dweight_kernel", "sa_attention_backward_kernel",
                 "ball_query_kernel", "emd_kernel",
-                "attention_bf16_backward_kernel", "attention_f32_backward_kernel",
+                "attention_bf16_backward_kernel", "attention_bf16_stats_kernel",
+                "attention_f32_ds_kernel", "attention_f32_grad_kernel",
                 "attention_bf16_kernel", "attention_f32_kernel",
                 "edge_mlp_backward_kernel", "edge_mlp_kernel",
                 "gnn_propagate_kernel", "gnn_propagate_stat_kernel",

@@ -28,6 +28,12 @@ backwards in interpret mode, normwise 1e-2 (they round every operand to
 bf16): ``fused_attention_bnhd``'s at the bnhd shape and ``fused_attention``'s
 split backward at B 2, Nq 256, M 128, D 512 with v zero-padded to 128 lanes.
 
+The svd head's backward kernel forms ds once and then its two products:
+``ref.attention_backward_ds`` (its first pass) composed with ds k and
+ds^T q gives ``ref.attention_backward``'s dq and dk, and its dv partials
+summed in block order give dv; ``ref.attention_backward`` itself is held
+bitwise against the arithmetic it had before it shared the ds helper.
+
 The CUDA kernels are held against these plain versions on the card
 (``test_torch_cuda.py``, ``chip_smoke.py``).
 """
@@ -229,3 +235,85 @@ def test_backward_matches_pallas_interpret(layout, dtype):
         w = np.asarray(w.astype(jnp.float32))
         assert a.shape == w.shape
         assert _normwise(a.float().numpy(), w) < 1e-2
+
+
+# ---------------------------------------------------------------------------
+# The svd head's backward kernel forms ds once (``ref.attention_backward_ds``,
+# its pass (a)), then dq = ds k and dk = ds^T q (pass (b)); dv from partials
+# over blocks of queries, summed in block order.
+# ---------------------------------------------------------------------------
+
+def _backward_inputs(layout, dtype, seed):
+    dt = getattr(torch, dtype)
+    q, k, v, scale = (torch.from_numpy(x).to(dt) if isinstance(x, np.ndarray) else x
+                      for x in _inputs(layout, seed=seed))
+    o = (ref.attention_bnhd if layout == "bnhd" else ref.attention)(q, k, v, scale)
+    g = torch.from_numpy(_cotangent(tuple(o.shape), seed + 1)).to(dt)
+    return q, k, v, o, *_row_stats(q, k, scale), g, scale
+
+
+def _by_head(x):
+    """(B, N, H, D) -> (B, H, N, D) fp32; (B, N, D) unchanged, in fp32."""
+    return (x.transpose(1, 2) if x.dim() == 4 else x).to(torch.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backward_plain_is_unchanged_by_the_ds_split(dtype):
+    """``ref.attention_backward`` now takes p and ds from the helper it
+    shares with ``attention_backward_ds``: bitwise equal to the arithmetic
+    it had before, written out here."""
+    q, k, v, o, m, l, g, scale = _backward_inputs("bnd_svd_head", dtype, 11)
+    bf16 = q.dtype == torch.bfloat16
+    f32 = torch.float32
+    rnd = (lambda x: x.to(torch.bfloat16).to(f32)) if bf16 else (lambda x: x)
+    qb, kb, vb, ob, gb = (x.to(f32) for x in (q, k, v, o, g))
+    delta = (gb * ob).sum(dim=-1, keepdim=True)
+    p = torch.exp(torch.matmul(qb, kb.transpose(1, 2)) * scale - m[:, :, None]) / l[:, :, None]
+    ds = rnd((p * (torch.matmul(gb, vb.transpose(1, 2)) - delta)) * scale)
+    want = (torch.matmul(ds, kb).to(q.dtype), torch.matmul(ds.transpose(1, 2), qb).to(q.dtype),
+            torch.matmul(rnd(p).transpose(1, 2), gb).to(q.dtype))
+    for a, w in zip(ref.attention_backward(q, k, v, o, m, l, g, scale), want):
+        assert torch.equal(a, w)
+
+
+@pytest.mark.parametrize("layout", ["bnhd", "bnd_svd_head"])
+def test_backward_ds_and_two_products_give_the_plain_backward(layout):
+    """fp32: ds from ``attention_backward_ds``, then ds k and ds^T q by
+    ``torch.matmul``, against ``attention_backward``'s dq and dk within
+    1e-6 normwise (the same arithmetic; only the layout of the products
+    differs, bitwise equal on the bnd layout)."""
+    q, k, v, o, m, l, g, scale = _backward_inputs(layout, "float32", 12)
+    ds = ref.attention_backward_ds(q, k, v, o, m, l, g, scale)
+    B, Nq, M = q.shape[0], q.shape[1], k.shape[1]
+    assert ds.shape == ((B, 2, Nq, M) if layout == "bnhd" else (B, Nq, M))
+    dq = torch.matmul(ds, _by_head(k))
+    dk = torch.matmul(ds.transpose(-1, -2), _by_head(q))
+    want = ref.attention_backward(q, k, v, o, m, l, g, scale)
+    for a, w in zip((dq, dk), want[:2]):
+        w = _by_head(w)
+        assert a.shape == w.shape
+        assert _normwise(a.numpy(), w.numpy()) <= 1e-6
+        if layout != "bnhd":
+            assert torch.equal(a, w)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", ["bnhd", "bnd_svd_head"])
+def test_backward_ds_dv_partials_sum_to_the_plain_dv(layout, dtype):
+    """dv's partials over blocks of 64 queries (4 blocks at Nq 256), summed
+    in block order, against ``attention_backward``'s dv: within 1e-6
+    normwise in fp32; bf16 within one bf16 step of dv (2^-7 of the value at
+    most): the plain dv rounds its fp32 sum, taken in another order, once."""
+    q, k, v, o, m, l, g, scale = _backward_inputs(layout, dtype, 13)
+    ds, parts = ref.attention_backward_ds(q, k, v, o, m, l, g, scale, dv_block=64)
+    assert parts.shape[-3:] == (4, k.shape[1], v.shape[-1])
+    dv = parts.select(-3, 0).clone()
+    for i in range(1, parts.shape[-3]):
+        dv += parts.select(-3, i)
+    want = _by_head(ref.attention_backward(q, k, v, o, m, l, g, scale)[2])
+    assert torch.equal(ds, ref.attention_backward_ds(q, k, v, o, m, l, g, scale))
+    if dtype == "float32":
+        assert _normwise(dv.numpy(), want.numpy()) <= 1e-6
+    else:
+        assert (torch.abs(dv.to(torch.bfloat16).float() - want)
+                <= 2.0 ** -7 * want.abs()).all()
