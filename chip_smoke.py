@@ -19,8 +19,11 @@ Phases, each of which raises on failure (exit code != 0):
    edge cases, and the auction EMD at the val metric's (32, 2048, eps 0.004,
    3000 iterations), at an iteration count that ends in the forced round
    and at an n that is not a multiple of 1024: indices and assignments
-   equal; DCP's kernels at its shapes: the attention forwards and the edge
-   chain's eval pass, and for training the attention backwards (bf16
+   equal; DCP's kernels at its shapes: the attention forwards (bf16
+   normwise, fp32 within the SA bar, also at ragged shapes that cut a
+   128-query and a 128-key tile, their row max and row sum there against a
+   plain recomputation, two runs bitwise equal) and the edge chain's eval
+   pass, and for training the attention backwards (bf16
    normwise, fp32 within the SA bar, also at ragged shapes that cut a
    tile) and the chain's stat, final and backward passes against autograd
    of its plain version (normwise), two runs of the attention backwards
@@ -117,8 +120,8 @@ DATA_DIR = os.path.join(ROOT, "completion", "data")   # test_torch.py's default
 PEAK_FP32 = 67e12
 PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
-# TF32 dense on the tensor cores: the svd head's backward runs its fp32
-# products as 3xTF32 there (three TF32 products each).
+# TF32 dense on the tensor cores: the svd head's forward and backward run
+# their fp32 products as 3xTF32 there (three TF32 products each).
 PEAK_TF32 = 495e12
 
 _PK = "mvp_benchmark_tpu/ops/pallas_kernels.py"
@@ -389,9 +392,9 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
-def card_line() -> str:
+def card_line(query="name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
 
@@ -761,28 +764,54 @@ def dcp_edge_inputs(seed, B, N, K, device):
     return a1, Ws, params
 
 
+def check_row_stats(name, m, l, q, k, scale):
+    """An attention forward's row max and row sum against a plain
+    recomputation from q and k in fp32, within SA_ATOL + SA_RTOL |plain|:
+    (B, Nq, D) inputs give (B, Nq) stats, (B, N, H, D) heads (B, H, Nq)."""
+    if q.dim() == 4:
+        q, k = q.transpose(1, 2), k.transpose(1, 2)
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    want_m = s.amax(-1)
+    check_close(f"{name} row max", m, want_m)
+    check_close(f"{name} row sum", l, torch.exp(s - want_m[..., None]).sum(-1))
+
+
 def compare_dcp_kernels_with_plain(device):
     """Phase 3d: DCP's three kernels at its path's shapes (B 32, N = M =
     2048: the transformer's (32, 2048, 4, 128) bf16 heads, the svd head's
     (32, 2048, 512) fp32 embeddings with the 3-wide target cloud, the edge
-    chain's (32, 2048, 20, 6) edges) plus ragged ones. Returns {key: max
-    |kernel - plain|}."""
+    chain's (32, 2048, 20, 6) edges) plus ragged ones, the attention
+    forwards' cutting a 128-query and a 128-key tile, their row max and row
+    sum held against a plain recomputation there, and two runs of each
+    forward bitwise equal. Returns {key: max |kernel - plain|}."""
     err = {"attention": 0.0, "attention_bnhd": 0.0, "edge_mlp": 0.0}
-    for (B, N, M, H) in ((32, 2048, 2048, 4), (2, 1000, 777, 3)):
+    for (B, N, M, H) in ((32, 2048, 2048, 4), (2, 1000, 777, 3), (1, 129, 65, 1),
+                         (1, 5, 3, 1)):
         q, k, v = dcp_attention_inputs(100 + N, B, N, M, H, device)
+        name = f"attention_bnhd ({B}, {N} x {M}, H {H}, dk 128) bf16"
+        got = kernels.attention_bnhd_forward(q, k, v, 128 ** -0.5, stats=True)
         err["attention_bnhd"] = max(err["attention_bnhd"], check_normwise(
-            f"attention_bnhd ({B}, {N} x {M}, H {H}, dk 128) bf16",
-            kernels.attention_bnhd_forward(q, k, v, 128 ** -0.5),
-            ref.attention_bnhd(q, k, v, 128 ** -0.5), ATTN_BF16_NORM))
-    for (B, N, M, D) in ((32, 2048, 2048, 512), (3, 1000, 777, 512)):
+            name, got[0], ref.attention_bnhd(q, k, v, 128 ** -0.5), ATTN_BF16_NORM))
+        if B < 32:
+            check_row_stats(name, *got[1:], q, k, 128 ** -0.5)
+        check_rerun_bitwise(name, got,
+                            kernels.attention_bnhd_forward(q, k, v, 128 ** -0.5, stats=True))
+        del q, k, v, got
+    for (B, N, M, D) in ((32, 2048, 2048, 512), (3, 1000, 777, 512), (1, 129, 65, 512),
+                         (1, 5, 3, 64)):
         g = torch.Generator(device=device).manual_seed(200 + N)
         q = torch.randn(B, N, D, device=device, generator=g)
         k = torch.randn(B, M, D, device=device, generator=g)
         v = torch.rand(B, M, 3, device=device, generator=g)
+        name = f"attention ({B}, {N} x {M}, D {D}, Dv 3) fp32"
+        got = kernels.attention_forward(q, k, v, D ** -0.5, stats=True)
         err["attention"] = max(err["attention"], check_close(
-            f"attention ({B}, {N} x {M}, D {D}, Dv 3) fp32",
-            kernels.attention_forward(q, k, v, D ** -0.5),
-            ref.attention(q, k, v, D ** -0.5)))
+            name, got[0], ref.attention(q, k, v, D ** -0.5)))
+        if B < 32:
+            check_row_stats(name, *got[1:], q, k, D ** -0.5)
+        check_rerun_bitwise(name, got, kernels.attention_forward(q, k, v, D ** -0.5,
+                                                                 stats=True))
+        del q, k, v, got
     for (B, N, K) in ((32, 2048, 20), (3, 1001, 7)):
         a1, Ws, params = dcp_edge_inputs(300 + N, B, N, K, device)
         for i, (gl, wl) in enumerate(zip(kernels.edge_mlp_forward(a1, Ws, *params),
@@ -2087,7 +2116,10 @@ def geometry_timing_cases(device, emd_case):
 def dcp_timing_cases(device):
     """timing_cases of DCP's kernels at its path's shapes, with the peak of
     their operations' type: bf16 tensor cores for the multi-head attention
-    and the edge chain (bf16 operands, fp32 sums), fp32 for the svd head.
+    and the edge chain (bf16 operands, fp32 sums); the svd head's scores as
+    3xTF32, three TF32 products at the TF32 peak, its 3-wide product counted
+    in TF32-peak equivalents (times 495 / 67), its bound on fp32 cores in
+    the label.
     Bytes: q, k, v read and the output written once (the edge chain: a1,
     the bf16 weights and the four fp32 max-pools). Operations: 2 per
     multiply-add of the two attention products (softmax not counted), of the
@@ -2103,6 +2135,7 @@ def dcp_timing_cases(device):
     sv = torch.rand(B, N, 3, device=device, generator=g)
     a1, Ws, params = dcp_edge_inputs(402, B, N, K, device)
     chain = sum(a * b for a, b in zip((6, 64, 64, 128), (64, 64, 128, 256)))
+    svd_ops = 2 * B * N * N * (D + 3)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     return {
         "attention_bnhd": (f"({B}, {N} x {N}, H {H}, dk {dk}) bf16, heads in place",
@@ -2110,12 +2143,14 @@ def dcp_timing_cases(device):
                            lambda: ref.attention_bnhd(q, k, v, dk ** -0.5),
                            lambda: sdpa(qs, ks, vs),
                            4 * B * N * H * dk * 2, 4 * B * H * N * N * dk, PEAK_BF16),
-        "attention": (f"({B}, {N} x {N}, D {D}, Dv 3) fp32",
+        "attention": (f"({B}, {N} x {N}, D {D}, Dv 3) fp32; 3xTF32, bound at the "
+                      f"TF32 peak (on fp32 cores {svd_ops / PEAK_FP32 * 1e3!r} ms)",
                       lambda: kernels.attention_forward(sq, sk, sv, D ** -0.5),
                       lambda: ref.attention(sq, sk, sv, D ** -0.5),
                       lambda: sdpa(sq, sk, sv),
-                      (2 * B * N * D + 2 * B * N * 3) * 4, 2 * B * N * N * (D + 3),
-                      PEAK_FP32),
+                      (2 * B * N * D + 2 * B * N * 3) * 4,
+                      3 * 2 * B * N * N * D + 2 * B * N * N * 3 * PEAK_TF32 / PEAK_FP32,
+                      PEAK_TF32),
         "edge_mlp": (f"({B}, {N}, k {K}, 6) -> 64/64/128/256",
                      lambda: kernels.edge_mlp_forward(a1, Ws, *params),
                      lambda: ref.edge_mlp_eval(a1, Ws, *params), None,
@@ -2294,27 +2329,33 @@ def idam_train_timing_cases(device):
 
 
 def time_kernels(device, card, emd_case):
-    """Each kernel against its plain version in the order plain, kernel,
-    kernel, plain (CUDA events), and the library call where there is one."""
+    """Each kernel against its plain version and the library call where
+    there is one, in the order plain, library, kernel, kernel, library,
+    plain (CUDA events, ``_iters``'s window each), each the mean of its two
+    windows; the card's clocks, power and temperature before and after."""
+    clocks = "clocks.sm,clocks.mem,power.draw,temperature.gpu"
+    print(f"time_kernels: clocks before {card_line(clocks)}")
     out = {}
     cases = {**timing_cases(device), **backward_timing_cases(device),
              **geometry_timing_cases(device, emd_case), **dcp_timing_cases(device),
              **dcp_train_timing_cases(device), **idam_timing_cases(device),
              **idam_train_timing_cases(device)}
     for key, (shape, kern, plain, lib, nbytes, ops, *peak) in cases.items():
-        it_k, it_p = _iters(kern), _iters(plain)
-        runs = {"plain": [], "kernel": []}
-        for which in ("plain", "kernel", "kernel", "plain"):
-            fn, (n, warm) = (plain, it_p) if which == "plain" else (kern, it_k)
-            runs[which].append(time_cuda(fn, n, warm))
-        lib_ms = time_cuda(lib, *_iters(lib)) if lib is not None else None
+        fns = {"plain": plain, "library": lib, "kernel": kern}
+        its = {which: _iters(fn) for which, fn in fns.items() if fn}
+        runs = {which: [] for which in its}
+        for which in ("plain", "library", "kernel", "kernel", "library", "plain"):
+            if which in its:
+                runs[which].append(time_cuda(fns[which], *its[which]))
+        lib_ms = sum(runs["library"]) / 2 if lib else None
         bound_ms, bound_by = bound(nbytes, ops, *peak)
         out[key] = {"ms": sum(runs["kernel"]) / 2, "plain_ms": sum(runs["plain"]) / 2,
                     "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by}
         print(f"{KERNELS[key]['name']} {shape}: kernel {runs['kernel']!r} ms, "
-              f"plain {runs['plain']!r} ms (plain, kernel, kernel, plain), "
-              f"library call {lib_ms!r} ms, bound {bound_ms!r} ms ({bound_by}) "
-              f"on {card}")
+              f"plain {runs['plain']!r} ms, library call {runs.get('library')!r} ms "
+              f"(plain, library, kernel, kernel, library, plain), "
+              f"bound {bound_ms!r} ms ({bound_by}) on {card}")
+    print(f"time_kernels: clocks after {card_line(clocks)}")
     return out
 
 

@@ -95,27 +95,17 @@
 //    ~1.6 GB of traffic ~0.5 ms more. (wgmma takes TF32 operands K-major
 //    only, and the gradient products read k and q along their rows.)
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math_constants.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // ---- (1) bf16 on wgmma, D = Dv = 128 --------------------------------------
 
-constexpr int kD = 128;
 constexpr int kOwn = 128;                // own rows a block, 64 a consumer warpgroup
 constexpr int kWalk = 64;                // walked rows a stage
 constexpr int kStages = 3;
 constexpr int kConsumers = 2;            // consumer warpgroups; the producer is the third
 constexpr int kThreadsB = 128 * (kConsumers + 1);
-constexpr int kBox = 64 * 128;           // bytes of a TMA box: 64 rows of 64 bf16 (128 bytes)
 constexpr int kOwnHalf = 2 * kBox;       // one column half of an own tile (128 rows)
 constexpr int kOwnBytes = 2 * kOwnHalf;  // an own tile, 128 x 128 bf16
 constexpr int kWalkBytes = 2 * kBox;     // a walked tile, 64 x 128 bf16
@@ -123,185 +113,6 @@ constexpr size_t kSmemB = 1024 +         // slack to align the tiles to 1024 byt
                           2 * kOwnBytes + 2 * kStages * kWalkBytes +
                           sizeof(float) * kStages * 3 * kWalk +
                           sizeof(uint64_t) * (2 * kStages + 1);
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// Waits for the phase of the given parity to complete. A wait that has not
-// ended after ~2^34 cycles (~9 s) traps: a fault, not a hung card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  long long start = -1;
-  while (true) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (start < 0) {
-      start = clock64();
-    } else if (clock64() - start > (1ll << 34)) {
-      __trap();
-    }
-  }
-}
-
-// One 64-row box (64 columns) of a (128, H, N, B) bf16 tensor map into
-// shared memory at dst, 128-byte swizzled; rows past N arrive as zeros.
-__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map, int col,
-                                        int head, int row, int batch, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(head), "r"(row), "r"(batch),
-      "r"(bar)
-      : "memory");
-}
-
-// bytes (a multiple of 16) from global src to shared dst (both 16-byte
-// aligned), completing on bar
-__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes,
-                                          uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled tile: start address,
-// leading and stride byte offsets (in 16-byte units), layout 1 (128B swizzle).
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-// K-major operand (rows of 64 bf16 = 128 bytes, 8-row groups 1024 bytes apart)
-__device__ __forceinline__ uint64_t desc_kmajor(uint32_t addr) {
-  return sw128_desc(addr, 16, 1024);
-}
-
-// MN-major operand: the walked tile as it lies, K = its rows (8-row groups
-// 1024 bytes apart), N = its 128 columns in two 64-wide halves kBox apart
-__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t addr) {
-  return sw128_desc(addr, kBox, 1024);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// waits until at most N committed groups of this warpgroup are in flight
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// keeps the compiler from moving accumulator registers across an
-// asynchronous wgmma
-template <int N>
-__device__ __forceinline__ void pin(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// d (64 x 64, fp32) (+)= A (64 x 16, shared, K-major) . B (64 x 16, shared, K-major)^T
-__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da,
-                                                   uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (64 x 128, fp32) (+)= A (64 x 16, bf16 in registers) . B (16 x 128, shared, MN-major)
-__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4],
-                                                   uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// A fragments (64 x 16 bf16, rows of this thread's accumulator) of k-step kk
-// of a 64 x 64 fp32 accumulator: n8 tiles 2 kk and 2 kk + 1
-__device__ __forceinline__ void to_a_frag(const float (&c)[32], int kk, uint32_t (&a)[4]) {
-  a[0] = pack_bf16(c[8 * kk + 0], c[8 * kk + 1]);
-  a[1] = pack_bf16(c[8 * kk + 2], c[8 * kk + 3]);
-  a[2] = pack_bf16(c[8 * kk + 4], c[8 * kk + 5]);
-  a[3] = pack_bf16(c[8 * kk + 6], c[8 * kk + 7]);
-}
 
 // The statistics of the queries, per head in tiles of kWalk: stats[((bh T +
 // t) 3 + c) kWalk + i] for query n = t kWalk + i (T = ceil(Nq / kWalk)),
@@ -340,25 +151,6 @@ attention_bf16_stats_kernel(const __nv_bfloat16* __restrict__ o,
     dst[0] = ok ? row_max[stat] * kLog2e : 0.f;
     dst[kWalk] = ok ? 1.f / row_sum[stat] : 0.f;
     dst[2 * kWalk] = ok ? acc : 0.f;
-  }
-}
-
-// A consumer thread's rows r0 and r0 + 8 of a 64 x 128 fp32 accumulator
-// (element i: row r0 + 8 ((i >> 1) & 1), column (i >> 2) * 8 + 2 t4 + (i & 1))
-// as bf16 into out, (B, N_own, H, 128) contiguous; rows past n_own skipped.
-__device__ __forceinline__ void store_rows_bf16(const float (&acc)[64], __nv_bfloat16* out,
-                                                int b, int h, int heads, int n_own, int r0,
-                                                int t4) {
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int n = r0 + 8 * half;
-    if (n >= n_own) continue;
-    __nv_bfloat16* op = out + ((static_cast<long long>(b) * n_own + n) * heads + h) * kD;
-#pragma unroll
-    for (int nt = 0; nt < kD / 8; ++nt) {
-      *reinterpret_cast<uint32_t*>(op + nt * 8 + 2 * t4) =
-          pack_bf16(acc[4 * nt + 2 * half], acc[4 * nt + 2 * half + 1]);
-    }
   }
 }
 
@@ -559,7 +351,6 @@ attention_bf16_backward_kernel(const __grid_constant__ CUtensorMap xmap,
   }
 }
 
-
 // ---- (2) fp32 as 3xTF32 on mma.sync, D = 512, Dv = 3 ----------------------
 
 constexpr int kDF = 512;
@@ -579,16 +370,6 @@ static_assert(kFT * (kFT + 1) + kFT * 10 <= kFStages * 2 * kSlotF,
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(ok ? 16 : 0));
-}
-
-// x = hi + lo: hi, x rounded to TF32's 10 mantissa bits (half an ulp added,
-// then the low 13 bits cleared: two integer operations where cvt.rna.tf32
-// is a longer sequence), lo = x - hi exactly, |lo| <= 2^-11 |x|, handed to
-// the tensor cores as it is (they read the top 19 bits of a TF32 operand,
-// so lo keeps 11 significant bits: x to ~2^-23 of its value)
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
@@ -843,58 +624,6 @@ attention_f32_grad_kernel(const float* __restrict__ ds, const float* __restrict_
       }
     }
   }
-}
-
-bool bad_shape(int batch, int heads, int nq, int m) {
-  return batch < 1 || heads < 1 || nq < 1 || m < 1 ||
-         static_cast<long long>(batch) * heads > 65535;
-}
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
-// cuTensorMapEncodeTiled from libcuda, looked up through the runtime (the library
-// links only cudart)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled tensor_map_encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// (128, H, rows, B) bf16 at ptr, heads adjacent, row and batch strides in
-// elements; 64 x 64 boxes, 128-byte swizzle, rows out of range read as zeros
-bool head_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int heads, int rows,
-              int batch, long long row_stride, long long batch_stride) {
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(kD), static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[3] = {kD * 2, static_cast<cuuint64_t>(row_stride) * 2,
-                                 static_cast<cuuint64_t>(batch_stride) * 2};
-  const cuuint32_t box[4] = {64, 1, 64, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace

@@ -406,6 +406,41 @@ def attention_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, H, Nq, dv).permute(0, 2, 1, 3).contiguous()
 
 
+def attention_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       scale: float, tile: int = 128):
+    """Pass (a) of the svd head's forward kernel (``csrc/attention.cu``),
+    fp32: for each tile of ``tile`` keys (the last one ragged), each query's
+    max of the scaled scores s = q k^T * scale, sum of exp(s - max) and
+    exp(s - max) . v. q (B, Nq, D), k (B, M, D), v (B, M, Dv) -> (m, l) of
+    (B, T, Nq) and pv (B, T, Nq, Dv), T = ceil(M / tile).
+    ``attention_combine`` of them gives ``attention`` and its row stats."""
+    f32 = torch.float32
+    qf = q.to(f32)
+    ms, ls, pvs = [], [], []
+    for j0 in range(0, k.shape[1], tile):
+        s = torch.matmul(qf, k[:, j0:j0 + tile].to(f32).transpose(1, 2)) * scale
+        m = s.amax(-1)
+        e = torch.exp(s - m[..., None])
+        ms.append(m)
+        ls.append(e.sum(-1))
+        pvs.append(torch.matmul(e, v[:, j0:j0 + tile].to(f32)))
+    return torch.stack(ms, 1), torch.stack(ls, 1), torch.stack(pvs, 1)
+
+
+def attention_combine(m: torch.Tensor, l: torch.Tensor, pv: torch.Tensor):
+    """Pass (b) of the svd head's forward kernel: ``attention_partials``
+    merged in key-tile order -> (out (B, Nq, Dv), row max (B, Nq), row sum
+    (B, Nq)): row max = max_t m_t, w_t = exp(m_t - row max), row sum =
+    sum_t l_t w_t, out = (sum_t pv_t w_t) / row sum."""
+    row_max = m.amax(1)
+    w = torch.exp(m - row_max[:, None])
+    row_sum, o = l[:, 0] * w[:, 0], pv[:, 0] * w[:, 0, :, None]
+    for t in range(1, m.shape[1]):
+        row_sum = row_sum + l[:, t] * w[:, t]
+        o = o + pv[:, t] * w[:, t, :, None]
+    return o / row_sum[..., None], row_max, row_sum
+
+
 def _heads(x: torch.Tensor) -> torch.Tensor:
     """(B, N, H, D) -> (B H, N, D)."""
     B, N, H, D = x.shape

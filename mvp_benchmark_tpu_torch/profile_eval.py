@@ -47,7 +47,8 @@ PORT_KERNELS = ("chamfer_rowmin_kernel", "knn_kernel", "fps_kernel",
                 "ball_query_kernel", "emd_kernel",
                 "attention_bf16_backward_kernel", "attention_bf16_stats_kernel",
                 "attention_f32_ds_kernel", "attention_f32_grad_kernel",
-                "attention_bf16_kernel", "attention_f32_kernel",
+                "attention_bf16_kernel", "attention_f32_partials_kernel",
+                "attention_f32_combine_kernel",
                 "edge_mlp_backward_kernel", "edge_mlp_kernel",
                 "gnn_propagate_kernel", "gnn_propagate_stat_kernel",
                 "gnn_propagate_backward1_kernel", "gnn_propagate_backward2_kernel",

@@ -143,6 +143,17 @@ def test_cpu_tensors_take_the_plain_version_and_the_kernels_refuse_them():
         kernels.attention_forward(t(q[:, :, 0]), t(k[:, :, 0]), t(v[:, :, 0]), scale)
 
 
+@pytest.mark.parametrize("scale", [0.0, -0.125, float("nan")])
+def test_the_bf16_kernel_refuses_a_scale_not_above_zero(scale):
+    """The bf16 kernel takes the row max of the raw scores for that of the
+    scaled ones, which holds for scale > 0 alone; the wrapper says so before
+    it looks at the tensors."""
+    q, k, v, _ = _inputs("bnhd", seed=5)
+    t = lambda x: torch.from_numpy(x).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="scale > 0"):
+        kernels.attention_bnhd_forward(t(q), t(k), t(v), scale)
+
+
 def _row_stats(q, k, scale):
     """The forward's final row max and row sum, fp32, over (B, N, D) or
     (B, N, H, D) (then (B, H, Nq))."""
@@ -317,3 +328,46 @@ def test_backward_ds_dv_partials_sum_to_the_plain_dv(layout, dtype):
     else:
         assert (torch.abs(dv.to(torch.bfloat16).float() - want)
                 <= 2.0 ** -7 * want.abs()).all()
+
+
+# ---------------------------------------------------------------------------
+# The svd head's forward kernel: pass (a) writes each key tile's row max,
+# row sum and p . v (``ref.attention_partials``), pass (b) merges them in
+# key-tile order (``ref.attention_combine``).
+# ---------------------------------------------------------------------------
+
+def _svd_inputs(M, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, NQ, 512)).astype(np.float32)
+    k = rng.standard_normal((B, M, 512)).astype(np.float32)
+    v = rng.random((B, M, 3), dtype=np.float64).astype(np.float32)
+    return q, k, v, 1.0 / np.sqrt(512)
+
+
+@pytest.mark.parametrize("M", [M, 384, 777])
+def test_partials_combine_to_the_plain_attention(M):
+    """Key tiles of 128 (one; three; six and a ragged one of 9): out within
+    1e-6 normwise of ``ref.attention`` (which divides p by l before its
+    product with v, the combine pass after), row max and row sum within
+    1e-6 relative of the plain recomputation."""
+    q, k, v, scale = (torch.from_numpy(x) if isinstance(x, np.ndarray) else x
+                      for x in _svd_inputs(M, 14))
+    m, l, pv = ref.attention_partials(q, k, v, scale)
+    T = -(-M // 128)
+    assert m.shape == l.shape == (B, T, NQ) and pv.shape == (B, T, NQ, 3)
+    out, row_max, row_sum = ref.attention_combine(m, l, pv)
+    assert _normwise(out.numpy(), ref.attention(q, k, v, scale).numpy()) <= 1e-6
+    want_m, want_l = _row_stats(q, k, scale)
+    assert ((row_max - want_m).abs() <= 1e-6 * want_m.abs()).all()
+    assert ((row_sum - want_l).abs() <= 1e-6 * want_l).all()
+
+
+@pytest.mark.parametrize("M", [M, 777])
+def test_partials_combine_matches_the_jax_cpu_path(M):
+    """``fused_attention``'s fp32 semantics on the JAX CPU path
+    (``layers.attention``), at the bar of ``test_fp32_matches_the_jax_cpu_path``."""
+    q, k, v, scale = _svd_inputs(M, 15)
+    want = np.asarray(jlayers.attention(q, k, v)[0])
+    t = torch.from_numpy
+    got, _, _ = ref.attention_combine(*ref.attention_partials(t(q), t(k), t(v), scale))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)

@@ -9,6 +9,8 @@ that does, so on the card's machine (no jax) it runs as
 (``--noconftest``: ``tests/conftest.py`` sets up jax for the other tests).
 """
 
+import math
+
 import pytest
 import torch
 
@@ -752,18 +754,36 @@ def _normwise(got, want):
     return float((got - want).norm() / want.norm())
 
 
-@pytest.mark.parametrize("B,N,M,H", [(2, 2048, 2048, 4), (2, 1000, 777, 3),
-                                     (1, 5, 3, 1)])
-def test_attention_bnhd_kernel_matches_plain_version(cuda, B, N, M, H):
-    """bf16 heads read in place from fused projection rows; the online
-    softmax rounds p before its division by l, the plain version after, so
-    the bar is normwise 1e-2 (3.1e-3 measured at DCP's shape)."""
+def _bnhd_inputs(cuda, B, N, M, H):
+    """bf16 heads as DCP's lie: views of fused projection rows."""
     g = torch.Generator(device="cuda").manual_seed(N)
     d = H * 128
     y = torch.randn(B, N, 3 * d, device=cuda, generator=g).to(torch.bfloat16)
     ym = torch.randn(B, M, 3 * d, device=cuda, generator=g).to(torch.bfloat16)
-    q = y[..., :d].reshape(B, N, H, 128)
-    k, v = ym[..., d:2 * d].reshape(B, M, H, 128), ym[..., 2 * d:].reshape(B, M, H, 128)
+    return (y[..., :d].reshape(B, N, H, 128), ym[..., d:2 * d].reshape(B, M, H, 128),
+            ym[..., 2 * d:].reshape(B, M, H, 128))
+
+
+def _f32_inputs(cuda, B, N, M, D):
+    g = torch.Generator(device="cuda").manual_seed(D)
+    return (torch.randn(B, N, D, device=cuda, generator=g),
+            torch.randn(B, M, D, device=cuda, generator=g),
+            torch.rand(B, M, 3, device=cuda, generator=g))
+
+
+# the forwards' tiles: 128 queries a block, 128 keys a tile; these cut both
+BNHD_SHAPES = [(2, 2048, 2048, 4), (2, 1000, 777, 3), (3, 1000, 777, 4), (1, 129, 65, 1),
+               (1, 5, 3, 1)]
+F32_SHAPES = [(2, 2048, 2048, 512), (3, 1000, 777, 64), (3, 1000, 777, 512),
+              (1, 129, 65, 512), (1, 5, 3, 64)]
+
+
+@pytest.mark.parametrize("B,N,M,H", BNHD_SHAPES)
+def test_attention_bnhd_kernel_matches_plain_version(cuda, B, N, M, H):
+    """bf16 heads read in place from fused projection rows; the online
+    softmax rounds p before its division by l, the plain version after, so
+    the bar is normwise 1e-2 (3.1e-3 measured at DCP's shape)."""
+    q, k, v = _bnhd_inputs(cuda, B, N, M, H)
     scale = 128 ** -0.5
     before = kernels.ATTENTION_BNHD_LAUNCHES
     got = dispatch.attention_bnhd(q, k, v, scale)
@@ -779,17 +799,41 @@ def test_attention_bnhd_kernel_matches_plain_version(cuda, B, N, M, H):
                                rtol=1e-4, atol=0)
 
 
-@pytest.mark.parametrize("B,N,M,D", [(2, 2048, 2048, 512), (3, 1000, 777, 64)])
+@pytest.mark.parametrize("B,N,M,D", F32_SHAPES)
 def test_attention_f32_kernel_matches_plain_version(cuda, B, N, M, D):
-    """The svd head's fp32 correspondence with the 3-wide value, within
-    1e-5 + 1e-4 |plain| (another summation order)."""
-    g = torch.Generator(device="cuda").manual_seed(D)
-    q = torch.randn(B, N, D, device=cuda, generator=g)
-    k = torch.randn(B, M, D, device=cuda, generator=g)
-    v = torch.rand(B, M, 3, device=cuda, generator=g)
+    """The svd head's fp32 correspondence with the 3-wide value, its scores
+    as 3xTF32, within 1e-5 + 1e-4 |plain| (another summation order); its
+    row max and row sum within the same bar of a plain recomputation."""
+    q, k, v = _f32_inputs(cuda, B, N, M, D)
+    before = kernels.ATTENTION_LAUNCHES
     got = dispatch.attention(q, k, v, D ** -0.5)
+    torch.cuda.synchronize()
+    assert kernels.ATTENTION_LAUNCHES == before + 1
     want = ref.attention(q, k, v, D ** -0.5)
+    assert got.shape == want.shape
     assert ((got - want).abs() <= 1e-5 + 1e-4 * want.abs()).all()
+    _, m, l = kernels.attention_forward(q, k, v, D ** -0.5, stats=True)
+    s = torch.matmul(q, k.transpose(1, 2)) * D ** -0.5
+    want_m = s.amax(-1)
+    want_l = torch.exp(s - want_m[..., None]).sum(-1)
+    for a, w in ((m, want_m), (l, want_l)):
+        assert ((a - w).abs() <= 1e-5 + 1e-4 * w.abs()).all()
+
+
+@pytest.mark.parametrize("B,N,M,H", BNHD_SHAPES[1:])
+def test_attention_bnhd_kernel_reruns_bitwise(cuda, B, N, M, H):
+    q, k, v = _bnhd_inputs(cuda, B, N, M, H)
+    first = kernels.attention_bnhd_forward(q, k, v, 128 ** -0.5, stats=True)
+    second = kernels.attention_bnhd_forward(q, k, v, 128 ** -0.5, stats=True)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("B,N,M,D", F32_SHAPES[1:])
+def test_attention_f32_kernel_reruns_bitwise(cuda, B, N, M, D):
+    q, k, v = _f32_inputs(cuda, B, N, M, D)
+    first = kernels.attention_forward(q, k, v, D ** -0.5, stats=True)
+    second = kernels.attention_forward(q, k, v, D ** -0.5, stats=True)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.parametrize("B,N,K", [(2, 2048, 20), (3, 1001, 7)])
@@ -824,6 +868,8 @@ def test_attention_and_edge_mlp_wrappers_reject_bad_inputs(cuda):
                                   q[:, :, 0].float(), 1.0)
     with pytest.raises(TypeError, match="share a dtype"):
         kernels.attention_bnhd_forward(q, q.float(), q, 1.0)
+    with pytest.raises(ValueError, match="scale > 0"):
+        kernels.attention_bnhd_forward(q, q, q, 0.0)
     with pytest.raises(ValueError, match="contiguous"):
         kernels.attention_bnhd_forward(q.transpose(1, 2).contiguous().transpose(1, 2),
                                        q, q, 1.0)
@@ -837,26 +883,46 @@ def test_attention_and_edge_mlp_wrappers_reject_bad_inputs(cuda):
         kernels.edge_mlp_forward(a1, Ws[:2] + [Ws[1]] + Ws[3:], *ps)
 
 
-def test_dcp_on_card_equals_cpu(cuda):
-    """DCP at the smoke size, the same seeded weights on both devices: the
-    bf16 transformer's products round differently in cuBLAS and on the CPU.
-    Each output's bar (rtol, atol) is ~10x its gap on this batch measured on
-    an H100 (loss 2.7e-6, transE 2.5e-4, RMSE 7.0e-5, MSE 4.9e-4, T_12
-    2.6e-4); RotE, 0.014 degrees apart, keeps rtol 5e-3 + atol 5e-3."""
+def test_dcp_on_card_equals_cpu(cuda, monkeypatch):
+    """DCP at the smoke size, the same seeded weights on both devices, every
+    batch of the synthetic val split: the bf16 transformer's products round
+    differently in cuBLAS and on the CPU. Each output's bar (rtol, atol) is
+    ~10x its gap on the first batch measured on an H100 (loss 2.7e-6, transE
+    2.5e-4, RMSE 7.0e-5, MSE 4.9e-4, T_12 2.6e-4). RotE is the angle of the
+    pose T_12 holds, and is held to T_12's bar: rtol 5e-3 + atol 2.5e-3 rad
+    in degrees. With random weights the svd head's soft correspondences are
+    nearly uniform and the pose moves with the transformer's last bf16 bits:
+    on an H100 the plain attention versions on the card leave RotE 0.023-0.151
+    degrees from the CPU over these batches, so they are held to RotE's bar
+    too, as a witness that the bar is one a right implementation meets."""
     from mvp_benchmark_tpu_torch.train import engine
     from mvp_benchmark_tpu_torch.train.config import load_config
 
     cfg = load_config("registration/cfgs/dcp_smoke.yaml")
-    batch = next(engine.registration_dataset(cfg, "val", "nodata").batches(
+    batches = list(engine.registration_dataset(cfg, "val", "nodata").batches(
         engine.BatchSpec(4)))
-    outs = []
-    for device in (cuda, torch.device("cpu")):
+
+    def run(device):
         step = engine.make_registration_eval_step(engine.build_model(cfg, device), device)
-        outs.append([o.cpu() for o in step(batch, "val")] + [step(batch, "test").cpu()])
-    bars = {"loss": (0, 3e-5), "RotE": (5e-3, 5e-3), "transE": (0, 2.5e-3),
-            "RMSE": (0, 7e-4), "MSE": (0, 5e-3), "T_12": (0, 2.5e-3)}
-    for (name, (rtol, atol)), g, w in zip(bars.items(), *outs):
-        torch.testing.assert_close(g, w, rtol=rtol, atol=atol, msg=name)
+        return [[o.cpu() for o in step(b, "val")] + [step(b, "test").cpu()]
+                for b in batches]
+
+    want, got = run(torch.device("cpu")), run(cuda)
+    monkeypatch.setattr(kernels.AttentionFunction, "apply", ref.attention)
+    monkeypatch.setattr(kernels.AttentionBnhdFunction, "apply", ref.attention_bnhd)
+    plain = run(cuda)
+    bars = {"loss": (0, 3e-5), "RotE": (5e-3, math.degrees(2.5e-3)),
+            "transE": (0, 2.5e-3), "RMSE": (0, 7e-4), "MSE": (0, 5e-3),
+            "T_12": (0, 2.5e-3)}
+    for i, (g, p, w) in enumerate(zip(got, plain, want)):
+        print(f"val batch {i}: RotE max |card - CPU| through the kernels "
+              f"{float((g[1] - w[1]).abs().max())!r}, through the plain attention "
+              f"{float((p[1] - w[1]).abs().max())!r} degrees")
+        for (name, (rtol, atol)), gn, wn in zip(bars.items(), g, w):
+            torch.testing.assert_close(gn, wn, rtol=rtol, atol=atol,
+                                       msg=f"{name}, val batch {i}")
+        torch.testing.assert_close(p[1], w[1], rtol=5e-3, atol=math.degrees(2.5e-3),
+                                   msg=f"RotE through the plain attention, val batch {i}")
 
 
 # ---------------------------------------------------------------------------

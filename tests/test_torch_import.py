@@ -39,6 +39,7 @@ SLICE_MODULES = [
     "mvp_benchmark_tpu_torch.train.submission",
     "mvp_benchmark_tpu_torch.profile_eval",
     "mvp_benchmark_tpu_torch.probe_attention_backward",
+    "mvp_benchmark_tpu_torch.probe_attention",
     "chip_smoke",
 ]
 
