@@ -85,7 +85,9 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 """
 
 import json
+import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -327,8 +329,9 @@ DCP_CPU_ATOL = {"loss": 2e-4, "RotE": 0.25, "transE": 3e-3, "RMSE": 2.5e-3,
 # its statistics EDGE_STAT_NORM (4.2e-7 measured); its gradients normwise
 # EDGE_GRAD_NORM against autograd of the plain version, which rounds the
 # carried cotangent to bf16 where the kernel rounds dh (1.6e-2 measured for
-# d_a1, <= 1e-2 for the others), at the JAX test's own bar for its 4-layer
-# kernel against its reference.
+# d_a1, <= 1.2e-2 for the others), at the JAX test's own bar for its
+# 4-layer kernel against its reference, and against ref.edge_mlp_backward,
+# which rounds where the kernel does (1.8e-3 measured at every shape).
 ATTN_BF16_BWD_NORM = 1e-3
 EDGE_TRAIN_NORM, EDGE_STAT_NORM, EDGE_GRAD_NORM = 1e-3, 1e-5, 2e-2
 # A DCP train step on two full-width pairs, card against CPU
@@ -361,7 +364,8 @@ IDAM_EMB_NORM = 2e-2
 # passes sum in other orders too, and a cotangent near a bf16 boundary may
 # round to the other neighbour (dx1, dh1, da).
 # Measured on an H100 80GB HBM3 at 700 W: stat passes 1.4e-6 at most,
-# backward passes 2.4e-5.
+# backward passes 2.4e-5 (the tensor-core backward, whose bf16 roundings
+# and relu masks equal the plain version's: see sim_mlp.cu's kMargin16).
 IDAM_STAT_NORM = 1e-5
 IDAM_GRAD_NORM = 2e-4
 # An IDAM train step on two full-width pairs, card against CPU
@@ -859,16 +863,45 @@ def check_rerun_bitwise(name, first, second):
     print(f"kernel run twice: {name}: bitwise equal")
 
 
+def print_backward_resources():
+    """One line a pass of the two redesigned training backwards
+    (``edge_mlp_backward_kernel<level>``, ``sim_mlp_backward_kernel<pass>``):
+    registers and spilled bytes from ptxas, dynamic shared memory a block
+    from the library."""
+    lib, entry, seen = kernels.load(), "", {}
+    for ln in kernels.BUILD_LOG.splitlines():
+        if "Compiling entry" in ln:
+            entry = ln
+            continue
+        for name in ("edge_mlp_backward_kernel", "sim_mlp_backward_kernel"):
+            found = re.search(name + r"ILi(n?)(\d+)EE", entry)
+            if found is None:
+                continue
+            arg = int(found.group(2)) * (-1 if found.group(1) else 1)
+            rec = seen.setdefault((name, arg), {})
+            if "spill stores" in ln:
+                rec["spill"] = re.search(r"(\d+) bytes spill stores", ln).group(1)
+            if "Used" in ln:
+                rec["regs"] = re.search(r"Used (\d+) registers", ln).group(1)
+    for (name, arg), rec in sorted(seen.items()):
+        smem = (lib.edge_mlp_backward_smem(arg) if name.startswith("edge")
+                else lib.sim_mlp_backward_smem())
+        print(f"resources: {name}<{arg}>: {rec.get('regs')} registers, {rec.get('spill')} "
+              f"bytes spill stores, {smem} bytes dynamic shared memory a block")
+
+
 def compare_dcp_train_kernels_with_plain(device):
     """Phase 3e: the backward kernels of DCP's attentions and the edge
     chain's train passes at a train step's shapes (the transformer's (32,
     2048, 4, 128) bf16 heads, the svd head's (32, 2048, 512) fp32
     embeddings, the chain's (32, 2048, 20, 6) edges) plus ragged ones (the
     attention backwards at (2|3, 1000 x 777) and (1, 129 x 65), cutting a
-    tile), against ``ref.attention_backward`` and autograd of
-    ``ref.edge_mlp_train``; and two runs of the attention backwards and of
-    the chain's stat and backward passes bitwise equal. Returns {key: max
-    |kernel - plain|}."""
+    tile; the chain's backward at B N k edges no multiple of its 64-edge
+    tile, k 20, 7 and 1, down to 10 edges), against
+    ``ref.attention_backward``, ``ref.edge_mlp_backward`` and, at the two
+    larger shapes, the plain train forward and autograd of it; and two runs
+    of the attention backwards and of the chain's stat and backward passes
+    bitwise equal. Returns {key: max |kernel - plain|}."""
     err = dict.fromkeys(("attention_bnhd_backward", "attention_backward",
                          "edge_mlp_stat", "edge_mlp_backward"), 0.0)
     for (B, N, M) in ((32, 2048, 2048), (2, 1000, 777), (1, 129, 65)):
@@ -893,37 +926,47 @@ def compare_dcp_train_kernels_with_plain(device):
         check_rerun_bitwise(f"attention_backward ({B}, {N} x {M}, D 512, Dv 3) fp32",
                             got, kernels.attention_backward(*x, d_out, scale))
         del x, got
-    for (B, N, K) in ((32, 2048, 20), (3, 1001, 7)):
+    for (B, N, K) in ((32, 2048, 20), (3, 1001, 7), (2, 37, 20), (1, 21, 20), (2, 5, 1)):
         a1, Ws, gammas, betas, gxs = edge_train_inputs(700 + N, B, N, K, device)
         xs, stats, slots = kernels.edge_mlp_train_forward(a1, Ws, gammas, betas)
         leaves = [x.clone().requires_grad_() for x in (a1, *Ws, *gammas, *betas)]
         want_xs, want_stats = ref.edge_mlp_train(leaves[0], leaves[1:5], leaves[5:9],
                                                  leaves[9:])
-        for i, (g, w) in enumerate(zip(xs, want_xs)):
+        main = (B, N) in ((32, 2048), (3, 1001))
+        for i, (g, w) in enumerate(zip(xs, want_xs) if main else ()):
             check_normwise(f"edge_mlp train ({B}, {N}, k {K}) layer {i}", g, w.detach(),
                            EDGE_TRAIN_NORM)
-        for i, (g, w) in enumerate(zip(stats, want_stats)):
+        for i, (g, w) in enumerate(zip(stats, want_stats) if main else ()):
             err["edge_mlp_stat"] = max(err["edge_mlp_stat"], check_normwise(
                 f"edge_mlp_stat ({B}, {N}, k {K}) layer {i}", g, w, EDGE_STAT_NORM))
-        want = torch.autograd.grad(want_xs, leaves, gxs)
         d_a1, dWs, dgs, dbs = kernels.edge_mlp_train_backward(
             a1, Ws, gammas, betas, stats, slots, gxs, need_a1=True)
         names = ["d_a1"] + [f"{n}{i}" for n in ("dW", "dgamma", "dbeta") for i in range(4)]
-        for name, g, w in zip(names, (d_a1, *dWs, *dgs, *dbs), want):
+        got = (d_a1, *dWs, *dgs, *dbs)
+        # against the plain backward that rounds where the kernel does, at
+        # every shape; against autodiff of the plain forward, which rounds
+        # elsewhere (a gap that grows as the edges grow fewer), at the
+        # path's shape and one of DCP's k with a ragged last tile
+        d, *rest = ref.edge_mlp_backward(a1, Ws, gammas, betas, stats, slots, gxs)
+        for name, g, w in zip(names, got, (d, *[x for grp in rest for x in grp])):
             err["edge_mlp_backward"] = max(err["edge_mlp_backward"], check_normwise(
-                f"edge_mlp_backward {name} ({B}, {N}, k {K})", g.float(), w.float(),
-                EDGE_GRAD_NORM))
-        again = (*kernels.edge_mlp_train_forward(a1, Ws, gammas, betas)[1],
-                 *[x for grp in kernels.edge_mlp_train_backward(
-                     a1, Ws, gammas, betas, stats, slots, gxs, need_a1=True)
-                   for x in (grp if isinstance(grp, tuple) else (grp,))])
-        first = (*stats, d_a1, *dWs, *dgs, *dbs)
-        check(all(torch.equal(a, b) for a, b in zip(first, again)),
-              f"edge_mlp ({B}, {N}, k {K}): two runs of the stat and backward "
-              "passes differ")
-        print(f"kernel == kernel: edge_mlp_stat and edge_mlp_backward ({B}, {N}, "
-              f"k {K}) bitwise equal over two runs")
-        del leaves, want_xs, want
+                f"edge_mlp_backward {name} ({B}, {N}, k {K}) against ref.edge_mlp_backward",
+                g.float(), w.float(), EDGE_GRAD_NORM))
+        if main:
+            want = torch.autograd.grad(want_xs, leaves, gxs)
+            for name, g, w in zip(names, got, want):
+                err["edge_mlp_backward"] = max(err["edge_mlp_backward"], check_normwise(
+                    f"edge_mlp_backward {name} ({B}, {N}, k {K})", g.float(), w.float(),
+                    EDGE_GRAD_NORM))
+            del want
+        check_rerun_bitwise(f"edge_mlp_stat ({B}, {N}, k {K})", stats,
+                            kernels.edge_mlp_train_forward(a1, Ws, gammas, betas)[1])
+        check_rerun_bitwise(
+            f"edge_mlp_backward ({B}, {N}, k {K}), five passes", got,
+            [x for grp in kernels.edge_mlp_train_backward(
+                a1, Ws, gammas, betas, stats, slots, gxs, need_a1=True)
+             for x in (grp if isinstance(grp, tuple) else (grp,))])
+        del leaves, want_xs, d, rest
     torch.cuda.synchronize()
     return err
 
@@ -1051,13 +1094,11 @@ def compare_idam_train_kernels_with_plain(device):
         for name, gg, ww in zip(names, got, want):
             err["sim_mlp_backward"] = max(err["sim_mlp_backward"], check_normwise(
                 f"sim_mlp_backward {name} {what}", gg, ww, IDAM_GRAD_NORM))
-        again = (*kernels.sim_mlp_batch_stats(*x),
-                 *kernels.sim_mlp_train_backward(*x, st1, st2, argj, dsimr, dwmax))
-        check(all(torch.equal(a, b) for a, b in zip((st1, st2, *got), again)),
-              f"sim_mlp {what}: two runs of the stat and backward passes differ")
-        print(f"kernel == kernel: sim_mlp_stat and sim_mlp_backward {what} bitwise equal "
-              "over two runs")
-        del got, want, again
+        check_rerun_bitwise(f"sim_mlp_stat {what}", (st1, st2),
+                            kernels.sim_mlp_batch_stats(*x))
+        check_rerun_bitwise(f"sim_mlp_backward {what}, three passes", got,
+                            kernels.sim_mlp_train_backward(*x, st1, st2, argj, dsimr, dwmax))
+        del got, want
     torch.cuda.synchronize()
     return err
 
@@ -1272,8 +1313,11 @@ def time_registration_passes(name, cfg, device, card, repeats=3):
 def check_registration_train_result(name, cfg_path, device, res, log_dir, var):
     """Finite step losses and gradients, running statistics moved (``var``
     of the model, a running variance that starts at 1); the epoch
-    checkpoint and the five best_* on disk, and network.pkl loaded back
-    through the eval path gives the run's val metrics (rtol 1e-6)."""
+    checkpoint on disk and a best_* for every metric whose val value beat
+    its initial best (``engine._record_best``: recall must beat 0, so a
+    val pass that registers no pair writes no best_recall), and
+    network.pkl loaded back through the eval path gives the run's val
+    metrics (rtol 1e-6)."""
     losses = res["history"]["step_losses"][-1]
     check(losses and all(np.isfinite(losses)), f"{name} train losses {losses}")
     model = res["model"]
@@ -1283,9 +1327,11 @@ def check_registration_train_result(name, cfg_path, device, res, log_dir, var):
     moved = float((var(model) - 1).abs().max())
     check(moved > 0, f"{name}: the running statistics did not move")
     names = sorted(os.listdir(log_dir))
-    check({"network.pkl", *(f"best_{m}_network.pkl" for m in engine.REG_METRICS)}
-          <= set(names), f"{name} checkpoints {names}")
     val = res["history"]["val"][-1]
+    beat = [m for m in engine.REG_METRICS
+            if (val[m] > 0.0 if m in engine.HIGHER_IS_BETTER else val[m] < math.inf)]
+    check({"network.pkl", *(f"best_{m}_network.pkl" for m in beat)}
+          <= set(names), f"{name} checkpoints {names}, val {val}")
     again = engine.run_registration_val(
         load_config(cfg_path, load_model=os.path.join(log_dir, "network.pkl")),
         REG_DATA_DIR, device)
@@ -2380,6 +2426,7 @@ def main() -> int:
           f"source in parallel) on {card}")
     for ln in ptxas:
         print(f"  {ln.strip()}")
+    print_backward_resources()
 
     max_abs = compare_kernels_with_plain(device)
     max_abs.update(compare_backward_kernels_with_plain(device))

@@ -53,31 +53,42 @@
 // `level` (3, 2, 1, 0, -1) recomputes the chain for every edge, routes each
 // max-pool's cotangent gx_l to its saved argmax slot, applies relu's mask and
 // the BatchNorm backward with the sums S_l = [sum dy, sum dy hhat] of the
-// layers above (found by the passes before), pushes the cotangent down
-// through W_l, and at its level sums S_level and dW_{level+1} = a^T dh; the
-// level -1 pass sums dW_0 and writes d_a1 when asked. dgamma_l = S_l[1],
-// dbeta_l = S_l[0]. A block is one group of 8 warps on 16 edges (warp w
-// computes an eighth of each layer's channels), so that one block's dW
-// accumulator (up to dW_3, 128 x 256 fp32) fits its shared memory; each warp
-// adds the mma products of its own columns of dW into it (no atomics), the
-// weights are read from device memory (L1/L2 resident), and every block
-// writes its partial S and dW for a fixed-order sum in the wrapper. As
-// `_em_bwd_kernel`: dh and a rounded to bf16 before their products, fp32 sums.
-// Recomputing costs 4 layers of products an edge a pass; keeping the
-// activations in memory instead would store 1.3 GB a call at DCP's shape.
+// layers above (found by the passes before) and pushes the cotangent down
+// through W_l; pass 3 sums S_3, pass 2 S_2 and dW3's first 128 columns, pass
+// 1 S_1 and its last 128, pass 0 S_0 and dW2, pass -1 dW1, dW0 and d_a1
+// when asked (dW_{l+1} = a_{l+1}^T dh_{l+1}, formed in any pass at or below
+// level l; spread so that no pass holds more than 64 KB of fp32 sums).
+// dgamma_l = S_l[1], dbeta_l = S_l[0]. As `_em_bwd_kernel`: dh and a
+// rounded to bf16 before their products, fp32 sums (ops/ref.py
+// `edge_mlp_backward`). A block is two warpgroups on wgmma, each walking
+// 64 flattened edges at a time (edge e: point e / k, slot e % k, so k does
+// not shape the tiles); each layer's accumulator, packed to bf16, is the
+// next product's A operand in registers, and the weights, staged once a
+// block in 128-byte-swizzled panels (~90 KB), are the B operand: MN-major
+// for W, K-major for W^T from the same bytes. The dW products take the
+// edges as their depth from both warpgroups' staged tiles and add once per
+// 128 edges into the block's sums in shared memory, each warpgroup its own
+// rows; the S sums reduce over a tile's rows by a reduce-scatter of
+// shuffles and stay in registers. No atomics: each block writes its
+// partial S and dW and the wrapper adds them in a fixed order.
 //
 // What bounds it on an H100: operations. DCP's call is 32 x 2048 points x 20
 // neighbours = 1.31 M edges of 2 (6*64 + 64*64 + 64*128 + 128*256) = 90.9 k
 // flops, 119 GFLOP a pass: 0.12 ms at the 989 TFLOP/s bf16 dense peak; a1
 // (15.7 MB) and the outputs (134 MB) take 0.045 ms. The four stat passes
-// recompute 165 GFLOP, the five backward passes ~1.15 TFLOP (recompute, push
-// down, dW). mma.sync from registers, a barrier per layer and 8 warps an SM
-// leave this well short of the tensor-core peak; wgmma over larger edge
-// tiles, and fusing the passes, are later work.
+// recompute 165 GFLOP; the backward needs ~356 GFLOP (the forward once,
+// every dW, the push-down), 0.36 ms, and the five passes form ~1.1 TFLOP
+// (each recomputes the chain, layers 0-2 again where the way down needs
+// them). Each warpgroup waits for its products before the elementwise work
+// of the layer, so the tensor cores idle while both warpgroups of an SM are
+// in their elementwise phases, and with 255 registers and two warpgroups an
+// SM the latency of device-memory loads goes unhidden: the next round's
+// max-pool cotangents and slots are asked into L2 while a round runs, and
+// the BatchNorm parameters sit in shared memory where it has room. Keeping
+// the activations instead of recomputing them would store 671 MB of bf16 a
+// call (layers 1-3) and read it back in every pass.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
@@ -103,27 +114,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
 }
 
 __device__ __forceinline__ void group_barrier(int group) {
@@ -420,331 +410,629 @@ edge_mlp_kernel(const __nv_bfloat16* __restrict__ a1,
 
 // ---- backward ---------------------------------------------------------------
 
-constexpr int kBThreads = 256;                 // one group of 8 warps
-// the per-channel parameters, (7, 512) fp32, one row each
-constexpr int kPSc = 0, kPSh = 1, kPMu = 2, kPRstd = 3, kPC1 = 4, kPM1 = 5, kPM2 = 6,
-              kNP = 7;
-// bf16 row strides of the backward's buffers: a_l (the input of layer l;
-// a1 padded to 16 channels) and dh_l
-constexpr int kBA0 = 16 + 8, kBA1 = kCh0 + 8, kBA2 = kCh1 + 8, kBA3 = kCh2 + 8;
-constexpr int kBD0 = kCh0 + 8, kBD1 = kCh1 + 8, kBD2 = kCh2 + 8, kBD3 = kCh3 + 8;
-constexpr int kOA0 = 0, kOA1 = kOA0 + 16 * kBA0, kOA2 = kOA1 + 16 * kBA1,
-              kOA3 = kOA2 + 16 * kBA2, kOD0 = kOA3 + 16 * kBA3, kOD1 = kOD0 + 16 * kBD0,
-              kOD2 = kOD1 + 16 * kBD1, kOD3 = kOD2 + 16 * kBD2, kOEnd = kOD3 + 16 * kBD3;
-// the dW that pass `level` sums: dW_{level+1}, (cin, ch) (W0's cin padded to 16)
-__host__ __device__ constexpr int dw_rows(int level) {
-  return level == 2 ? kCh2 : level == 1 ? kCh1 : level == 0 ? kCh0 : level == -1 ? 16 : 0;
+constexpr int kBEdges = 64;                    // edges a warpgroup takes at a time
+constexpr int kBWGs = 2;                       // warpgroups a block
+constexpr int kBThreads = 128 * kBWGs;
+constexpr int kPanel = kBEdges * 128;          // a staging panel: 64 rows of 64 bf16
+// the per-channel parameters, (7, 512) fp32, one row each: the folded
+// scale and shift, mu and rsqrt(var + eps) for hhat, and the BatchNorm
+// backward's dh = A dy - (B h + C) (A = gamma rsqrt(var + eps), B = A (S1 /
+// E) rsqrt(var + eps), C = A (S0 / E) - B mu: c1 ((dy - m1) - hhat m2)
+// multiplied out, so a column takes three loads, not five)
+constexpr int kPSc = 0, kPSh = 1, kPMu = 2, kPRstd = 3, kPA = 4, kPB = 5, kPC = 6, kNP = 7;
+// the weights in shared memory, bf16, 128-byte swizzled panels of 64 output
+// channels, a row an input channel (W0's 6 rows padded to 16): panel q of
+// W_l at kBW_l + q * rows_l * 128
+constexpr uint32_t kBW0 = 0, kBW1 = kBW0 + 16 * 128, kBW2 = kBW1 + kCh0 * 128,
+                   kBW3 = kBW2 + 2 * kCh1 * 128, kBWEnd = kBW3 + 4 * kCh2 * 128;
+constexpr uint32_t kBScale = kBWEnd;           // scale, shift: (2, 512) fp32
+constexpr uint32_t kBDyn = kBScale + 2 * kChTotal * 4;
+// pass `level`'s dW sums, fp32, in the wgmma accumulators' order: level 2
+// dW3[:, :128], level 1 dW3[:, 128:], level 0 dW2, level -1 dW1 and dW0
+// (its input rows padded to 64)
+__host__ __device__ constexpr int dw_floats(int level) {
+  return level == 2 || level == 1 ? kCh2 * 128 : level == 0 ? kCh1 * kCh2
+       : level == -1 ? kCh0 * kCh1 + 64 * kCh0 : 0;
 }
-__host__ __device__ constexpr int dw_cols(int level) {
-  return level == 2 ? kCh3 : level == 1 ? kCh2 : level == 0 ? kCh1 : level == -1 ? kCh0 : 0;
+// a warpgroup's staging tiles of a_l and dh_l for the dW products, in panels
+// (level 2, 1: a_3, two; dh_3's half, two. level 0: a_2, one; dh_2, two.
+// level -1: a_1, dh_1, a_0, dh_0, one each)
+__host__ __device__ constexpr int stage_panels(int level) {
+  return level == 2 || level == 1 ? 4 : level == 0 ? 3 : level == -1 ? 4 : 0;
 }
+__host__ __device__ constexpr int s_width(int level) { return level >= 0 ? layer_width(level) : 0; }
+__host__ __device__ constexpr size_t stage_bytes(int level) {
+  return kBWGs * stage_panels(level) * kPanel > kBThreads / 32 * 2 * s_width(level) * 4
+             ? kBWGs * stage_panels(level) * kPanel
+             : kBThreads / 32 * 2 * s_width(level) * 4;
+}
+// the per-channel parameters in shared memory where there is room: all of
+// them at levels 3, 0 and -1; at levels 2 and 1 layer 3's A, B, C, the
+// rest read from device memory through L1
+__host__ __device__ constexpr bool params_staged(int level) { return level == 3 || level <= 0; }
 __host__ __device__ constexpr size_t bwd_smem(int level) {
-  return sizeof(float) * (dw_rows(level) * (dw_cols(level) + 8) + kNP * kChTotal) +
-         sizeof(__nv_bfloat16) * kOEnd;
+  return 1024 + kBDyn + 4 * dw_floats(level) + stage_bytes(level) +
+         (params_staged(level) ? 4 * kNP * kChTotal : 4 * 3 * kCh3);
 }
 
-// acc[nt] = A (16 x K, shared, row stride sa) . W[n_base + nt * 8 ..]^T, W
-// in device memory with each output channel's K inputs contiguous.
-template <int K, int NT>
-__device__ __forceinline__ void mma_rows(const __nv_bfloat16* a, int sa,
-                                         const __nv_bfloat16* __restrict__ w,
-                                         int n_base, float (&acc)[NT][4], int g,
-                                         int t) {
+// A thread's bf16 pair (columns col, col + 1) of row `row` in a set of
+// staging panels (64 columns each, 128-byte swizzled).
+__device__ __forceinline__ void stage_pair(unsigned char* tile, int row, int col, uint32_t v) {
+  const int c = col & 63;
+  *reinterpret_cast<uint32_t*>(tile + (col >> 6) * kPanel + row * 128 +
+                               (((c >> 3) ^ (row & 7)) << 4) + (c & 7) * 2) = v;
+}
+
+// The A fragments of k-steps 0 .. KS - 1 (16 channels each, from channel
+// 16 kk0) of a warpgroup's rows into its staging panels.
+template <int KS>
+__device__ __forceinline__ void stage_frags(unsigned char* tile, const uint32_t (&f)[KS][4],
+                                            int kk0, int warp, int g, int t) {
+  const int r0 = 16 * warp + g;
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < K / 16; ++kk) {
-    const uint32_t* r0 = reinterpret_cast<const uint32_t*>(a + g * sa + kk * 16 + 2 * t);
-    const uint32_t* r1 = reinterpret_cast<const uint32_t*>(a + (g + 8) * sa + kk * 16 + 2 * t);
-    const uint32_t af[4] = {r0[0], r1[0], r0[4], r1[4]};
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const unsigned int* wr = reinterpret_cast<const unsigned int*>(
-          w + static_cast<long long>(n_base + nt * 8 + g) * K + kk * 16 + 2 * t);
-      mma_bf16(acc[nt], af, __ldg(wr), __ldg(wr + 4));
-    }
+  for (int kk = 0; kk < KS; ++kk) {
+    const int c = 16 * (kk0 + kk) + 2 * t;
+    stage_pair(tile, r0, c, f[kk][0]);
+    stage_pair(tile, r0 + 8, c, f[kk][1]);
+    stage_pair(tile, r0, c + 8, f[kk][2]);
+    stage_pair(tile, r0 + 8, c + 8, f[kk][3]);
   }
 }
 
-// Folded BatchNorm and relu of this warp's tiles into the next layer's bf16
-// buffer.
-template <int NT>
-__device__ __forceinline__ void activate_rows(const float (&h)[NT][4], const float* sp,
-                                              int off, int n_base, __nv_bfloat16* next,
-                                              int snext, int g, int t) {
+// Asks for `bytes` (a multiple of 16) at p (16-byte aligned) to be brought
+// into L2, without waiting for them.
+__device__ __forceinline__ void prefetch_l2(const void* p, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(p), "r"(bytes) : "memory");
+}
+
+// Element i of a 64 x N wgmma accumulator: row 16 warp + g + 8 ((i >> 1) & 1)
+// of the warpgroup's tile, column (i >> 2) * 8 + 2 t + (i & 1).
+
+// relu(h scale + shift) of an accumulator (columns col0 .. of a layer's
+// channels at `off`) as the bf16 A fragments of the next product.
+template <int F>
+__device__ __forceinline__ void activate_frags(const float (&h)[F], const float* sc,
+                                               const float* sh, int t,
+                                               uint32_t (&a)[F / 8][4]) {
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const int c = n_base + nt * 8 + 2 * t;
-    float y[4];
+  for (int kk = 0; kk < F / 8; ++kk) {
+    float y[8];
 #pragma unroll
-    for (int x = 0; x < 4; ++x) {
-      const int cc = off + c + (x & 1);
-      y[x] = activate(h[nt][x], sp[kPSc * kChTotal + cc], sp[kPSh * kChTotal + cc]);
+    for (int q = 0; q < 8; ++q) {
+      const int i = 8 * kk + q, c = (i >> 2) * 8 + 2 * t + (i & 1);
+      y[q] = activate(h[i], sc[c], sh[c]);
     }
-    *reinterpret_cast<uint32_t*>(next + g * snext + c) = pack_bf16(y[0], y[1]);
-    *reinterpret_cast<uint32_t*>(next + (g + 8) * snext + c) = pack_bf16(y[2], y[3]);
+    a[kk][0] = pack_bf16(y[0], y[1]);
+    a[kk][1] = pack_bf16(y[2], y[3]);
+    a[kk][2] = pack_bf16(y[4], y[5]);
+    a[kk][3] = pack_bf16(y[6], y[7]);
   }
 }
 
-// d (the cotangent carried from the layer above, 0 at the top) plus the
-// max-pool's cotangent routed to its argmax slot, masked by relu: dy.
-template <int NT>
-__device__ __forceinline__ void route_relu(const float (&h)[NT][4], float (&d)[NT][4],
+template <int F>
+__device__ __forceinline__ void pack_frags(const float (&v)[F], uint32_t (&a)[F / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < F / 8; ++kk) to_a_frag(v, kk, a[kk]);
+}
+
+// The edges of a thread's two rows: point p, slot j, and whether the row
+// is an edge at all.
+struct Rows {
+  long long p[2];
+  int j[2];
+  bool ok[2];
+};
+
+// dy of an accumulator h of layer `off`'s channels col0 ..: the cotangent d
+// carried from the layer above (kTop: none) plus the max-pool's cotangent
+// gx routed to its saved slot, where the activation is positive; 0 on rows
+// past the end. In place in d.
+template <int F, bool kTop>
+__device__ __forceinline__ void route_relu(const float (&h)[F], float (&d)[F],
                                            const float* __restrict__ gx, int ch,
-                                           const uint8_t* __restrict__ slots, int off,
-                                           const float* sp, int n_base, long long p0,
-                                           int j, bool ok0, bool ok1, int g, int t) {
+                                           const uint8_t* __restrict__ slots, int off, int col0,
+                                           const float* sc, const float* sh, const Rows& rw,
+                                           int t) {
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const int c = n_base + nt * 8 + 2 * t;
+  for (int nt = 0; nt < F / 4; ++nt) {
+    const int c = col0 + 8 * nt + 2 * t;
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const long long p = p0 + g + 8 * half;
-      const bool ok = half ? ok1 : ok0;
-      const uint32_t sl = ok ? *reinterpret_cast<const uint16_t*>(slots + p * kChTotal + off + c)
-                             : 0xffffu;
-      const float2 gv = ok ? *reinterpret_cast<const float2*>(gx + p * ch + c)
-                           : make_float2(0.f, 0.f);
+    for (int r = 0; r < 2; ++r) {
+      float2 gv = make_float2(0.f, 0.f);
+      uint32_t sl = 0xffffu;
+      if (rw.ok[r]) {
+        gv = *reinterpret_cast<const float2*>(gx + rw.p[r] * ch + c);
+        sl = *reinterpret_cast<const uint16_t*>(slots + rw.p[r] * kChTotal + off + c);
+      }
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int x = 2 * half + e, cc = off + c + e;
-        const float route = ((sl >> (8 * e)) & 0xffu) == static_cast<uint32_t>(j)
+        const int i = 4 * nt + 2 * r + e;
+        const float route = ((sl >> (8 * e)) & 0xffu) == static_cast<uint32_t>(rw.j[r])
                                 ? (e ? gv.y : gv.x) : 0.f;
-        const float y = activate(h[nt][x], sp[kPSc * kChTotal + cc], sp[kPSh * kChTotal + cc]);
-        d[nt][x] = y > 0.f ? d[nt][x] + route : 0.f;
+        const float y = activate(h[i], sc[c + e], sh[c + e]);
+        d[i] = rw.ok[r] && y > 0.f ? (kTop ? 0.f : d[i]) + route : 0.f;
       }
     }
   }
 }
 
-__device__ __forceinline__ float hhat_of(float h, const float* sp, int cc) {
-  return __fmul_rn(__fsub_rn(h, sp[kPMu * kChTotal + cc]), sp[kPRstd * kChTotal + cc]);
+__device__ __forceinline__ float hhat_of(float h, const float* __restrict__ params, int cc) {
+  return __fmul_rn(__fsub_rn(h, params[kPMu * kChTotal + cc]), params[kPRstd * kChTotal + cc]);
 }
 
-// S = [sum dy, sum dy hhat] of the valid rows into this lane's channels.
-template <int NT>
-__device__ __forceinline__ void sum_s(const float (&dy)[NT][4], const float (&h)[NT][4],
-                                      const float* sp, int off, int n_base, bool ok0,
-                                      bool ok1, int t, float (&s)[NT][2],
-                                      float (&sh)[NT][2]) {
+// The sums over the tile's rows of 8 tiles of 8 columns, 4 values a column
+// pair (v[nt][q]: q = 2 kind + e), by a reduce-scatter over the 8 lanes g
+// that share t: lane g ends with tile g's (columns 8 g + 2 t + e).
+__device__ __forceinline__ void reduce_scatter8(const float (&v)[8][4], float (&out)[4], int g) {
+  const bool b2 = g & 4, b1 = g & 2, b0 = g & 1;
+  float w[4][4], u[2][4];
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
+  for (int i = 0; i < 4; ++i) {
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int cc = off + n_base + nt * 8 + 2 * t + e;
-      const float v0 = ok0 ? dy[nt][e] : 0.f, v1 = ok1 ? dy[nt][2 + e] : 0.f;
-      s[nt][e] += v0 + v1;
-      sh[nt][e] += v0 * hhat_of(h[nt][e], sp, cc) + v1 * hhat_of(h[nt][2 + e], sp, cc);
+    for (int q = 0; q < 4; ++q) {
+      const float send = b2 ? v[i][q] : v[i + 4][q];
+      const float keep = b2 ? v[i + 4][q] : v[i][q];
+      w[i][q] = __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, send, 16));
     }
   }
-}
-
-// BatchNorm backward with the batch's sums: dh = c1 ((dy - m1) - hhat m2),
-// 0 on rows past the end, stored bf16 to this layer's dh buffer.
-template <int NT>
-__device__ __forceinline__ void bn_backward(const float (&dy)[NT][4], const float (&h)[NT][4],
-                                            const float* sp, int off, int n_base,
-                                            bool ok0, bool ok1, __nv_bfloat16* sd,
-                                            int sds, int g, int t) {
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const int c = n_base + nt * 8 + 2 * t;
-    float dh[4];
+  for (int i = 0; i < 2; ++i) {
 #pragma unroll
-    for (int x = 0; x < 4; ++x) {
-      const int cc = off + c + (x & 1);
-      const float v = sp[kPC1 * kChTotal + cc] *
-                      ((dy[nt][x] - sp[kPM1 * kChTotal + cc]) -
-                       hhat_of(h[nt][x], sp, cc) * sp[kPM2 * kChTotal + cc]);
-      dh[x] = (x < 2 ? ok0 : ok1) ? v : 0.f;
-    }
-    *reinterpret_cast<uint32_t*>(sd + g * sds + c) = pack_bf16(dh[0], dh[1]);
-    *reinterpret_cast<uint32_t*>(sd + (g + 8) * sds + c) = pack_bf16(dh[2], dh[3]);
-  }
-}
-
-// dW (shared, fp32, row stride dws) += a^T dh over the slot's 16 edges:
-// rows of dW are a's MT * 16 channels, columns this warp's NT tiles of dh's
-// channels from n_base. Each warp owns its columns: no two warps write one
-// element.
-template <int MT, int NT>
-__device__ __forceinline__ void dw_accumulate(const __nv_bfloat16* a, int sa,
-                                              const __nv_bfloat16* sd, int sds,
-                                              float* dw, int dws, int n_base,
-                                              int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  uint32_t bfr[NT][2];
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    ldsm_x2_trans(bfr[nt], sd + (((lane >> 3) & 1) * 8 + (lane & 7)) * sds + n_base + nt * 8);
-  }
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    uint32_t af[4];
-    ldsm_x4_trans(af, a + ((lane >> 4) * 8 + (lane & 7)) * sa + mt * 16 + ((lane >> 3) & 1) * 8);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      float* c0 = dw + (mt * 16 + g) * dws + n_base + nt * 8 + 2 * t;
-      float* c1 = c0 + 8 * dws;
-      float d[4] = {c0[0], c0[1], c1[0], c1[1]};
-      mma_bf16(d, af, bfr[nt][0], bfr[nt][1]);
-      c0[0] = d[0];
-      c0[1] = d[1];
-      c1[0] = d[2];
-      c1[1] = d[3];
+    for (int q = 0; q < 4; ++q) {
+      const float send = b1 ? w[i][q] : w[i + 2][q];
+      const float keep = b1 ? w[i + 2][q] : w[i][q];
+      u[i][q] = __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, send, 8));
     }
   }
-}
-
-template <int NT>
-__device__ __forceinline__ void zero(float (&d)[NT][4]) {
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt) d[nt][0] = d[nt][1] = d[nt][2] = d[nt][3] = 0.f;
+  for (int q = 0; q < 4; ++q) {
+    const float send = b0 ? u[0][q] : u[1][q];
+    const float keep = b0 ? u[1][q] : u[0][q];
+    out[q] = __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, send, 4));
+  }
 }
 
-__host__ __device__ constexpr int level_tiles(int level) { return level == 3 ? 4 : level == 2 ? 2 : 1; }
+// S = [sum dy, sum dy hhat] of an accumulator's columns (layer `off`'s
+// channels col0 ..) over the tile's rows, added to sacc[G0 + group] for each
+// 64 columns: lane (g, t) keeps columns 64 group + 8 g + 2 t + e.
+template <int F, int G0, int NG>
+__device__ __forceinline__ void sum_s(const float (&dy)[F], const float (&h)[F],
+                                      const float* __restrict__ params, int off, int col0,
+                                      int g, int t, float (&sacc)[NG][4]) {
+#pragma unroll
+  for (int grp = 0; grp < F / 32; ++grp) {
+    float v[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 4 * (8 * grp + nt) + e, cc = off + col0 + 8 * (8 * grp + nt) + 2 * t + e;
+        v[nt][e] = __fadd_rn(dy[i], dy[i + 2]);
+        v[nt][2 + e] = __fadd_rn(__fmul_rn(dy[i], hhat_of(h[i], params, cc)),
+                                 __fmul_rn(dy[i + 2], hhat_of(h[i + 2], params, cc)));
+      }
+    }
+    float out[4];
+    reduce_scatter8(v, out, g);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) sacc[G0 + grp][q] = __fadd_rn(sacc[G0 + grp][q], out[q]);
+  }
+}
 
-// One backward pass. wt_l: W_l^T (out, in) bf16, W0^T padded to (64, 16);
-// wp_l: W_l (in, out) bf16, W0 padded to (8, 64). gx_l (P, ch_l) fp32, slots
-// (P, 512) uint8 from the final pass. s_part (gridDim.x, 2, ch_level) and
-// dw_part (gridDim.x, cin, ch) of dW_{level+1} receive the block's sums;
-// da1 (P, k, 6) fp32 at level -1 where not null.
+// BatchNorm backward with the batch's sums, in place: dh = A dy - (B h +
+// C), 0 on rows past the end; abc the layer's A row, B and C `stride`
+// floats after it.
+template <int F>
+__device__ __forceinline__ void bn_backward(float (&d)[F], const float (&h)[F],
+                                            const float* __restrict__ abc, int stride,
+                                            int col0, const Rows& rw, int t) {
+#pragma unroll
+  for (int i = 0; i < F; ++i) {
+    const int c = col0 + (i >> 2) * 8 + 2 * t + (i & 1);
+    const float v = __fmaf_rn(abc[c], d[i], -__fmaf_rn(abc[stride + c], h[i],
+                                                       abc[2 * stride + c]));
+    d[i] = rw.ok[(i >> 1) & 1] ? v : 0.f;
+  }
+}
+
+// d (64 x 64) = A . W, the A fragments in registers, W (16 KS rows, one
+// panel) MN-major in shared memory at w.
+template <int KS>
+__device__ __forceinline__ void forward64(float (&d)[32], uint32_t (&a)[KS][4], uint32_t w) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    wgmma_m64n64k16_rs<1>(d, a[kk], sw128_desc(w + kk * 2048, KS * 16 * 128, 1024), kk > 0);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  pin(d);
+  pin(a);
+}
+
+// d (64 x 128) = A . W2: W2's 64 rows in two panels
+__device__ __forceinline__ void forward128(float (&d)[64], uint32_t (&a)[4][4], uint32_t w) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    wgmma_m64n128k16_rs<1>(d, a[kk], sw128_desc(w + kk * 2048, kCh1 * 128, 1024), kk > 0);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  pin(d);
+  pin(a);
+}
+
+// d (64 x N) (+)= dh . W^T: dh's fragments (16 KS output channels of W from
+// panel `w`, which holds N input rows) in registers, W^T read K-major from
+// the same panels as the forward's W: k-step kk at panel kk / 4, byte
+// 32 (kk % 4) of each row.
+template <int KS, int F>
+__device__ __forceinline__ void push_down(float (&d)[F], uint32_t (&a)[KS][4], uint32_t w,
+                                          uint32_t panel_bytes, bool accumulate) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    const uint64_t db = sw128_desc(w + (kk >> 2) * panel_bytes + (kk & 3) * 32, 16, 1024);
+    if constexpr (F == 64) {
+      wgmma_m64n128k16_rs<0>(d, a[kk], db, accumulate || kk > 0);
+    } else {
+      wgmma_m64n64k16_rs<0>(d, a[kk], db, accumulate || kk > 0);
+    }
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  pin(d);
+  pin(a);
+}
+
+// dW (64 x N) = a^T dh over both warpgroups' 64 edges (K = 128): a's
+// channels from panel `ap` of each warpgroup's staging tile, dh's N
+// channels from its panels at `bp`, both MN-major; then added in the
+// accumulators' order to acc (this warpgroup's (F / 4, 128) float4 slots).
+template <int F>
+__device__ __forceinline__ void dw_product(uint32_t stage, uint32_t stage_bytes, uint32_t ap,
+                                           uint32_t bp, float* acc, int tid) {
+  float d[F];
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const uint32_t tile = stage + (kk >> 2) * stage_bytes + (kk & 3) * 2048;
+    const uint64_t da = sw128_desc(tile + ap, kPanel, 1024);
+    const uint64_t db = sw128_desc(tile + bp, kPanel, 1024);
+    if constexpr (F == 64) {
+      wgmma_m64n128k16_ss_mn(d, da, db, kk > 0);
+    } else {
+      wgmma_m64n64k16_ss_mn(d, da, db, kk > 0);
+    }
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  pin(d);
+  float4* a4 = reinterpret_cast<float4*>(acc);
+#pragma unroll
+  for (int v = 0; v < F / 4; ++v) {
+    float4 x = a4[v * 128 + tid];
+    x.x = __fadd_rn(x.x, d[4 * v]);
+    x.y = __fadd_rn(x.y, d[4 * v + 1]);
+    x.z = __fadd_rn(x.z, d[4 * v + 2]);
+    x.w = __fadd_rn(x.w, d[4 * v + 3]);
+    a4[v * 128 + tid] = x;
+  }
+}
+
+// A warpgroup's accumulator slots (F floats a thread) as rows m0 .. of a
+// (rows, cols) block partial, columns n0 ..
+template <int F>
+__device__ __forceinline__ void dw_store(const float* acc, float* out, int cols, int n0,
+                                         int warp, int g, int t, int tid) {
+#pragma unroll
+  for (int v = 0; v < F; ++v) {
+    const int row = 16 * warp + g + 8 * ((v >> 1) & 1), col = n0 + (v >> 2) * 8 + 2 * t + (v & 1);
+    out[row * cols + col] = acc[(v >> 2) * 512 + tid * 4 + (v & 3)];
+  }
+}
+
+// One backward pass, `level` 3, 2, 1, 0 or -1 (the TPU's five top-down
+// passes). w0..w3 the weights (in, out) bf16; params (7, 512) fp32: the
+// folded scale and shift, mu, rsqrt(var + eps) and, for the layers above
+// `level`, the BatchNorm backward's A, B, C (kPA..kPC); gx0..gx3 the
+// max-pools' cotangents (P, ch_l) fp32; slots (P, 512) uint8 -> s_part
+// (gridDim.x, 2, ch_level) for level >= 0, dw_part (gridDim.x,
+// dw_floats(level)) for level <= 2 (level 2: dW3[:, :128], level 1:
+// dW3[:, 128:] as (128, 128); level 0: dW2 (64, 128); level -1: dW1 (64,
+// 64) then dW0 as (64, 64), its rows past 6 zero), da1 (E, 6) fp32 at
+// level -1 where not null.
+//
+// A block is two warpgroups; each walks the flattened edges 64 at a time
+// (edge e is point e / k, slot e % k), tiles 2 b and 2 b + 1 of round b, so
+// that the k of the model does not shape the tiles. A warpgroup computes its
+// 64 edges' chain on wgmma: layer l's activations, packed to bf16 straight
+// from the accumulator, are the A fragments of layer l + 1 (registers, no
+// barrier), the weights' B operand read from the panels staged once a
+// block, MN-major for W and K-major for W^T from the same bytes. Layer 3 runs
+// in four 64-channel chunks, each pushed down through W3^T into d2 as it is
+// formed; layers 0..2 are formed again from their inputs' fragments where
+// the way down needs them. The pass's dW products take the edges as their
+// depth: both warpgroups stage a_l and dh_l (bf16, swizzled), and after a
+// block barrier each forms its share over the round's 128 edges from shared
+// memory (wgmma with both operands MN-major) and adds it into the block's
+// fp32 sums, its own slots, so no two threads add to one sum.
 template <int kLevel>
 __global__ void __launch_bounds__(kBThreads, 1)
-edge_mlp_backward_kernel(
-    const __nv_bfloat16* __restrict__ a1, const __nv_bfloat16* __restrict__ wt0,
-    const __nv_bfloat16* __restrict__ wt1, const __nv_bfloat16* __restrict__ wt2,
-    const __nv_bfloat16* __restrict__ wt3, const __nv_bfloat16* __restrict__ wp0,
-    const __nv_bfloat16* __restrict__ wp1, const __nv_bfloat16* __restrict__ wp2,
-    const __nv_bfloat16* __restrict__ wp3, const float* __restrict__ params,
-    const float* __restrict__ gx0, const float* __restrict__ gx1,
-    const float* __restrict__ gx2, const float* __restrict__ gx3,
-    const uint8_t* __restrict__ slots, long long points, int k,
-    float* __restrict__ s_part, float* __restrict__ dw_part, float* __restrict__ da1) {
-  constexpr int kDwRows = dw_rows(kLevel), kDwCols = dw_cols(kLevel);
-  constexpr int kDws = kDwCols + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sdw = reinterpret_cast<float*>(smem_raw);
-  float* sp = sdw + kDwRows * kDws;
-  __nv_bfloat16* sb = reinterpret_cast<__nv_bfloat16*>(sp + kNP * kChTotal);
-  __nv_bfloat16 *sa0 = sb + kOA0, *sa1 = sb + kOA1, *sa2 = sb + kOA2, *sa3 = sb + kOA3;
-  __nv_bfloat16 *sd0 = sb + kOD0, *sd1 = sb + kOD1, *sd2 = sb + kOD2, *sd3 = sb + kOD3;
-  for (int i = threadIdx.x; i < kDwRows * kDws; i += kBThreads) sdw[i] = 0.f;
-  for (int i = threadIdx.x; i < kNP * kChTotal; i += kBThreads) sp[i] = params[i];
-  for (int i = threadIdx.x; i < 16 * kBA0; i += kBThreads) sa0[i] = __float2bfloat16(0.f);
+edge_mlp_backward_kernel(const __nv_bfloat16* __restrict__ a1,
+                         const __nv_bfloat16* __restrict__ w0,
+                         const __nv_bfloat16* __restrict__ w1,
+                         const __nv_bfloat16* __restrict__ w2,
+                         const __nv_bfloat16* __restrict__ w3,
+                         const float* __restrict__ params, const float* __restrict__ gx0,
+                         const float* __restrict__ gx1, const float* __restrict__ gx2,
+                         const float* __restrict__ gx3, const uint8_t* __restrict__ slots,
+                         long long edges, int k, float* __restrict__ s_part,
+                         float* __restrict__ dw_part, float* __restrict__ da1) {
+  constexpr int kStageBytes = stage_panels(kLevel) * kPanel;
+  constexpr int kSGroups = kLevel == 3 ? 4 : kLevel == 2 ? 2 : 1;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const uint32_t sb = smem_addr(base);
+  float* ssc = reinterpret_cast<float*>(base + kBScale);
+  float* ssh = ssc + kChTotal;
+  float* acc = reinterpret_cast<float*>(base + kBDyn);
+  unsigned char* stage = base + kBDyn + 4 * dw_floats(kLevel);
+  const uint32_t sstage = sb + kBDyn + 4 * dw_floats(kLevel);
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  unsigned char* my_stage = stage + wg * kStageBytes;
+
+  // the weights into their panels, 16 bytes (8 output channels) at a time
+  {
+    const __nv_bfloat16* ws[4] = {w0, w1, w2, w3};
+    const int rows[4] = {kC0, kCh0, kCh1, kCh2}, cols[4] = {kCh0, kCh1, kCh2, kCh3};
+    const int prow[4] = {16, kCh0, kCh1, kCh2};
+    const uint32_t offs[4] = {kBW0, kBW1, kBW2, kBW3};
+#pragma unroll
+    for (int l = 0; l < 4; ++l) {
+      for (int i = threadIdx.x; i < prow[l] * cols[l] / 8; i += kBThreads) {
+        const int r = i / (cols[l] / 8), c8 = i % (cols[l] / 8);
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (r < rows[l]) v = *reinterpret_cast<const uint4*>(ws[l] + r * cols[l] + 8 * c8);
+        *reinterpret_cast<uint4*>(base + offs[l] + (c8 >> 3) * prow[l] * 128 + r * 128 +
+                                  (((c8 & 7) ^ (r & 7)) << 4)) = v;
+      }
+    }
+  }
+  for (int i = threadIdx.x; i < kChTotal; i += kBThreads) {
+    ssc[i] = params[kPSc * kChTotal + i];
+    ssh[i] = params[kPSh * kChTotal + i];
+  }
+  // the per-channel parameters where they are read, and layer 3's A, B, C
+  const float* prm = params;
+  const float* abc3 = params + kPA * kChTotal + kOff3;
+  int abc3_stride = kChTotal;
+  {
+    float* sp = reinterpret_cast<float*>(stage + stage_bytes(kLevel));
+    if constexpr (params_staged(kLevel)) {
+      for (int i = threadIdx.x; i < kNP * kChTotal; i += kBThreads) sp[i] = params[i];
+      prm = sp;
+      abc3 = sp + kPA * kChTotal + kOff3;
+    } else if constexpr (kLevel <= 2) {
+      for (int i = threadIdx.x; i < 3 * kCh3; i += kBThreads) {
+        sp[i] = params[(kPA + i / kCh3) * kChTotal + kOff3 + i % kCh3];
+      }
+      abc3 = sp;
+      abc3_stride = kCh3;
+    }
+  }
+  for (int i = threadIdx.x; i < dw_floats(kLevel) + kBWGs * kStageBytes / 4; i += kBThreads) {
+    acc[i] = 0.f;                                // the sums, and the staging's padding
+  }
+  fence_proxy_async();
   __syncthreads();
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int nb0 = warp * (kCh0 / 8), nb1 = warp * (kCh1 / 8), nb2 = warp * (kCh2 / 8),
-            nb3 = warp * (kCh3 / 8);
-  constexpr int kSNT = level_tiles(kLevel);
-  float s_dy[kSNT][2], s_dyh[kSNT][2];
+  float sacc[kSGroups][4];
 #pragma unroll
-  for (int nt = 0; nt < kSNT; ++nt) s_dy[nt][0] = s_dy[nt][1] = s_dyh[nt][0] = s_dyh[nt][1] = 0.f;
-  const long long tiles = (points + 15) / 16;
+  for (int i = 0; i < kSGroups; ++i) sacc[i][0] = sacc[i][1] = sacc[i][2] = sacc[i][3] = 0.f;
+  // W0^T's B fragments for d_a1 (mma.m16n8k16: k an output channel, n = g
+  // an input channel, zero past 6)
+  uint32_t wt0[4][2];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    wt0[kk][0] = wt0[kk][1] = 0u;
+    if (kLevel == -1 && g < kC0) {
+      const uint32_t* row = reinterpret_cast<const uint32_t*>(w0 + g * kCh0 + 16 * kk + 2 * t);
+      wt0[kk][0] = row[0];
+      wt0[kk][1] = row[4];
+    }
+  }
+  const long long tiles = (edges + kBEdges - 1) / kBEdges;
 
-  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const long long p0 = tile * 16;
-    const bool ok0 = p0 + g < points, ok1 = p0 + g + 8 < points;
-    for (int j = 0; j < k; ++j) {
-      // the slot's 16 edges, channels 6..15 zero
-      if (threadIdx.x < 16 * (kC0 / 2)) {
-        const int r = threadIdx.x / (kC0 / 2), c = (threadIdx.x % (kC0 / 2)) * 2;
-        uint32_t v = 0u;
-        if (p0 + r < points) {
-          v = *reinterpret_cast<const uint32_t*>(a1 + ((p0 + r) * k + j) * kC0 + c);
-        }
-        *reinterpret_cast<uint32_t*>(sa0 + r * kBA0 + c) = v;
+  for (long long round = blockIdx.x; round * kBWGs < tiles; round += gridDim.x) {
+    // the next round's edges, their points' max-pool cotangents and slots
+    // into L2 while this round runs: the routes read them in every pass
+    const long long next = ((round + gridDim.x) * kBWGs + wg) * kBEdges;
+    if (tid == 0 && next < edges) {
+      const long long last = (next + kBEdges < edges ? next + kBEdges : edges) - 1;
+      const long long p0 = next / k, np = last / k - p0 + 1;
+      const float* gxs[4] = {gx0, gx1, gx2, gx3};
+      const int chs[4] = {kCh0, kCh1, kCh2, kCh3};
+#pragma unroll
+      for (int l = 0; l < 4; ++l) {
+        prefetch_l2(gxs[l] + p0 * chs[l], static_cast<uint32_t>(np * chs[l] * 4));
       }
-      __syncthreads();
-      // the forward chain, as the final pass computes it
-      float h0[1][4], h1[1][4], h2[2][4], h3[4][4];
-      mma_rows<16, 1>(sa0, kBA0, wt0, nb0, h0, g, t);
-      activate_rows(h0, sp, kOff0, nb0, sa1, kBA1, g, t);
-      __syncthreads();
-      mma_rows<kCh0, 1>(sa1, kBA1, wt1, nb1, h1, g, t);
-      activate_rows(h1, sp, kOff1, nb1, sa2, kBA2, g, t);
-      __syncthreads();
-      mma_rows<kCh1, 2>(sa2, kBA2, wt2, nb2, h2, g, t);
-      activate_rows(h2, sp, kOff2, nb2, sa3, kBA3, g, t);
-      __syncthreads();
-      mma_rows<kCh2, 4>(sa3, kBA3, wt3, nb3, h3, g, t);
+      prefetch_l2(slots + p0 * kChTotal, static_cast<uint32_t>(np * kChTotal));
+    }
+    const long long e0 = (round * kBWGs + wg) * kBEdges + 16 * warp + g;
+    Rows rw;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const long long e = e0 + 8 * r;
+      rw.ok[r] = e < edges;
+      rw.p[r] = rw.ok[r] ? e / k : 0;
+      rw.j[r] = rw.ok[r] ? static_cast<int>(e - rw.p[r] * k) : 0;
+    }
+    // layer 0's A fragments: the edge [x_j | x_i], channels 6..15 zero
+    uint32_t f0[1][4] = {{0u, 0u, 0u, 0u}};
+    if (t < kC0 / 2) {
+      if (rw.ok[0]) f0[0][0] = *reinterpret_cast<const uint32_t*>(a1 + e0 * kC0 + 2 * t);
+      if (rw.ok[1]) f0[0][1] = *reinterpret_cast<const uint32_t*>(a1 + (e0 + 8) * kC0 + 2 * t);
+    }
+    if constexpr (kLevel == -1) stage_frags(my_stage + 2 * kPanel, f0, 0, warp, g, t);  // a_0
+    // the forward chain, as the final pass computes it
+    uint32_t f1[4][4], f2[4][4], f3[8][4];
+    {
+      float h[32];
+      forward64(h, f0, sb + kBW0);
+      activate_frags(h, ssc + kOff0, ssh + kOff0, t, f1);
+      forward64(h, f1, sb + kBW1);
+      activate_frags(h, ssc + kOff1, ssh + kOff1, t, f2);
+    }
+    {
+      float h[64];
+      forward128(h, f2, sb + kBW2);
+      activate_frags(h, ssc + kOff2, ssh + kOff2, t, f3);
+    }
+    if constexpr (kLevel == 2 || kLevel == 1) stage_frags(my_stage, f3, 0, warp, g, t);
+    if constexpr (kLevel == 0) stage_frags(my_stage, f2, 0, warp, g, t);     // a_2
+    if constexpr (kLevel == -1) stage_frags(my_stage, f1, 0, warp, g, t);    // a_1
 
-      // top-down to `level`
-      float d3[4][4];
-      zero(d3);
-      route_relu(h3, d3, gx3, kCh3, slots, kOff3, sp, nb3, p0, j, ok0, ok1, g, t);
+    // layer 3 in four chunks of 64 channels; below level 3 each chunk's dh3
+    // is pushed down into d2
+    float d2[64];
+#pragma unroll 1
+    for (int q = 0; q < 4; ++q) {
+      float h[32], d[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        wgmma_m64n64k16_rs<1>(h, f3[kk], sw128_desc(sb + kBW3 + q * kCh2 * 128 + kk * 2048,
+                                                    kCh2 * 128, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(h);
+      pin(f3);
+      route_relu<32, true>(h, d, gx3, kCh3, slots, kOff3, 64 * q, ssc + kOff3, ssh + kOff3, rw,
+                           t);
       if constexpr (kLevel == 3) {
-        sum_s(d3, h3, sp, kOff3, nb3, ok0, ok1, t, s_dy, s_dyh);
-      } else {
-        bn_backward(d3, h3, sp, kOff3, nb3, ok0, ok1, sd3, kBD3, g, t);
-        __syncthreads();
-        if constexpr (kLevel == 2) {
-          dw_accumulate<kCh2 / 16, 4>(sa3, kBA3, sd3, kBD3, sdw, kDws, nb3, lane);
+        switch (q) {   // sacc's index must be a constant
+          case 0: sum_s<32, 0>(d, h, prm, kOff3, 0, g, t, sacc); break;
+          case 1: sum_s<32, 1>(d, h, prm, kOff3, 64, g, t, sacc); break;
+          case 2: sum_s<32, 2>(d, h, prm, kOff3, 128, g, t, sacc); break;
+          default: sum_s<32, 3>(d, h, prm, kOff3, 192, g, t, sacc); break;
         }
-        float d2[2][4];
-        mma_rows<kCh3, 2>(sd3, kBD3, wp3, nb2, d2, g, t);
-        route_relu(h2, d2, gx2, kCh2, slots, kOff2, sp, nb2, p0, j, ok0, ok1, g, t);
-        if constexpr (kLevel == 2) {
-          sum_s(d2, h2, sp, kOff2, nb2, ok0, ok1, t, s_dy, s_dyh);
-        } else {
-          bn_backward(d2, h2, sp, kOff2, nb2, ok0, ok1, sd2, kBD2, g, t);
-          __syncthreads();
-          if constexpr (kLevel == 1) {
-            dw_accumulate<kCh1 / 16, 2>(sa2, kBA2, sd2, kBD2, sdw, kDws, nb2, lane);
+      } else {
+        bn_backward(d, h, abc3, abc3_stride, 64 * q, rw, t);
+        uint32_t fd[4][4];
+        pack_frags(d, fd);
+        if constexpr (kLevel == 2 || kLevel == 1) {
+          if ((kLevel == 2) == (q < 2)) {
+            stage_frags(my_stage + 2 * kPanel, fd, 4 * (q & 1), warp, g, t);
           }
-          float d1[1][4];
-          mma_rows<kCh2, 1>(sd2, kBD2, wp2, nb1, d1, g, t);
-          route_relu(h1, d1, gx1, kCh1, slots, kOff1, sp, nb1, p0, j, ok0, ok1, g, t);
-          if constexpr (kLevel == 1) {
-            sum_s(d1, h1, sp, kOff1, nb1, ok0, ok1, t, s_dy, s_dyh);
+        }
+        push_down<4>(d2, fd, sb + kBW3 + q * kCh2 * 128, kCh2 * 128, q > 0);
+      }
+    }
+    if constexpr (kLevel <= 2) {
+      {
+        float h[64];
+        forward128(h, f2, sb + kBW2);
+        route_relu<64, false>(h, d2, gx2, kCh2, slots, kOff2, 0, ssc + kOff2, ssh + kOff2, rw, t);
+        if constexpr (kLevel == 2) {
+          sum_s<64, 0>(d2, h, prm, kOff2, 0, g, t, sacc);
+        } else {
+          bn_backward(d2, h, prm + kPA * kChTotal + kOff2, kChTotal, 0, rw, t);
+        }
+      }
+      if constexpr (kLevel <= 1) {
+        uint32_t fd2[8][4];
+        pack_frags(d2, fd2);
+        if constexpr (kLevel == 0) stage_frags(my_stage + kPanel, fd2, 0, warp, g, t);
+        float d1[32], h[32];
+        push_down<8>(d1, fd2, sb + kBW2, kCh1 * 128, false);
+        forward64(h, f1, sb + kBW1);
+        route_relu<32, false>(h, d1, gx1, kCh1, slots, kOff1, 0, ssc + kOff1, ssh + kOff1, rw, t);
+        if constexpr (kLevel == 1) {
+          sum_s<32, 0>(d1, h, prm, kOff1, 0, g, t, sacc);
+        } else {
+          bn_backward(d1, h, prm + kPA * kChTotal + kOff1, kChTotal, 0, rw, t);
+          uint32_t fd1[4][4];
+          pack_frags(d1, fd1);
+          if constexpr (kLevel == -1) stage_frags(my_stage + kPanel, fd1, 0, warp, g, t);
+          float d0[32];
+          push_down<4>(d0, fd1, sb + kBW1, kCh0 * 128, false);
+          forward64(h, f0, sb + kBW0);
+          route_relu<32, false>(h, d0, gx0, kCh0, slots, kOff0, 0, ssc + kOff0, ssh + kOff0, rw,
+                                t);
+          if constexpr (kLevel == 0) {
+            sum_s<32, 0>(d0, h, prm, kOff0, 0, g, t, sacc);
           } else {
-            bn_backward(d1, h1, sp, kOff1, nb1, ok0, ok1, sd1, kBD1, g, t);
-            __syncthreads();
-            if constexpr (kLevel == 0) {
-              dw_accumulate<kCh0 / 16, 1>(sa1, kBA1, sd1, kBD1, sdw, kDws, nb1, lane);
-            }
-            float d0[1][4];
-            mma_rows<kCh1, 1>(sd1, kBD1, wp1, nb0, d0, g, t);
-            route_relu(h0, d0, gx0, kCh0, slots, kOff0, sp, nb0, p0, j, ok0, ok1, g, t);
-            if constexpr (kLevel == 0) {
-              sum_s(d0, h0, sp, kOff0, nb0, ok0, ok1, t, s_dy, s_dyh);
-            } else {
-              bn_backward(d0, h0, sp, kOff0, nb0, ok0, ok1, sd0, kBD0, g, t);
-              __syncthreads();
-              dw_accumulate<1, 1>(sa0, kBA0, sd0, kBD0, sdw, kDws, nb0, lane);
-              if (da1 != nullptr && warp == 0) {
-                float e[1][4];
-                mma_rows<kCh0, 1>(sd0, kBD0, wp0, 0, e, g, t);
-                if (t < kC0 / 2) {
-                  if (ok0) {
-                    *reinterpret_cast<float2*>(da1 + ((p0 + g) * k + j) * kC0 + 2 * t) =
-                        make_float2(e[0][0], e[0][1]);
-                  }
-                  if (ok1) {
-                    *reinterpret_cast<float2*>(da1 + ((p0 + g + 8) * k + j) * kC0 + 2 * t) =
-                        make_float2(e[0][2], e[0][3]);
-                  }
+            bn_backward(d0, h, prm + kPA * kChTotal + kOff0, kChTotal, 0, rw, t);
+            uint32_t fd0[4][4];
+            pack_frags(d0, fd0);
+            stage_frags(my_stage + 3 * kPanel, fd0, 0, warp, g, t);
+            if (da1 != nullptr) {         // d_a1 = dh0 W0^T on mma.sync, 8 columns
+              float e[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+              for (int kk = 0; kk < 4; ++kk) mma_bf16(e, fd0[kk], wt0[kk][0], wt0[kk][1]);
+              if (t < kC0 / 2) {
+                if (rw.ok[0]) {
+                  *reinterpret_cast<float2*>(da1 + e0 * kC0 + 2 * t) = make_float2(e[0], e[1]);
+                }
+                if (rw.ok[1]) {
+                  *reinterpret_cast<float2*>(da1 + (e0 + 8) * kC0 + 2 * t) =
+                      make_float2(e[2], e[3]);
                 }
               }
             }
           }
         }
       }
-      __syncthreads();                     // the slot's buffers read before they are refilled
+      // the round's dW: both tiles staged, then each warpgroup its share
+      fence_proxy_async();
+      __syncthreads();
+      if constexpr (kLevel == 2 || kLevel == 1) {
+        // a_3's channels 64 wg .. against dh_3's half
+        dw_product<64>(sstage, kStageBytes, wg * kPanel, 2 * kPanel, acc + wg * 64 * 128, tid);
+      } else if constexpr (kLevel == 0) {
+        // a_2 against dh_2's columns 64 wg ..
+        dw_product<32>(sstage, kStageBytes, 0, (1 + wg) * kPanel, acc + wg * 64 * 64, tid);
+      } else {
+        // warpgroup 0 dW1 (a_1, dh_1), 1 dW0 (a_0, dh_0)
+        dw_product<32>(sstage, kStageBytes, 2 * wg * kPanel, (2 * wg + 1) * kPanel,
+                       acc + wg * 64 * 64, tid);
+      }
+      __syncthreads();                   // the staging read before the next round refills it
     }
   }
+
+  // S: each warp's sums (lane (g, t) holds columns 64 group + 8 g + 2 t + e)
+  // into its slots, then the warps added in order
   if constexpr (kLevel >= 0) {
     constexpr int ch = layer_width(kLevel);
-    write_sums(s_dy, s_dyh, s_part + static_cast<long long>(blockIdx.x) * 2 * ch, ch,
-               warp * (ch / 8), lane);
+    float* sred = reinterpret_cast<float*>(stage);
+    const int w8 = threadIdx.x >> 5;
+#pragma unroll
+    for (int grp = 0; grp < kSGroups; ++grp) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        sred[(w8 * 2 + (q >> 1)) * ch + 64 * grp + 8 * g + 2 * t + (q & 1)] = sacc[grp][q];
+      }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < 2 * ch; i += kBThreads) {
+      float s = sred[i];
+      for (int w = 1; w < kBThreads / 32; ++w) s = __fadd_rn(s, sred[w * 2 * ch + i]);
+      s_part[static_cast<long long>(blockIdx.x) * 2 * ch + i] = s;
+    }
   }
   if constexpr (kLevel <= 2) {
-    __syncthreads();
-    float* out = dw_part + static_cast<long long>(blockIdx.x) * kDwRows * kDwCols;
-    for (int i = threadIdx.x; i < kDwRows * kDwCols; i += kBThreads) {
-      out[i] = sdw[(i / kDwCols) * kDws + i % kDwCols];
+    float* out = dw_part + static_cast<long long>(blockIdx.x) * dw_floats(kLevel);
+    if constexpr (kLevel == 2 || kLevel == 1) {
+      dw_store<64>(acc + wg * 64 * 128, out + wg * 64 * 128, 128, 0, warp, g, t, tid);
+    } else if constexpr (kLevel == 0) {
+      dw_store<32>(acc + wg * 64 * 64, out, kCh2, 64 * wg, warp, g, t, tid);
+    } else {
+      dw_store<32>(acc + wg * 64 * 64, out + wg * 64 * 64, 64, 0, warp, g, t, tid);
     }
   }
 }
@@ -792,23 +1080,21 @@ int launch_forward(const void* a1, const void* w0, const void* w1, const void* w
 }
 
 template <int kLevel>
-int launch_backward(const void* a1, const void* const* wt, const void* const* wp,
-                    const float* params, const float* const* gx, const uint8_t* slots,
-                    long long points, int k, long long cap, float* s_part,
-                    float* dw_part, float* da1, void* stream) {
+int launch_backward(const void* a1, const void* const* w, const float* params,
+                    const float* const* gx, const uint8_t* slots, long long points, int k,
+                    long long cap, float* s_part, float* dw_part, float* da1, void* stream) {
   auto kernel = edge_mlp_backward_kernel<kLevel>;
   const size_t smem = bwd_smem(kLevel);
+  const long long edges = points * k;
+  const long long rounds = ((edges + kBEdges - 1) / kBEdges + kBWGs - 1) / kBWGs;
   int grid = 0;
-  cudaError_t err = persistent_grid(kernel, kBThreads, smem, (points + 15) / 16, cap, &grid);
+  cudaError_t err = persistent_grid(kernel, kBThreads, smem, rounds, cap, &grid);
   if (err != cudaSuccess) return static_cast<int>(err);
   using bf = __nv_bfloat16;
   kernel<<<grid, kBThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf*>(a1), static_cast<const bf*>(wt[0]),
-      static_cast<const bf*>(wt[1]), static_cast<const bf*>(wt[2]),
-      static_cast<const bf*>(wt[3]), static_cast<const bf*>(wp[0]),
-      static_cast<const bf*>(wp[1]), static_cast<const bf*>(wp[2]),
-      static_cast<const bf*>(wp[3]), params, gx[0], gx[1], gx[2], gx[3], slots, points,
-      k, s_part, dw_part, da1);
+      static_cast<const bf*>(a1), static_cast<const bf*>(w[0]), static_cast<const bf*>(w[1]),
+      static_cast<const bf*>(w[2]), static_cast<const bf*>(w[3]), params, gx[0], gx[1], gx[2],
+      gx[3], slots, edges, k, s_part, dw_part, da1);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -870,44 +1156,50 @@ int edge_mlp_stat(const void* a1, const void* w0, const void* w1, const void* w2
   }
 }
 
-// Backward pass `level` (3, 2, 1, 0, -1): a1 as above; wt0..wt3 the weights
-// transposed, (out, in) bf16 with W0^T padded to (64, 16); wp0..wp3 the
-// weights (in, out) bf16 with W0 padded to (8, 64); params (7, 512) fp32:
-// the folded scale and shift, mu, rsqrt(var + eps), gamma rsqrt(var + eps),
-// and S[0] / E, S[1] / E of the layers above `level` (E = P k); gx0..gx3 the
-// max-pools' cotangents (P, ch_l) fp32 and slots (P, 512) uint8 ->
-// s_part (max_blocks, 2, ch_level) for level >= 0, dw_part (max_blocks, cin,
-// ch) of dW_{level+1} (cin 16 for W0) for level <= 2, da1 (P, k, 6) fp32 at
-// level -1 where not null. Rows past the launched blocks are untouched.
-int edge_mlp_backward(const void* a1, const void* wt0, const void* wt1,
-                      const void* wt2, const void* wt3, const void* wp0,
-                      const void* wp1, const void* wp2, const void* wp3,
-                      const float* params, const float* gx0, const float* gx1,
-                      const float* gx2, const float* gx3, const uint8_t* slots,
-                      long long points, int k, int level, int max_blocks,
-                      float* s_part, float* dw_part, float* da1, void* stream) {
+// Dynamic shared memory a block of backward pass `level` takes, in bytes
+// (0 for another level).
+int edge_mlp_backward_smem(int level) {
+  return level >= -1 && level <= 3 ? static_cast<int>(bwd_smem(level)) : 0;
+}
+
+// Backward pass `level` (3, 2, 1, 0, -1): a1 and W0..W3 as edge_mlp_forward;
+// params (7, 512) fp32: the folded scale and shift, mu, rsqrt(var + eps),
+// and for the layers above `level` the BatchNorm backward's dh = A dy - (B
+// h + C): A = gamma rsqrt(var + eps), B = A (S[1] / E) rsqrt(var + eps), C
+// = A (S[0] / E) - B mu (E = P k); gx0..gx3 the max-pools' cotangents (P,
+// ch_l) fp32 and slots (P, 512) uint8 -> s_part (max_blocks, 2, ch_level)
+// for level >= 0, dw_part (max_blocks, n) for level <= 2 with n = 128 x
+// 128 (level 2: dW3[:, :128]; level 1: dW3[:, 128:]), 64 x 128 (level 0:
+// dW2) or 64 x 64 + 64 x 64 (level -1: dW1, then dW0 with its rows past 6
+// zero), da1 (P, k, 6) fp32 at level -1 where not null. Rows past the
+// launched blocks are untouched.
+int edge_mlp_backward(const void* a1, const void* w0, const void* w1, const void* w2,
+                      const void* w3, const float* params, const float* gx0,
+                      const float* gx1, const float* gx2, const float* gx3,
+                      const uint8_t* slots, long long points, int k, int level,
+                      int max_blocks, float* s_part, float* dw_part, float* da1,
+                      void* stream) {
   if (points < 1 || k < 1 || k > 255 || max_blocks < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const void* wt[4] = {wt0, wt1, wt2, wt3};
-  const void* wp[4] = {wp0, wp1, wp2, wp3};
+  const void* w[4] = {w0, w1, w2, w3};
   const float* gx[4] = {gx0, gx1, gx2, gx3};
   switch (level) {
     case 3:
-      return launch_backward<3>(a1, wt, wp, params, gx, slots, points, k, max_blocks,
-                                s_part, dw_part, da1, stream);
+      return launch_backward<3>(a1, w, params, gx, slots, points, k, max_blocks, s_part,
+                                dw_part, da1, stream);
     case 2:
-      return launch_backward<2>(a1, wt, wp, params, gx, slots, points, k, max_blocks,
-                                s_part, dw_part, da1, stream);
+      return launch_backward<2>(a1, w, params, gx, slots, points, k, max_blocks, s_part,
+                                dw_part, da1, stream);
     case 1:
-      return launch_backward<1>(a1, wt, wp, params, gx, slots, points, k, max_blocks,
-                                s_part, dw_part, da1, stream);
+      return launch_backward<1>(a1, w, params, gx, slots, points, k, max_blocks, s_part,
+                                dw_part, da1, stream);
     case 0:
-      return launch_backward<0>(a1, wt, wp, params, gx, slots, points, k, max_blocks,
-                                s_part, dw_part, da1, stream);
+      return launch_backward<0>(a1, w, params, gx, slots, points, k, max_blocks, s_part,
+                                dw_part, da1, stream);
     case -1:
-      return launch_backward<-1>(a1, wt, wp, params, gx, slots, points, k, max_blocks,
-                                 s_part, dw_part, da1, stream);
+      return launch_backward<-1>(a1, w, params, gx, slots, points, k, max_blocks, s_part,
+                                 dw_part, da1, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

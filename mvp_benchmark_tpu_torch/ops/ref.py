@@ -627,6 +627,68 @@ def edge_mlp_train(a1: torch.Tensor, Ws, gammas, betas):
     return tuple(xs), tuple(stats)
 
 
+def edge_mlp_slots(a1: torch.Tensor, Ws, gammas, betas, stats):
+    """The chain with the batch statistics ``stats`` ((2, ch) [mean, var] a
+    layer) folded by ``bn_scale_shift`` -> (xs, slots): the four max-pools
+    (B, N, ch_l) fp32 and each one's first argmax slot, (B, N, 512) uint8.
+    The contract of the train final pass of ``csrc/edge_mlp.cu``."""
+    ss = bn_scale_shift(gammas, betas, [s[0] for s in stats], [s[1] for s in stats])
+    a = a1
+    xs, slots = [], []
+    for W, (sc, sh) in zip(Ws, ss):
+        h = torch.matmul(_bf16(a), _bf16(W))
+        a = torch.relu(h * sc + sh)
+        x, j = _first_max(a, 2)
+        xs.append(x)
+        slots.append(j.to(torch.uint8))
+    return tuple(xs), torch.cat(slots, dim=-1)
+
+
+def edge_mlp_backward(a1: torch.Tensor, Ws, gammas, betas, stats, slots, gxs):
+    """The chain's backward in train mode from the forward's batch
+    statistics and saved argmax slots and the max-pools' cotangents gxs ->
+    (d_a1 (B, N, k, 6) fp32, dWs, dgammas, dbetas), as the TPU's five
+    top-down passes compute it (``_em_bwd_kernel``,
+    ``pallas_kernels.py:2858``): the chain recomputed with the folded
+    BatchNorm (``edge_mlp_slots``); from the top, each max-pool's cotangent
+    routed to its saved slot and added to the cotangent d carried from
+    above; dy = that where the activation is positive; S = [sum dy, sum dy
+    hhat] over the B N k edges; dh = gamma rsqrt(var + eps) ((dy - S0 / E) -
+    hhat S1 / E); dW = bf16(a)^T bf16(dh) and d = bf16(dh) bf16(W)^T, fp32
+    sums; dgamma = S1, dbeta = S0, d_a1 the last d. Autodiff of
+    ``edge_mlp_train`` rounds the carried cotangent where the forward casts
+    to bf16 instead of dh, and folds nothing: the two agree to a tolerance
+    that grows as the batch of edges shrinks. The contract of the backward
+    passes of ``csrc/edge_mlp.cu``."""
+    f32 = torch.float32
+    B, N, k, _ = a1.shape
+    E = float(B * N * k)
+    means, variances = [s[0] for s in stats], [s[1] for s in stats]
+    a, ins, hs, pre = _bf16(a1), [], [], []
+    for W, (sc, sh) in zip(Ws, bn_scale_shift(gammas, betas, means, variances)):
+        ins.append(a)
+        h = torch.matmul(a, _bf16(W))
+        hs.append(h)
+        pre.append(h * sc + sh)
+        a = _bf16(torch.relu(pre[-1]))
+    chs = [W.shape[1] for W in Ws]
+    d, dWs, dgs, dbs = None, [None] * len(Ws), [None] * len(Ws), [None] * len(Ws)
+    for l in range(len(Ws) - 1, -1, -1):
+        off, ch = sum(chs[:l]), chs[l]
+        route = torch.zeros((B, N, k, ch), dtype=f32, device=a1.device).scatter_(
+            2, slots[..., off:off + ch].long()[:, :, None, :],
+            gxs[l].to(f32)[:, :, None, :])
+        dy = torch.where(pre[l] > 0, route if d is None else d + route, 0.0)
+        rstd = torch.rsqrt(variances[l].to(f32) + EDGE_MLP_EPS)
+        hhat = (hs[l] - means[l].to(f32)) * rstd
+        S0, S1 = dy.sum(dim=(0, 1, 2)), (dy * hhat).sum(dim=(0, 1, 2))
+        dh = _bf16((gammas[l].to(f32) * rstd) * ((dy - S0 / E) - hhat * (S1 / E)))
+        dWs[l] = ins[l].reshape(-1, ins[l].shape[-1]).t() @ dh.reshape(-1, ch)
+        d = dh @ _bf16(Ws[l]).t()
+        dgs[l], dbs[l] = S1, S0
+    return d, tuple(dWs), tuple(dgs), tuple(dbs)
+
+
 # ---------------------------------------------------------------------------
 # IDAM: the GNN's Propagate edge block and the similarity-matrix MLP
 # ---------------------------------------------------------------------------
@@ -932,6 +994,21 @@ def sim_mlp_slots(sp, tp, src, tgt, w0, wxyz, W2, b2, W3, W4, g1, be1, g2, be2,
         simr = simr + x2[..., c] * w4[c]
     wmax, argj = _first_max(h1, 2)
     return simr, wmax, argj.to(torch.int32)
+
+
+def split_bf16x3(x: torch.Tensor):
+    """fp32 x as three bf16 terms (hi, mid, lo), each the round to nearest
+    of what the ones before leave: hi + mid carries x's top 16 significant
+    bits and lo the rest, so (hi + mid) + lo == x in fp32 (for x clear of
+    the bottom of the exponent range). A product of x with bf16 weights as
+    the three bf16 products summed in fp32 is x's fp32 product to fp32
+    rounding: how ``csrc/sim_mlp.cu``'s backward puts its fp32 cotangents on
+    the tensor cores."""
+    x = x.to(torch.float32)
+    hi = x.to(torch.bfloat16)
+    r = x - hi.to(torch.float32)
+    mid = r.to(torch.bfloat16)
+    return hi, mid, (r - mid.to(torch.float32)).to(torch.bfloat16)
 
 
 def sim_mlp_backward(sp, tp, src, tgt, w0, wxyz, W2, b2, W3, W4, g1, be1, g2, be2,

@@ -1031,6 +1031,43 @@ def test_edge_mlp_train_kernels_match_plain_version(cuda, B, N, K):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+def _edge_train_case(cuda, B, N, K):
+    g = torch.Generator(device="cuda").manual_seed(N + K)
+    x = torch.rand(B, N, 3, device=cuda, generator=g)
+    nb = ref.gather_points(x, ref.knn_indices(x, K))
+    a1 = torch.cat([nb, x[:, :, None].expand_as(nb)], -1).to(torch.bfloat16)
+    chs, cins = (64, 64, 128, 256), (6, 64, 64, 128)
+    Ws = [(torch.rand(ci, c, device=cuda, generator=g) * 2 - 1) * ci ** -0.5
+          for ci, c in zip(cins, chs)]
+    gammas = [1 + 0.1 * torch.randn(c, device=cuda, generator=g) for c in chs]
+    betas = [0.1 * torch.randn(c, device=cuda, generator=g) for c in chs]
+    gxs = [torch.randn(B, N, c, device=cuda, generator=g) for c in chs]
+    return a1, Ws, gammas, betas, gxs
+
+
+@pytest.mark.parametrize("B,N,K", [(2, 5, 1), (1, 21, 20), (2, 37, 20), (3, 1001, 7)])
+def test_edge_mlp_backward_ragged_tiles_match_plain_and_rerun_bitwise(cuda, B, N, K):
+    """The five backward passes where the B N k edges are no multiple of
+    the kernel's 64-edge tile (10, 420, 1480 and 21021 edges; k 1, 20, 7),
+    on the kernel forward's statistics and slots: every gradient normwise
+    within chip_smoke.EDGE_GRAD_NORM of ``ref.edge_mlp_backward``, which
+    rounds where the kernel does (1.8e-3 measured on an H100 80GB HBM3 at
+    700 W); two runs bitwise equal."""
+    import chip_smoke
+
+    a1, Ws, gammas, betas, gxs = _edge_train_case(cuda, B, N, K)
+    _, stats, slots = kernels.edge_mlp_train_forward(a1, Ws, gammas, betas)
+    flat = lambda r: [r[0], *r[1], *r[2], *r[3]]
+    run = lambda: flat(kernels.edge_mlp_train_backward(a1, Ws, gammas, betas, stats, slots,
+                                                       gxs, need_a1=True))
+    got, again = run(), run()
+    want = flat(ref.edge_mlp_backward(a1, Ws, gammas, betas, stats, slots, gxs))
+    for gl, wl in zip(got, want):
+        assert gl.shape == wl.shape
+        assert _normwise(gl.float(), wl.float()) <= chip_smoke.EDGE_GRAD_NORM
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
 def test_train_wrappers_reject_bad_inputs(cuda):
     *x, d_out, scale = _attention_case(cuda, 1, 64, 64, 1, torch.float32)
     q, k = (t[..., :256].contiguous() for t in x[:2])
@@ -1298,6 +1335,41 @@ def test_sim_mlp_train_kernels_match_plain_version(cuda, B, M, ties):
     gaps = {name: rel(got, extra.get(i, want[i])) for i, (name, got) in
             enumerate(zip(names, grads))}
     assert max(gaps.values()) <= 5e-3, gaps
+
+
+@pytest.mark.parametrize("B,M,ties", [(1, 1, False), (3, 37, False), (2, 341, False),
+                                      (2, 64, True)])
+def test_sim_mlp_backward_ragged_tiles_match_plain_and_rerun_bitwise(cuda, B, M, ties):
+    """The three backward passes where M is no multiple of the kernel's
+    16-row tile (1, 37, 341) and with ties (repeated targets), on the
+    kernel forward's statistics and argj, against ``ref.sim_mlp_backward``:
+    the fp32 outputs normwise within chip_smoke.IDAM_GRAD_NORM (a one-pair
+    batch's exact zeros exactly); dwxyz, dW2 and dW3, bf16 roundings of
+    sums over every pair that the kernel and the plain version take in
+    other orders, within one bf16 ulp of it elementwise (a single element
+    whose sums fall on either side of a rounding boundary moves by an ulp,
+    as ``test_sim_mlp_train_kernels_match_plain_version`` notes); two runs
+    bitwise equal."""
+    import chip_smoke
+
+    x = _sim_case(cuda, B, M, ties=ties)
+    sp, tp = ref.sim_projections(x[2], x[3], x[4])
+    core = (sp, tp, x[0], x[1], *ref.sim_mlp_split(x[4], 64), *x[5:9], *x[10:14])
+    g = torch.Generator(device="cuda").manual_seed(M)
+    dsimr = torch.randn((B, M, M), device=cuda, generator=g)
+    dwmax = torch.randn((B, M, 32), device=cuda, generator=g)
+    _, _, st1, st2, argj = kernels.sim_mlp_train_forward(*core)
+    got = kernels.sim_mlp_train_backward(*core, st1, st2, argj, dsimr, dwmax)
+    again = kernels.sim_mlp_train_backward(*core, st1, st2, argj, dsimr, dwmax)
+    want = ref.sim_mlp_backward(*core, st1, st2, argj, dsimr, dwmax)
+    for i, (gl, wl) in enumerate(zip(got, want)):
+        assert gl.shape == wl.shape
+        if i in (3, 4, 6):                       # dwxyz, dW2, dW3: bf16 roundings
+            assert bool(((gl - wl).abs() <= wl.abs() * 2 ** -7).all()), i
+        else:
+            gap, norm = float((gl - wl).double().norm()), float(wl.double().norm())
+            assert gap <= chip_smoke.IDAM_GRAD_NORM * norm, i
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 def test_idam_train_wrappers_reject_bad_inputs(cuda):

@@ -196,3 +196,64 @@ def test_train_max_routes_a_tie_to_the_first_slot():
     x.sum().backward()
     g = a1t.grad.float()
     assert float((g[0, :, 0] - g[0, :, 2]).abs().max()) > 1e-3
+
+
+def _plain_backward(a1, Ws, gammas, betas, gxs):
+    """``ref.edge_mlp_backward`` from ``ref.edge_mlp_train``'s statistics and
+    ``ref.edge_mlp_slots``' argmax slots, the CUDA backward's contract:
+    [d_a1, *dWs, *dgammas, *dbetas]."""
+    T = lambda xs: [torch.from_numpy(x) for x in xs]
+    a1t = torch.from_numpy(a1).to(torch.bfloat16)
+    _, stats = ref.edge_mlp_train(a1t, T(Ws), T(gammas), T(betas))
+    _, slots = ref.edge_mlp_slots(a1t, T(Ws), T(gammas), T(betas), stats)
+    d, dWs, dgs, dbs = ref.edge_mlp_backward(a1t, T(Ws), T(gammas), T(betas), stats, slots,
+                                             T(gxs))
+    return [d, *dWs, *dgs, *dbs]
+
+
+def test_slots_are_the_first_argmax_of_the_folded_chain():
+    """``ref.edge_mlp_slots``: the chain with the batch statistics folded
+    (the train final pass's form) agrees with ``edge_mlp_train``'s max-pools
+    at the forward's bar, and each saved slot holds its max-pool's value, the
+    first such slot."""
+    a1, Ws, gammas, betas, _ = _train_case(3, 4, 7)
+    T = lambda xs: [torch.from_numpy(x) for x in xs]
+    a1t = torch.from_numpy(a1).to(torch.bfloat16)
+    want_xs, stats = ref.edge_mlp_train(a1t, T(Ws), T(gammas), T(betas))
+    xs, slots = ref.edge_mlp_slots(a1t, T(Ws), T(gammas), T(betas), stats)
+    assert slots.dtype == torch.uint8 and slots.shape == (2, 64, sum(CHS))
+    for x, w in zip(xs, want_xs):
+        assert _normwise(x, w) < 1e-3
+    ss = ref.bn_scale_shift(T(gammas), T(betas), [s[0] for s in stats], [s[1] for s in stats])
+    a, off = a1t, 0
+    for W, (sc, sh), x in zip(T(Ws), ss, xs):
+        a = torch.relu(torch.matmul(ref._bf16(a), ref._bf16(W)) * sc + sh)
+        j = slots[..., off:off + W.shape[1]].long()
+        assert torch.equal(a.gather(2, j[:, :, None]).squeeze(2), x)
+        first = (a == x[:, :, None]).float().argmax(dim=2)
+        assert torch.equal(first, j)
+        off += W.shape[1]
+
+
+@pytest.mark.parametrize("layers,K", [(1, 7), (4, 1), (4, 20)])
+def test_backward_from_slots_matches_the_pallas_passes(layers, K):
+    """``ref.edge_mlp_backward`` rounds where the TPU's backward passes do
+    (dh and a to bf16 before their products): against
+    ``pallas_kernels.edge_mlp_train``'s custom backward in interpret mode
+    within 1e-2 normwise (3.6e-3 measured at 4 layers, k 20), and against
+    autodiff of ``ref.edge_mlp_train``, which rounds elsewhere, within
+    2e-2 (6.0e-3 measured)."""
+    a1, Ws, gammas, betas, gxs = _train_case(10 * layers + K, layers, K)
+    *_, da, dW, dg, db = _jax_train(pallas_kernels.edge_mlp_train, a1, Ws, gammas, betas, gxs)
+    got = _plain_backward(a1, Ws, gammas, betas, gxs)
+    for i, (g, w) in enumerate(zip(got, [da, *dW, *dg, *db])):
+        assert tuple(g.shape) == np.shape(w), i
+        assert _normwise(g, w) < 1e-2, (i, _normwise(g, w))
+    leaf = lambda x: torch.from_numpy(x).requires_grad_()
+    a1t = torch.from_numpy(a1).to(torch.bfloat16).requires_grad_()
+    Wt, gt, bt = ([leaf(x) for x in xs_] for xs_ in (Ws, gammas, betas))
+    xs, _ = ref.edge_mlp_train(a1t, Wt, gt, bt)
+    sum((x * torch.from_numpy(g)).sum() for x, g in zip(xs, gxs)).backward()
+    auto = [a1t.grad.float()] + [p.grad for p in (*Wt, *gt, *bt)]
+    for i, (g, w) in enumerate(zip(got, auto)):
+        assert _normwise(g, w) < 2e-2, (i, _normwise(g, w))

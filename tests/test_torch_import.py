@@ -40,6 +40,7 @@ SLICE_MODULES = [
     "mvp_benchmark_tpu_torch.profile_eval",
     "mvp_benchmark_tpu_torch.probe_attention_backward",
     "mvp_benchmark_tpu_torch.probe_attention",
+    "mvp_benchmark_tpu_torch.probe_train_backwards",
     "chip_smoke",
 ]
 

@@ -82,11 +82,10 @@ def test_core_is_the_kernel_contract():
     assert torch.equal(sim, ref.sim_logits(simr, b4)) and torch.equal(wmax, wmax2)
 
 
-def test_train_mode_raises_naming_the_next_slice():
-    """Train mode is ported (this test once checked that it raised): on CPU
-    tensors it is ``ref.sim_mlp_train``, (sim, wmax, (st1, st2)) with the
-    batch statistics detached and no gradient to the positions (its parity
-    with JAX: tests/test_torch_idam_train.py)."""
+def test_train_mode_on_cpu_is_the_plain_version():
+    """On CPU tensors train mode is ``ref.sim_mlp_train``: (sim, wmax, (st1,
+    st2)) with the batch statistics detached and no gradient to the
+    positions (its parity with JAX: tests/test_torch_idam_train.py)."""
     args = list(map(torch.from_numpy, _inputs(6, M=8)))
     args[2].requires_grad_()
     args[0].requires_grad_()
@@ -98,3 +97,21 @@ def test_train_mode_raises_naming_the_next_slice():
     g_src, g_semb = torch.autograd.grad(sim.sum() + wmax.sum(), (args[0], args[2]),
                                         allow_unused=True)
     assert g_src is None and bool(torch.isfinite(g_semb).all())
+
+
+@pytest.mark.parametrize("scale", [1e-20, 1e-3, 1.0, 1e4, 1e30])
+def test_split_bf16x3_reconstructs_fp32_bitwise(scale):
+    """``ref.split_bf16x3``, the kernel backward's three bf16 terms of an fp32
+    cotangent: each term is a bf16 value, (hi + mid) + lo rebuilds x bitwise
+    in fp32, and a product with a bf16 weight taken as the three terms' bf16
+    products summed in fp64 is x's exact product."""
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy((rng.standard_normal(4096) * scale).astype(np.float32))
+    hi, mid, lo = ref.split_bf16x3(x)
+    assert hi.dtype == mid.dtype == lo.dtype == torch.bfloat16
+    assert torch.equal((hi.float() + mid.float()) + lo.float(), x)
+    assert float(mid.float().abs().max()) <= float(hi.float().abs().max()) * 2 ** -8
+    w = torch.from_numpy(rng.uniform(-1, 1, 4096).astype(np.float32)).to(torch.bfloat16)
+    w = w.double()
+    assert torch.equal((hi.double() * w + mid.double() * w) + lo.double() * w,
+                       x.double() * w)
