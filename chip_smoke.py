@@ -10,7 +10,9 @@ Phases, each of which raises on failure (exit code != 0):
 2. builds the CUDA kernels from ``mvp_benchmark_tpu_torch/ops/csrc`` with nvcc;
 3. holds each kernel against its plain PyTorch version on the card, at the
    shapes of the main paths plus ragged and duplicate-point cases: indices
-   equal, distances and values bitwise equal (0 ulp); the SA block, which
+   equal, distances and values bitwise equal (0 ulp); kNN also on points
+   with exact copies across its candidate tiles, run twice, bitwise equal
+   (and at every path shape in phase 6); the SA block, which
    sums in another order, within |kernel - plain| <= 1e-5 + 1e-4 |plain|;
    the five backward kernels, which scatter with atomics, at a VRCNet train
    step's shapes plus ragged, collision and tie cases within the same bar
@@ -78,7 +80,11 @@ Phases, each of which raises on failure (exit code != 0):
    points/s; DCP's and IDAM's in pairs/s), and each kernel against its plain version (and a single
    PyTorch call computing the same function, where one exists) at a
    main-path shape, beside the least time the card could take
-   (``bound_ms``).
+   (``bound_ms``); kNN and FPS also at every shape the driven paths launch
+   them with (``probe_knn_fps``: VRCNet at 32 and 64 clouds, ECG, DCP's
+   k 20, IDAM's k 12), each held bitwise against its plain version and run
+   twice, with kNN's issue floor under its rounding rule and FPS's time a
+   step.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -102,6 +108,7 @@ from mvp_benchmark_tpu_torch.metrics import (calc_cd, fscore, rmse_loss,
                                              translation_error)
 from mvp_benchmark_tpu_torch.models.dcp import SHIFT_INVARIANT as DCP_SHIFT_INVARIANT
 from mvp_benchmark_tpu_torch.ops import kernels, ref
+from mvp_benchmark_tpu_torch import probe_knn_fps
 from mvp_benchmark_tpu_torch.data.mvp import BatchSpec, MVPCompletionDataset
 from mvp_benchmark_tpu_torch.train import engine, submission
 from mvp_benchmark_tpu_torch.train.meters import AverageValueMeter
@@ -122,6 +129,10 @@ DATA_DIR = os.path.join(ROOT, "completion", "data")   # test_torch.py's default
 PEAK_FP32 = 67e12
 PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
+# fp32 instructions issued per second (one FMA counts 2 operations at the
+# 67 TFLOP/s peak): the floor of a kernel whose operations are separately
+# rounded adds, multiplies and subtracts (kNN under its rounding rule).
+ISSUE_FP32 = PEAK_FP32 / 2
 # TF32 dense on the tensor cores: the svd head's forward and backward run
 # their fp32 products as 3xTF32 there (three TF32 products each).
 PEAK_TF32 = 495e12
@@ -563,6 +574,23 @@ def compare_kernels_with_plain(device):
             kernels.sa_attention_forward(*args, rel, mid, 8),
             ref.sa_attention(*args, rel, mid, 8)))
     torch.cuda.synchronize()
+    return err
+
+
+def compare_knn_across_tiles(device):
+    """kNN (64, 3072^2, C 3, k 16), VRCNet's first self-kNN of a step, on
+    points with five exact copies on both sides of every candidate tile's
+    boundary: bitwise against its plain version and run twice. Returns
+    max |kernel - plain|."""
+    tile = kernels.knn_tile_points(3, 3072)
+    p = uniform(600, (64, 3072, 3), device)
+    for j in range(tile, 3072, tile):
+        p[:, j:j + 5] = p[:, j - 5:j]
+    first = kernels.knn(p, p, 16)
+    err = check_equal(f"knn 64x3072x3072_C3_k16 with copies across the "
+                      f"{tile}-point tiles", first, ref.knn(p, p, 16))
+    check_rerun_bitwise("knn 64x3072x3072_C3_k16 across tiles", first,
+                        kernels.knn(p, p, 16))
     return err
 
 
@@ -2021,13 +2049,11 @@ def timing_cases(device):
         "knn": ("(32, 3072 x 3072, C 24, k 16)",
                 lambda: kernels.knn(f24, f24, 16),
                 lambda: ref.knn(f24, f24, 16), None,
-                2 * B * 3072 * 24 * 4 + B * 3072 * 16 * 8,
-                B * 3072 * 3072 * (3 * 24 + 1)),
+                *knn_work(B, 3072, 3072, 24, 16, True)),
         "fps": ("(32, 3072 -> 2048)",
                 lambda: kernels.furthest_point_sample(x1, S),
                 lambda: ref.furthest_point_sample(x1, S), None,
-                B * 3072 * 12 + B * S * 4,
-                B * (S - 1) * 3072 * 10),
+                *fps_work(B, 3072, S)),
         "gather": ("(32, 3072 x 24) by (32, 3072 x 16)",
                    lambda: kernels.gather_rows(t24, edge_idx),
                    lambda: ref.grouping_operation(t24, edge_idx),
@@ -2374,6 +2400,43 @@ def idam_train_timing_cases(device):
     }
 
 
+def knn_work(B, M, N, C, k, self_):
+    """(bytes, operations) kNN must move and do: the points read once, the
+    queries too unless they are the points, (distance, index) written once
+    a result; 3 C operations a pair (C subtracts, C multiplies, C - 1 adds
+    and the compare with the k-th distance)."""
+    k = min(k, N)
+    nbytes = (B * N * C + (0 if self_ else B * M * C) + 2 * B * M * k) * 4
+    return nbytes, B * M * N * 3 * C
+
+
+def fps_work(B, N, S):
+    """(bytes, operations) of FPS: the cloud read once and the indices
+    written once; 10 operations a point and step (3 subtracts, 3
+    multiplies, 2 adds, the min and the compare of the argmax)."""
+    return B * N * 12 + B * S * 4, B * (S - 1) * N * 10
+
+
+def time_knn_fps_at_path_shapes(device, card):
+    """kNN and FPS at every shape the driven paths launch them with
+    (``probe_knn_fps``'s ``probe_knn`` and ``probe_fps``: each output bitwise
+    against its plain version and a second run; kernel and plain timed with
+    CUDA events, the kernels' device time under torch.profiler, FPS's time a
+    step), with the bound (``bound`` of ``knn_work`` / ``fps_work``) and
+    kNN's issue floor under its rounding rule (3 fp32 instructions a channel
+    and pair, at ``ISSUE_FP32``). Prints one JSON line."""
+    out = {"knn": probe_knn_fps.probe_knn(device, plain=True),
+           "fps": probe_knn_fps.probe_fps(device, plain=True)}
+    for row in out["knn"]:
+        work = knn_work(row["B"], row["M"], row["N"], row["C"], row["k"], row["self"])
+        row["bound_ms"], row["bound_by"] = bound(*work)
+        row["issue_floor_ms"] = work[1] / ISSUE_FP32 * 1e3
+    for row in out["fps"]:
+        row["bound_ms"], row["bound_by"] = bound(*fps_work(row["B"], row["N"], row["S"]))
+    print(f"knn_fps_path_shapes on {card}: {json.dumps(out)}")
+    return out
+
+
 def time_kernels(device, card, emd_case):
     """Each kernel against its plain version and the library call where
     there is one, in the order plain, library, kernel, kernel, library,
@@ -2429,6 +2492,7 @@ def main() -> int:
     print_backward_resources()
 
     max_abs = compare_kernels_with_plain(device)
+    max_abs["knn"] = max(max_abs["knn"], compare_knn_across_tiles(device))
     max_abs.update(compare_backward_kernels_with_plain(device))
     geometry_err, emd_case = compare_geometry_kernels_with_plain(device)
     max_abs.update(geometry_err)
@@ -2527,6 +2591,7 @@ def main() -> int:
     time_train_steps("IDAM", idam_cfg, card, *registration_step(idam_cfg, device), "pairs",
                      steps=3)
     times = time_kernels(device, card, emd_case)
+    time_knn_fps_at_path_shapes(device, card)
 
     launches = {k: sum(counts[k] for counts in paths.values()) for k in KERNELS}
     check(all(launches.values()), f"a kernel no driven path launched: {launches}")

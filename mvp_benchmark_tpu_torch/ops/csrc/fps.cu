@@ -12,53 +12,73 @@
 //
 // The TPU kernel advances the whole batch one step per loop iteration as
 // (B, N) vector ops, because a TPU grid runs in order. Here one block owns
-// one cloud and the B blocks run side by side. The cloud (12 B a point) sits
-// in shared memory, the min-distance buffer in registers (PER points a
-// thread, templated). Each step: every thread updates its points against
-// the last selected one and keeps its best (value, index); a warp reduces
-// (value, -index) pairs with xor shuffles; lane 0 of each warp writes its
-// pair to one of two shared slots (alternating by step parity); after one
-// barrier every warp reduces the per-warp pairs itself, so all threads know
-// the next point without a second barrier. The comparison is "larger value,
-// or equal value and smaller index" at every level.
+// one cloud, and the clouds run side by side.
+//
+// What bounds it on an H100: the serial chain of S steps, not bytes or
+// operations. At (32, 3072 -> 2048) the bytes are 393 KB in and 262 KB out
+// (0.0002 ms at 3.35 TB/s) and the operations 32 x 2047 x 3072 x 10 = 2.0
+// GFLOP (0.03 ms at 67 TFLOP/s). A step is one dependent round: update every
+// point against the last selected one, find the cloud's maximum, broadcast
+// it. Its time is the issue of the update (about 12 instructions a point on
+// one SM: ~290 cycles at N = 3072) plus the latency of the round. The
+// design shortens both:
+//
+// - Each thread holds its PER points' coordinates in registers beside their
+//   running minimum (points tid + p * threads, so ascending in p), instead
+//   of re-reading them from shared memory.
+// - The selected point's coordinates come from a float4-padded copy of the
+//   cloud in shared memory: one 16-byte broadcast load a step (from global
+//   memory, through L1, where the cloud is too large to stage).
+// - The maximum is two `redux.sync` a level: distances are >= 0, so their
+//   bits order as unsigned integers; a warp takes the max of the bits, then
+//   the min index among the lanes that hold it. Lane 0 writes the warp's
+//   pair to one of two slots (alternating by step parity), one barrier, and
+//   every warp reduces all the pairs itself, so every thread knows the next
+//   point after a single barrier.
+// - Each thread reduces its own points as a pairwise tree from 8 points a
+//   thread up (a shorter dependent chain), else as a chain in p.
+// - Threads a cloud and PER come from the launch plan (ops/kernels.py
+//   `fps_plan`, from probe_knn_fps.py's readings): fewer warps make a
+//   cheaper barrier, more points a thread a longer update.
+//
+// One block a cloud: a cluster of two blocks, splitting the points and
+// sharing each step's pairs through distributed shared memory behind the
+// cluster barrier, read 1.6-2.9x slower at every path shape on the card
+// (PERF.md), the cluster barrier costing more than the half of the update
+// it saves.
 //
 // Rounding: ((dx*dx + dy*dy) + dz*dz) with each operation rounded on its own
 // (no FMA contraction), as ref.furthest_point_sample computes it.
-//
-// What bounds it on an H100: the serial chain of S steps, each a dependent
-// update, warp reduction, barrier and second warp reduction (a few
-// microseconds of latency), not bytes or operations. At (32, 3072 -> 2048)
-// the bytes are 393 KB in and 262 KB out (0.0002 ms at 3.35 TB/s) and the
-// operations 32 x 2047 x 3072 x 9 = 1.8 GFLOP (0.03 ms at 67 TFLOP/s). Only
-// B of 132 SMs are busy. A later PR would shorten each step (one warp per
-// cloud for small N, a cluster of blocks sharing the argmax through
-// distributed shared memory for large N) or run several clouds per SM.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kMaxThreads = 1024;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr unsigned kNone = 0xffffffffu;  // index of an empty slot
+// Clouds up to this many points are staged as float4 in shared memory
+// (192 KB); larger ones are read through L1.
+constexpr int kMaxStaged = 12288;
 
-__device__ __forceinline__ void argmax_warp(float& v, int& i) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, v, off);
-    const int oi = __shfl_xor_sync(0xffffffffu, i, off);
-    if (ov > v || (ov == v && oi < i)) {
-      v = ov;
-      i = oi;
-    }
-  }
+// Registers bound the threads a block can have with PER points a thread
+// (4 floats a point): 64 registers a thread at 1024 threads, 128 at 512
+// (PER = 32, only for N > 8192, spills a few).
+__host__ __device__ constexpr int max_threads(int per) {
+  return per <= 8 ? 1024 : 512;
+}
+
+// The (max bits, lowest index among them) of the warp's pairs.
+__device__ __forceinline__ uint2 argmax_warp(unsigned v, unsigned i) {
+  const unsigned m = __reduce_max_sync(kFull, v);
+  return make_uint2(m, __reduce_min_sync(kFull, v == m ? i : kNone));
 }
 
 template <int PER>
-__global__ void __launch_bounds__(kMaxThreads)
-fps_kernel(const float* __restrict__ xyz, int n, int s,
-           int* __restrict__ out) {
-  extern __shared__ float sxyz[];  // 3 * n
-  __shared__ float wval[2][32];
-  __shared__ int widx[2][32];
+__global__ void __launch_bounds__(max_threads(PER))
+fps_kernel(const float* __restrict__ xyz, int n, int s, int* __restrict__ out) {
+  extern __shared__ float4 s4[];  // n points, or none when n > kMaxStaged
+  __shared__ uint2 slot[2][32];
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;  // a multiple of 32
   const int lane = tid & 31;
@@ -66,49 +86,85 @@ fps_kernel(const float* __restrict__ xyz, int n, int s,
   const int nwarps = nthreads >> 5;
   const float* x = xyz + static_cast<size_t>(blockIdx.x) * n * 3;
   int* o = out + static_cast<size_t>(blockIdx.x) * s;
+  const bool staged = n <= kMaxStaged;
 
-  for (int t = tid; t < 3 * n; t += nthreads) sxyz[t] = x[t];
-  float md[PER];
+  if (staged) {
+    for (int t = tid; t < n; t += nthreads) {
+      s4[t] = make_float4(__ldg(x + 3 * t), __ldg(x + 3 * t + 1),
+                          __ldg(x + 3 * t + 2), 0.f);
+    }
+  }
+  float px[PER], py[PER], pz[PER], md[PER];
 #pragma unroll
-  for (int p = 0; p < PER; ++p) md[p] = 1e10f;
+  for (int p = 0; p < PER; ++p) {
+    const int i = tid + p * nthreads;
+    const bool on = i < n;
+    px[p] = on ? __ldg(x + 3 * i) : 0.f;
+    py[p] = on ? __ldg(x + 3 * i + 1) : 0.f;
+    pz[p] = on ? __ldg(x + 3 * i + 2) : 0.f;
+    md[p] = on ? 1e10f : -1.f;  // -1: below every distance, never selected
+  }
   if (tid == 0) o[0] = 0;
   __syncthreads();
 
   int last = 0;
   for (int step = 1; step < s; ++step) {
-    const float lx = sxyz[3 * last];
-    const float ly = sxyz[3 * last + 1];
-    const float lz = sxyz[3 * last + 2];
-    float best = -1.f;  // below every distance
-    int best_i = 0x7fffffff;
+    float lx, ly, lz;
+    if (staged) {
+      const float4 l = s4[last];
+      lx = l.x;
+      ly = l.y;
+      lz = l.z;
+    } else {
+      lx = __ldg(x + 3 * last);
+      ly = __ldg(x + 3 * last + 1);
+      lz = __ldg(x + 3 * last + 2);
+    }
+    float bv[PER];
+    int bp[PER];
 #pragma unroll
     for (int p = 0; p < PER; ++p) {
-      const int i = tid + p * nthreads;  // ascending in p
-      if (i < n) {
-        const float dx = __fsub_rn(sxyz[3 * i], lx);
-        const float dy = __fsub_rn(sxyz[3 * i + 1], ly);
-        const float dz = __fsub_rn(sxyz[3 * i + 2], lz);
-        const float d = __fadd_rn(
-            __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
-        const float m = fminf(md[p], d);
-        md[p] = m;
-        if (m > best) {
-          best = m;
-          best_i = i;
+      const float dx = __fsub_rn(px[p], lx);
+      const float dy = __fsub_rn(py[p], ly);
+      const float dz = __fsub_rn(pz[p], lz);
+      const float d = __fadd_rn(
+          __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
+      md[p] = fminf(md[p], d);
+      bv[p] = md[p];
+      bp[p] = p;
+    }
+    // The thread's (max, lowest p among equal maxima): a pairwise tree for
+    // 8 points or more (a shorter dependent chain), else a chain in p; a
+    // later p wins only if strictly larger.
+    if constexpr (PER >= 8) {
+#pragma unroll
+      for (int st = 1; st < PER; st *= 2) {
+#pragma unroll
+        for (int a = 0; a + st < PER; a += 2 * st) {
+          if (bv[a + st] > bv[a]) {
+            bv[a] = bv[a + st];
+            bp[a] = bp[a + st];
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int p = 1; p < PER; ++p) {
+        if (bv[p] > bv[0]) {
+          bv[0] = bv[p];
+          bp[0] = p;
         }
       }
     }
-    argmax_warp(best, best_i);
+    const bool any = bv[0] >= 0.f;  // a thread with no point offers (0, none)
+    const uint2 w = argmax_warp(
+        any ? __float_as_uint(bv[0]) : 0u,
+        any ? static_cast<unsigned>(tid + bp[0] * nthreads) : kNone);
     const int buf = step & 1;
-    if (lane == 0) {
-      wval[buf][warp] = best;
-      widx[buf][warp] = best_i;
-    }
+    if (lane == 0) slot[buf][warp] = w;
     __syncthreads();
-    best = lane < nwarps ? wval[buf][lane] : -2.f;
-    best_i = lane < nwarps ? widx[buf][lane] : 0x7fffffff;
-    argmax_warp(best, best_i);
-    last = best_i;
+    const uint2 e = lane < nwarps ? slot[buf][lane] : make_uint2(0u, kNone);
+    last = static_cast<int>(argmax_warp(e.x, e.y).y);
     if (tid == 0) o[step] = last;
   }
 }
@@ -116,8 +172,10 @@ fps_kernel(const float* __restrict__ xyz, int n, int s,
 template <int PER>
 cudaError_t launch(const float* xyz, int batch, int n, int s, int threads,
                    int* out, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(n) * 3 * sizeof(float);
-  if (smem > 48 * 1024) {
+  if (threads > max_threads(PER)) return cudaErrorInvalidValue;
+  const size_t smem =
+      n <= kMaxStaged ? static_cast<size_t>(n) * sizeof(float4) : 0;
+  if (smem > 32 * 1024) {  // the opt-in also covers the static slots
     const cudaError_t err = cudaFuncSetAttribute(
         fps_kernel<PER>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
@@ -127,34 +185,41 @@ cudaError_t launch(const float* xyz, int batch, int n, int s, int threads,
   return cudaGetLastError();
 }
 
+cudaError_t launch_per(const float* xyz, int batch, int n, int s, int threads,
+                       int per, int* out, cudaStream_t st) {
+  switch (per) {
+    case 1: return launch<1>(xyz, batch, n, s, threads, out, st);
+    case 2: return launch<2>(xyz, batch, n, s, threads, out, st);
+    case 3: return launch<3>(xyz, batch, n, s, threads, out, st);
+    case 4: return launch<4>(xyz, batch, n, s, threads, out, st);
+    case 6: return launch<6>(xyz, batch, n, s, threads, out, st);
+    case 8: return launch<8>(xyz, batch, n, s, threads, out, st);
+    case 12: return launch<12>(xyz, batch, n, s, threads, out, st);
+    case 16: return launch<16>(xyz, batch, n, s, threads, out, st);
+    case 24: return launch<24>(xyz, batch, n, s, threads, out, st);
+    case 32: return launch<32>(xyz, batch, n, s, threads, out, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 // xyz (B, N, 3) float32 contiguous on the device, 1 <= N <= 16384; out
-// (B, S) int32, S >= 1. Launches on `stream` without synchronising and
+// (B, S) int32, S >= 1. The launch plan (ops/kernels.py `fps_plan`):
+// `threads` a block (a multiple of 32, at most the PER's register bound),
+// `per` points a thread (1, 2, 3, 4, 6, 8, 12, 16, 24 or 32),
+// threads * per >= N. Launches on `stream` without synchronising and
 // returns the launch's cudaError_t (0 on success).
-int fps_forward(const float* xyz, int batch, int n, int s, int* out,
-                void* stream) {
-  if (n < 1 || n > 16 * kMaxThreads || s < 1) {
+int fps_forward(const float* xyz, int batch, int n, int s, int threads,
+                int per, int* out, void* stream) {
+  if (n < 1 || n > 16384 || s < 1 || threads < 32 || threads % 32 != 0 ||
+      threads > kMaxThreads || static_cast<long long>(threads) * per < n) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int threads = n >= kMaxThreads ? kMaxThreads : ((n + 31) / 32) * 32;
-  const int per = (n + threads - 1) / threads;
-  cudaError_t err;
-  if (per <= 1) {
-    err = launch<1>(xyz, batch, n, s, threads, out, st);
-  } else if (per <= 2) {
-    err = launch<2>(xyz, batch, n, s, threads, out, st);
-  } else if (per <= 4) {
-    err = launch<4>(xyz, batch, n, s, threads, out, st);
-  } else if (per <= 8) {
-    err = launch<8>(xyz, batch, n, s, threads, out, st);
-  } else {
-    err = launch<16>(xyz, batch, n, s, threads, out, st);
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(launch_per(xyz, batch, n, s, threads, per, out, st));
 }
 
 }  // extern "C"

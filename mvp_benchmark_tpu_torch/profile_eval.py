@@ -38,7 +38,8 @@ from mvp_benchmark_tpu_torch.train.meters import AverageValueMeter
 from mvp_benchmark_tpu_torch.train.optim import build_optimizer
 
 # Substrings of the port's kernel names (ops/csrc/*.cu).
-PORT_KERNELS = ("chamfer_rowmin_kernel", "knn_kernel", "fps_kernel",
+PORT_KERNELS = ("chamfer_rowmin_kernel", "knn_queue_kernel", "knn_direct_kernel",
+                "fps_kernel",
                 "gather_rows_kernel", "group_max_kernel",
                 "three_interpolate_kernel", "sa_attention_kernel",
                 "chamfer_backward_kernel", "scatter_add_rows_kernel",

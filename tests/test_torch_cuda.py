@@ -128,6 +128,53 @@ def test_fps_kernel_duplicates(cuda):
              [ref.furthest_point_sample(x, 600)])
 
 
+@pytest.mark.parametrize("B,M,N,C,k", [
+    (64, 384, 384, 3, 16), (64, 768, 384, 3, 3), (32, 256, 1024, 3, 16),
+    (32, 64, 64, 48, 16), (32, 2048, 2048, 3, 20), (32, 2048, 2048, 3, 12),
+    (3264, 24, 24, 3, 2)])
+def test_knn_kernel_at_path_shapes_twice(cuda, B, M, N, C, k):
+    """Path shapes of either kernel and of short scans, and DCP's and IDAM's
+    k: equal to the plain version, and two runs bitwise equal."""
+    p = _rand(cuda, B, N, C, seed=8)
+    q = p if M == N else _rand(cuda, B, M, C, seed=9)
+    first = kernels.knn(q, p, k)
+    _bitwise(first, ref.knn(q, p, k))
+    _bitwise(kernels.knn(q, p, k), first)
+
+
+@pytest.mark.parametrize("B,M,N,C,k", [(2, 300, 1500, 3, 16), (2, 130, 700, 3, 3),
+                                       (2, 90, 400, 24, 16), (1, 64, 200, 48, 16),
+                                       (2, 70, 300, 3, 20), (1, 40, 90, 7, 5)])
+def test_knn_every_plan_equals_plain_version(cuda, B, M, N, C, k):
+    """Every launch plan knn.cu takes (the direct kernel, the queue kernel at
+    each row count), on points with exact copies on both sides of each
+    candidate tile's boundary."""
+    from mvp_benchmark_tpu_torch.probe_knn_fps import knn_plans
+    p = _rand(cuda, B, N, C, seed=10)
+    tile = kernels.knn_tile_points(C, N)
+    for j in range(tile, N, tile):
+        p[:, j:j + 3] = p[:, j - 3:j]
+    q = torch.cat([p[:, :M // 2], _rand(cuda, B, M - M // 2, C, seed=11)], 1)
+    want = ref.knn(q, p, k)
+    for plan in knn_plans(B, M, N, C, k):
+        _bitwise(kernels._knn_launch(q, p, min(k, N), plan), want)
+
+
+@pytest.mark.parametrize("B,N,S", [(64, 3072, 2048), (32, 1024, 51), (5, 700, 300)])
+def test_fps_every_plan_equals_plain_version(cuda, B, N, S):
+    """Every (threads, points a thread) fps.cu takes, with each
+    point duplicated at a distant index, and two runs of the planned launch
+    bitwise equal."""
+    from mvp_benchmark_tpu_torch.probe_knn_fps import fps_plans
+    x = _rand(cuda, B, N, 3, seed=12)
+    x[:, N // 2:2 * (N // 2)] = x[:, :N // 2]
+    want = ref.furthest_point_sample(x, S)
+    for plan in fps_plans(N):
+        _bitwise([kernels._fps_launch(x, S, plan)], [want])
+    first = kernels.furthest_point_sample(x, S)
+    _bitwise([kernels.furthest_point_sample(x, S)], [first])
+
+
 @pytest.mark.parametrize("C", [3, 24, 120, 360])
 def test_gather_kernels_equal_plain_versions(cuda, C):
     f = _rand(cuda, 2, 300, C, seed=7)

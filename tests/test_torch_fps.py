@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from mvp_benchmark_tpu.ops import jnp_ref, pallas_kernels
+from mvp_benchmark_tpu_torch import probe_knn_fps
 from mvp_benchmark_tpu_torch.ops import dispatch, kernels, ref
 from tests.util_np import fps_np
 
@@ -84,3 +85,31 @@ def test_cpu_dispatch_takes_plain_version(monkeypatch):
 def test_kernel_wrapper_rejects_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.furthest_point_sample(torch.from_numpy(_cloud(1, 1, 16)), 4)
+
+
+@pytest.mark.parametrize("shape", probe_knn_fps.FPS_SHAPES,
+                         ids=[s[0] for s in probe_knn_fps.FPS_SHAPES])
+def test_fps_plan_at_path_shapes(shape):
+    """fps.cu's launch plan at every shape the driven paths launch: an
+    instantiated PER within its register bound on the threads, the points
+    covered, the staged cloud within shared memory, the same plan for the
+    same shape."""
+    _, B, N, S = shape
+    threads, per = kernels.fps_plan(B, N, S)
+    assert per in kernels.FPS_PERS and threads % 32 == 0
+    assert 32 <= threads <= kernels.fps_max_threads(per)
+    assert threads * per >= N
+    assert kernels.fps_smem_bytes(N) <= kernels.MAX_SMEM
+    assert kernels.fps_plan(B, N, S) == (threads, per)
+
+
+def test_fps_plan_limits_over_sizes():
+    for N in (1, 2, 31, 32, 33, 100, 1000, 4097, 8192, 8193, 12288, 12289,
+              16383, 16384):
+        threads, per = kernels.fps_plan(4, N, 8)
+        assert per in kernels.FPS_PERS and threads % 32 == 0
+        assert threads <= kernels.fps_max_threads(per)
+        assert threads * per >= N
+        assert kernels.fps_smem_bytes(N) <= kernels.MAX_SMEM
+    with pytest.raises(ValueError, match="limit"):
+        kernels.fps_plan(1, kernels.FPS_MAX_N + 1, 4)

@@ -41,6 +41,7 @@ SLICE_MODULES = [
     "mvp_benchmark_tpu_torch.probe_attention_backward",
     "mvp_benchmark_tpu_torch.probe_attention",
     "mvp_benchmark_tpu_torch.probe_train_backwards",
+    "mvp_benchmark_tpu_torch.probe_knn_fps",
     "chip_smoke",
 ]
 

@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from mvp_benchmark_tpu.ops import jnp_ref, pallas_kernels
+from mvp_benchmark_tpu_torch import probe_knn_fps
 from mvp_benchmark_tpu_torch.ops import dispatch, kernels, ref
 from tests.util_clouds import knn_inputs_with_margin
 from tests.util_np import knn_np
@@ -165,3 +166,61 @@ def test_kernel_wrapper_rejects_cpu_tensors():
     q, p = _t(*knn_inputs_with_margin(1, 8, 16, 3, 4))
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.knn(q, p, 4)
+
+
+@pytest.mark.parametrize("shape", probe_knn_fps.KNN_SHAPES,
+                         ids=[s[0] for s in probe_knn_fps.KNN_SHAPES])
+def test_knn_plan_at_path_shapes(shape):
+    """knn.cu's launch plan at every shape the driven paths launch: an
+    instantiated row count, within the grid and shared-memory limits, the
+    same plan for the same shape."""
+    _, B, M, N, C, k = shape
+    plan = kernels.knn_plan(B, M, N, C, k)
+    _check_plan(B, M, N, C, k, *plan)
+    assert kernels.knn_plan(B, M, N, C, k) == plan
+
+
+def _check_plan(B, M, N, C, k, queued, R):
+    """A plan knn.cu takes: the direct kernel with one row a thread, or
+    (k > 3) the queue kernel at an instantiated row count, within the grid
+    and shared-memory limits."""
+    assert B <= 65535
+    if queued == 0:
+        assert R == 1
+        return
+    assert queued == 1 and min(k, N) > 3
+    assert R in kernels.knn_rows_allowed(C, min(k, N))
+    assert -(-M // (kernels.KNN_THREADS * R)) < 2 ** 31
+    assert kernels.knn_smem_bytes(C, R, N) <= kernels.MAX_SMEM
+
+
+@pytest.mark.parametrize("C,k", [(3, 1), (3, 16), (3, 32), (24, 16), (48, 32),
+                                 (5, 10), (6144, 2), (6144, 20)])
+def test_knn_plan_limits_over_sizes(C, k):
+    for B in (1, 2, 64, 3264, 65535):
+        for M in (1, 24, 127, 128, 3072, 20000):
+            for N in (1, 2, 31, 64, 65, 129, 384, 3072, 50000):
+                _check_plan(B, M, N, C, k, *kernels.knn_plan(B, M, N, C, min(k, N)))
+
+
+@pytest.mark.parametrize("C", [3, 7, 24, 48])
+def test_knn_plan_takes_two_rows_only_at_c24(C):
+    """Two query rows a thread only at C = 24, where one 16-byte load feeds
+    two rows' products, and only on a grid that keeps ~3 blocks an SM."""
+    rows = {kernels.knn_plan(B, M, 3072, C, 16)[1]
+            for B in (1, 32, 64) for M in (128, 1024, 3072)}
+    assert rows == ({1, 2} if C == 24 else {1})
+    assert kernels.knn_plan(1, 3072, 3072, C, 16) == (1, 1)
+
+
+@pytest.mark.parametrize("C,N", [(3, 3072), (3, 100), (24, 3072), (48, 1024),
+                                 (7, 65), (6144, 3072)])
+def test_knn_tile_points(C, N):
+    """A candidate tile of the queue kernel holds a multiple of 4 points,
+    at most 8 KB of them (C = 3 as float4) unless 4 points exceed it, and
+    no more than N points need."""
+    pts = kernels.knn_tile_points(C, N)
+    width = 4 if C == 3 else C
+    assert pts % 4 == 0 and pts >= 4
+    assert pts * width * 4 <= kernels.KNN_TILE_BYTES or pts == 4
+    assert pts <= -(-N // 4) * 4
