@@ -14,10 +14,13 @@ Phases, each of which raises on failure (exit code != 0):
    with exact copies across its candidate tiles, run twice, bitwise equal
    (and at every path shape in phase 6); the SA block, which
    sums in another order, within |kernel - plain| <= 1e-5 + 1e-4 |plain|;
-   the five backward kernels, which scatter with atomics, at a VRCNet train
-   step's shapes plus ragged, collision and tie cases within the same bar
-   (the SA block's weight gradients, sums over every point, against
-   max|plain|); the ball query at ECG's uniform-loss shapes plus ragged and
+   the five backward kernels, gathers over reverse lists of their indices
+   (``reverse_list.cu``, each list bitwise ``ref.reverse_list``'s; a
+   scatter_add_rows of a small cloud lists in shared memory, both forms
+   checked), at a
+   VRCNet train step's shapes plus ragged, collision and tie cases within
+   the same bar (the SA block's weight gradients, sums over every point,
+   against max|plain|) and two runs of each bitwise equal; the ball query at ECG's uniform-loss shapes plus ragged and
    edge cases, and the auction EMD at the val metric's (32, 2048, eps 0.004,
    3000 iterations), at an iteration count that ends in the forced round
    and at an n that is not a multiple of 1024: indices and assignments
@@ -76,6 +79,9 @@ Phases, each of which raises on failure (exit code != 0):
    metrics, and a train step on two full-width pairs against the CPU with
    the same kept points, its gt-match and correspondence flips counted,
    then held with the card's selections on both (``check_idam_step_on_cpu``);
+   full-width PCN, VRCNet and ECG train steps run twice from one seed,
+   the parameters after them bitwise equal
+   (``check_completion_steps_rerun_bitwise``);
 6. times the val and test passes per batch, the train steps (ms and
    points/s; DCP's and IDAM's in pairs/s), and each kernel against its plain version (and a single
    PyTorch call computing the same function, where one exists) at a
@@ -84,7 +90,8 @@ Phases, each of which raises on failure (exit code != 0):
    them with (``probe_knn_fps``: VRCNet at 32 and 64 clouds, ECG, DCP's
    k 20, IDAM's k 12), each held bitwise against its plain version and run
    twice, with kNN's issue floor under its rounding rule and FPS's time a
-   step.
+   step; the SA block's backward at each of VRCNet's four levels, with the
+   device time of each of its passes.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -157,22 +164,37 @@ KERNELS = {   # launch-count key -> the kernel's identity in the kernels line
                      "source": f"{_CSRC}/sa_attention.cu",
                      "replaces": f"{_PK}:1354"},
 }
+# Each of the five completion backwards first builds the reverse list of
+# its index (reverse_list.cu's reverse_list_kernel), then runs its gathers;
+# scatter_add_rows of a small cloud (``kernels.scatter_plan``) launches
+# its local kernel alone instead. "globals" names the __global__ kernels a
+# call can launch.
+_LIST = "reverse_list.cu:reverse_list_kernel"
 BACKWARD_KERNELS = {
     "chamfer_backward": {"name": "chamfer_backward",
                          "source": f"{_CSRC}/chamfer.cu",
-                         "replaces": f"{_PK}:333"},
+                         "replaces": f"{_PK}:333",
+                         "globals": [_LIST, "chamfer_backward_kernel"]},
     "scatter_add_rows": {"name": "scatter_add_rows",
                          "source": f"{_CSRC}/gather.cu",
-                         "replaces": f"{_PK}:1613"},
+                         "replaces": f"{_PK}:1613",
+                         "globals": [_LIST, "scatter_add_rows_kernel",
+                                     "scatter_add_rows_local_kernel"]},
     "group_max_backward": {"name": "group_max_backward",
                            "source": f"{_CSRC}/gather.cu",
-                           "replaces": f"{_PK}:928"},
+                           "replaces": f"{_PK}:928",
+                           "globals": [_LIST, "group_max_backward_kernel"]},
     "three_interpolate_backward": {"name": "three_interpolate_backward",
                                    "source": f"{_CSRC}/gather.cu",
-                                   "replaces": f"{_PK}:1086"},
+                                   "replaces": f"{_PK}:1086",
+                                   "globals": [_LIST, "three_interpolate_backward_kernel",
+                                               "three_interpolate_dweight_kernel"]},
     "sa_attention_backward": {"name": "sa_attention_backward",
                               "source": f"{_CSRC}/sa_attention.cu",
-                              "replaces": f"{_PK}:1417"},
+                              "replaces": f"{_PK}:1417",
+                              "globals": ["sa_backward_points_kernel",
+                                          "sa_backward_sum_kernel", _LIST,
+                                          "sa_backward_rows_kernel"]},
 }
 KERNELS.update(BACKWARD_KERNELS)
 KERNELS.update({
@@ -597,18 +619,30 @@ def compare_knn_across_tiles(device):
 def cotangent(seed, shape, device, positive=False):
     """Unit-scale cotangents in [-1, 1), or in [0, 1) where a collision case
     sums thousands of them into one row: there the bar relative to |plain|
-    holds a lost or doubled atomic update, not the rounding of a sum that
-    cancels to near 0."""
+    holds a lost or doubled term, not the rounding of a sum that cancels to
+    near 0."""
     u = uniform(seed, shape, device)
     return u if positive else u * 2 - 1
+
+
+def check_list(name, idx, num_rows):
+    """reverse_list.cu's list of an index, bitwise ``ref.reverse_list``'s
+    (a stable sort: every row's entries ascending), and equal in a second
+    run."""
+    got = kernels.reverse_list(idx, num_rows)
+    again = kernels.reverse_list(idx, num_rows)
+    check_equal(f"reverse_list {name}", got, ref.reverse_list(idx, num_rows))
+    check_rerun_bitwise(f"reverse_list {name}", got, again)
 
 
 def compare_backward_kernels_with_plain(device):
     """Phase 3b: the five backward kernels against their plain versions, at
     the VRCNet train step's shapes (the dual path doubles the batch to 64),
     a ragged shape and heavy index collisions, within
-    |kernel - plain| <= SA_ATOL + SA_RTOL |plain| (atomic summation order).
-    Returns {launch-count key: max |kernel - plain|}."""
+    |kernel - plain| <= SA_ATOL + SA_RTOL |plain| (the plain versions
+    scatter with the card's atomic ``index_add_``), each run twice and the
+    two bitwise equal; their reverse lists bitwise equal to the plain
+    list. Returns {launch-count key: max |kernel - plain|}."""
     err = dict.fromkeys(BACKWARD_KERNELS, 0.0)
 
     gt, pred = clouds(40, 64, 2048, 3072, device)
@@ -626,6 +660,11 @@ def compare_backward_kernels_with_plain(device):
         g1 = cotangent(43, tuple(d1.shape), device, name.startswith("collapsed"))
         g2 = cotangent(44, tuple(d2.shape), device, name.startswith("collapsed"))
         got = kernels.chamfer_backward(a, b, i1, g1, i2, g2, need_a, need_b)
+        check_rerun_bitwise(f"chamfer_backward {name}", [x for x in got if x is not None],
+                            [x for x in kernels.chamfer_backward(a, b, i1, g1, i2, g2,
+                                                                 need_a, need_b)
+                             if x is not None])
+        check_list(f"chamfer {name} i1", i1, b.shape[1])
         want = ref.chamfer_backward(a, b, i1, g1, i2, g2, need_a, need_b)
         for side, g, w in zip("ab", got, want):
             check((g is None) == (w is None), f"chamfer_backward {name} d{side}")
@@ -633,21 +672,29 @@ def compare_backward_kernels_with_plain(device):
                 err["chamfer_backward"] = max(err["chamfer_backward"], check_close(
                     f"chamfer_backward {name} d{side}", g, w))
 
-    for name, (B, n, m, c, k) in {
-            "center_64x3072x64_by_1536": (64, 3072, 1536, 64, None),
-            "center_64x768x256_by_384": (64, 768, 384, 256, None),
-            "coarse_64x3072x3_by_2048": (64, 3072, 2048, 3, None),
-            "ragged_3x97x5_by_41x7": (3, 97, 41, 5, 7),
-            "collisions_4x2048x24_all_to_row_5": (4, 2048, 2048, 24, None)}.items():
+    for name, (B, n, m, c, k, local) in {   # local: the one-launch form
+            "center_64x3072x64_by_1536": (64, 3072, 1536, 64, None, True),
+            "center_64x768x256_by_384": (64, 768, 384, 256, None, True),
+            "coarse_64x3072x3_by_2048": (64, 3072, 2048, 3, None, True),
+            "ragged_3x97x5_by_41x7": (3, 97, 41, 5, 7, True),
+            "uniform_knn_3264x24x3_by_24x2": (3264, 24, 24, 3, 2, True),
+            "dense_edge_32x3072x24_by_3072x16": (32, 3072, 3072, 24, 16, False),
+            "collisions_4x2048x24_all_to_row_5": (4, 2048, 2048, 24, None, True),
+            "collisions_2x4096x8_by_4096x4_all_to_row_5": (2, 4096, 4096, 8, 4, False)}.items():
         shape = (B, m) if k is None else (B, m, k)
+        check(bool(kernels.scatter_plan(m * (k or 1), n, c // 4 if c % 4 == 0 else c)[0])
+              == local, f"scatter_add_rows {name}: the plan's form")
         idx = indices(45 + n, n, shape, device)
         if name.startswith("collisions"):
             idx.fill_(5)
         g = cotangent(46 + n, shape + (c,), device,
                       positive=name.startswith("collisions"))
+        got = kernels.scatter_add_rows(g, idx, n)
+        check_rerun_bitwise(f"scatter_add_rows {name}", [got],
+                            [kernels.scatter_add_rows(g, idx, n)])
+        check_list(f"scatter {name}", idx, n)
         err["scatter_add_rows"] = max(err["scatter_add_rows"], check_close(
-            f"scatter_add_rows {name}", kernels.scatter_add_rows(g, idx, n),
-            ref.scatter_add_rows(g, idx, n)))
+            f"scatter_add_rows {name}", got, ref.scatter_add_rows(g, idx, n)))
 
     for name, (B, n, c, m, k) in {
             "level1_64x3072x64_by_1536x10": (64, 3072, 64, 1536, 10),
@@ -660,9 +707,12 @@ def compare_backward_kernels_with_plain(device):
         idx[:, :, k - 1] = idx[:, :, 0]              # a row twice: exact ties
         _, slot = kernels.group_max_forward(f, idx)
         g = cotangent(49 + n, (B, m, c), device)
+        got = kernels.group_max_backward(g, idx, slot, n)
+        check_rerun_bitwise(f"group_max_backward {name}", [got],
+                            [kernels.group_max_backward(g, idx, slot, n)])
+        check_list(f"group_max {name}", idx, n)
         err["group_max_backward"] = max(err["group_max_backward"], check_close(
-            f"group_max_backward {name}", kernels.group_max_backward(g, idx, slot, n),
-            ref.group_max_backward(g, idx, slot, n)))
+            f"group_max_backward {name}", got, ref.group_max_backward(g, idx, slot, n)))
 
     for name, (B, ms, n, c, need_w) in {
             "level4to3_64x384x512_to_768": (64, 384, 768, 512, False),
@@ -678,6 +728,11 @@ def compare_backward_kernels_with_plain(device):
         g = cotangent(53 + n, (B, n, c), device,
                       positive=name.startswith("collisions"))
         got = kernels.three_interpolate_backward(g, idx, w, f, need_w)
+        check_rerun_bitwise(f"three_interpolate_backward {name}",
+                            [x for x in got if x is not None],
+                            [x for x in kernels.three_interpolate_backward(
+                                g, idx, w, f, need_w) if x is not None])
+        check_list(f"three_interpolate {name}", idx, ms)
         want = ref.three_interpolate_backward(g, idx, w, f, need_w)
         check((got[1] is None) == (not need_w), f"three_interpolate_backward {name}")
         for part, gt_, wt in zip(("d_features", "d_weight"), got, want):
@@ -695,6 +750,9 @@ def compare_backward_kernels_with_plain(device):
             args[2].fill_(3)
         g = cotangent(61 + n, (B, n, mid), device)
         got = kernels.sa_attention_backward(g, *args, rel, mid, 8)
+        check_rerun_bitwise(f"sa_attention_backward ({B}, {n}, k {k}, rel {rel})", got,
+                            kernels.sa_attention_backward(g, *args, rel, mid, 8))
+        check_list(f"sa_attention ({B}, {n}, k {k})", args[2], n)
         want = ref.sa_attention_backward(g, *args, rel, mid, 8)
         for part, gt_, wt in zip(("d_proj", "d_x1", "dW1", "dW2", "db2"), got, want):
             err["sa_attention_backward"] = max(
@@ -1918,6 +1976,27 @@ def check_ecg_step_on_cpu(cfg, device, clouds_cut=2):
           f"ECG gradient card vs CPU: cosine {cosine}, norms {norm_rel}")
 
 
+def check_completion_steps_rerun_bitwise(device):
+    """Full-width PCN, VRCNet and ECG train steps (batch 32 x 2048 points,
+    ``engine.make_train_step``, as ``completion_step``) run twice from the
+    same seed, batch and noise, without ``torch.use_deterministic_algorithms``
+    (as the engine runs them): the parameters after the step bitwise equal,
+    since every kernel on these steps sums in a fixed order."""
+    for name, path in (("PCN", PCN_CFG), ("VRCNet", VRCNET_CFG), ("ECG", ECG_CFG)):
+        cfg = load_config(path)
+        params = []
+        for _ in range(2):
+            run, _ = completion_step(cfg, device)
+            run()
+            torch.cuda.synchronize()
+            params.append([p.detach().clone() for p in run.model.parameters()])
+        diff = sum(int((a != b).sum()) for a, b in zip(*params))
+        total = sum(a.numel() for a in params[0])
+        print(f"{name} train step run twice from one seed: parameters after the "
+              f"step bitwise equal ({diff} of {total} differ)")
+        check(diff == 0, f"{name}: two train steps from one seed differ in {diff} values")
+
+
 def completion_step(cfg, device):
     """One train step from the seeded weights as ``engine.train_completion``
     runs it (``engine.make_train_step``, the step's noise drawn on the host)
@@ -1928,8 +2007,12 @@ def completion_step(cfg, device):
     batch = _train_batch(cfg, int(cfg.batch_size))
     gen = torch.Generator().manual_seed(1)
     bs = int(cfg.batch_size)
-    return (lambda: step(batch, 0.5, engine.draw_noise(model, bs, gen)),
-            bs * int(cfg.num_points))
+
+    def run():
+        return step(batch, 0.5, engine.draw_noise(model, bs, gen))
+
+    run.model = model
+    return run, bs * int(cfg.num_points)
 
 
 def registration_step(cfg, device):
@@ -2082,6 +2165,87 @@ def timing_cases(device):
     }
 
 
+# VRCNet's four SA levels in its train step (batch 64 after the dual path):
+# (N, k, rel, mid), share 8, level i on 3072 / 2^i points at the widths of
+# the kernel's i-th instantiation.
+SA_LEVELS = tuple((3072 >> i, 16, rel, mid) for i, (rel, mid, _) in enumerate(kernels.SA_LEVELS))
+
+
+def sa_backward_work(B, n, k, rel, mid, share=8):
+    """(bytes, operations) of the SA block's backward: proj, x1, idx and
+    d_out read once, d_proj and d_x1 written once (the weights are at most
+    70 KB); its forward recomputed, then d_w, d_proj, db2, dW2, d_u, dW1 and
+    d_cat, 2 operations a multiply-add."""
+    ms = mid // share
+    in_w, kms = (1 + k) * rel, k * ms
+    nbytes = B * n * (2 * (rel + mid) + 2 * rel + k + mid) * 4
+    ops = B * n * (2 * in_w * ms + 2 * ms * kms + kms             # forward
+                   + 2 * k * mid + k * mid + kms + 2 * ms * kms   # d_w .. dW2
+                   + 2 * kms * ms + 2 * in_w * ms + 2 * in_w * ms)
+    return nbytes, ops
+
+
+def time_sa_backward_at_path_shapes(device, card):
+    """The SA block's backward at each of VRCNet's four levels in its train
+    step: kernel and plain times (CUDA events, in the order plain, kernel,
+    kernel, plain), the device time of each pass under torch.profiler
+    (``probe_knn_fps.device_ms``: pass 1, the partials' sum, the reverse
+    list and pass 2), and the bound (``sa_backward_work``). Prints one JSON
+    line."""
+    out = []
+    for i, (n, k, rel, mid) in enumerate(SA_LEVELS):
+        B = 64
+        args = sa_inputs(70 + i, B, n, k, rel, mid, device)
+        g = cotangent(71 + i, (B, n, mid), device)
+        kern = lambda: kernels.sa_attention_backward(g, *args, rel, mid, 8)
+        plain = lambda: ref.sa_attention_backward(g, *args, rel, mid, 8)
+        its = {"kernel": _iters(kern), "plain": _iters(plain)}
+        runs = {"kernel": [], "plain": []}
+        for which, fn in (("plain", plain), ("kernel", kern), ("kernel", kern),
+                          ("plain", plain)):
+            runs[which].append(time_cuda(fn, *its[which]))
+        passes = {name: probe_knn_fps.device_ms(kern, names=(name,))
+                  for name in ("sa_backward_points", "sa_backward_sum",
+                               "reverse_list", "sa_backward_rows")}
+        bound_ms, bound_by = bound(*sa_backward_work(B, n, k, rel, mid))
+        out.append({"B": B, "N": n, "k": k, "rel": rel, "mid": mid,
+                    "ms": runs["kernel"], "plain_ms": runs["plain"],
+                    "device_ms": passes, "bound_ms": bound_ms, "bound_by": bound_by})
+    print(f"sa_backward_path_shapes on {card}: {json.dumps(out)}")
+    return out
+
+
+def time_scatter_at_ecg_shapes(device, card):
+    """scatter_add_rows at the shapes of ECG's train step, each form: the
+    uniform losses' kNN and grouping gathers (out2's largest), a sampled
+    centres' gather, the last FPS's gather and DenseEdge's neighbour gather
+    at level 1 (the list form); kernel and ``torch.index_add`` times (CUDA
+    events, in the order library, kernel, kernel, library). Prints one JSON
+    line."""
+    out = []
+    for label, (B, n, m, c) in {
+            "uniform_knn (3264, 24 x 2) into 24 x 3": (3264, 24, 48, 3),
+            "uniform_group (32, 102 x 24) into 2048 x 3": (32, 2048, 2448, 3),
+            "centres (32, 1024) into 3072 x 120": (32, 3072, 1024, 120),
+            "fine_fps (32, 2048) into 3072 x 3": (32, 3072, 2048, 3),
+            "dense_edge (32, 3072 x 16) into 3072 x 24": (32, 3072, 49152, 24)}.items():
+        g = cotangent(80 + m, (B, m, c), device)
+        idx = indices(81 + m, n, (B, m), device)
+        flat = (idx.long() + torch.arange(B, device=device)[:, None] * n).reshape(-1)
+        zero = torch.zeros(B * n, c, device=device)
+        kern = lambda: kernels.scatter_add_rows(g, idx, n)
+        lib = lambda: torch.index_add(zero, 0, flat, g.reshape(-1, c))
+        its = {"kernel": _iters(kern), "library": _iters(lib)}
+        runs = {"kernel": [], "library": []}
+        for which, fn in (("library", lib), ("kernel", kern), ("kernel", kern),
+                          ("library", lib)):
+            runs[which].append(time_cuda(fn, *its[which]))
+        out.append({"shape": label, "plan": kernels.scatter_plan(m, n, c // 4 if c % 4 == 0 else c),
+                    "ms": runs["kernel"], "library_ms": runs["library"]})
+    print(f"scatter_ecg_shapes on {card}: {json.dumps(out)}")
+    return out
+
+
 def backward_timing_cases(device):
     """timing_cases of the five backwards, at a VRCNet train step's shape
     each (batch 64 after the dual path). Bytes: each input read once, each
@@ -2105,13 +2269,9 @@ def backward_timing_cases(device):
     ti_idx, ti_w = ref.three_nn_upsampling(uniform(13, (B, 3072, 3), device),
                                            uniform(14, (B, 1536, 3), device))
     ti_g = cotangent(15, (B, 3072, 128), device)
-    n, k, rel, mid, ms = 3072, 16, 4, 16, 2          # SA level 1
+    n, k, rel, mid = SA_LEVELS[0]                    # SA level 1
     sa = sa_inputs(16, B, n, k, rel, mid, device)
     sa_g = cotangent(17, (B, n, mid), device)
-    in_w, kms = (1 + k) * rel, k * ms
-    sa_ops = B * n * (2 * in_w * ms + 2 * ms * kms + kms          # forward
-                      + 2 * k * mid + k * mid + kms + 2 * ms * kms  # d_w .. dW2
-                      + 2 * kms * ms + 2 * in_w * ms + 2 * in_w * ms)
     return {
         "chamfer_backward": (
             "(64, 2048 gt vs 3072 predicted), db",
@@ -2146,8 +2306,7 @@ def backward_timing_cases(device):
             lambda: kernels.sa_attention_backward(sa_g, *sa, rel, mid, 8),
             lambda: ref.sa_attention_backward(sa_g, *sa, rel, mid, 8),
             None,
-            B * n * (2 * (rel + mid) + 2 * rel + k + mid) * 4,
-            sa_ops),
+            *sa_backward_work(B, n, k, rel, mid)),
     }
 
 
@@ -2584,6 +2743,7 @@ def main() -> int:
     check_ecg_step_on_cpu(load_config(ECG_CFG), device)
     check_dcp_step_on_cpu(load_config(DCP_CFG), device)
     check_idam_step_on_cpu(load_config(IDAM_CFG), device)
+    check_completion_steps_rerun_bitwise(device)
 
     for name, cfg in (("PCN", pcn), ("VRCNet", vrc), ("ECG", ecg)):
         time_train_steps(name, cfg, card, *completion_step(cfg, device), "points")
@@ -2592,6 +2752,8 @@ def main() -> int:
                      steps=3)
     times = time_kernels(device, card, emd_case)
     time_knn_fps_at_path_shapes(device, card)
+    time_sa_backward_at_path_shapes(device, card)
+    time_scatter_at_ecg_shapes(device, card)
 
     launches = {k: sum(counts[k] for counts in paths.values()) for k in KERNELS}
     check(all(launches.values()), f"a kernel no driven path launched: {launches}")

@@ -41,24 +41,32 @@
 //   dp[i] = 2 gp[i] (p[i] - q[ip[i]]) - sum_{j: iq[j] = i} 2 gq[j] (q[j] - p[i])
 //
 // (the XLA form of :442-450). The TPU kernel builds both terms as one-hot
-// MXU products, accumulating over its grid in order; here one thread takes
-// one point of either cloud and adds its term with fp32 atomicAdd into dp,
-// which the wrapper zeroes: a thread of p adds the gather term at its own
-// row, a thread of q subtracts its term at row iq[j]. Each term is
-// (2 g) * (p - q), rounded as ops/ref.py rounds it; the sum into one row is
-// in atomic order, so dp agrees with ref.chamfer_backward to a tolerance.
-// The wrapper launches it only for a side whose gradient is asked for:
-// `calc_cd(pred, gt)` needs the prediction side alone. An index outside its
-// cloud adds NaN to the thread's own row (gather term) or to row 0 (scatter
-// term) instead of reading or writing out of bounds.
+// MXU products, accumulating over its grid in order. Here the scatter term
+// is a gather: the wrapper's call first builds the reverse list of iq
+// (reverse_list.cu), then a thread a point i of p takes the gather term at
+// its own row and subtracts the sum of the q terms that name i, taken in
+// ascending j, with one plain store: no atomics, so two runs are bitwise
+// equal. A random-weight prediction sends many gt points to a few of its
+// points, so a list longer than eight entries is summed by the whole warp,
+// 32 terms a step, in the same order. (On VRCNet's step on an H100 a thread
+// a point alone took 11x the atomic form's device time, a warp a point
+// 3.7x, eight lanes a point, diverging over their lists, 8.4x.) Each term is (2 g) * (p - q),
+// rounded as ops/ref.py rounds it, and the sum is taken in the order
+// ref.py's scatter takes it on the CPU. The wrapper launches it only for a
+// side whose gradient is asked for: `calc_cd(pred, gt)` needs the
+// prediction side alone. An index outside its cloud makes the gather term
+// NaN at the point's own row, or is listed under row 0 (scatter term),
+// whose thread adds NaN, instead of reading out of bounds.
 //
-// What bounds it: bytes and atomics. At VRCNet's step (B 64, 3072 predicted
-// against 2048 gt points) it reads 3.2 MB and writes 2.4 MB (~0.002 ms at
-// 3.35 TB/s) with 3 * (3072 + 2048) atomic adds per cloud; a collapsed
-// prediction sends many q rows to one p row, which serialise in L2.
+// What bounds it: bytes, and the list's serial steps. At VRCNet's step (B
+// 64, 3072 predicted against 2048 gt points) it reads 3.2 MB and writes
+// 2.4 MB (~0.002 ms at 3.35 TB/s); the lists' lengths follow the
+// prediction, and a warp takes a long one 32 entries at a time.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include "reverse_list.h"
 
 namespace {
 
@@ -121,44 +129,85 @@ void launch_rowmin(const float* query, const float* points, int batch, int nq,
 
 constexpr int kBwdThreads = 256;
 
-// dp (B, np, 3) += the gradient terms; threads [0, np) of a cloud take the
-// points of p, [np, np + nq) those of q. Grid (ceil((np + nq) / 256), B).
+// dp (B, np, 3): a thread a point i of p takes the gather term at its own
+// row and subtracts the sum, ascending over its list of iq (B, nq), of the
+// q terms that name it. A list longer than kShort is summed by the whole
+// warp, 32 terms a step, every lane adding them in list order (the same
+// order a thread takes), one such list at a time. `rows` = B np.
+constexpr int kShort = 8;
+
 __global__ void __launch_bounds__(kBwdThreads)
 chamfer_backward_kernel(const float* __restrict__ p, const float* __restrict__ q,
                         const int* __restrict__ ip, const float* __restrict__ gp,
                         const int* __restrict__ iq, const float* __restrict__ gq,
-                        int np, int nq, float* __restrict__ dp) {
-  const int b = blockIdx.y;
-  const int t = blockIdx.x * kBwdThreads + threadIdx.x;
-  if (t >= np + nq) return;
-  const float* pb = p + static_cast<size_t>(b) * np * 3;
-  const float* qb = q + static_cast<size_t>(b) * nq * 3;
-  float* db = dp + static_cast<size_t>(b) * np * 3;
-  if (t < np) {                           // 2 gp[i] (p[i] - q[ip[i]]) at i
-    const int i = t;
-    const int j = ip[static_cast<size_t>(b) * np + i];
-    const float coef = __fmul_rn(2.f, gp[static_cast<size_t>(b) * np + i]);
+                        const int* __restrict__ order, const int* __restrict__ off,
+                        int np, int nq, int rows, float* __restrict__ dp) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kBwdThreads + threadIdx.x;
+  const bool live = row < rows;                      // no early exit: shuffles below
+  const int b = live ? row / np : 0;
+  const int i = live ? row - b * np : 0;
+  float pi[3], s[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    pi[c] = live ? p[3 * static_cast<size_t>(row) + c] : 0.f;
+    s[c] = 0.f;
+  }
+  const int begin = live ? off[row] : 0;
+  const int end = live ? off[row + 1] : 0;
+  // 2 gq[j] (q[j] - p[i]) for entry t of the cloud b row (b, i) lists
+  auto term = [&](int t, int tb, int ti, const float (&tp)[3], float (&v)[3]) {
+    const int e = order[t];                          // tb nq + j
+    const int j = e - tb * nq;
+    const bool ok = ti != 0 || (iq[e] >= 0 && iq[e] < np);  // row 0 lists bad ones
+    const float coef = __fmul_rn(2.f, gq[e]);
+    const float* qj = q + (static_cast<size_t>(tb) * nq + j) * 3;
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      const float v = j >= 0 && j < nq
-          ? __fmul_rn(coef, __fsub_rn(pb[3 * i + c], qb[3 * j + c]))
-          : CUDART_NAN_F;
-      atomicAdd(db + 3 * i + c, v);
+      v[c] = ok ? __fmul_rn(coef, __fsub_rn(qj[c], tp[c])) : CUDART_NAN_F;
     }
-  } else {                                // -2 gq[j] (q[j] - p[iq[j]]) at iq[j]
-    const int j = t - np;
-    const int i = iq[static_cast<size_t>(b) * nq + j];
-    const bool ok = i >= 0 && i < np;
-    const float coef = __fmul_rn(2.f, gq[static_cast<size_t>(b) * nq + j]);
+  };
+  if (end - begin <= kShort) {
+    for (int t = begin; t < end; ++t) {
+      float v[3];
+      term(t, b, i, pi, v);
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      if (ok) {
-        atomicAdd(db + 3 * i + c,
-                  -__fmul_rn(coef, __fsub_rn(qb[3 * j + c], pb[3 * i + c])));
-      } else {
-        atomicAdd(db + c, CUDART_NAN_F);
+      for (int c = 0; c < 3; ++c) s[c] = __fadd_rn(s[c], v[c]);
+    }
+  }
+  for (unsigned longs = __ballot_sync(full, end - begin > kShort); longs != 0;
+       longs &= longs - 1) {
+    const int src = __ffs(longs) - 1;
+    const int lb = __shfl_sync(full, begin, src), le = __shfl_sync(full, end, src);
+    const int tb = __shfl_sync(full, b, src), ti = __shfl_sync(full, i, src);
+    float tp[3], acc[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+    for (int c = 0; c < 3; ++c) tp[c] = __shfl_sync(full, pi[c], src);
+    for (int t0 = lb; t0 < le; t0 += 32) {
+      float v[3] = {0.f, 0.f, 0.f};
+      if (t0 + lane < le) term(t0 + lane, tb, ti, tp, v);
+      const int count = min(32, le - t0);
+      for (int u = 0; u < count; ++u) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) acc[c] = __fadd_rn(acc[c], __shfl_sync(full, v[c], u));
       }
     }
+    if (lane == src) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) s[c] = acc[c];
+    }
+  }
+  if (!live) return;
+  const int j = ip[row];                             // 2 gp[i] (p[i] - q[ip[i]])
+  const float coef = __fmul_rn(2.f, gp[row]);
+  const float* qb = q + static_cast<size_t>(b) * nq * 3;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float v = j >= 0 && j < nq
+        ? __fmul_rn(coef, __fsub_rn(pi[c], qb[3 * j + c]))
+        : CUDART_NAN_F;
+    dp[3 * static_cast<size_t>(row) + c] = __fsub_rn(v, s[c]);
   }
 }
 
@@ -181,17 +230,22 @@ int chamfer_forward(const float* a, const float* b, int batch, int n, int m,
 
 // The gradient of one side: p (B, NP, 3), q (B, NQ, 3) float32, ip/gp
 // (B, NP), iq/gq (B, NQ) (int32 / float32), all contiguous on the device;
-// dp (B, NP, 3) zeroed by the caller. For da of chamfer_forward(a, b) pass
+// the reverse list of iq (reverse_list.cu: `list_warps`, `ranges`, order
+// (B NQ), off (B NP + 1)) -> dp (B, NP, 3). For da of chamfer_forward(a, b) pass
 // (a, b, i1, g1, i2, g2); for db, (b, a, i2, g2, i1, g1). Launches on
 // `stream` without synchronising; returns cudaGetLastError().
 int chamfer_backward(const float* p, const float* q, const int* ip,
                      const float* gp, const int* iq, const float* gq,
-                     int batch, int np, int nq, float* dp, void* stream) {
-  if (batch == 0 || np + nq == 0) return 0;
-  const dim3 grid((np + nq + kBwdThreads - 1) / kBwdThreads, batch);
-  chamfer_backward_kernel<<<grid, kBwdThreads, 0,
+                     int batch, int np, int nq, int list_warps, int ranges,
+                     int* order, int* off, float* dp, void* stream) {
+  if (batch == 0 || np == 0) return 0;
+  const int err = reverse_list_build(iq, batch, nq, np, list_warps, ranges, order,
+                                     off, stream);
+  if (err != 0) return err;
+  const int rows = batch * np;
+  chamfer_backward_kernel<<<(rows + kBwdThreads - 1) / kBwdThreads, kBwdThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
-      p, q, ip, gp, iq, gq, np, nq, dp);
+      p, q, ip, gp, iq, gq, order, off, np, nq, rows, dp);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -66,7 +66,7 @@
 //   stored bf16 edge, so the store loses nothing), then
 //   gnn_propagate_scatter_kernel (`_gp_bwd2_kernel` :4324): d_p[j] =
 //   bf16(sum of da over the edges whose neighbour is j, in edge order, from
-//   a reverse list the wrapper sorts) - sum over s of da at j as the centre.
+//   a reverse list, reverse_list.cu) - sum over s of da at j as the centre.
 //   A gather by reverse list sums each point's incoming edges in a fixed
 //   order without atomics; recomputing da per incoming edge would repeat
 //   the C^2 dx1 product for every one of the k edges.

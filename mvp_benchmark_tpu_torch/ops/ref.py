@@ -69,8 +69,8 @@ def chamfer_backward(a: torch.Tensor, b: torch.Tensor, i1: torch.Tensor,
       db = 2 g2 (b - a[i2]) - scatter_{i1}(2 g1 (a - b[i1]))
 
     Each term is ``(2 g) * (p - q)``, each operation rounded on its own; the
-    sums of the scatter are taken in index order here, in atomic order by
-    ``chamfer_backward`` in ``csrc/chamfer.cu``."""
+    sums of the scatter are taken in index order, on the CPU here and by
+    ``chamfer_backward`` in ``csrc/chamfer.cu`` (over ``reverse_list``)."""
     diff1 = 2.0 * g1[..., None] * (a - gather_points(b, i1))
     diff2 = 2.0 * g2[..., None] * (b - gather_points(a, i2))
     da = diff1 - scatter_add_rows(diff2, i2, a.shape[1]) if need_a else None
@@ -193,7 +193,8 @@ def scatter_add_rows(g: torch.Tensor, idx: torch.Tensor,
     (B, ...) in [0, num_rows) -> out (B, num_rows, C),
     ``out[b, idx[b, m]] += g[b, m]`` (``pallas_kernels.scatter_add_rows``
     at fp32). An index out of range raises. The contract of
-    ``scatter_add_rows`` in ``csrc/gather.cu``, which sums in atomic order."""
+    ``scatter_add_rows`` in ``csrc/gather.cu``, which sums each row in
+    ascending m over ``reverse_list``, as ``index_add_`` does on the CPU."""
     B, C = g.shape[0], g.shape[-1]
     _check_range(idx, num_rows)
     flat = idx.reshape(B, -1).long()
@@ -201,6 +202,28 @@ def scatter_add_rows(g: torch.Tensor, idx: torch.Tensor,
     out = torch.zeros((B * num_rows, C), dtype=torch.float32, device=g.device)
     out.index_add_(0, flat.reshape(-1), g.reshape(-1, C).to(torch.float32))
     return out.reshape(B, num_rows, C)
+
+
+def reverse_list(idx: torch.Tensor, num_rows: int):
+    """The reverse list of an index: idx (B, M[, k]) int -> (order (B E),
+    off (B num_rows + 1)) int32, E = M k entries a cloud, with
+    ``order[off[b num_rows + r]:off[b num_rows + r + 1]]`` the entries
+    ``b E + e`` of the flattened index that name row r of cloud b,
+    ascending (a stable sort by int32 key ``b num_rows + row``). An entry
+    outside [0, num_rows) is listed under row 0 of its cloud. Index
+    bookkeeping, not arithmetic: the gathers that replace the completion
+    backwards' scatters walk it, and ``csrc/reverse_list.cu`` builds the
+    same list on the card."""
+    B = idx.shape[0]
+    rows = idx.reshape(B, -1).long()
+    if B * num_rows >= 2 ** 31 or rows.numel() >= 2 ** 31:
+        raise ValueError(f"{B} x {num_rows} rows or {rows.numel()} entries exceed int32")
+    rows = torch.where((rows >= 0) & (rows < num_rows), rows, 0)
+    keys = (rows + torch.arange(B, device=idx.device)[:, None] * num_rows).to(torch.int32)
+    sorted_keys, order = torch.sort(keys.reshape(-1), stable=True)
+    bounds = torch.arange(B * num_rows + 1, dtype=torch.int32, device=idx.device)
+    off = torch.searchsorted(sorted_keys, bounds, out_int32=True)
+    return order.to(torch.int32), off
 
 
 def grouping_operation(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -331,7 +354,7 @@ def sa_attention_backward(g: torch.Tensor, proj: torch.Tensor, x1: torch.Tensor,
       d_x1 = d_cat[:rel], d_proj[idx_j, :rel] += d_cat[rel + j rel : ...]
 
     The contract of ``sa_attention_backward`` in ``csrc/sa_attention.cu``,
-    which sums in another order (and its scatters in atomic order)."""
+    which sums in another order (d_proj a gather over ``reverse_list``)."""
     B, N, k = idx.shape
     ms = mid // share
     pn = gather_points(proj, idx)                        # (B, N, k, rel+mid)

@@ -42,9 +42,12 @@ PORT_KERNELS = ("chamfer_rowmin_kernel", "knn_queue_kernel", "knn_direct_kernel"
                 "fps_kernel",
                 "gather_rows_kernel", "group_max_kernel",
                 "three_interpolate_kernel", "sa_attention_kernel",
-                "chamfer_backward_kernel", "scatter_add_rows_kernel",
-                "group_max_backward_kernel", "three_interpolate_backward_kernel",
-                "three_interpolate_dweight_kernel", "sa_attention_backward_kernel",
+                "chamfer_backward_kernel", "scatter_add_rows_local_kernel",
+                "scatter_add_rows_kernel",
+                "group_max_backward_kernel", "group_max_flag_kernel",
+                "three_interpolate_backward_kernel", "three_interpolate_dweight_kernel",
+                "sa_backward_points_kernel", "sa_backward_sum_kernel",
+                "sa_backward_rows_kernel", "reverse_list_kernel",
                 "ball_query_kernel", "emd_kernel",
                 "attention_bf16_backward_kernel", "attention_bf16_stats_kernel",
                 "attention_f32_ds_kernel", "attention_f32_grad_kernel",

@@ -421,17 +421,25 @@ def test_chamfer_backward_kernel_matches_plain_version(cuda, case):
 
 
 @pytest.mark.parametrize("case", ["2x3072x64_by_1536", "3x97x5_by_41x7",
-                                  "collisions"])
+                                  "collisions", "list_form_2x3072x24_by_3072x16",
+                                  "list_form_collisions"])
 def test_scatter_add_rows_kernel_matches_plain_version(cuda, case):
+    """Both forms of ``kernels.scatter_plan``: the local one (clouds of at
+    most 8192 entries) and the list and gather."""
     shapes = {"2x3072x64_by_1536": (2, 3072, 64, (2, 1536)),
               "3x97x5_by_41x7": (3, 97, 5, (3, 41, 7)),
-              "collisions": (2, 2048, 24, (2, 2048))}
+              "collisions": (2, 2048, 24, (2, 2048)),
+              "list_form_2x3072x24_by_3072x16": (2, 3072, 24, (2, 3072, 16)),
+              "list_form_collisions": (2, 4096, 8, (2, 4096, 4))}
     B, n, c, idx_shape = shapes[case]
     idx = torch.randint(0, n, idx_shape, dtype=torch.int32,
                         generator=torch.Generator().manual_seed(3)).to(cuda)
-    if case == "collisions":
+    if case.endswith("collisions"):
         idx.fill_(5)
-    g = _cot(cuda, *idx_shape, c, seed=4, positive=case == "collisions")
+    entries = idx[0].numel()
+    assert bool(kernels.scatter_plan(entries, n, c // 4 if c % 4 == 0 else c)[0]) \
+        == (not case.startswith("list_form"))
+    g = _cot(cuda, *idx_shape, c, seed=4, positive=case.endswith("collisions"))
     before = kernels.SCATTER_LAUNCHES
     got = kernels.scatter_add_rows(g, idx, n)
     torch.cuda.synchronize()
@@ -508,6 +516,164 @@ def test_sa_attention_backward_collisions_and_the_gradients_asked_for(cuda):
     _close(some[4], want[4], normwise=True)
 
 
+# ---------------------------------------------------------------------------
+# The completion backwards in a fixed order: reverse lists, bitwise reruns
+# ---------------------------------------------------------------------------
+
+
+def _idx(device, high, shape, seed):
+    return torch.randint(0, high, shape, dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(seed)).to(device)
+
+
+@pytest.mark.parametrize("B,M,k,n,case", [
+    (64, 3072, 16, 3072, "random"), (3, 41, 7, 97, "random"),
+    (2, 64, 16, 64, "one_row"), (3, 50, 3, 200, "out_of_range"),
+    (2, 300, 1, 70000, "random")])
+def test_reverse_list_kernel_equals_plain_version(cuda, B, M, k, n, case):
+    """reverse_list.cu's list bitwise ``ref.reverse_list``'s at the SA
+    block's level 1 (two blocks a cloud), ragged, every entry naming one
+    row, entries outside [0, n) (listed under row 0), and 70000 rows (two
+    blocks a cloud of one warp)."""
+    idx = _idx(cuda, n, (B, M, k), seed=30)
+    if case == "one_row":
+        idx.fill_(3)
+    elif case == "out_of_range":
+        idx[0, 0, 0], idx[1, 7, 2], idx[2, 49, 1] = -1, n, n + 5
+    got = kernels.reverse_list(idx, n)
+    _bitwise(got, ref.reverse_list(idx, n))
+
+
+def _backward_call(device, name):
+    """A call of one of the five backwards at a case of chip_smoke.py's
+    phase 3b: VRCNet's train-step shape or its collision case."""
+    if name.startswith("chamfer"):
+        if name == "chamfer_path":                  # calc_cd(pred, gt): db
+            a, b = _on(device, *clouds(40, 64, 2048, 3072))
+            need = (False, True)
+        else:                                       # 1000 copies of one point
+            a, b = _on(device, *clouds(41, 4, 2048, 1024))
+            b[:, :1000] = b[:, :1]
+            need = (True, True)
+        d1, d2, i1, i2 = kernels.chamfer_forward(a, b)
+        g1, g2 = _cot(device, *d1.shape, seed=43), _cot(device, *d2.shape, seed=44)
+        return lambda: kernels.chamfer_backward(a, b, i1, g1, i2, g2, *need)
+    if name.startswith("scatter"):
+        B, n, shape, c = {"scatter_path": (64, 3072, (1536,), 64),
+                          "scatter_list_path": (32, 3072, (3072, 16), 24)}.get(
+                              name, (4, 2048, (2048,), 24))
+        idx = _idx(device, n, (B, *shape), seed=45)
+        if name == "scatter_collisions":
+            idx.fill_(5)
+        g = _cot(device, B, *shape, c, seed=46, positive=True)
+        return lambda: (kernels.scatter_add_rows(g, idx, n),)
+    if name.startswith("group_max"):
+        B, n, c, m, k = (64, 3072, 64, 1536, 10) if name == "group_max_path" else (3, 97, 6, 41, 7)
+        f = torch.relu(_rand(device, B, n, c, seed=47) - 0.5)
+        idx = _idx(device, n, (B, m, k), seed=48)
+        idx[:, :, k - 1] = idx[:, :, 0]
+        _, slot = kernels.group_max_forward(f, idx)
+        g = _cot(device, B, m, c, seed=49)
+        return lambda: (kernels.group_max_backward(g, idx, slot, n),)
+    if name.startswith("three_interpolate"):
+        B, ms, n, c = (64, 1536, 3072, 128) if name == "three_interpolate_path" else (2, 64, 512, 16)
+        f = _cot(device, B, ms, c, seed=50)
+        idx, w = ref.three_nn_upsampling(_rand(device, B, n, 3, seed=51),
+                                         _rand(device, B, ms, 3, seed=52))
+        if name != "three_interpolate_path":
+            idx = torch.zeros_like(idx)
+        g = _cot(device, B, n, c, seed=53)
+        return lambda: kernels.three_interpolate_backward(g, idx, w, f, True)
+    B, n, k, rel, mid = (64, 3072, 16, 4, 16) if name == "sa_path" else (2, 64, 16, 8, 32)
+    args = _sa_inputs(device, B, n, k, rel, mid, seed=54)
+    if name != "sa_path":
+        args[2].fill_(3)
+    g = _cot(device, B, n, mid, seed=55)
+    return lambda: kernels.sa_attention_backward(g, *args, rel, mid, 8)
+
+
+@pytest.mark.parametrize("name", [
+    "chamfer_path", "chamfer_collapsed", "scatter_path", "scatter_list_path",
+    "scatter_collisions",
+    "group_max_path", "group_max_ties", "three_interpolate_path",
+    "three_interpolate_collisions", "sa_path", "sa_collisions"])
+def test_backward_kernels_rerun_bitwise(cuda, name):
+    """Two launches of each completion backward on the same inputs give
+    bitwise-equal outputs: no float atomics, every row summed in a fixed
+    order."""
+    call = _backward_call(cuda, name)
+    first, second = call(), call()
+    torch.cuda.synchronize()
+    first, second = ([x for x in out if x is not None] for out in (first, second))
+    assert first and len(first) == len(second)
+    _bitwise(first, second)
+
+
+def test_sa_backward_plan_fits_and_matches_the_library(cuda):
+    """The host plan's shared memory is the kernel's, at VRCNet's four
+    levels and at k 32 on level 4 (the 4-warp fallback)."""
+    lib = kernels.load()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for n, k, rel, mid in ((3072, 16, 4, 16), (1536, 16, 8, 32), (768, 16, 16, 64),
+                           (384, 16, 32, 128), (384, 32, 32, 128)):
+        warps, grid, smem = kernels.sa_backward_plan(64, n, k, rel, mid, 8, sms)
+        assert smem == lib.sa_attention_backward_smem(rel, mid // 8, k, warps * (32 // rel))
+        assert smem <= kernels.MAX_SMEM and 1 <= grid
+
+
+def _step_losses(name):
+    """The train losses of chip_smoke.py's completion steps at the smoke
+    configs: PCN's calc_cd pair, VRCNet's dual path with its noise drawn
+    once, ECG's losses with the uniform terms."""
+    if name == "pcn":
+        def losses(model, x, gt):
+            _, loss2, total = model(x, gt, prefix="train", alpha=0.5)
+            return {"loss2": loss2, "total": total}
+        return losses
+    if name == "ecg":
+        def losses(model, x, gt):
+            t = model.train_losses(x, gt, 0.5)
+            return {k: t[k] for k in ("loss1", "uniform1", "loss2", "uniform2", "total")}
+        return losses
+    noise = {}
+
+    def losses(model, x, gt):
+        if not noise:
+            noise.update(model.draw_noise(2, torch.Generator().manual_seed(2)))
+        t = model.train_losses(x, gt, 0.5, {k: v.to(x.device) for k, v in noise.items()})
+        return {k: t[k] for k in ("loss1", "dl_rec", "dl_g", "total")}
+    return losses
+
+
+@pytest.mark.parametrize("deterministic", [True, False])
+@pytest.mark.parametrize("name", ["pcn", "vrcnet", "ecg"])
+def test_train_step_on_card_is_bitwise_reproducible(cuda, name, deterministic,
+                                                    monkeypatch):
+    """Two train steps from the same seed on the same two clouds give
+    bitwise-equal losses and parameter gradients, the completion backwards
+    summing every row in a fixed order: under
+    ``torch.use_deterministic_algorithms(True)`` (inside this test alone),
+    so that no PyTorch op's own order can hide a kernel's, and without it,
+    as the engine runs the step."""
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    cfg = _smoke_cfg(name)
+    points = 512 if name == "ecg" else 128           # ECG's uniform loss needs 512
+    cfg.num_points = points
+    x, gt = (_rand(torch.device("cpu"), 2, points, 3, seed=s) for s in (56, 57))
+    losses = _step_losses(name)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(deterministic)
+    try:
+        (l1, g1), (l2, g2) = (_train_step(cfg, cuda, x, gt, losses) for _ in range(2))
+    finally:
+        torch.use_deterministic_algorithms(was)
+    assert l1.keys() == l2.keys() and g1 and len(g1) == len(g2)
+    for k in l1:
+        assert torch.equal(l1[k], l2[k]), k
+    for i, (a, b) in enumerate(zip(g1, g2)):
+        assert torch.equal(a, b), i
+
+
 def test_backward_wrappers_reject_bad_inputs(cuda):
     a, b = _on(cuda, *clouds(7, 2, 64, 48))
     d1, d2, i1, i2 = kernels.chamfer_forward(a, b)
@@ -555,6 +721,18 @@ def test_backward_out_of_range_indices_give_nan_not_a_fault(cuda):
     assert torch.isnan(gm[0, 0, 0]) and torch.isfinite(gm[0, 0, 1:]).all()
     assert torch.isnan(ti[0, 0]).all() and torch.isnan(tw[0, 0, 2])
     assert torch.isnan(sa[1][0, 3]).all() and torch.isnan(sa[4][0])
+
+
+def test_scatter_list_form_out_of_range_index_gives_nan(cuda):
+    """The list form (past 8192 entries a cloud) adds NaN at row 0 for an
+    index outside [0, n), as the local form does."""
+    idx = _idx(cuda, 50, (2, 9000), seed=7)
+    idx[1, 4321] = -3
+    assert kernels.scatter_plan(9000, 50, 1)[0] == 0
+    out = kernels.scatter_add_rows(_rand(cuda, 2, 9000, 3), idx, 50)
+    torch.cuda.synchronize()
+    assert torch.isnan(out[1, 0]).all() and torch.isfinite(out[0]).all()
+    assert torch.isfinite(out[1, 1:]).all()
 
 
 # ---------------------------------------------------------------------------
