@@ -101,11 +101,11 @@ class Propagate(nn.Module):
         self.register_buffer("edge_var", torch.ones(e))
         self.conv = ConvBlock(e, (e,), generator=g)
 
-    def forward(self, x: torch.Tensor, idx: torch.Tensor,
-                train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, idx: torch.Tensor, train: bool = False,
+                lst=None) -> torch.Tensor:
         h, stats = ops.gnn_propagate(self.fc(x), idx, self.edge_W, self.edge_b,
                                      self.edge_scale, self.edge_bias, self.edge_mean,
-                                     self.edge_var, train)
+                                     self.edge_var, train, lst=lst)
         if train:
             layers.update_running_stats(self.edge_mean, self.edge_var, stats[0], stats[1])
         return self.conv(h, train)
@@ -124,9 +124,12 @@ class GNN(nn.Module):
 
     def forward(self, pts: torch.Tensor, train: bool = False) -> torch.Tensor:
         idx = ops.knn_indices(pts, KNN_K)
+        # in train, the reverse list of the graph, built once for the five
+        # layers' backwards (None on the CPU)
+        lst = ops.gnn_propagate_list(idx, pts.shape[1]) if train else None
         x = pts
         for prop in self.props:
-            x = prop(x, idx, train)
+            x = prop(x, idx, train, lst)
         return x
 
 

@@ -204,7 +204,7 @@ def edge_mlp_train(a1: torch.Tensor, Ws, gammas, betas):
 
 
 def gnn_propagate(p: torch.Tensor, idx: torch.Tensor, W, b, gamma, beta, mean, var,
-                  train: bool):
+                  train: bool, lst=None):
     """IDAM's Propagate edge block (reference idam.py:115-128; JAX
     ``dispatch.gnn_propagate``), p (B, N, C) projected features and idx
     (B, N, k) neighbours -> (x (B, N, C), stats): in eval with the running
@@ -212,17 +212,32 @@ def gnn_propagate(p: torch.Tensor, idx: torch.Tensor, W, b, gamma, beta, mean, v
     ``torch.inference_mode``; in train with the batch statistics, stats the
     (2, C) [mean, biased var] of the edges, differentiable in p, W, b, gamma
     and beta (see ref.gnn_propagate_train; on the card the stat, final and
-    backward passes of the kernel)."""
+    backward passes of the kernel). ``lst``, the reverse list of idx from
+    ``gnn_propagate_list`` (None on the CPU), is handed to the card's
+    backward, so that the layers sharing one graph share one list; the CPU
+    path ignores it."""
     if train:
         if _route(p, idx, W, b, gamma, beta) == "cuda":
+            order, off = (None, None) if lst is None else lst
             return kernels.GnnPropagateTrainFunction.apply(
-                p.contiguous(), idx.to(torch.int32).contiguous(), W, b, gamma, beta)
+                p.contiguous(), idx.to(torch.int32).contiguous(), W, b, gamma, beta,
+                order, off)
         return ref.gnn_propagate_train(p, idx, W, b, gamma, beta)
     if _route(p, idx, W, b, gamma, beta, mean, var) == "cuda":
         return kernels.gnn_propagate_forward(
             p.contiguous(), idx.to(torch.int32).contiguous(), W, b, gamma, beta, mean,
             var), None
     return ref.gnn_propagate_eval(p, idx, W, b, gamma, beta, mean, var), None
+
+
+def gnn_propagate_list(idx: torch.Tensor, num_points: int):
+    """The reverse list of IDAM's neighbour graph idx (B, N, k) for the
+    backwards of the Propagate layers that share it (``gnn_propagate``'s
+    ``lst``): on the card ``kernels.gnn_propagate_list``, built once a
+    graph and step; None on the CPU, whose backward needs no list."""
+    if _route(idx) == "cuda":
+        return kernels.gnn_propagate_list(idx.to(torch.int32).contiguous(), num_points)
+    return None
 
 
 def sim_mlp(src, tgt, semb, temb, Wcat, W2, b2, W3, W4, b4, g1, be1, g2, be2,

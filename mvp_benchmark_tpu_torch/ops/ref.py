@@ -911,11 +911,25 @@ def gnn_propagate_slots(p, idx, W, b, gamma, beta, mean, var):
     return gnn_edge_slots(gnn_edges(p, idx), W, b, gamma, beta, mean, var)
 
 
+def gnn_edge_candidates(edge, W, b, gamma, beta, mean, var):
+    """The candidates of the edge block's max over k, ``h = bf16(x1) @
+    bf16(W) + b`` of every edge (B, N, k, C), on given bf16-valued edges
+    with given statistics."""
+    x1 = _bn_relu(edge, mean, bn_inv(var), gamma, beta)
+    return _bf16_dot(x1, W) + b.to(torch.float32)
+
+
+def gnn_propagate_candidates(p, idx, W, b, gamma, beta, mean, var):
+    """``gnn_edge_candidates`` of the edges of p and idx: the (B, N, k, C)
+    values whose max over k and first maximal slot ``gnn_propagate_slots``
+    returns."""
+    return gnn_edge_candidates(gnn_edges(p, idx), W, b, gamma, beta, mean, var)
+
+
 def gnn_edge_slots(edge, W, b, gamma, beta, mean, var):
     """The edge block on given bf16-valued edges (B, N, k, C) with given
     statistics -> (x (B, N, C), the first maximal slot (B, N, C) uint8)."""
-    x1 = _bn_relu(edge, mean, bn_inv(var), gamma, beta)
-    x, slot = _first_max(_bf16_dot(x1, W) + b.to(torch.float32), 2)
+    x, slot = _first_max(gnn_edge_candidates(edge, W, b, gamma, beta, mean, var), 2)
     return x, slot.to(torch.uint8)
 
 
@@ -961,6 +975,59 @@ def gnn_propagate_backward(p, idx, W, gamma, beta, stats, slot, dx):
                                                   stats, slot, dx)
     d_p = _bf16(scatter_add_rows(da.reshape(B, N * k, C), idx.reshape(B, N * k), N))
     return d_p - da.sum(dim=2), dW, db, dgamma, dbeta
+
+
+# The backward in the kernels' two stages (csrc/gnn_propagate.cu): pass 1
+# leaves dy, S, dW and db; the gather recomputes da from dy and S. Together
+# they equal ``gnn_propagate_backward`` bitwise on the CPU.
+
+
+def gnn_propagate_backward_dy(p, idx, W, gamma, beta, stats, slot, dx):
+    """Pass 1 of the Propagate block's backward -> (dy (B, N, k, C), S (2,
+    C) [sum dy, sum dy hhat], dW, db), fp32: ``dy = bf16(dh W^T)`` where
+    BatchNorm's output > 0, else 0 (bf16-valued, so the kernel stores it as
+    bf16 without loss). The contract of ``gnn_propagate_backward_kernel``,
+    which sums S, dW and db in another order."""
+    f32 = torch.float32
+    edge = gnn_edges(p, idx)
+    B, N, k, C = edge.shape
+    inv = bn_inv(stats[1])
+    hhat = (edge - stats[0]) * inv
+    y = hhat * gamma.to(f32) + beta.to(f32)
+    dh = torch.zeros((B, N, k, C), dtype=f32, device=edge.device).scatter_(
+        2, slot.long()[:, :, None, :], dx.to(f32)[:, :, None, :])
+    dW = _bf16(_bf16(torch.relu(y)).reshape(-1, C).t() @ dh.reshape(-1, C))
+    dy = torch.where(y > 0, _bf16(dh @ _bf16(W).t()), 0.0)
+    dims = (0, 1, 2)
+    S = torch.stack([dy.sum(dim=dims), (dy * hhat).sum(dim=dims)])
+    return dy, S, dW, dh.sum(dim=dims)
+
+
+def gnn_propagate_gather(p, idx, gamma, stats, dy, S, lst=None):
+    """The gather of the Propagate block's backward -> d_p (B, N, C) fp32:
+    ``da = bf16(gamma inv ((dy - S0 / E) - hhat S1 / E))`` of every edge,
+    then ``bf16(sum of da over the edges whose neighbour is the point, in
+    ascending edge order) - sum over k of da at the point as the centre``.
+    ``lst``, the reverse list ``reverse_list(idx, N)`` when given, names
+    each point's incoming edges. The contract of
+    ``gnn_propagate_gather_kernel``, which recomputes da and never stores
+    it."""
+    f32 = torch.float32
+    B, N, k = idx.shape
+    C = p.shape[-1]
+    inv = bn_inv(stats[1])
+    hhat = (gnn_edges(p, idx) - stats[0]) * inv
+    E = float(B * N * k)
+    da = _bf16((gamma.to(f32) * inv) * ((dy - S[0] / E) - hhat * (S[1] / E)))
+    if lst is None:
+        d_in = scatter_add_rows(da.reshape(B, N * k, C), idx.reshape(B, N * k), N)
+    else:
+        order, off = lst
+        rows = torch.repeat_interleave(torch.arange(B * N, device=p.device),
+                                       (off[1:] - off[:-1]).long())
+        d_in = torch.zeros((B * N, C), dtype=f32, device=p.device).index_add_(
+            0, rows, da.reshape(-1, C)[order.long()]).reshape(B, N, C)
+    return _bf16(d_in) - da.sum(dim=2)
 
 
 class _GnnPropagateTrain(torch.autograd.Function):

@@ -9,6 +9,7 @@ or registration config, after warm-up.
     python -m mvp_benchmark_tpu_torch.profile_eval -c completion/cfgs/vrcnet.yaml --train
     python -m mvp_benchmark_tpu_torch.profile_eval -c completion/cfgs/ecg.yaml --train
     python -m mvp_benchmark_tpu_torch.profile_eval -c registration/cfgs/dcp.yaml --train
+    python -m mvp_benchmark_tpu_torch.profile_eval -c registration/cfgs/idam.yaml --train
 
 Prints, per val batch (per train step with ``--train``: forward, backward
 and the optimizer, as ``engine.make_train_step`` and
@@ -55,8 +56,8 @@ PORT_KERNELS = ("chamfer_rowmin_kernel", "knn_queue_kernel", "knn_direct_kernel"
                 "attention_f32_combine_kernel",
                 "edge_mlp_backward_kernel", "edge_mlp_kernel",
                 "gnn_propagate_kernel", "gnn_propagate_stat_kernel",
-                "gnn_propagate_backward1_kernel", "gnn_propagate_backward2_kernel",
-                "gnn_propagate_scatter_kernel", "sim_mlp_kernel<2>", "sim_mlp_kernel<3>",
+                "gnn_propagate_backward_kernel", "gnn_propagate_gather_kernel",
+                "sim_mlp_kernel<2>", "sim_mlp_kernel<3>",
                 "sim_mlp_kernel", "sim_mlp_backward_kernel<1>",
                 "sim_mlp_backward_kernel<2>", "sim_mlp_backward_kernel<3>")
 GEMM_MARKS = ("gemm", "xmma", "cutlass", "nvjet", "sm90_", "sm80_")

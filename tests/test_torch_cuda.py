@@ -1371,14 +1371,18 @@ def _propagate_case(cuda, B, N, k, C, dup=False):
 @pytest.mark.parametrize("B,N,k,C,dup", [(2, 2048, 12, 64, False), (3, 1001, 12, 32, False),
                                          (2, 37, 5, 64, False), (2, 300, 12, 64, True)])
 def test_gnn_propagate_kernel_equals_plain_version(cuda, B, N, k, C, dup):
-    """Bitwise: the plain version sums in the kernel's channel order and
-    rounds every other operation on its own."""
+    """Within chip_smoke's bar (``check_propagate_final``): x1 is the plain
+    version's bitwise, but the product runs on the tensor cores, which sum
+    the channels in another order. Two runs bitwise equal."""
+    import chip_smoke
+
     x = _propagate_case(cuda, B, N, k, C, dup)
     before = kernels.GNN_PROPAGATE_LAUNCHES
     got, stats = dispatch.gnn_propagate(*x, train=False)
     torch.cuda.synchronize()
     assert stats is None and kernels.GNN_PROPAGATE_LAUNCHES == before + 1
-    torch.testing.assert_close(got, ref.gnn_propagate_eval(*x), rtol=0, atol=0)
+    chip_smoke.check_propagate_final("gnn_propagate", got, ref.gnn_propagate_candidates(*x))
+    assert torch.equal(got, dispatch.gnn_propagate(*x, train=False)[0])
 
 
 def _sim_case(cuda, B, M, emb=64, ties=False):
@@ -1468,11 +1472,13 @@ def test_idam_on_card_against_cpu(cuda):
 def test_gnn_propagate_train_kernels_match_plain_version(cuda, B, N, k, C, dup):
     """Through ``dispatch.gnn_propagate(train=True)`` and autograd: the
     statistics normwise within chip_smoke.IDAM_STAT_NORM of the plain
-    version's, the output bitwise the plain version's given them, every
-    gradient normwise within chip_smoke.IDAM_GRAD_NORM of
-    ``ref.gnn_propagate_backward``'s on the kernels' statistics and slots;
-    launches: one stat, one final pass, three backward; two runs bitwise
-    equal."""
+    version's, the output within the final pass's bar of the plain
+    version's given them and the slots by its slot rule
+    (``chip_smoke.check_propagate_final``), every gradient normwise within
+    chip_smoke.IDAM_GRAD_NORM of ``ref.gnn_propagate_backward``'s on the
+    kernels' statistics and slots; launches: one stat, one final pass, two
+    backward and the list the backward builds when given none; with the
+    list given, no list and the same gradients; two runs bitwise equal."""
     import chip_smoke
 
     p, idx, W, b, gamma, beta, mean, var = _propagate_case(cuda, B, N, k, C, dup)
@@ -1486,14 +1492,24 @@ def test_gnn_propagate_train_kernels_match_plain_version(cuda, B, N, k, C, dup):
         torch.cuda.synchronize()
         after = kernels.launch_counts()
         assert {key: after[key] - before[key] for key in after if after[key] != before[key]} == {
-            "gnn_propagate_stat": 1, "gnn_propagate": 1, "gnn_propagate_backward": 3}
+            "gnn_propagate_stat": 1, "gnn_propagate": 1, "gnn_propagate_backward": 2,
+            "gnn_propagate_list": 1}
         runs.append((x, stats, *grads))
     assert all(torch.equal(a, c) for a, c in zip(*runs))
+    lst = dispatch.gnn_propagate_list(idx, N)
+    before = kernels.launch_counts()
+    x, _ = dispatch.gnn_propagate(leaves[0], idx, *leaves[1:], mean, var, train=True, lst=lst)
+    shared = torch.autograd.grad(x, leaves, dx)
+    after = kernels.launch_counts()
+    assert after["gnn_propagate_list"] == before["gnn_propagate_list"]
+    assert all(torch.equal(a, c) for a, c in zip(shared, runs[0][2:]))
     x, stats, *grads = runs[0]
     rel = lambda g, w: float((g - w).double().norm() / w.double().norm())
     assert rel(stats, ref.gnn_propagate_stats(p, idx)) <= chip_smoke.IDAM_STAT_NORM
-    want_x, slot = ref.gnn_propagate_slots(p, idx, W, b, gamma, beta, stats[0], stats[1])
-    torch.testing.assert_close(x, want_x, rtol=0, atol=0)
+    _, _, slot = kernels.gnn_propagate_train_forward(p, idx, W, b, gamma, beta)
+    chip_smoke.check_propagate_final(
+        "gnn_propagate train", x,
+        ref.gnn_propagate_candidates(p, idx, W, b, gamma, beta, stats[0], stats[1]), slot)
     want = ref.gnn_propagate_backward(p, idx, W, gamma, beta, stats, slot, dx)
     gaps = {name: rel(g, w) for name, g, w in
             zip(("d_p", "dW", "db", "dgamma", "dbeta"), grads, want)}
@@ -1608,6 +1624,10 @@ def test_idam_train_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError, match="dx must be"):
         kernels.gnn_propagate_train_backward(p, idx, W, gamma, beta, stats, slot,
                                              p[:, :20].contiguous())
+    order, off = kernels.gnn_propagate_list(idx, 40)
+    with pytest.raises(ValueError, match="order must be"):
+        kernels.gnn_propagate_train_backward(p, idx, W, gamma, beta, stats, slot, p,
+                                             lst=(order[:-1], off))
     x = list(_sim_case(cuda, 1, 8))
     sp, tp = ref.sim_projections(x[2], x[3], x[4])
     core = [sp, tp, x[0], x[1], *ref.sim_mlp_split(x[4], 64), *x[5:9], *x[10:14]]

@@ -81,10 +81,10 @@ def test_duplicate_neighbour_ties_give_the_same_value():
     np.testing.assert_array_equal(_port((p, dup, *rest)), _port((p, idx, *rest)))
 
 
-def test_train_mode_raises_naming_the_next_slice():
-    """Train mode is ported (this test once checked that it raised): on a CPU
-    tensor it is ``ref.gnn_propagate_train``, the batch statistics returned
-    detached (its parity with JAX: tests/test_torch_idam_train.py)."""
+def test_train_mode_on_cpu_is_the_plain_train_version():
+    """On a CPU tensor train mode is ``ref.gnn_propagate_train``, the batch
+    statistics returned detached (its parity with JAX:
+    tests/test_torch_idam_train.py)."""
     from mvp_benchmark_tpu_torch.ops import ref
 
     p, idx, W, b, gamma, beta, _, _ = map(torch.from_numpy, _inputs(9, 1, 16, 4, 16))

@@ -118,7 +118,7 @@ def _calibrate(tm, src, tgt, rng):
         mean.copy_(m)
         var.copy_(v)
 
-    def propagate(p, idx, W, b, gamma, beta, mean, var, train):
+    def propagate(p, idx, W, b, gamma, beta, mean, var, train, lst=None):
         edge = (ref.grouping_operation(ref._bf16(p), idx) - p[:, :, None, :])
         set_(mean, var, edge.to(torch.bfloat16).float())
         return ref.gnn_propagate_eval(p, idx, W, b, gamma, beta, mean, var), None

@@ -650,10 +650,16 @@ def test_train_step_launches_what_chip_smoke_derives(monkeypatch):
         x, slot = ref.gnn_propagate_slots(p, idx, W, b, gamma, beta, stats[0], stats[1])
         return x, stats, slot
 
-    def propagate_backward(p, idx, W, gamma, beta, stats, slot, dx, need_p=True):
-        count(gnn_propagate_backward=3 if need_p else 1)
+    def propagate_backward(p, idx, W, gamma, beta, stats, slot, dx, need_p=True, lst=None):
+        count(gnn_propagate_backward=2 if need_p else 1)
+        if need_p and lst is None:
+            count(gnn_propagate_list=1)
         d_p, *rest = ref.gnn_propagate_backward(p, idx, W, gamma, beta, stats, slot, dx)
         return (d_p if need_p else None, *rest)
+
+    def propagate_list(idx, n):
+        count(gnn_propagate_list=1)
+        return ref.reverse_list(idx, n)
 
     def sim_forward(*x):
         count(sim_mlp_stat=2, sim_mlp=1)
@@ -672,6 +678,7 @@ def test_train_step_launches_what_chip_smoke_derives(monkeypatch):
 
     for name, fn in (("knn", knn), ("gnn_propagate_train_forward", propagate_forward),
                      ("gnn_propagate_train_backward", propagate_backward),
+                     ("gnn_propagate_list", propagate_list),
                      ("sim_mlp_train_forward", sim_forward),
                      ("sim_mlp_train_backward", sim_backward)):
         monkeypatch.setattr(kernels, name, fn)
