@@ -102,6 +102,7 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -355,7 +356,7 @@ SA_ATOL, SA_RTOL = 1e-5, 1e-4
 # |plain|: the attention's online softmax rounds p to bf16 before dividing by
 # the row sum, the plain version after (3.1e-3 measured on an H100); the edge
 # chain sums in another order, and an activation may round to the other bf16
-# neighbour (6.6e-6 measured).
+# neighbour (1.4e-5 measured, at (3, 1001, k 7)).
 ATTN_BF16_NORM, EDGE_MLP_NORM = 1e-2, 1e-4
 # DCP on the card against the CPU, two full-width clouds, the same weights:
 # the bf16 transformer's products round differently in cuBLAS and on the CPU.
@@ -371,8 +372,10 @@ DCP_CPU_ATOL = {"loss": 2e-4, "RotE": 0.25, "transE": 3e-3, "RMSE": 2.5e-3,
 # DCP's shape). Two runs of each bitwise equal (no atomics). The train
 # chain's forward normwise, its max-pools EDGE_TRAIN_NORM (the kernel folds
 # the batch statistics into a scale and shift, the plain version does not:
-# an activation may round to the other bf16 neighbour; 2.1e-4 measured) and
-# its statistics EDGE_STAT_NORM (4.2e-7 measured); its gradients normwise
+# an activation may round to the other bf16 neighbour; 2.3e-4 measured) and
+# its statistics EDGE_STAT_NORM (5.3e-7 measured at (32, 2048, k 20), 2.5e-6
+# at (3, 1001, k 7), where the layers below hand on more of their flips);
+# its gradients normwise
 # EDGE_GRAD_NORM against autograd of the plain version, which rounds the
 # carried cotangent to bf16 where the kernel rounds dh (1.6e-2 measured for
 # d_a1, <= 1.2e-2 for the others), at the JAX test's own bar for its
@@ -385,14 +388,31 @@ EDGE_TRAIN_NORM, EDGE_STAT_NORM, EDGE_GRAD_NORM = 1e-3, 1e-5, 2e-2
 # the edge chain, the running statistics absolute, the edge chain's leaves
 # by cosine and normwise against each leaf's own norm (bars that a zero or
 # sign-flipped gradient fails), each 6-30x its gap measured on an H100
-# (5.5e-5; 1 - 2.1e-5; 7.7e-7; 1 - 3.3e-6, 2.6e-3).
+# (5.5e-5; 1 - 2.1e-5; 7.7e-7; 1 - 3.3e-6, 2.6e-3). The loss is a step
+# function of the chain's bf16 roundings. Over ten seeds of the weights and
+# the batch (probe_forward_mlps.py --dcp-loss, an H100 80GB HBM3 at 700 W)
+# the card's loss lay within 9.5e-5 of the CPU's with these kernels and
+# within 1.6e-4 with every kernel of the forward plain; the plain chain on
+# the card, and stat passes that sum in another order, each read about
+# -8e-4 at this check's batch (seed 1, whose loss is 4-9x smaller than the
+# other seeds') and within 2.3e-4 at the other nine. The check prints the
+# plain chain's reading beside the kernels'.
 DCP_STEP_BARS = {"loss": 5e-4, "cosine": 0.9998, "stats": 1e-5,
                  "chain_cosine": 0.9999, "chain_normwise": 2e-2}
-# IDAM's similarity kernel equals its plain version bitwise (check_equal):
-# the plain version sums in the kernel's channel order and rounds each other
-# operation on its own. The edge block's final pass runs its product on the
-# tensor cores, which sum the 64 channels in another order (x1 and W are
-# bf16, so every product is exact and only the sums differ): its outputs
+# IDAM's similarity kernel runs its two 32 x 32 products on the tensor
+# cores, which sum the channels in another order than the plain version's
+# channel order; where that could change a bf16 rounding of h1 or a relu mask
+# of BatchNorm 2 the kernel sums the element again in channel order
+# (sim_mlp.cu's kMargin16), so every bf16 value and mask equals the plain
+# version's and bf16(wmax) is equal; simr and wmax differ by the fp32
+# summation order only: within SIM_FINAL_ATOL + SIM_FINAL_RTOL |plain|
+# (check_sim_final), about 4x the largest gap measured on an H100 80GB HBM3
+# at 700 W (6.0e-7 at (32, 341); 9.4e-7 on a one-pair batch's logits of
+# ~15), and a saved j other than the plain version's only where the plain
+# version's h1 at that j lies within twice that bar of its max. The
+# edge block's final pass runs its product on the tensor cores, which sum
+# the 64 channels in another order (x1 and W are bf16, so every product is
+# exact and only the sums differ): its outputs
 # within GNN_FINAL_ATOL + GNN_FINAL_RTOL |plain| of the plain version's
 # (check_propagate_final), about 4x the largest gap measured on an H100
 # 80GB HBM3 at 700 W (9.5e-7 over the 4.2 M outputs at (32, 2048, k 12, C
@@ -415,15 +435,29 @@ DCP_STEP_BARS = {"loss": 5e-4, "cosine": 0.9998, "stats": 1e-5,
 # 2.3e-5 degrees, transE 1.6e-6, RMSE 4.2e-7, MSE 2.0e-6).
 IDAM_EMB_NORM = 2e-2
 GNN_FINAL_ATOL, GNN_FINAL_RTOL = 4e-6, 4e-6
+SIM_FINAL_ATOL, SIM_FINAL_RTOL = 2e-6, 2e-6
 # IDAM's train kernels against their plain versions on the card, normwise:
 # the stat passes sum per-block partials (another order), the backward
 # passes sum in other orders too, and a cotangent near a bf16 boundary may
 # round to the other neighbour (dx1, dh1, da).
-# Measured on an H100 80GB HBM3 at 700 W: stat passes 1.4e-6 at most,
-# backward passes 2.4e-5 (the tensor-core backward, whose bf16 roundings
-# and relu masks equal the plain version's: see sim_mlp.cu's kMargin16).
+# Measured on an H100 80GB HBM3 at 700 W: stat passes 6.3e-7 at most
+# since the forward runs on the tensor cores (1.4e-6 before), backward
+# passes 1.3e-5 (the tensor-core backward, whose bf16 roundings and relu
+# masks equal the plain version's: see sim_mlp.cu's kMargin16).
 IDAM_STAT_NORM = 1e-5
 IDAM_GRAD_NORM = 2e-4
+# The similarity backward's dwxyz, dW2 and dW3 are bf16 roundings of fp32
+# sums over every pair (ops/ref.py's rounding rule), which the kernel and
+# the plain version take in other orders: an element whose two sums fall
+# on either side of a rounding boundary lands one bf16 ulp apart, and one
+# such element of a 32 x 32 gradient can weigh 2e-4 normwise (dW3 at (2,
+# 64, ties) read 2.06e-4 on an H100 80GB HBM3 at 700 W with the tensor-core
+# forward's statistics). They are held elementwise (check_bf16_sums): equal,
+# or one ulp apart in at most SIM_BF16_FLIPS of their elements (3 of 1024
+# at most measured there), and normwise within SIM_BF16_NORM, about 1.5x
+# that one flip's 2.06e-4.
+SIM_BF16_GRADS = ("dwxyz", "dW2", "dW3")
+SIM_BF16_FLIPS, SIM_BF16_NORM = 0.01, 3e-4
 # An IDAM train step on two full-width pairs, card against CPU
 # (check_idam_step_on_cpu), the same weights and kept source points, and
 # the card's gt matches and correspondences handed to the CPU: the loss
@@ -433,8 +467,11 @@ IDAM_GRAD_NORM = 2e-4
 # an H100 80GB HBM3 at 700 W: 1.9e-4; cosine >= 0.983 and normwise <= 0.186
 # (weight_fcs.2's first Dense); 3.9e-4; 4.3e-3; since the edge block's
 # final pass sums on the tensor cores, 2.9e-4; cosine >= 0.956 and
-# normwise <= 0.304 (sim1_bias2); 3.4e-4; 5.8e-3. The card's own gradient
-# moves by up to 0.23
+# normwise <= 0.304 (sim1_bias2); 3.4e-4; 5.8e-3; and the same since the
+# similarity MLP's forward runs on the tensor cores too, while the witness
+# (plain_idam_forwards: both forwards plain, in the CPU's order) reads
+# cosine >= 0.989 and normwise <= 0.149 (sim1_bias2): what the two tensor
+# cores' summation orders cost. The card's own gradient moves by up to 0.23
 # normwise a leaf when the first edge block's BatchNorm scale moves by
 # 1e-6: with activations rounded to bf16 the gradient is a step function
 # at the scale of the two devices' one-ulp differences, so the leaves are
@@ -834,6 +871,32 @@ def compare_geometry_kernels_with_plain(device):
     return {"ball_query": 0.0, "emd": 0.0}, full
 
 
+def check_bf16_sums(name, got, want):
+    """Two bf16 roundings of fp32 sums over every pair taken in different
+    orders (the similarity backward's dwxyz, dW2 and dW3, which
+    ``ref.sim_mlp_backward`` rounds as JAX's CPU autodiff does): each
+    element equal, or one bf16 ulp apart where the two sums fall on either
+    side of a rounding boundary, in at most SIM_BF16_FLIPS of the elements
+    (the rule of ``tests/test_torch_cuda.py::
+    test_sim_mlp_backward_ragged_tiles_match_plain_and_rerun_bitwise``), and
+    the whole normwise within SIM_BF16_NORM. Prints the flips; returns max
+    |kernel - plain|."""
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{name}: {got.shape}/{got.dtype} vs {want.shape}/{want.dtype}")
+    diff = (got.double() - want.double()).abs()
+    flips = int((diff > 0).sum())
+    far = int((diff > want.double().abs() * 2.0 ** -7).sum())
+    norm = float(want.double().norm())
+    rel = float(diff.norm()) / norm if norm > 0 else float(diff.max())
+    print(f"kernel ~ plain: {name}: {flips} of {got.numel()} one bf16 ulp apart, the rest "
+          f"equal; normwise {rel!r} (bar {SIM_BF16_NORM}), max |diff| {float(diff.max())!r}")
+    check(far == 0, f"{name}: {far} elements more than one bf16 ulp apart")
+    check(flips <= max(1, SIM_BF16_FLIPS * got.numel()),
+          f"{name}: {flips} elements one ulp apart")
+    check(rel <= SIM_BF16_NORM, f"{name}: normwise {rel!r} > {SIM_BF16_NORM}")
+    return float(diff.max())
+
+
 def check_normwise(name, got, want, bar):
     """|got - want| / |want| <= bar over the whole tensor; returns the
     largest absolute difference."""
@@ -896,9 +959,10 @@ def compare_dcp_kernels_with_plain(device):
     2048: the transformer's (32, 2048, 4, 128) bf16 heads, the svd head's
     (32, 2048, 512) fp32 embeddings with the 3-wide target cloud, the edge
     chain's (32, 2048, 20, 6) edges) plus ragged ones, the attention
-    forwards' cutting a 128-query and a 128-key tile, their row max and row
-    sum held against a plain recomputation there, and two runs of each
-    forward bitwise equal. Returns {key: max |kernel - plain|}."""
+    forwards' cutting a 128-query and a 128-key tile, the chain's a round of
+    16 points and its k slots, their row max and row sum held against a
+    plain recomputation there, and two runs of each forward bitwise equal.
+    Returns {key: max |kernel - plain|}."""
     err = {"attention": 0.0, "attention_bnhd": 0.0, "edge_mlp": 0.0}
     for (B, N, M, H) in ((32, 2048, 2048, 4), (2, 1000, 777, 3), (1, 129, 65, 1),
                          (1, 5, 3, 1)):
@@ -927,12 +991,14 @@ def compare_dcp_kernels_with_plain(device):
         check_rerun_bitwise(name, got, kernels.attention_forward(q, k, v, D ** -0.5,
                                                                  stats=True))
         del q, k, v, got
-    for (B, N, K) in ((32, 2048, 20), (3, 1001, 7)):
+    for (B, N, K) in ((32, 2048, 20), (3, 1001, 7), (2, 37, 20), (2, 5, 1)):
         a1, Ws, params = dcp_edge_inputs(300 + N, B, N, K, device)
-        for i, (gl, wl) in enumerate(zip(kernels.edge_mlp_forward(a1, Ws, *params),
-                                         ref.edge_mlp_eval(a1, Ws, *params))):
+        got = kernels.edge_mlp_forward(a1, Ws, *params)
+        for i, (gl, wl) in enumerate(zip(got, ref.edge_mlp_eval(a1, Ws, *params))):
             err["edge_mlp"] = max(err["edge_mlp"], check_normwise(
                 f"edge_mlp ({B}, {N}, k {K}) layer {i}", gl, wl, EDGE_MLP_NORM))
+        check_rerun_bitwise(f"edge_mlp ({B}, {N}, k {K})", got,
+                            kernels.edge_mlp_forward(a1, Ws, *params))
     torch.cuda.synchronize()
     return err
 
@@ -1036,8 +1102,8 @@ def compare_dcp_train_kernels_with_plain(device):
     tile, k 20, 7 and 1, down to 10 edges), against
     ``ref.attention_backward``, ``ref.edge_mlp_backward`` and, at the two
     larger shapes, the plain train forward and autograd of it; and two runs
-    of the attention backwards and of the chain's stat and backward passes
-    bitwise equal. Returns {key: max |kernel - plain|}."""
+    of the attention backwards and of the chain's stat, train final and
+    backward passes bitwise equal. Returns {key: max |kernel - plain|}."""
     err = dict.fromkeys(("attention_bnhd_backward", "attention_backward",
                          "edge_mlp_stat", "edge_mlp_backward"), 0.0)
     for (B, N, M) in ((32, 2048, 2048), (2, 1000, 777), (1, 129, 65)):
@@ -1095,8 +1161,11 @@ def compare_dcp_train_kernels_with_plain(device):
                     f"edge_mlp_backward {name} ({B}, {N}, k {K})", g.float(), w.float(),
                     EDGE_GRAD_NORM))
             del want
-        check_rerun_bitwise(f"edge_mlp_stat ({B}, {N}, k {K})", stats,
-                            kernels.edge_mlp_train_forward(a1, Ws, gammas, betas)[1])
+        again = kernels.edge_mlp_train_forward(a1, Ws, gammas, betas)
+        check_rerun_bitwise(f"edge_mlp_stat and the train final pass ({B}, {N}, k {K}): "
+                            "the four statistics, the max-pools and the slots",
+                            (*stats, *xs, slots), (*again[1], *again[0], again[2]))
+        del again
         check_rerun_bitwise(
             f"edge_mlp_backward ({B}, {N}, k {K}), five passes", got,
             [x for grp in kernels.edge_mlp_train_backward(
@@ -1183,13 +1252,53 @@ def check_propagate_final(name, got, cand, slot=None):
     return max_abs, flips
 
 
+def check_sim_final(name, got, want, h1=None):
+    """The similarity MLP's final pass, got (simr, wmax[, argj]), against the
+    plain version's ``want`` (``ref.sim_mlp_core``, ``ref.sim_mlp_slots``):
+    simr and wmax within SIM_FINAL_ATOL + SIM_FINAL_RTOL |plain|, and
+    bf16(wmax) equal (the kernel makes every bf16 rounding of h1 the plain
+    version's, and bf16 is monotone, so the rounded maxima agree); where
+    the plain version's candidates ``h1`` (B, M, M, C) (``ref.sim_h1``) are
+    given, each saved j the plain version's first maximal one except where
+    the plain candidate at the kernel's j lies within the sum of the two
+    bars of the plain max. Prints the largest gaps and the flips; returns
+    max |kernel - plain|."""
+    worst = 0.0
+    for what, g, w in zip(("simr", "wmax"), got[:2], want[:2]):
+        diff = (g.double() - w.double()).abs()
+        over = int((diff > SIM_FINAL_ATOL + SIM_FINAL_RTOL * w.double().abs()).sum())
+        rel = float((diff / w.double().abs().clamp(min=1e-3)).max())
+        worst = max(worst, float(diff.max()))
+        print(f"kernel ~ plain: {name} {what}: max |diff| {float(diff.max())!r}, max |diff| / "
+              f"max(|plain|, 1e-3) {rel!r}, {over} of {g.numel()} outside "
+              f"{SIM_FINAL_ATOL} + {SIM_FINAL_RTOL} |plain|")
+        check(over == 0, f"{name} {what}: {over} outputs outside the bar")
+    check(torch.equal(got[1].to(torch.bfloat16), want[1].to(torch.bfloat16)),
+          f"{name}: bf16(wmax) differs from the plain version's")
+    if h1 is not None:
+        flipped = got[2] != want[2]
+        first = h1.amax(dim=2).double()
+        mine = h1.gather(2, got[2].long().clamp(0, h1.shape[2] - 1)[:, :, None]
+                         ).squeeze(2).double()
+        room = 2 * SIM_FINAL_ATOL + SIM_FINAL_RTOL * (first.abs() + mine.abs())
+        flips = int(flipped.sum())
+        far = int((flipped & ((first - mine > room) | (got[2] < 0)
+                              | (got[2] >= h1.shape[2]))).sum())
+        print(f"kernel ~ plain: {name} argj: {flips} of {got[2].numel()} differ, each at a "
+              f"near tie")
+        check(far == 0, f"{name}: {far} saved j differ where the plain candidate there lies "
+              "below the plain max by more than the bar")
+    return worst
+
+
 def compare_idam_kernels_with_plain(device):
     """Phase 3f: IDAM's two kernels at its path's shapes (the edge block's
     (32, 2048, k 12, C 64); the similarity MLP's (32, 341, emb 64, C 32))
     plus ragged ones (N 1001 and 37, C 32, k 5; M 37 and 1) and ties
     (repeated neighbours; repeated target points), against ``ref`` on the
     card: the edge block within its bar (``check_propagate_final``), the
-    similarity MLP bitwise; the edge block run twice, bitwise equal.
+    similarity MLP within its (``check_sim_final``); each run twice,
+    bitwise equal.
     Returns {key: max |kernel - plain|}."""
     err = {"gnn_propagate": 0.0, "sim_mlp": 0.0}
     for (B, N, k, C, dup) in ((32, 2048, 12, 64, False), (3, 1001, 12, 32, False),
@@ -1203,9 +1312,10 @@ def compare_idam_kernels_with_plain(device):
                             [kernels.gnn_propagate_forward(*x)])
     for (B, M, ties) in ((32, 341, False), (3, 37, False), (2, 64, True), (1, 1, False)):
         x = idam_sim_inputs(2000 + M, B, M, device, ties=ties)
-        err["sim_mlp"] = max(err["sim_mlp"], check_equal(
-            f"sim_mlp ({B}, {M}, C 32{', ties' if ties else ''}) simr, wmax",
-            kernels.sim_mlp_forward(*x), ref.sim_mlp_core(*x)))
+        what = f"sim_mlp ({B}, {M}, C 32{', ties' if ties else ''})"
+        got = kernels.sim_mlp_forward(*x)
+        err["sim_mlp"] = max(err["sim_mlp"], check_sim_final(what, got, ref.sim_mlp_core(*x)))
+        check_rerun_bitwise(what, got, kernels.sim_mlp_forward(*x))
     torch.cuda.synchronize()
     return err
 
@@ -1215,17 +1325,18 @@ def compare_idam_train_kernels_with_plain(device):
     block's (32, 2048, k 12, C 64), the similarity MLP's (32, 341, C 32))
     plus ragged ones (N 1001 C 32, N 37 k 5; M 37 and 1) and ties (repeated
     neighbours; repeated target points), against ``ref`` on the card: the
-    stat passes normwise (IDAM_STAT_NORM); the edge block's train final pass
-    given the kernels' statistics within its bar and its slots by the slot
-    rule (``check_propagate_final``, flips counted), the similarity MLP's
-    bitwise; the graph's reverse list bitwise ``ref.reverse_list``'s; the
+    stat passes normwise (IDAM_STAT_NORM); the train final passes given the
+    kernels' statistics within their bars and their slots by the slot rule
+    (``check_propagate_final``, ``check_sim_final``, flips counted); the
+    graph's reverse list bitwise ``ref.reverse_list``'s; the
     backward passes against ``ref.*_backward`` given the same statistics
     and the kernels' own slots normwise (IDAM_GRAD_NORM), the edge block's
     with the shared list and with one it builds itself; two runs of the
     stat, final and backward passes and of the list bitwise equal. Returns
     {key: max |kernel - plain|}."""
     err = dict.fromkeys(("gnn_propagate_stat", "gnn_propagate_backward",
-                         "gnn_propagate_list", "sim_mlp_stat", "sim_mlp_backward"), 0.0)
+                         "gnn_propagate_list", "sim_mlp", "sim_mlp_stat",
+                         "sim_mlp_backward"), 0.0)
     for (B, N, k, C, dup) in ((32, 2048, 12, 64, False), (3, 1001, 12, 32, False),
                               (2, 37, 5, 64, False), (2, 300, 12, 64, True)):
         what = f"({B}, {N}, k {k}, C {C}{', ties' if dup else ''})"
@@ -1268,15 +1379,21 @@ def compare_idam_train_kernels_with_plain(device):
                                 ref.sim_mlp_batch_stats(*x[:9], *x[10:12])):
             err["sim_mlp_stat"] = max(err["sim_mlp_stat"], check_normwise(
                 f"sim_mlp_stat {name} {what}", gs, ws, IDAM_STAT_NORM))
-        check_equal(f"sim_mlp train final pass {what} simr, wmax, argj",
-                    [simr, wmax, argj], ref.sim_mlp_slots(*x, st1, st2))
+        err["sim_mlp"] = max(err["sim_mlp"], check_sim_final(
+            f"sim_mlp train final pass {what}", (simr, wmax, argj),
+            ref.sim_mlp_slots(*x, st1, st2), ref.sim_h1(*x[:8], *x[10:12], st1)))
+        check_rerun_bitwise(f"sim_mlp train forward {what}: the two stat passes and the "
+                            "final pass (simr, wmax, st1, st2, argj)",
+                            (simr, wmax, st1, st2, argj), kernels.sim_mlp_train_forward(*x))
         got = kernels.sim_mlp_train_backward(*x, st1, st2, argj, dsimr, dwmax)
         want = ref.sim_mlp_backward(*x, st1, st2, argj, dsimr, dwmax)
         names = ("dsp", "dtp", "dw0", "dwxyz", "dW2", "db2", "dW3", "dW4", "dg1", "dbe1",
                  "dg2", "dbe2")
         for name, gg, ww in zip(names, got, want):
-            err["sim_mlp_backward"] = max(err["sim_mlp_backward"], check_normwise(
-                f"sim_mlp_backward {name} {what}", gg, ww, IDAM_GRAD_NORM))
+            check_one = check_bf16_sums if name in SIM_BF16_GRADS else (
+                lambda n, a, b: check_normwise(n, a, b, IDAM_GRAD_NORM))
+            err["sim_mlp_backward"] = max(err["sim_mlp_backward"], check_one(
+                f"sim_mlp_backward {name} {what}", gg, ww))
         check_rerun_bitwise(f"sim_mlp_stat {what}", (st1, st2),
                             kernels.sim_mlp_batch_stats(*x))
         check_rerun_bitwise(f"sim_mlp_backward {what}, three passes", got,
@@ -1526,18 +1643,18 @@ def check_registration_train_result(name, cfg_path, device, res, log_dir, var):
           f"metrics (rtol 1e-6); checkpoints {names}")
 
 
-def _dcp_train_batch(cfg, clouds_cut):
+def _dcp_train_batch(cfg, clouds_cut, seed=1):
     batch = next(engine.registration_dataset(cfg, "train", REG_DATA_DIR).batches(
-        BatchSpec(int(cfg.batch_size), shuffle=True, seed=1)))
+        BatchSpec(int(cfg.batch_size), shuffle=True, seed=seed)))
     return {k: (v[:clouds_cut] if isinstance(v, np.ndarray) and v.ndim else v)
             for k, v in batch.items()}
 
 
-def _dcp_step_on(cfg, device, batch, gamma_scale=1.0):
-    """One train step from the seeded weights (the edge chain's first
-    BatchNorm scale times ``gamma_scale``) on ``device`` -> (loss, {name:
-    gradient}, {name: running statistic}), on the host."""
-    model = engine.build_model(cfg, device, seed=1, for_training=True)
+def _dcp_step_on(cfg, device, batch, gamma_scale=1.0, seed=1):
+    """One train step from the weights seeded ``seed`` (the edge chain's
+    first BatchNorm scale times ``gamma_scale``) on ``device`` -> (loss,
+    {name: gradient}, {name: running statistic}), on the host."""
+    model = engine.build_model(cfg, device, seed=seed, for_training=True)
     with torch.no_grad():
         model.emb_nn.fused_scale0.mul_(gamma_scale)
     step = engine.make_registration_train_step(
@@ -1545,6 +1662,21 @@ def _dcp_step_on(cfg, device, batch, gamma_scale=1.0):
     loss = float(step(batch)["total_loss"])
     return (loss, {n: p.grad.detach().double().cpu() for n, p in model.named_parameters()},
             {n: b.detach().cpu() for n, b in model.named_buffers()})
+
+
+@contextlib.contextmanager
+def plain_dcp_chain():
+    """On the card, DGCNN's train-mode edge chain by its plain version
+    (``ref.edge_mlp_train``, differentiated by autograd) in place of the
+    kernels."""
+    from mvp_benchmark_tpu_torch import ops
+
+    saved = ops.edge_mlp_train
+    ops.edge_mlp_train = ref.edge_mlp_train
+    try:
+        yield
+    finally:
+        ops.edge_mlp_train = saved
 
 
 def check_dcp_step_on_cpu(cfg, device, clouds_cut=2):
@@ -1556,11 +1688,19 @@ def check_dcp_step_on_cpu(cfg, device, clouds_cut=2):
     in DCP_STEP_BARS. For each chain leaf it prints its share of the whole
     gradient and the card's own move when the chain's first BatchNorm scale
     moves by 1e-6: the bf16 roundings of the chain's activations make the
-    gradient a step function at that scale."""
+    gradient a step function at that scale. It also prints the loss's
+    relative gap when the card moves that scale by 1e-6, and when the card
+    runs the plain edge chain (``plain_dcp_chain``) instead of the kernels."""
     batch = _dcp_train_batch(cfg, clouds_cut)
     loss, g_card, st_card = _dcp_step_on(cfg, device, batch)
-    _, g_moved, _ = _dcp_step_on(cfg, device, batch, 1 + 1e-6)
+    loss_moved, g_moved, _ = _dcp_step_on(cfg, device, batch, 1 + 1e-6)
+    with plain_dcp_chain():
+        loss_plain = _dcp_step_on(cfg, device, batch)[0]
     want, g_cpu, st_cpu = _dcp_step_on(cfg, torch.device("cpu"), batch)
+    rel = lambda x: (x - want) / want
+    print(f"DCP train step loss relative to the CPU's: the card's {rel(loss)!r}, the card's "
+          f"under the 1e-6 change {rel(loss_moved)!r}, the card's with the plain edge chain "
+          f"(ref.edge_mlp_train) {rel(loss_plain)!r} (bar {DCP_STEP_BARS['loss']})")
     total = float(torch.sqrt(sum((g * g).sum() for g in g_cpu.values())))
     cos, chain, shift = {}, {}, {}
     for name, w in g_cpu.items():
@@ -1636,6 +1776,32 @@ def _idam_step_on(cfg, device, batch, src_idx, forced=None, gamma_scale=1.0):
             {n: b.detach().cpu() for n, b in model.named_buffers()}, seen)
 
 
+@contextlib.contextmanager
+def plain_idam_forwards():
+    """On the card, the train forward passes of IDAM's similarity MLP and
+    Propagate block replaced by their plain versions
+    (``ref.sim_mlp_batch_stats`` and ``ref.sim_mlp_slots``;
+    ``ref.gnn_propagate_stats`` and ``ref.gnn_propagate_slots``); their
+    backwards stay the kernels, fed the plain versions' statistics and
+    saved slots."""
+    def sim(*x):
+        st1, st2 = ref.sim_mlp_batch_stats(*x[:9], *x[10:12])
+        simr, wmax, argj = ref.sim_mlp_slots(*x, st1, st2)
+        return simr, wmax, st1, st2, argj.contiguous()
+
+    def propagate(p, idx, W, b, gamma, beta):
+        stats = ref.gnn_propagate_stats(p, idx)
+        x, slot = ref.gnn_propagate_slots(p, idx, W, b, gamma, beta, stats[0], stats[1])
+        return x.contiguous(), stats, slot.contiguous()
+
+    saved = kernels.sim_mlp_train_forward, kernels.gnn_propagate_train_forward
+    kernels.sim_mlp_train_forward, kernels.gnn_propagate_train_forward = sim, propagate
+    try:
+        yield
+    finally:
+        kernels.sim_mlp_train_forward, kernels.gnn_propagate_train_forward = saved
+
+
 def check_idam_step_on_cpu(cfg, device, clouds_cut=2):
     """One IDAM train step on two full-width pairs of the train split, card
     against CPU, the same seeded weights and the same kept source points
@@ -1650,7 +1816,11 @@ def check_idam_step_on_cpu(cfg, device, clouds_cut=2):
     normwise against its own norm. For each leaf it prints the card's own
     move when the first edge block's BatchNorm scale moves by 1e-6: the
     bf16 roundings of the activations make the gradient a step function at
-    that scale, which is what bounds the agreement."""
+    that scale, which is what bounds the agreement. A witness runs the same
+    step on the card with the plain train forwards of the similarity MLP and
+    the Propagate block (``plain_idam_forwards``), printed beside the
+    kernels' step and held to the same bars: a right implementation that
+    sums in the CPU's order meets them."""
     from mvp_benchmark_tpu_torch.models import idam
 
     batch = _dcp_train_batch(cfg, clouds_cut)
@@ -1666,22 +1836,36 @@ def check_idam_step_on_cpu(cfg, device, clouds_cut=2):
                   for b in range(clouds_cut)]
     _, g_moved, _, _ = _idam_step_on(cfg, device, batch, src_idx, forced=sel,
                                      gamma_scale=1 + 1e-6)
+    with plain_idam_forwards():
+        loss_w, g_witness, st_witness, _ = _idam_step_on(cfg, device, batch, src_idx,
+                                                         forced=sel)
     want, g_cpu, st_cpu, _ = _idam_step_on(cfg, cpu, batch, src_idx, forced=sel)
     total = float(torch.sqrt(sum((g * g).sum() for g in g_cpu.values())))
-    rows, shift = {}, {}
-    for name, w in g_cpu.items():
-        g = g_card[name]
-        if name.endswith(idam.SHIFT_INVARIANT):
-            shift[name] = float((g - w).norm()) / total
-            continue
-        norm = float(w.norm())
-        rows[name] = (float((g.flatten() @ w.flatten()) / (g.norm() * w.norm())),
-                      float((g - w).norm()) / norm,
-                      float((g_moved[name] - g).norm()) / norm, norm / total)
-    stat_gap = max(float((st_card[n] - w).abs().max() / w.abs().max().clamp_min(1e-12))
-                   for n, w in st_cpu.items())
+
+    def gaps(grads, stats):
+        """Each leaf's (cosine, normwise, the card's own move, share of the
+        norm) against the CPU's, the shift-invariant leaves' gaps, and the
+        running statistics' largest relative gap."""
+        rows, shift = {}, {}
+        for name, w in g_cpu.items():
+            g = grads[name]
+            if name.endswith(idam.SHIFT_INVARIANT):
+                shift[name] = float((g - w).norm()) / total
+                continue
+            norm = float(w.norm())
+            rows[name] = (float((g.flatten() @ w.flatten()) / (g.norm() * w.norm())),
+                          float((g - w).norm()) / norm,
+                          float((g_moved[name] - g).norm()) / norm, norm / total)
+        stat_gap = max(float((stats[n] - w).abs().max() / w.abs().max().clamp_min(1e-12))
+                       for n, w in st_cpu.items())
+        return rows, shift, stat_gap
+
+    rows, shift, stat_gap = gaps(g_card, st_card)
     worst_cos = min(rows, key=lambda n: rows[n][0])
     worst_norm = max(rows, key=lambda n: rows[n][1])
+    w_rows, w_shift, w_stat = gaps(g_witness, st_witness)
+    w_cos = min(w_rows, key=lambda n: w_rows[n][0])
+    w_norm = max(w_rows, key=lambda n: w_rows[n][1])
     M = src_idx.shape[1]
     print(f"IDAM train step card vs CPU on {clouds_cut} pairs of {batch['src'].shape[1]} "
           f"points, the same {M} kept source points a pair: run free, gt matches "
@@ -1692,9 +1876,22 @@ def check_idam_step_on_cpu(cfg, device, clouds_cut=2):
           f"{rows[worst_norm][1]!r} ({worst_norm}), shift-invariant leaves <= "
           f"{max(shift.values())!r} of the whole norm, running statistics relative "
           f"{stat_gap!r} (bars {IDAM_STEP_BARS})")
+    print(f"IDAM step witness, the similarity MLP's and the Propagate block's train "
+          f"forward passes plain on the card (their backwards the kernels): loss "
+          f"{loss_w!r}, gradient cosine >= {w_rows[w_cos][0]!r} ({w_cos}), normwise <= "
+          f"{w_rows[w_norm][1]!r} ({w_norm}), shift-invariant leaves <= "
+          f"{max(w_shift.values())!r}, running statistics relative {w_stat!r}")
     for name, (c, gap, moved, share) in rows.items():
-        print(f"IDAM step {name}: cosine {c!r}, normwise {gap!r}; card's own move under "
-              f"the 1e-6 change {moved!r}; {share!r} of the whole gradient's norm")
+        print(f"IDAM step {name}: cosine {c!r}, normwise {gap!r} (witness "
+              f"{w_rows[name][0]!r}, {w_rows[name][1]!r}); card's own move under the 1e-6 "
+              f"change {moved!r}; {share!r} of the whole gradient's norm")
+    check(abs(loss_w - want) <= IDAM_STEP_BARS["loss"] * abs(want),
+          f"IDAM step witness loss {loss_w!r} CPU {want!r}")
+    check(w_rows[w_cos][0] >= IDAM_STEP_BARS["cosine"], f"IDAM step witness {w_cos}: cosine")
+    check(w_rows[w_norm][1] <= IDAM_STEP_BARS["normwise"],
+          f"IDAM step witness {w_norm}: normwise")
+    check(max(w_shift.values()) <= IDAM_STEP_BARS["shift"], f"IDAM step witness shift: {w_shift}")
+    check(w_stat <= IDAM_STEP_BARS["stats"], f"IDAM step witness running statistics {w_stat!r}")
     check(abs(loss - want) <= IDAM_STEP_BARS["loss"] * abs(want),
           f"IDAM step loss card {loss!r} CPU {want!r}")
     check(rows[worst_cos][0] >= IDAM_STEP_BARS["cosine"], f"IDAM step {worst_cos}: cosine")
@@ -2775,8 +2972,9 @@ def main() -> int:
     max_abs.update(geometry_err)
     max_abs.update(compare_dcp_kernels_with_plain(device))
     max_abs.update(compare_dcp_train_kernels_with_plain(device))
-    max_abs.update(compare_idam_kernels_with_plain(device))
-    max_abs.update(compare_idam_train_kernels_with_plain(device))
+    for err in (compare_idam_kernels_with_plain(device),
+                compare_idam_train_kernels_with_plain(device)):
+        max_abs.update({k: max(v, max_abs.get(k, 0.0)) for k, v in err.items()})
 
     paths = {}           # path -> its launch counts
     pcn = load_config(PCN_CFG)
@@ -2856,11 +3054,19 @@ def main() -> int:
         check_registration_train_result("IDAM", IDAM_CFG, device, res, log_dir,
                                         lambda m: m.sim0_var2)
     del res
-    check_pcn_step_on_cpu(load_config(PCN_CFG), device)
-    check_vrcnet_step_on_cpu(load_config(VRCNET_CFG), device)
-    check_ecg_step_on_cpu(load_config(ECG_CFG), device)
-    check_dcp_step_on_cpu(load_config(DCP_CFG), device)
-    check_idam_step_on_cpu(load_config(IDAM_CFG), device)
+    # each train step against the CPU is read even when one before it fails;
+    # a failure fails the run at its end
+    failed = []
+    for check_step, path in ((check_pcn_step_on_cpu, PCN_CFG),
+                             (check_vrcnet_step_on_cpu, VRCNET_CFG),
+                             (check_ecg_step_on_cpu, ECG_CFG),
+                             (check_dcp_step_on_cpu, DCP_CFG),
+                             (check_idam_step_on_cpu, IDAM_CFG)):
+        try:
+            check_step(load_config(path), device)
+        except SmokeFailure as e:
+            print(f"chip_smoke: FAILED: {e}")
+            failed.append(str(e))
     check_completion_steps_rerun_bitwise(device)
 
     for name, cfg in (("PCN", pcn), ("VRCNet", vrc), ("ECG", ecg)):
@@ -2882,6 +3088,9 @@ def main() -> int:
              launches=launches[k],
              max_abs_err=max_abs[k], **times[k])
         for k in KERNELS]}))
+    if failed:
+        print(f"chip_smoke: {len(failed)} check(s) failed: {failed}", file=sys.stderr)
+        return 1
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

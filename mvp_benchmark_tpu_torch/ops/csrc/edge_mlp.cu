@@ -24,30 +24,44 @@
 // side of a bf16 rounding carries that into the next layer, so the two agree
 // to a tolerance.
 //
-// Forward passes (edge_mlp_kernel). Tensor cores through mma.sync.m16n8k16
-// (bf16 operands, fp32 accumulation). A group of 4 warps runs 16 points, one
-// neighbour slot j at a time: the 16 edges (p, j) form the 16 rows of every
-// product. Warp q of the group computes a quarter of each layer's output
-// channels, keeps the running max over j of exactly those channels in
-// registers, and writes its bf16 activations to the group's buffer in shared
-// memory, from which all 4 warps read the next layer's A fragments; a named
-// barrier per group orders the layers. A block holds two groups (256
-// threads) and the four weights, transposed to (out, in) and padded by 8 bf16
-// a row so that the B-fragment loads hit 32 distinct banks (W0's 6 input rows
-// are zero-padded to 16, one k-step). Blocks are persistent: one per SM that
-// fits, each group walking tiles of 16 points with a grid stride, so the
-// weights (100 KB) are staged once per block. Points past the end read zero
-// edges and write nothing.
-// - The final pass writes the four max-pools (only they reach device
-//   memory; the (P, k, ch) activations never do) and, in train, each
-//   max-pool's argmax slot (P, 512) uint8: the first j reaching the max, as
-//   torch.max routes its gradient (the TPU kernel finds the argmax again in
-//   its backward by float equality against a recompute, :2889).
-// - The stat pass of layer l runs layers 0..l-1 with the statistics found so
-//   far and sums h_l and h_l^2 over the edges. The TPU adds every block into
-//   one accumulator in grid order, a race on a GPU: here each group writes
-//   its partial sums and the wrapper adds them in a fixed order, so the
-//   statistics are the same from run to run.
+// The final pass (edge_mlp_kernel), on the backward's machinery: a block is
+// three warpgroups on wgmma; the weights, staged once a block in
+// 128-byte-swizzled panels (~90 KB), are the B operand; each layer's
+// accumulator, activated and packed to bf16, is the next product's A operand
+// in registers, with no barrier between layers; layers 2 and 3 run in
+// 64-column chunks, issued two at a time, so that a chunk's elementwise work
+// overlaps the next chunk's product. Blocks are persistent, as many as the
+// SMs hold, each warpgroup walking its rounds with a grid stride and loading
+// the next tile's edges while it computes the current one. It walks rounds of
+// 16 points, ceil(k / 4) tiles of 64 edges a round: row 16 w + g + 8 h of
+// tile tau is point 4 w + (g >> 1), slot 4 tau + 2 (g & 1) + h. So a thread's
+// two rows are two slots of one point and the lane g ^ 1 holds the tile's
+// other two: the max over a tile's slots is a register max and one shuffle,
+// which also leaves each lane half the columns. A round's running max-pools
+// (16 points x 512 channels, 64 a thread) and slots stay in shared memory,
+// each thread its own, until the round writes them. Only the four max-pools
+// reach device memory (the (P, k, ch) activations never do) and, in train,
+// each max-pool's argmax slot (P, 512) uint8: the first j reaching the max (a
+// tie to the lower slot within a tile, a later tile only if larger), as
+// torch.max routes its gradient (the TPU kernel finds the argmax again in its
+// backward by float equality against a recompute, :2889). Slots past k and
+// points past P read 0 and are not written.
+// Its products sum each h in the tensor cores' order, the same for mma.sync
+// and wgmma: given the same scale and shift its max-pools and slots are
+// bitwise those of the first design (mma.sync tiles of 16 points).
+//
+// The stat passes (statpass::edge_mlp_stat_kernel) are the first design's:
+// a block is two groups of 4 warps on mma.sync tiles of 16 points walking
+// their k slots, each layer's bf16 activations through the group's buffer
+// in shared memory, each lane summing h_l and h_l^2 of its rows and
+// channels over the group's tiles. They stay so because the DCP train
+// step's check against the CPU cannot tell a right summation order of the
+// statistics from a wrong one (ROADMAP): a wgmma stat pass, as accurate
+// against fp64 sums, moved the step's loss outside that check's bar at its
+// batch, as the plain chain on the card does. The TPU adds every block into
+// one accumulator in grid order, a race on a GPU: here each group writes
+// its partial sums and the wrapper adds them in a fixed order, so the
+// statistics are the same from run to run.
 //
 // Backward passes (edge_mlp_backward_kernel), top-down as the TPU's: pass
 // `level` (3, 2, 1, 0, -1) recomputes the chain for every edge, routes each
@@ -76,17 +90,20 @@
 // neighbours = 1.31 M edges of 2 (6*64 + 64*64 + 64*128 + 128*256) = 90.9 k
 // flops, 119 GFLOP a pass: 0.12 ms at the 989 TFLOP/s bf16 dense peak; a1
 // (15.7 MB) and the outputs (134 MB) take 0.045 ms. The four stat passes
-// recompute 165 GFLOP; the backward needs ~356 GFLOP (the forward once,
+// recompute 165 GFLOP, on mma.sync tiles that barrier at every layer of
+// every slot; the backward needs ~356 GFLOP (the forward once,
 // every dW, the push-down), 0.36 ms, and the five passes form ~1.1 TFLOP
 // (each recomputes the chain, layers 0-2 again where the way down needs
 // them). Each warpgroup waits for its products before the elementwise work
-// of the layer, so the tensor cores idle while both warpgroups of an SM are
-// in their elementwise phases, and with 255 registers and two warpgroups an
-// SM the latency of device-memory loads goes unhidden: the next round's
-// max-pool cotangents and slots are asked into L2 while a round runs, and
-// the BatchNorm parameters sit in shared memory where it has room. Keeping
-// the activations instead of recomputing them would store 671 MB of bf16 a
-// call (layers 1-3) and read it back in every pass.
+// of the layer (the activation, the max-pool or the moment sums on the
+// CUDA cores), so the tensor cores idle while both warpgroups of an SM are
+// in their elementwise phases, and with up to 255 registers and two
+// warpgroups an SM the latency of device-memory loads goes unhidden: the
+// backward asks the next round's max-pool cotangents and slots into L2
+// while a round runs, and the BatchNorm parameters sit in shared memory
+// where it has room. Keeping the activations instead of recomputing them
+// would store 671 MB of bf16 a call (layers 1-3) and read it back in every
+// pass.
 
 #include "hopper.cuh"
 
@@ -96,17 +113,6 @@ constexpr int kC0 = 6;                         // a1 channels: [x_j | x_i]
 constexpr int kCh0 = 64, kCh1 = 64, kCh2 = 128, kCh3 = 256;
 constexpr int kChTotal = kCh0 + kCh1 + kCh2 + kCh3;
 constexpr int kOff0 = 0, kOff1 = kCh0, kOff2 = kOff1 + kCh1, kOff3 = kOff2 + kCh2;
-constexpr int kGroups = 2, kThreads = kGroups * 128;
-// bf16 row strides (input width + 8) of the transposed weights and of the
-// per-group activation buffers
-constexpr int kS0 = 16 + 8, kS1 = kCh0 + 8, kS2 = kCh1 + 8, kS3 = kCh2 + 8;
-constexpr int kW0 = 0, kW1 = kW0 + kCh0 * kS0, kW2 = kW1 + kCh1 * kS1,
-              kW3 = kW2 + kCh2 * kS2, kWEnd = kW3 + kCh3 * kS3;
-constexpr int kA0 = 0, kA1 = kA0 + 16 * kS1, kA2 = kA1 + 16 * kS2,
-              kAEnd = kA2 + 16 * kS3;          // one group's buffers
-constexpr size_t kSmemBytes =
-    sizeof(__nv_bfloat16) * (kWEnd + kGroups * kAEnd) + sizeof(float) * 2 * kChTotal;
-
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
   asm volatile(
@@ -116,10 +122,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ void group_barrier(int group) {
-  asm volatile("bar.sync %0, %1;" ::"r"(1 + group), "r"(128) : "memory");
-}
-
 // The folded BatchNorm and relu of one pre-activation, as every pass
 // computes it (no contraction into an FMA, so that all passes agree
 // bitwise).
@@ -127,288 +129,11 @@ __device__ __forceinline__ float activate(float h, float sc, float sh) {
   return fmaxf(__fadd_rn(__fmul_rn(h, sc), sh), 0.f);
 }
 
-// The products of one layer for the 16 edges of a slot: A (16 x K) from
-// shared memory `a` (row stride SA bf16), B from the transposed weight `w`
-// (row stride SW), this warp's NT output tiles of 8 channels from n_base.
-template <int K, int NT, int SA, int SW>
-__device__ __forceinline__ void mma_layer(const __nv_bfloat16* a,
-                                          const __nv_bfloat16* w, int n_base,
-                                          float (&acc)[NT][4], int g, int t) {
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < K / 16; ++kk) {
-    const uint32_t* r0 = reinterpret_cast<const uint32_t*>(a + g * SA + kk * 16 + 2 * t);
-    const uint32_t* r1 = reinterpret_cast<const uint32_t*>(a + (g + 8) * SA + kk * 16 + 2 * t);
-    const uint32_t af[4] = {r0[0], r1[0], r0[4], r1[4]};
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const uint32_t* wr = reinterpret_cast<const uint32_t*>(
-          w + (n_base + nt * 8 + g) * SW + kk * 16 + 2 * t);
-      mma_bf16(acc[nt], af, wr[0], wr[4]);
-    }
-  }
-}
-
-// Folded BatchNorm and relu of a layer's tiles, the running max over j (with
-// kSlots its first argmax j, four bytes packed a tile) and, when `next` is
-// not null, the bf16 activations for the next layer.
-template <int NT, bool kSlots>
-__device__ __forceinline__ void activate_tiles(const float (&acc)[NT][4],
-                                               const float* sc, const float* sh,
-                                               int n_base, float (&mx)[NT][4],
-                                               uint32_t (&sl)[NT], int j,
-                                               __nv_bfloat16* next, int snext,
-                                               int g, int t) {
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const int c = n_base + nt * 8 + 2 * t;
-    float y[4];
-#pragma unroll
-    for (int x = 0; x < 4; ++x) {
-      const int cc = c + (x & 1);
-      y[x] = activate(acc[nt][x], sc[cc], sh[cc]);
-      if (kSlots) {
-        if (y[x] > mx[nt][x]) {
-          mx[nt][x] = y[x];
-          sl[nt] = (sl[nt] & ~(0xffu << (8 * x))) | (static_cast<uint32_t>(j) << (8 * x));
-        }
-      } else {
-        mx[nt][x] = fmaxf(mx[nt][x], y[x]);
-      }
-    }
-    if (next != nullptr) {
-      *reinterpret_cast<uint32_t*>(next + g * snext + c) = pack_bf16(y[0], y[1]);
-      *reinterpret_cast<uint32_t*>(next + (g + 8) * snext + c) = pack_bf16(y[2], y[3]);
-    }
-  }
-}
-
-// Sums of h and h^2 of the valid rows into this lane's channels.
-template <int NT>
-__device__ __forceinline__ void sum_moments(const float (&acc)[NT][4], bool ok0,
-                                            bool ok1, float (&s)[NT][2],
-                                            float (&ss)[NT][2]) {
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const float v0 = ok0 ? acc[nt][e] : 0.f, v1 = ok1 ? acc[nt][2 + e] : 0.f;
-      s[nt][e] += v0 + v1;
-      ss[nt][e] += v0 * v0 + v1 * v1;
-    }
-  }
-}
-
-// A warp's per-lane channel sums, reduced over the 8 rows of lanes that
-// share a channel, written by lanes 0-3 to part[0][c] and part[1][c].
-template <int NT>
-__device__ __forceinline__ void write_sums(float (&s)[NT][2], float (&ss)[NT][2],
-                                           float* part, int ch, int n_base,
-                                           int lane) {
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-#pragma unroll
-      for (int off = 4; off < 32; off <<= 1) {
-        s[nt][e] += __shfl_xor_sync(0xffffffffu, s[nt][e], off);
-        ss[nt][e] += __shfl_xor_sync(0xffffffffu, ss[nt][e], off);
-      }
-      if (lane < 4) {
-        const int c = n_base + nt * 8 + 2 * lane + e;
-        part[c] = s[nt][e];
-        part[ch + c] = ss[nt][e];
-      }
-    }
-  }
-}
-
-template <int NT>
-__device__ __forceinline__ void store_max(float* out, int ch, int n_base,
-                                          const float (&mx)[NT][4], long long p0,
-                                          long long points, int g, int t) {
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const int c = n_base + nt * 8 + 2 * t;
-    if (p0 + g < points) {
-      *reinterpret_cast<float2*>(out + (p0 + g) * ch + c) = make_float2(mx[nt][0], mx[nt][1]);
-    }
-    if (p0 + g + 8 < points) {
-      *reinterpret_cast<float2*>(out + (p0 + g + 8) * ch + c) =
-          make_float2(mx[nt][2], mx[nt][3]);
-    }
-  }
-}
-
-// The packed slots of a layer's tiles into slots (P, 512) at channel offset
-// `off`: bytes 0, 1 row g, bytes 2, 3 row g + 8.
-template <int NT>
-__device__ __forceinline__ void store_slots(uint8_t* slots, int off, int n_base,
-                                            const uint32_t (&sl)[NT], long long p0,
-                                            long long points, int g, int t) {
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const int c = off + n_base + nt * 8 + 2 * t;
-    if (p0 + g < points) {
-      *reinterpret_cast<uint16_t*>(slots + (p0 + g) * kChTotal + c) =
-          static_cast<uint16_t>(sl[nt] & 0xffffu);
-    }
-    if (p0 + g + 8 < points) {
-      *reinterpret_cast<uint16_t*>(slots + (p0 + g + 8) * kChTotal + c) =
-          static_cast<uint16_t>(sl[nt] >> 16);
-    }
-  }
-}
-
-template <int NT>
-__device__ __forceinline__ void reset(float (&mx)[NT][4], uint32_t (&sl)[NT]) {
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    mx[nt][0] = mx[nt][1] = mx[nt][2] = mx[nt][3] = 0.f;
-    sl[nt] = 0u;
-  }
-}
-
-__host__ __device__ constexpr int stat_tiles(int layer) { return layer == 3 ? 8 : layer == 2 ? 4 : 2; }
 __host__ __device__ constexpr int layer_width(int layer) {
   return layer == 3 ? kCh3 : layer == 2 ? kCh2 : layer == 1 ? kCh1 : kCh0;
 }
 
-// kStat = -1: the final pass (the max-pools, with kSlots their argmax slots).
-// kStat = l in 0..3: the stat pass of layer l, whose group partials go to
-// `partial` ((gridDim.x * kGroups, 2, ch_l) fp32).
-template <int kStat, bool kSlots>
-__global__ void __launch_bounds__(kThreads, 1)
-edge_mlp_kernel(const __nv_bfloat16* __restrict__ a1,
-                const __nv_bfloat16* __restrict__ w0, const __nv_bfloat16* __restrict__ w1,
-                const __nv_bfloat16* __restrict__ w2, const __nv_bfloat16* __restrict__ w3,
-                const float* __restrict__ scale, const float* __restrict__ shift,
-                long long points, int k, float* __restrict__ x0, float* __restrict__ x1,
-                float* __restrict__ x2, float* __restrict__ x3,
-                uint8_t* __restrict__ slots, float* __restrict__ partial) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sw = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sa_all = sw + kWEnd;
-  float* ssc = reinterpret_cast<float*>(sa_all + kGroups * kAEnd);
-  float* ssh = ssc + kChTotal;
-
-  // stage the weights transposed, (in, out) -> (out, in); W0's rows 6..15 zero
-  for (int i = threadIdx.x; i < kCh0 * 16; i += kThreads) {
-    const int n = i / 16, c = i % 16;
-    sw[kW0 + n * kS0 + c] = c < kC0 ? w0[c * kCh0 + n] : __float2bfloat16(0.f);
-  }
-  for (int i = threadIdx.x; i < kCh0 * kCh1; i += kThreads) {
-    sw[kW1 + (i % kCh1) * kS1 + i / kCh1] = w1[i];
-  }
-  for (int i = threadIdx.x; i < kCh1 * kCh2; i += kThreads) {
-    sw[kW2 + (i % kCh2) * kS2 + i / kCh2] = w2[i];
-  }
-  for (int i = threadIdx.x; i < kCh2 * kCh3; i += kThreads) {
-    sw[kW3 + (i % kCh3) * kS3 + i / kCh3] = w3[i];
-  }
-  for (int i = threadIdx.x; i < kChTotal; i += kThreads) {
-    ssc[i] = scale[i];
-    ssh[i] = shift[i];
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int group = warp / 4, q = warp % 4;
-  const int g = lane >> 2, t = lane & 3;
-  __nv_bfloat16* sa = sa_all + group * kAEnd;
-  const long long tiles = (points + 15) / 16;
-
-  float m0[2][4], m1[2][4], m2[4][4], m3[8][4];
-  uint32_t l0[2], l1[2], l2[4], l3[8];
-  constexpr int kSNT = stat_tiles(kStat);
-  float s[kSNT][2], ss[kSNT][2];
-#pragma unroll
-  for (int nt = 0; nt < kSNT; ++nt) s[nt][0] = s[nt][1] = ss[nt][0] = ss[nt][1] = 0.f;
-
-  for (long long tile = static_cast<long long>(blockIdx.x) * kGroups + group;
-       tile < tiles; tile += static_cast<long long>(gridDim.x) * kGroups) {
-    const long long p0 = tile * 16;
-    reset(m0, l0);
-    reset(m1, l1);
-    reset(m2, l2);
-    reset(m3, l3);
-    const bool ok0 = p0 + g < points, ok1 = p0 + g + 8 < points;
-    for (int j = 0; j < k; ++j) {
-      // layer 0: the edge [x_j | x_i] of rows g, g + 8 straight from a1
-      float acc0[2][4];
-      {
-        uint32_t af[4] = {0u, 0u, 0u, 0u};
-        if (t < kC0 / 2) {
-          if (ok0) af[0] = *reinterpret_cast<const uint32_t*>(
-              a1 + ((p0 + g) * k + j) * kC0 + 2 * t);
-          if (ok1) af[1] = *reinterpret_cast<const uint32_t*>(
-              a1 + ((p0 + g + 8) * k + j) * kC0 + 2 * t);
-        }
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-          acc0[nt][0] = acc0[nt][1] = acc0[nt][2] = acc0[nt][3] = 0.f;
-          const uint32_t* wr = reinterpret_cast<const uint32_t*>(
-              sw + kW0 + (q * 16 + nt * 8 + g) * kS0 + 2 * t);
-          mma_bf16(acc0[nt], af, wr[0], wr[4]);
-        }
-      }
-      if constexpr (kStat == 0) {
-        sum_moments(acc0, ok0, ok1, s, ss);
-        continue;
-      }
-      activate_tiles<2, kSlots>(acc0, ssc + kOff0, ssh + kOff0, q * 16, m0, l0, j,
-                                sa + kA0, kS1, g, t);
-      group_barrier(group);
-      float acc1[2][4];
-      mma_layer<kCh0, 2, kS1, kS1>(sa + kA0, sw + kW1, q * 16, acc1, g, t);
-      if constexpr (kStat == 1) {
-        sum_moments(acc1, ok0, ok1, s, ss);
-        group_barrier(group);              // layer 0's buffer read before it is refilled
-        continue;
-      }
-      activate_tiles<2, kSlots>(acc1, ssc + kOff1, ssh + kOff1, q * 16, m1, l1, j,
-                                sa + kA1, kS2, g, t);
-      group_barrier(group);
-      float acc2[4][4];
-      mma_layer<kCh1, 4, kS2, kS2>(sa + kA1, sw + kW2, q * 32, acc2, g, t);
-      if constexpr (kStat == 2) {
-        sum_moments(acc2, ok0, ok1, s, ss);
-        continue;
-      }
-      activate_tiles<4, kSlots>(acc2, ssc + kOff2, ssh + kOff2, q * 32, m2, l2, j,
-                                sa + kA2, kS3, g, t);
-      group_barrier(group);
-      float acc3[8][4];
-      mma_layer<kCh2, 8, kS3, kS3>(sa + kA2, sw + kW3, q * 64, acc3, g, t);
-      if constexpr (kStat == 3) {
-        sum_moments(acc3, ok0, ok1, s, ss);
-        continue;
-      }
-      activate_tiles<8, kSlots>(acc3, ssc + kOff3, ssh + kOff3, q * 64, m3, l3, j,
-                                nullptr, 0, g, t);
-    }
-    if constexpr (kStat < 0) {
-      store_max(x0, kCh0, q * 16, m0, p0, points, g, t);
-      store_max(x1, kCh1, q * 16, m1, p0, points, g, t);
-      store_max(x2, kCh2, q * 32, m2, p0, points, g, t);
-      store_max(x3, kCh3, q * 64, m3, p0, points, g, t);
-      if constexpr (kSlots) {
-        store_slots(slots, kOff0, q * 16, l0, p0, points, g, t);
-        store_slots(slots, kOff1, q * 16, l1, p0, points, g, t);
-        store_slots(slots, kOff2, q * 32, l2, p0, points, g, t);
-        store_slots(slots, kOff3, q * 64, l3, p0, points, g, t);
-      }
-    }
-  }
-  if constexpr (kStat >= 0) {
-    constexpr int ch = layer_width(kStat);
-    write_sums(s, ss, partial + (static_cast<long long>(blockIdx.x) * kGroups + group) * 2 * ch,
-               ch, q * (ch / 4), lane);
-  }
-}
-
-// ---- backward ---------------------------------------------------------------
+// ---- the wgmma chain: the backward's tiles, shared by the forward -----------
 
 constexpr int kBEdges = 64;                    // edges a warpgroup takes at a time
 constexpr int kBWGs = 2;                       // warpgroups a block
@@ -733,6 +458,528 @@ __device__ __forceinline__ void dw_store(const float* acc, float* out, int cols,
   }
 }
 
+// The four weights into their panels, 16 bytes (8 output channels) at a
+// time, W0's rows past 6 zero; and the folded scale and shift.
+__device__ __forceinline__ void stage_weights(unsigned char* base, const __nv_bfloat16* w0,
+                                              const __nv_bfloat16* w1, const __nv_bfloat16* w2,
+                                              const __nv_bfloat16* w3,
+                                              const float* __restrict__ scale,
+                                              const float* __restrict__ shift) {
+  const __nv_bfloat16* ws[4] = {w0, w1, w2, w3};
+  const int rows[4] = {kC0, kCh0, kCh1, kCh2}, cols[4] = {kCh0, kCh1, kCh2, kCh3};
+  const int prow[4] = {16, kCh0, kCh1, kCh2};
+  const uint32_t offs[4] = {kBW0, kBW1, kBW2, kBW3};
+#pragma unroll
+  for (int l = 0; l < 4; ++l) {
+    for (int i = threadIdx.x; i < prow[l] * cols[l] / 8; i += blockDim.x) {
+      const int r = i / (cols[l] / 8), c8 = i % (cols[l] / 8);
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (r < rows[l]) v = *reinterpret_cast<const uint4*>(ws[l] + r * cols[l] + 8 * c8);
+      *reinterpret_cast<uint4*>(base + offs[l] + (c8 >> 3) * prow[l] * 128 + r * 128 +
+                                (((c8 & 7) ^ (r & 7)) << 4)) = v;
+    }
+  }
+  float* ssc = reinterpret_cast<float*>(base + kBScale);
+  for (int i = threadIdx.x; i < kChTotal; i += blockDim.x) {
+    ssc[i] = scale[i];
+    ssc[kChTotal + i] = shift[i];
+  }
+}
+
+// ---- forward ----------------------------------------------------------------
+
+// The final pass's rounds: 16 points, ceil(k / 4) tiles of 64 edges. Row
+// 16 warp + g + 8 h of tile tau is point 4 warp + (g >> 1) of the round,
+// slot 4 tau + 2 (g & 1) + h: a thread's two rows are two slots of one
+// point, and the lane g ^ 1 holds its other two slots of the tile.
+constexpr int kRoundPoints = 16;
+// A thread's running max-pools of a round, 8 64-column chunks x 8 values,
+// and with slots their bytes (4 a word), in shared memory, each thread its
+// own column of a warpgroup's (64, 128) floats and (16, 128) words.
+constexpr int kRunFloats = 64 * 128, kSlotWords = 16 * 128;
+// Warpgroups a final-pass block (its round maxima take 40 KB a warpgroup
+// beside the weights) and its dynamic shared memory: the weights' panels,
+// the scale and shift, and the warpgroups' running max-pools and slots.
+constexpr int kFwdWGs = 3;
+constexpr size_t kFwdSmem = 1024 + kBDyn + kFwdWGs * (kRunFloats + kSlotWords) * 4;
+
+// relu(h scale + shift) of a 64-column chunk of an accumulator in place
+// (sc, sh at its first column).
+__device__ __forceinline__ void activate64(float (&h)[32], const float* sc, const float* sh,
+                                           int t) {
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    const float2 a = *reinterpret_cast<const float2*>(sc + 8 * nt + 2 * t);
+    const float2 b = *reinterpret_cast<const float2*>(sh + 8 * nt + 2 * t);
+#pragma unroll
+    for (int x = 0; x < 4; ++x) h[4 * nt + x] = activate(h[4 * nt + x], x & 1 ? a.y : a.x,
+                                                         x & 1 ? b.y : b.x);
+  }
+}
+
+// The max over a tile's slots of a 64-column chunk of activations y (kMask:
+// rows past the point's k slots, or past the last point, read as 0), added
+// to the round's running max: the thread's two rows, then the lane g ^ 1's
+// two, by a shuffle that leaves each lane half the columns (lane b = g & 1
+// keeps tiles 2 m + b: run[128 (2 m + e)] is column 8 (2 m + b) + 2 t + e).
+// With kSlots the first slot reaching each max, its byte in the word at
+// sl[128 (idx / 4)]: a tie goes to the lower slot, and the running max
+// takes a tile's only if larger, so the first slot reaching the max over
+// all of the point's slots is kept (max >= 0, slot 0 from the start).
+template <bool kSlots, bool kMask>
+__device__ __forceinline__ void pool64(const float (&y)[32], bool ok0, bool ok1, int j0, int b,
+                                       float* run, uint32_t* sl) {
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float v[2];
+      int s[2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const float lo = !kMask || ok0 ? y[4 * (2 * m + q) + e] : 0.f;
+        const float hi = !kMask || ok1 ? y[4 * (2 * m + q) + 2 + e] : 0.f;
+        if constexpr (kSlots) {
+          v[q] = hi > lo ? hi : lo;
+          s[q] = hi > lo ? j0 + 1 : j0;
+        } else {
+          v[q] = fmaxf(lo, hi);
+        }
+      }
+      float keep = b ? v[1] : v[0];
+      const float o = __shfl_xor_sync(0xffffffffu, b ? v[0] : v[1], 4);
+      const int idx = 2 * m + e;
+      const float r = run[128 * idx];
+      if constexpr (kSlots) {
+        int ks = b ? s[1] : s[0];
+        const int os = __shfl_xor_sync(0xffffffffu, b ? s[0] : s[1], 4);
+        if (o > keep || (o == keep && os < ks)) {
+          keep = o;
+          ks = os;
+        }
+        if (keep > r) {
+          run[128 * idx] = keep;
+          reinterpret_cast<uint8_t*>(sl + 128 * (idx >> 2))[idx & 3] = static_cast<uint8_t>(ks);
+        }
+      } else {
+        keep = fmaxf(keep, o);
+        if (keep > r) run[128 * idx] = keep;
+      }
+    }
+  }
+}
+
+// layer 0's A fragments of edges e0 and e1 (where ok): the edge [x_j |
+// x_i], channels 6..15 zero
+__device__ __forceinline__ void load_a0(const __nv_bfloat16* __restrict__ a1, long long e0,
+                                        long long e1, bool ok0, bool ok1, int t,
+                                        uint32_t (&f)[2]) {
+  f[0] = f[1] = 0u;
+  if (t < kC0 / 2) {
+    if (ok0) f[0] = __ldg(reinterpret_cast<const unsigned int*>(a1 + e0 * kC0) + t);
+    if (ok1) f[1] = __ldg(reinterpret_cast<const unsigned int*>(a1 + e1 * kC0) + t);
+  }
+}
+
+// Issues d (64 x 64) = A . W (W's KS k-steps in the panel at w) on the
+// tensor cores without waiting for it: wgmma_wait and pin(d) before d is
+// read, pin(a) after the last product that reads a.
+template <int KS>
+__device__ __forceinline__ void issue64(float (&d)[32], uint32_t (&a)[KS][4], uint32_t w) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    wgmma_m64n64k16_rs<1>(d, a[kk], sw128_desc(w + kk * 2048, KS * 16 * 128, 1024), kk > 0);
+  }
+  wgmma_commit();
+  pin(d);
+}
+
+// The chain of a tile past layer 0's product h0 (the accumulator of f0 .
+// W0): layer l's chunks (one for layers 0 and 1, two for layer 2, four for
+// layer 3) each handed to chunk(h, c) (c 0..7 over the layers in order)
+// after its activation. Each layer's activations packed to bf16 are the
+// next product's A operand; layer 2's two products, and layer 3's four, are
+// issued two at a time, so a chunk's elementwise work overlaps the next
+// chunk's product.
+template <typename Chunk>
+__device__ __forceinline__ void chain(float (&h)[32], const float* ssc, const float* ssh,
+                                      uint32_t sb, int t, Chunk&& chunk) {
+  activate64(h, ssc + kOff0, ssh + kOff0, t);
+  chunk(h, 0);
+  uint32_t f1[4][4];
+  pack_frags(h, f1);
+  forward64(h, f1, sb + kBW1);
+  activate64(h, ssc + kOff1, ssh + kOff1, t);
+  chunk(h, 1);
+  uint32_t f2[4][4];
+  pack_frags(h, f2);
+  float hb[32];
+  uint32_t f3[8][4];
+  issue64(h, f2, sb + kBW2);
+  issue64(hb, f2, sb + kBW2 + kCh1 * 128);
+  wgmma_wait<1>();
+  pin(h);
+  activate64(h, ssc + kOff2, ssh + kOff2, t);
+  chunk(h, 2);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) to_a_frag(h, kk, f3[kk]);
+  wgmma_wait<0>();
+  pin(hb);
+  pin(f2);
+  activate64(hb, ssc + kOff2 + 64, ssh + kOff2 + 64, t);
+  chunk(hb, 3);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) to_a_frag(hb, kk, f3[4 + kk]);
+  auto layer3 = [&](float (&d)[32], int q) {
+    activate64(d, ssc + kOff3 + 64 * q, ssh + kOff3 + 64 * q, t);
+    chunk(d, 4 + q);
+  };
+  issue64(h, f3, sb + kBW3);
+  issue64(hb, f3, sb + kBW3 + kCh2 * 128);
+  wgmma_wait<1>();
+  pin(h);
+  layer3(h, 0);
+  issue64(h, f3, sb + kBW3 + 2 * kCh2 * 128);
+  wgmma_wait<1>();
+  pin(hb);
+  layer3(hb, 1);
+  issue64(hb, f3, sb + kBW3 + 3 * kCh2 * 128);
+  wgmma_wait<1>();
+  pin(h);
+  layer3(h, 2);
+  wgmma_wait<0>();
+  pin(hb);
+  pin(f3);
+  layer3(hb, 3);
+}
+
+// The final pass: the max-pools, with kSlots their first argmax slots. A
+// block is kFwdWGs warpgroups on wgmma, the backward's machinery: each
+// layer's accumulator activated and packed to bf16 is the next product's A
+// operand in registers, the weights staged once a block in swizzled panels
+// are the B operand (`chain`). A warpgroup walks rounds of 16 points
+// (kRoundPoints), keeps their max-pools in shared memory, each thread its
+// own, and loads the next tile's edges while it computes the current one.
+template <bool kSlots>
+__global__ void __launch_bounds__(128 * kFwdWGs, 1)
+edge_mlp_kernel(const __nv_bfloat16* __restrict__ a1,
+                const __nv_bfloat16* __restrict__ w0, const __nv_bfloat16* __restrict__ w1,
+                const __nv_bfloat16* __restrict__ w2, const __nv_bfloat16* __restrict__ w3,
+                const float* __restrict__ scale, const float* __restrict__ shift,
+                long long points, int k, float* __restrict__ x0, float* __restrict__ x1,
+                float* __restrict__ x2, float* __restrict__ x3,
+                uint8_t* __restrict__ slots) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const uint32_t sb = smem_addr(base);
+  stage_weights(base, w0, w1, w2, w3, scale, shift);
+  fence_proxy_async();
+  __syncthreads();
+  const float* ssc = reinterpret_cast<const float*>(base + kBScale);
+  const float* ssh = ssc + kChTotal;
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  constexpr int kWGs = kFwdWGs;
+  const long long stride = static_cast<long long>(gridDim.x) * kWGs;
+  float* run = reinterpret_cast<float*>(base + kBDyn) + wg * kRunFloats + tid;
+  uint32_t* sl = reinterpret_cast<uint32_t*>(base + kBDyn) + kWGs * kRunFloats +
+                 wg * kSlotWords + tid;
+  const long long rounds = (points + kRoundPoints - 1) / kRoundPoints;
+  const int per = (k + 3) / 4;                 // tiles a round
+  const int b = g & 1;
+  // the thread's rows in tile tau of round rd: point p, slots j0 and j0 + 1
+  auto rows_of = [&](long long rd, int tau, long long& p, int& j0, bool& ok0, bool& ok1) {
+    p = rd * kRoundPoints + 4 * warp + (g >> 1);
+    j0 = 4 * tau + 2 * b;
+    ok0 = rd < rounds && p < points && j0 < k;
+    ok1 = rd < rounds && p < points && j0 + 1 < k;
+  };
+  long long rd = static_cast<long long>(blockIdx.x) * kWGs + wg;
+  uint32_t nf[2];
+  {
+    long long p;
+    int j0;
+    bool ok0, ok1;
+    rows_of(rd, 0, p, j0, ok0, ok1);
+    load_a0(a1, p * k + j0, p * k + j0 + 1, ok0, ok1, t, nf);
+  }
+  for (; rd < rounds; rd += stride) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) run[128 * i] = 0.f;
+    if constexpr (kSlots) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) sl[128 * i] = 0u;
+    }
+    const long long p = rd * kRoundPoints + 4 * warp + (g >> 1);
+    for (int tau = 0; tau < per; ++tau) {
+      long long pt;
+      int j0;
+      bool ok0, ok1;
+      rows_of(rd, tau, pt, j0, ok0, ok1);
+      uint32_t f0[1][4] = {{nf[0], nf[1], 0u, 0u}};
+      {
+        const long long nrd = tau + 1 < per ? rd : rd + stride;
+        long long np;
+        int nj;
+        bool nok0, nok1;
+        rows_of(nrd, tau + 1 < per ? tau + 1 : 0, np, nj, nok0, nok1);
+        load_a0(a1, np * k + nj, np * k + nj + 1, nok0, nok1, t, nf);
+      }
+      const bool full = __all_sync(0xffffffffu, ok0 && ok1);
+      float h[32];
+      forward64(h, f0, sb + kBW0);
+      chain(h, ssc, ssh, sb, t, [&](float (&d)[32], int c) {
+        if (full) {
+          pool64<kSlots, false>(d, ok0, ok1, j0, b, run + 128 * 8 * c, sl + 128 * 2 * c);
+        } else {
+          pool64<kSlots, true>(d, ok0, ok1, j0, b, run + 128 * 8 * c, sl + 128 * 2 * c);
+        }
+      });
+    }
+    // the round's max-pools (and slots): chunk c is layer l's columns
+    // from col0; run[128 (8 c + 2 m + e)] is column col0 + 16 m + 8 b + 2 t + e
+    if (p < points) {
+      float* xs[4] = {x0, x1, x2, x3};
+      const int chs[4] = {kCh0, kCh1, kCh2, kCh3}, offs[4] = {kOff0, kOff1, kOff2, kOff3};
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const int l = c < 2 ? c : c < 4 ? 2 : 3;
+        const int col0 = c < 2 ? 0 : c < 4 ? 64 * (c - 2) : 64 * (c - 4);
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const int col = col0 + 16 * m + 8 * b + 2 * t;
+          *reinterpret_cast<float2*>(xs[l] + p * chs[l] + col) =
+              make_float2(run[128 * (8 * c + 2 * m)], run[128 * (8 * c + 2 * m + 1)]);
+          if constexpr (kSlots) {
+            *reinterpret_cast<uint16_t*>(slots + p * kChTotal + offs[l] + col) =
+                static_cast<uint16_t>((sl[128 * (2 * c + (m >> 1))] >> (16 * (m & 1))) &
+                                      0xffffu);
+          }
+        }
+      }
+    }
+  }
+}
+
+// ---- stat passes ------------------------------------------------------------
+//
+// The stat pass of layer l on mma.sync tiles (the first design's, kept: see
+// the header). A block is kSGroups groups of 4 warps; a group takes 16
+// points a tile and walks their k slots, each layer's bf16 activations
+// through the group's buffer in shared memory (a named barrier a layer),
+// up to layer l, whose h and h^2 each lane sums over its rows into its
+// channels.
+
+namespace statpass {
+
+constexpr int kSGroups = 2, kSThreads = kSGroups * 128;
+// bf16 row strides (input width + 8) of the transposed weights and of the
+// per-group activation buffers
+constexpr int kS0 = 16 + 8, kS1 = kCh0 + 8, kS2 = kCh1 + 8, kS3 = kCh2 + 8;
+constexpr int kW0 = 0, kW1 = kW0 + kCh0 * kS0, kW2 = kW1 + kCh1 * kS1,
+              kW3 = kW2 + kCh2 * kS2, kWEnd = kW3 + kCh3 * kS3;
+constexpr int kA0 = 0, kA1 = kA0 + 16 * kS1, kA2 = kA1 + 16 * kS2,
+              kAEnd = kA2 + 16 * kS3;          // one group's buffers
+constexpr size_t kSmemBytes =
+    sizeof(__nv_bfloat16) * (kWEnd + kSGroups * kAEnd) + sizeof(float) * 2 * kChTotal;
+
+__device__ __forceinline__ void group_barrier(int group) {
+  asm volatile("bar.sync %0, %1;" ::"r"(1 + group), "r"(128) : "memory");
+}
+
+// The products of one layer for the 16 edges of a slot: A (16 x K) from
+// shared memory `a` (row stride SA bf16), B from the transposed weight `w`
+// (row stride SW), this warp's NT output tiles of 8 channels from n_base.
+template <int K, int NT, int SA, int SW>
+__device__ __forceinline__ void mma_layer(const __nv_bfloat16* a,
+                                          const __nv_bfloat16* w, int n_base,
+                                          float (&acc)[NT][4], int g, int t) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk) {
+    const uint32_t* r0 = reinterpret_cast<const uint32_t*>(a + g * SA + kk * 16 + 2 * t);
+    const uint32_t* r1 = reinterpret_cast<const uint32_t*>(a + (g + 8) * SA + kk * 16 + 2 * t);
+    const uint32_t af[4] = {r0[0], r1[0], r0[4], r1[4]};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const uint32_t* wr = reinterpret_cast<const uint32_t*>(
+          w + (n_base + nt * 8 + g) * SW + kk * 16 + 2 * t);
+      mma_bf16(acc[nt], af, wr[0], wr[4]);
+    }
+  }
+}
+
+// Folded BatchNorm and relu of a layer's tiles into the bf16 activations of
+// the next layer's buffer.
+template <int NT>
+__device__ __forceinline__ void activate_tiles(const float (&acc)[NT][4],
+                                               const float* sc, const float* sh,
+                                               int n_base, __nv_bfloat16* next, int snext,
+                                               int g, int t) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int c = n_base + nt * 8 + 2 * t;
+    float y[4];
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int cc = c + (x & 1);
+      y[x] = activate(acc[nt][x], sc[cc], sh[cc]);
+    }
+    *reinterpret_cast<uint32_t*>(next + g * snext + c) = pack_bf16(y[0], y[1]);
+    *reinterpret_cast<uint32_t*>(next + (g + 8) * snext + c) = pack_bf16(y[2], y[3]);
+  }
+}
+
+// Sums of h and h^2 of the valid rows into this lane's channels.
+template <int NT>
+__device__ __forceinline__ void sum_moments(const float (&acc)[NT][4], bool ok0,
+                                            bool ok1, float (&s)[NT][2],
+                                            float (&ss)[NT][2]) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float v0 = ok0 ? acc[nt][e] : 0.f, v1 = ok1 ? acc[nt][2 + e] : 0.f;
+      s[nt][e] += v0 + v1;
+      ss[nt][e] += v0 * v0 + v1 * v1;
+    }
+  }
+}
+
+// A warp's per-lane channel sums, reduced over the 8 rows of lanes that
+// share a channel, written by lanes 0-3 to part[0][c] and part[1][c].
+template <int NT>
+__device__ __forceinline__ void write_sums(float (&s)[NT][2], float (&ss)[NT][2],
+                                           float* part, int ch, int n_base,
+                                           int lane) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        s[nt][e] += __shfl_xor_sync(0xffffffffu, s[nt][e], off);
+        ss[nt][e] += __shfl_xor_sync(0xffffffffu, ss[nt][e], off);
+      }
+      if (lane < 4) {
+        const int c = n_base + nt * 8 + 2 * lane + e;
+        part[c] = s[nt][e];
+        part[ch + c] = ss[nt][e];
+      }
+    }
+  }
+}
+
+__host__ __device__ constexpr int stat_tiles(int layer) { return layer == 3 ? 8 : layer == 2 ? 4 : 2; }
+
+// The stat pass of layer kStat (0..3), whose group partials go to `partial`
+// ((gridDim.x * kSGroups, 2, ch_l) fp32).
+template <int kStat>
+__global__ void __launch_bounds__(kSThreads, 1)
+edge_mlp_stat_kernel(const __nv_bfloat16* __restrict__ a1,
+                     const __nv_bfloat16* __restrict__ w0, const __nv_bfloat16* __restrict__ w1,
+                     const __nv_bfloat16* __restrict__ w2, const __nv_bfloat16* __restrict__ w3,
+                     const float* __restrict__ scale, const float* __restrict__ shift,
+                     long long points, int k, float* __restrict__ partial) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sw = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sa_all = sw + kWEnd;
+  float* ssc = reinterpret_cast<float*>(sa_all + kSGroups * kAEnd);
+  float* ssh = ssc + kChTotal;
+
+  // stage the weights transposed, (in, out) -> (out, in); W0's rows 6..15 zero
+  for (int i = threadIdx.x; i < kCh0 * 16; i += kSThreads) {
+    const int n = i / 16, c = i % 16;
+    sw[kW0 + n * kS0 + c] = c < kC0 ? w0[c * kCh0 + n] : __float2bfloat16(0.f);
+  }
+  for (int i = threadIdx.x; i < kCh0 * kCh1; i += kSThreads) {
+    sw[kW1 + (i % kCh1) * kS1 + i / kCh1] = w1[i];
+  }
+  for (int i = threadIdx.x; i < kCh1 * kCh2; i += kSThreads) {
+    sw[kW2 + (i % kCh2) * kS2 + i / kCh2] = w2[i];
+  }
+  for (int i = threadIdx.x; i < kCh2 * kCh3; i += kSThreads) {
+    sw[kW3 + (i % kCh3) * kS3 + i / kCh3] = w3[i];
+  }
+  for (int i = threadIdx.x; i < kChTotal; i += kSThreads) {
+    ssc[i] = scale[i];
+    ssh[i] = shift[i];
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int group = warp / 4, q = warp % 4;
+  const int g = lane >> 2, t = lane & 3;
+  __nv_bfloat16* sa = sa_all + group * kAEnd;
+  const long long tiles = (points + 15) / 16;
+
+  constexpr int kSNT = stat_tiles(kStat);
+  float s[kSNT][2], ss[kSNT][2];
+#pragma unroll
+  for (int nt = 0; nt < kSNT; ++nt) s[nt][0] = s[nt][1] = ss[nt][0] = ss[nt][1] = 0.f;
+
+  for (long long tile = static_cast<long long>(blockIdx.x) * kSGroups + group;
+       tile < tiles; tile += static_cast<long long>(gridDim.x) * kSGroups) {
+    const long long p0 = tile * 16;
+    const bool ok0 = p0 + g < points, ok1 = p0 + g + 8 < points;
+    for (int j = 0; j < k; ++j) {
+      // layer 0: the edge [x_j | x_i] of rows g, g + 8 straight from a1
+      float acc0[2][4];
+      {
+        uint32_t af[4] = {0u, 0u, 0u, 0u};
+        if (t < kC0 / 2) {
+          if (ok0) af[0] = *reinterpret_cast<const uint32_t*>(
+              a1 + ((p0 + g) * k + j) * kC0 + 2 * t);
+          if (ok1) af[1] = *reinterpret_cast<const uint32_t*>(
+              a1 + ((p0 + g + 8) * k + j) * kC0 + 2 * t);
+        }
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          acc0[nt][0] = acc0[nt][1] = acc0[nt][2] = acc0[nt][3] = 0.f;
+          const uint32_t* wr = reinterpret_cast<const uint32_t*>(
+              sw + kW0 + (q * 16 + nt * 8 + g) * kS0 + 2 * t);
+          mma_bf16(acc0[nt], af, wr[0], wr[4]);
+        }
+      }
+      if constexpr (kStat == 0) {
+        sum_moments(acc0, ok0, ok1, s, ss);
+        continue;
+      }
+      activate_tiles<2>(acc0, ssc + kOff0, ssh + kOff0, q * 16, sa + kA0, kS1, g, t);
+      group_barrier(group);
+      float acc1[2][4];
+      mma_layer<kCh0, 2, kS1, kS1>(sa + kA0, sw + kW1, q * 16, acc1, g, t);
+      if constexpr (kStat == 1) {
+        sum_moments(acc1, ok0, ok1, s, ss);
+        group_barrier(group);              // layer 0's buffer read before it is refilled
+        continue;
+      }
+      activate_tiles<2>(acc1, ssc + kOff1, ssh + kOff1, q * 16, sa + kA1, kS2, g, t);
+      group_barrier(group);
+      float acc2[4][4];
+      mma_layer<kCh1, 4, kS2, kS2>(sa + kA1, sw + kW2, q * 32, acc2, g, t);
+      if constexpr (kStat == 2) {
+        sum_moments(acc2, ok0, ok1, s, ss);
+        continue;
+      }
+      activate_tiles<4>(acc2, ssc + kOff2, ssh + kOff2, q * 32, sa + kA2, kS3, g, t);
+      group_barrier(group);
+      float acc3[8][4];
+      mma_layer<kCh2, 8, kS3, kS3>(sa + kA2, sw + kW3, q * 64, acc3, g, t);
+      if constexpr (kStat == 3) sum_moments(acc3, ok0, ok1, s, ss);
+    }
+  }
+  constexpr int ch = layer_width(kStat);
+  write_sums(s, ss, partial + (static_cast<long long>(blockIdx.x) * kSGroups + group) * 2 * ch,
+             ch, q * (ch / 4), lane);
+}
+
+}  // namespace statpass
+
+// ---- backward ---------------------------------------------------------------
+
 // One backward pass, `level` 3, 2, 1, 0 or -1 (the TPU's five top-down
 // passes). w0..w3 the weights (in, out) bf16; params (7, 512) fp32: the
 // folded scale and shift, mu, rsqrt(var + eps) and, for the layers above
@@ -784,27 +1031,7 @@ edge_mlp_backward_kernel(const __nv_bfloat16* __restrict__ a1,
   const int warp = tid >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   unsigned char* my_stage = stage + wg * kStageBytes;
 
-  // the weights into their panels, 16 bytes (8 output channels) at a time
-  {
-    const __nv_bfloat16* ws[4] = {w0, w1, w2, w3};
-    const int rows[4] = {kC0, kCh0, kCh1, kCh2}, cols[4] = {kCh0, kCh1, kCh2, kCh3};
-    const int prow[4] = {16, kCh0, kCh1, kCh2};
-    const uint32_t offs[4] = {kBW0, kBW1, kBW2, kBW3};
-#pragma unroll
-    for (int l = 0; l < 4; ++l) {
-      for (int i = threadIdx.x; i < prow[l] * cols[l] / 8; i += kBThreads) {
-        const int r = i / (cols[l] / 8), c8 = i % (cols[l] / 8);
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (r < rows[l]) v = *reinterpret_cast<const uint4*>(ws[l] + r * cols[l] + 8 * c8);
-        *reinterpret_cast<uint4*>(base + offs[l] + (c8 >> 3) * prow[l] * 128 + r * 128 +
-                                  (((c8 & 7) ^ (r & 7)) << 4)) = v;
-      }
-    }
-  }
-  for (int i = threadIdx.x; i < kChTotal; i += kBThreads) {
-    ssc[i] = params[kPSc * kChTotal + i];
-    ssh[i] = params[kPSh * kChTotal + i];
-  }
+  stage_weights(base, w0, w1, w2, w3, params + kPSc * kChTotal, params + kPSh * kChTotal);
   // the per-channel parameters where they are read, and layer 3's A, B, C
   const float* prm = params;
   const float* abc3 = params + kPA * kChTotal + kOff3;
@@ -1060,22 +1287,42 @@ cudaError_t persistent_grid(Kernel kernel, int threads, size_t smem, long long n
   return cudaSuccess;
 }
 
-template <int kStat, bool kSlots>
+template <bool kSlots>
 int launch_forward(const void* a1, const void* w0, const void* w1, const void* w2,
                    const void* w3, const float* scale, const float* shift,
                    long long points, int k, float* x0, float* x1, float* x2, float* x3,
-                   uint8_t* slots, float* partial, long long cap, void* stream) {
-  auto kernel = edge_mlp_kernel<kStat, kSlots>;
-  const long long tiles = (points + 15) / 16;
+                   uint8_t* slots, void* stream) {
+  auto kernel = edge_mlp_kernel<kSlots>;
+  // a warpgroup's units: rounds of 16 points
+  const long long rounds = (points + kRoundPoints - 1) / kRoundPoints;
   int grid = 0;
-  cudaError_t err = persistent_grid(kernel, kThreads, kSmemBytes,
-                                    (tiles + kGroups - 1) / kGroups, cap, &grid);
+  cudaError_t err = persistent_grid(kernel, 128 * kFwdWGs, kFwdSmem,
+                                    (rounds + kFwdWGs - 1) / kFwdWGs, 0, &grid);
   if (err != cudaSuccess) return static_cast<int>(err);
   using bf = __nv_bfloat16;
-  kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, 128 * kFwdWGs, kFwdSmem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf*>(a1), static_cast<const bf*>(w0), static_cast<const bf*>(w1),
       static_cast<const bf*>(w2), static_cast<const bf*>(w3), scale, shift, points, k,
-      x0, x1, x2, x3, slots, partial);
+      x0, x1, x2, x3, slots);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kStat>
+int launch_stat(const void* a1, const void* w0, const void* w1, const void* w2,
+                const void* w3, const float* scale, const float* shift, long long points,
+                int k, float* partial, long long cap, void* stream) {
+  using namespace statpass;
+  auto kernel = edge_mlp_stat_kernel<kStat>;
+  const long long tiles = (points + 15) / 16;
+  int grid = 0;
+  cudaError_t err = persistent_grid(kernel, kSThreads, kSmemBytes,
+                                    (tiles + kSGroups - 1) / kSGroups, cap, &grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  using bf = __nv_bfloat16;
+  kernel<<<grid, kSThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf*>(a1), static_cast<const bf*>(w0), static_cast<const bf*>(w1),
+      static_cast<const bf*>(w2), static_cast<const bf*>(w3), scale, shift, points, k,
+      partial);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1116,11 +1363,11 @@ int edge_mlp_forward(const void* a1, const void* w0, const void* w1,
                      float* x1, float* x2, float* x3, uint8_t* slots, void* stream) {
   if (points < 1 || k < 1 || k > 255) return static_cast<int>(cudaErrorInvalidValue);
   if (slots != nullptr) {
-    return launch_forward<-1, true>(a1, w0, w1, w2, w3, scale, shift, points, k, x0, x1,
-                                    x2, x3, slots, nullptr, 0, stream);
+    return launch_forward<true>(a1, w0, w1, w2, w3, scale, shift, points, k, x0, x1, x2,
+                                x3, slots, stream);
   }
-  return launch_forward<-1, false>(a1, w0, w1, w2, w3, scale, shift, points, k, x0, x1,
-                                   x2, x3, nullptr, nullptr, 0, stream);
+  return launch_forward<false>(a1, w0, w1, w2, w3, scale, shift, points, k, x0, x1, x2,
+                               x3, nullptr, stream);
 }
 
 // The stat pass of `layer` (0..3): inputs as edge_mlp_forward, with scale
@@ -1136,21 +1383,17 @@ int edge_mlp_stat(const void* a1, const void* w0, const void* w1, const void* w2
   }
   switch (layer) {
     case 0:
-      return launch_forward<0, false>(a1, w0, w1, w2, w3, scale, shift, points, k, nullptr,
-                                      nullptr, nullptr, nullptr, nullptr, partial,
-                                      max_blocks, stream);
+      return launch_stat<0>(a1, w0, w1, w2, w3, scale, shift, points, k, partial,
+                            max_blocks, stream);
     case 1:
-      return launch_forward<1, false>(a1, w0, w1, w2, w3, scale, shift, points, k, nullptr,
-                                      nullptr, nullptr, nullptr, nullptr, partial,
-                                      max_blocks, stream);
+      return launch_stat<1>(a1, w0, w1, w2, w3, scale, shift, points, k, partial,
+                            max_blocks, stream);
     case 2:
-      return launch_forward<2, false>(a1, w0, w1, w2, w3, scale, shift, points, k, nullptr,
-                                      nullptr, nullptr, nullptr, nullptr, partial,
-                                      max_blocks, stream);
+      return launch_stat<2>(a1, w0, w1, w2, w3, scale, shift, points, k, partial,
+                            max_blocks, stream);
     case 3:
-      return launch_forward<3, false>(a1, w0, w1, w2, w3, scale, shift, points, k, nullptr,
-                                      nullptr, nullptr, nullptr, nullptr, partial,
-                                      max_blocks, stream);
+      return launch_stat<3>(a1, w0, w1, w2, w3, scale, shift, points, k, partial,
+                            max_blocks, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

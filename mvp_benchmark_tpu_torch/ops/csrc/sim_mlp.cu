@@ -24,31 +24,45 @@
 // by the reciprocal (:3349-3359). Rounding: each operation outside the bf16
 // products rounded on its own (__fsub_rn, __fmul_rn, __fadd_rn, __fdiv_rn,
 // __fsqrt_rn: no FMA contraction), as the plain version's separate PyTorch
-// operations are; bf16 products are exact in fp32, so their sums use fma in
-// the plain version's channel order. simr and wmax are then bitwise equal to
-// ops/ref.py `sim_mlp_core`'s on the card.
+// operations are, so h0 and x1 are bitwise the plain version's (ops/ref.py
+// `sim_mlp_core`). The two 32 x 32 products run on the tensor cores
+// (mma.sync, bf16 operands, fp32 sums), which sum the channels in another
+// order than the plain version's channel order. Where that could change a
+// discrete outcome -- the bf16 rounding of h1, or relu's mask of BatchNorm
+// 2 -- the element is summed again in channel order (`kMargin16`), so every
+// bf16 value and mask equals the plain version's, bf16(wmax) too; simr and
+// wmax differ from the plain version's by the fp32 summation order only
+// (chip_smoke.py's SIM_FINAL_ATOL / SIM_FINAL_RTOL), and a saved j only at
+// a near tie.
 //
 // The TPU form is not carried over: its G = 128 // C lane packing, block
 // diagonal weights, spread and segment matrices and the padding of M to 128
 // are workarounds for 128-lane vector registers. Here a block takes 8 rows
-// i of one cloud, a warp a row; the warp's 32 lanes walk the targets j =
-// lane, lane + 32, ... < M (the ragged end masked by the loop bound, so no
-// padded j enters the max or the stores), each lane carrying one pair's 32
-// channels through the chain in registers and a running max of h1 per
-// channel; at the end the warp reduces the 32 lanes' maxima with shuffles
-// (max is exact in any order). The block stages W2, W3 and the vectors
-// (10 KB) and the cloud's tp and target points (M x 36 floats, rows padded
-// to 33 so that the lanes' reads hit 32 banks) in shared memory; the
-// weights are read as 16-byte broadcasts. Nothing of the (B, M, M, 32)
-// stack reaches device memory; simr is written once, coalesced over j.
+// i of one cloud, a warp a row; the warp walks the targets 16 at a time,
+// the 16 pairs (i, j0 .. j0 + 15) the rows of mma.m16n8k16 tiles 32
+// channels wide: h0 is formed on the CUDA cores straight into the
+// accumulator layout, whose bf16 packing is the A operand of x1 . W2, and
+// the accumulator of h1 packed to bf16 is the A operand of bf16(h1) . W3
+// (the weights' B fragments staged once a block). A lane computes one
+// pair's distance and direction and hands them to the four lanes whose
+// rows hold it; x2 . W4 sums a lane's 8 channels and then the quad by
+// shuffles, so a tile's 16 logits leave in one store, coalesced along j.
+// Each lane keeps the running max of h1 (and in train its first j) of its
+// rows' columns; the warp reduces them over its rows at the end of the row
+// i (the larger value, a tie to the lower j). Padded targets past M enter
+// neither the max, the sums nor the stores. Nothing of the (B, M, M, 32)
+// stack reaches device memory.
 //
-// What bounds it on an H100: operations. At IDAM's protocol width (B 32,
-// M 341) a call is 3.72 M pairs x ~4.4 K operations (two 32 x 32 products,
-// the 3 x 32 direction product, BatchNorms, the 32-wide logit) = ~16.5
-// GFLOP, against 15 MB of logits written and 3 MB read. This simple kernel
-// runs the products on CUDA cores in fp32 (the order that makes it bitwise
-// the plain version's), ~0.25 ms at the fp32 peak; on the tensor cores the
-// bf16 products would take 0.02 ms. A later PR would move them there.
+// What bounds it on an H100: instruction issue. At IDAM's protocol width
+// (B 32, M 341) a call is 3.72 M pairs; the two products are 0.5 GFLOP a
+// pass on the tensor cores (~1 us), but the elementwise work around them --
+// the geometry, h0, two BatchNorms, the margin tests, the logit -- runs on
+// the CUDA cores and sets the time, under 128 registers a thread (two
+// 8-warp blocks an SM): ~0.42 ms a final pass on an H100 80GB HBM3, against
+// chip_smoke.py's bound of 0.0435 ms, which counts those operations at the
+// fp32 peak. Stat pass 0 sums h0 with its
+// products contracted (its sums are held to a tolerance, not to the plain
+// version's rounding) and keeps its 8 columns' geometry rows in registers.
 //
 // Train mode (`sim_mlp_train` :3915: `_sim_mlp_forward` :3741 and
 // `_sim_mlp_core_bwd` :3806) runs six passes, each recomputing the chain
@@ -58,8 +72,8 @@
 //
 // - two stat passes (`_sm_stat_kernel` :3439): [sum h0, sum h0^2], then,
 //   with BatchNorm 1 on those statistics, [sum h2, sum h2^2], in the final
-//   pass's layout (a lane a pair, 64 accumulators a lane, reduced over the
-//   lanes by shuffles and over the warps in order);
+//   pass's tiles (a lane's column sums over its rows, reduced over the
+//   warp's rows by a butterfly of shuffles and over the warps in order);
 // - the final pass with the batch statistics, which also saves the first j
 //   of each wmax (the TPU routes wmax's cotangent by h1 equality, :3432);
 // - three backward passes as `_sm_bwd1/2/3_kernel` split the work (S2 needs
@@ -103,9 +117,6 @@
 namespace {
 
 constexpr int kC = 32;
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kRow = kC + 1;                  // padded tp row in shared memory
 // packed parameters (floats): w0, wxyz (3 x C), W2 (C x C), b2, W3 (C x C),
 // W4, mean1, inv1, gamma1, beta1, mean2, inv2, gamma2, beta2
 constexpr int kW0 = 0, kWxyz = kC, kW2 = 4 * kC, kB2 = kW2 + kC * kC,
@@ -116,212 +127,9 @@ __device__ __forceinline__ float bf16r(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-__device__ __forceinline__ float bn_relu(float h, const float* bn, int c) {
-  const float hh = __fmul_rn(__fsub_rn(h, bn[c]), bn[kC + c]);
-  const float y = __fadd_rn(__fmul_rn(hh, bn[2 * kC + c]), bn[3 * kC + c]);
-  return y > 0.f ? y : 0.f;
-}
-
-// out[d] = sum_c x[c] * W[c, d] in channel order (bf16 x bf16 is exact, so
-// the fma rounds as the plain version's add does); W row-major in shared.
-__device__ __forceinline__ void matvec(const float (&x)[kC], const float* W,
-                                       float (&out)[kC]) {
-#pragma unroll
-  for (int c = 0; c < kC; ++c) {
-    const float4* row = reinterpret_cast<const float4*>(W + c * kC);
-#pragma unroll
-    for (int d4 = 0; d4 < kC / 4; ++d4) {
-      const float4 w = row[d4];
-      if (c == 0) {
-        out[4 * d4] = __fmul_rn(x[0], w.x);
-        out[4 * d4 + 1] = __fmul_rn(x[0], w.y);
-        out[4 * d4 + 2] = __fmul_rn(x[0], w.z);
-        out[4 * d4 + 3] = __fmul_rn(x[0], w.w);
-      } else {
-        out[4 * d4] = __fmaf_rn(x[c], w.x, out[4 * d4]);
-        out[4 * d4 + 1] = __fmaf_rn(x[c], w.y, out[4 * d4 + 1]);
-        out[4 * d4 + 2] = __fmaf_rn(x[c], w.z, out[4 * d4 + 2]);
-        out[4 * d4 + 3] = __fmaf_rn(x[c], w.w, out[4 * d4 + 3]);
-      }
-    }
-  }
-}
-
-// What a forward pass does: the eval or train final pass (simr, wmax and,
-// in train, the first j of each wmax), or a stat pass (the sums of h0, or of
-// h2 given BatchNorm 1's statistics).
-enum Mode { kEval = 0, kTrainFinal = 1, kStat0 = 2, kStat1 = 3 };
-
-template <int Mode>
-__global__ void __launch_bounds__(kThreads, 1)
-sim_mlp_kernel(const float* __restrict__ sp, const float* __restrict__ tp,
-               const float* __restrict__ src, const float* __restrict__ tgt,
-               const float* __restrict__ params, int m, float* __restrict__ simr,
-               float* __restrict__ wmax, int* __restrict__ argj,
-               float* __restrict__ part) {
-  constexpr bool kStat = Mode == kStat0 || Mode == kStat1;
-  extern __shared__ __align__(16) float smem[];
-  float* prm = smem;                           // kParams
-  float* sps = prm + kParams;                  // kWarps x C
-  float* tps = sps + kWarps * kC;              // m x kRow
-  float* tgs = tps + m * kRow;                 // m x 3
-  const int b = blockIdx.y;
-  const int i0 = blockIdx.x * kWarps;
-  const long long cloud = static_cast<long long>(b) * m;
-
-  for (int e = threadIdx.x; e < kParams; e += kThreads) {
-    const bool rounded = (e >= kWxyz && e < kB2) || (e >= kW3 && e < kW4);
-    prm[e] = rounded ? bf16r(params[e]) : params[e];
-  }
-  for (int e = threadIdx.x; e < kWarps * kC; e += kThreads) {
-    const int i = i0 + e / kC;
-    sps[e] = i < m ? sp[(cloud + i) * kC + e % kC] : 0.f;
-  }
-  for (int e = threadIdx.x; e < m * kC; e += kThreads)
-    tps[(e / kC) * kRow + e % kC] = tp[cloud * kC + e];
-  for (int e = threadIdx.x; e < m * 3; e += kThreads) tgs[e] = tgt[cloud * 3 + e];
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int i = i0 + warp;
-  if (!kStat && i >= m) return;
-  const float* spi = sps + warp * kC;
-  const float* bn1 = prm + kBn;
-  const float* bn2 = prm + kBn + 4 * kC;
-
-  float wm[kC];      // the final passes: running max; the stat passes: sum
-  float wq[kC];      // the stat passes: sum of squares
-  int wj[Mode == kTrainFinal ? kC : 1];
-#pragma unroll
-  for (int c = 0; c < kC; ++c) {
-    wm[c] = kStat ? 0.f : -CUDART_INF_F;
-    wq[c] = 0.f;
-    if (Mode == kTrainFinal) wj[c] = 0;
-  }
-  const float sx = i < m ? src[(cloud + i) * 3] : 0.f;
-  const float sy = i < m ? src[(cloud + i) * 3 + 1] : 0.f;
-  const float sz = i < m ? src[(cloud + i) * 3 + 2] : 0.f;
-
-  for (int j = lane; i < m && j < m; j += 32) {
-    const float dx = __fsub_rn(sx, tgs[3 * j]);
-    const float dy = __fsub_rn(sy, tgs[3 * j + 1]);
-    const float dz = __fsub_rn(sz, tgs[3 * j + 2]);
-    const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                               __fmul_rn(dz, dz));
-    const float dist = __fsqrt_rn(d2);
-    const float den = __fadd_rn(dist, 1e-8f);
-    const float nx = bf16r(__fdiv_rn(dx, den));
-    const float ny = bf16r(__fdiv_rn(dy, den));
-    const float nz = bf16r(__fdiv_rn(dz, den));
-    const float* tpj = tps + j * kRow;
-
-    float x[kC], h[kC];
-#pragma unroll
-    for (int c = 0; c < kC; ++c) {
-      float dot = __fmul_rn(nx, prm[kWxyz + c]);
-      dot = __fmaf_rn(ny, prm[kWxyz + kC + c], dot);
-      dot = __fmaf_rn(nz, prm[kWxyz + 2 * kC + c], dot);
-      const float dproj = __fadd_rn(__fmul_rn(dist, prm[kW0 + c]), dot);
-      const float h0 = __fadd_rn(__fadd_rn(spi[c], tpj[c]), dproj);
-      if (Mode == kStat0) {
-        wm[c] = __fadd_rn(wm[c], h0);
-        wq[c] = __fmaf_rn(h0, h0, wq[c]);
-      }
-      x[c] = bf16r(bn_relu(h0, bn1, c));
-    }
-    if (Mode == kStat0) continue;
-    matvec(x, prm + kW2, h);
-#pragma unroll
-    for (int d = 0; d < kC; ++d) {
-      h[d] = __fadd_rn(h[d], prm[kB2 + d]);
-      if (Mode == kTrainFinal) {
-        if (h[d] > wm[d]) {         // the first maximal j
-          wm[d] = h[d];
-          wj[d] = j;
-        }
-      } else if (Mode == kEval) {
-        wm[d] = fmaxf(wm[d], h[d]);
-      }
-      x[d] = bf16r(h[d]);
-    }
-    matvec(x, prm + kW3, h);
-    if (Mode == kStat1) {
-#pragma unroll
-      for (int e = 0; e < kC; ++e) {
-        wm[e] = __fadd_rn(wm[e], h[e]);
-        wq[e] = __fmaf_rn(h[e], h[e], wq[e]);
-      }
-      continue;
-    }
-    float s = 0.f;
-#pragma unroll
-    for (int e = 0; e < kC; ++e) {
-      const float p = __fmul_rn(bn_relu(h[e], bn2, e), prm[kW4 + e]);
-      s = e == 0 ? p : __fadd_rn(s, p);
-    }
-    simr[(cloud + i) * m + j] = s;
-  }
-
-  if (kStat) {
-    // lanes by a butterfly, then warps in order: one partial a block
-    __shared__ float red[kWarps][2][kC];
-    float mine = 0.f, mine2 = 0.f;
-#pragma unroll
-    for (int d = 0; d < kC; ++d) {
-      float v = wm[d], v2 = wq[d];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, off));
-        v2 = __fadd_rn(v2, __shfl_xor_sync(0xffffffffu, v2, off));
-      }
-      if (lane == d) {
-        mine = v;
-        mine2 = v2;
-      }
-    }
-    red[warp][0][lane] = mine;
-    red[warp][1][lane] = mine2;
-    __syncthreads();
-    if (threadIdx.x < 2 * kC) {
-      const int which = threadIdx.x / kC, c = threadIdx.x % kC;
-      float t = red[0][which][c];
-      for (int w = 1; w < kWarps; ++w) t = __fadd_rn(t, red[w][which][c]);
-      const long long blk = static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x;
-      part[(blk * 2 + which) * kC + c] = t;
-    }
-    return;
-  }
-  float mine = -CUDART_INF_F;
-  int mine_j = 0;
-#pragma unroll
-  for (int d = 0; d < kC; ++d) {
-    float v = wm[d];
-    int vj = Mode == kTrainFinal ? wj[d] : 0;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float o = __shfl_xor_sync(0xffffffffu, v, off);
-      if (Mode == kTrainFinal) {
-        // the larger value, a tie to the lower j: the same on every lane
-        const int oj = __shfl_xor_sync(0xffffffffu, vj, off);
-        if (o > v || (o == v && oj < vj)) {
-          v = o;
-          vj = oj;
-        }
-      } else {
-        v = fmaxf(v, o);
-      }
-    }
-    if (lane == d) {
-      mine = v;
-      mine_j = vj;
-    }
-  }
-  wmax[(cloud + i) * kC + lane] = mine;
-  if (Mode == kTrainFinal) argj[(cloud + i) * kC + lane] = mine_j;
-}
-
 // ---------------------------------------------------------------------------
-// Backward passes: tensor cores, 16 pairs a warp
+// Tensor-core tiles, 16 pairs a warp: the backward's layout and the pieces
+// both directions use
 // ---------------------------------------------------------------------------
 
 constexpr int kRows = 16;          // rows i a backward block takes
@@ -632,6 +440,449 @@ __device__ __forceinline__ void backward_product(Tile& out, const Tile& v, Packe
   for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
     for (int x = 0; x < 4; ++x) out[nt][x] = bf16r(out[nt][x]);
+}
+
+// ---------------------------------------------------------------------------
+// Forward passes: tensor cores, a warp a row i, 16 targets j a tile
+// ---------------------------------------------------------------------------
+
+// What a forward pass does: the eval or train final pass (simr, wmax and,
+// in train, the first j of each wmax), or a stat pass (the sums of h0, or of
+// h2 given BatchNorm 1's statistics).
+enum Mode { kEval = 0, kTrainFinal = 1, kStat0 = 2, kStat1 = 3 };
+
+constexpr int kFWarps = 8;         // rows i a forward block takes, a warp each
+constexpr int kFThreads = 32 * kFWarps;
+
+// Whether a value within m of v may round to another bf16 than v: whether
+// the rounding boundary of v's bf16 neighbourhood (the midpoint of its top
+// 16 bits, whose neighbours' midpoints lie 2^-9 of v away or more) is within
+// m of v (m taken a little wide to cover its own rounding). Three
+// instructions, where bf16_unsure rounds twice.
+__device__ __forceinline__ bool near_bf16_midpoint(float v, float m) {
+  const float mid = __uint_as_float((__float_as_uint(v) & 0xffff0000u) | 0x8000u);
+  return fabsf(__fsub_rn(v, mid)) <= __fmul_rn(m, 1.0009765625f);
+}
+
+// A forward block's shared memory: W2's and W3's B fragments and their bf16
+// rows by output (for the sums taken again in channel order), the
+// per-channel vectors packed four to a column, so that one 16-byte load
+// brings a lane what a column needs: pg (w0, wx, wy, wz), pb1 (mu1, inv1,
+// gamma1, beta1), pb2 (mu2, inv2, gamma2, beta2), pw (b2, W4, the two
+// constants of BatchNorm 2's mask test: 2 |inv2 gamma2| kMargin16 and
+// 2^-20 |beta2|); each warp's staged tile rows (x1 or bf16(h1)) and
+// re-summed values, and the stat passes' warp sums.
+struct FwdSmem {
+  uint2 wf[2][2 * 4 * 32];
+  uint32_t wv[2][kC][kStg];
+  float4 pg[kC], pb1[kC], pb2[kC], pw[kC];
+  uint32_t stg[kFWarps][16 * kStg];
+  float fix[kFWarps][32 * 16];
+  float red[kFWarps][2][kC];
+};
+
+// A block takes 8 rows i of a cloud, a warp a row (a warp past the last
+// row repeats it, and stores and sums nothing, so that every warp walks the
+// same tiles). The warp walks the targets 32 at a time, each lane forming
+// one pair's distance and direction, and then the two tiles of 16: the 16
+// pairs (i, j0 .. j0 + 15) are the rows of mma.m16n8k16 tiles 32 channels
+// wide (lane (g, t) holds rows j0 + g and j0 + g + 8, columns 8 nt + 2 t
+// and + 1), so a tile's logits are 16 consecutive floats of simr. h0 is
+// formed on the CUDA cores in the accumulator layout, which packed to bf16
+// is the A operand of x1 . W2; the accumulator of h1 packed to bf16 is the
+// A operand of bf16(h1) . W3. Each lane keeps the running max of h1 (and
+// its first j) of its two rows' columns; the warp reduces them over its
+// rows at the end of the row i.
+template <int Mode>
+__global__ void __launch_bounds__(kFThreads, 2)
+sim_mlp_kernel(const float* __restrict__ sp, const float* __restrict__ tp,
+               const float* __restrict__ src, const float* __restrict__ tgt,
+               const float* __restrict__ params, int m, float* __restrict__ simr,
+               float* __restrict__ wmax, int* __restrict__ argj,
+               float* __restrict__ part) {
+  constexpr bool kStat = Mode == kStat0 || Mode == kStat1;
+  constexpr bool kSlots = Mode == kTrainFinal;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  FwdSmem& sm = *reinterpret_cast<FwdSmem*>(smem_raw);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const long long cloud = static_cast<long long>(blockIdx.y) * m;
+  const int row = blockIdx.x * kFWarps + warp;
+  const bool live = row < m;
+  const int i = live ? row : m - 1;
+
+  if constexpr (Mode != kStat0) {
+    // W2 (q 0) and W3 (q 1), bf16: fragments (B[k][n] = W[k][n]), and
+    // wv[q][n][k] = B[k][n]
+    for (int e = threadIdx.x; e < 2 * 256; e += kFThreads) {
+      const int q = e >> 8, rest = e & 255;
+      const int kk = rest >> 7, nt = (rest >> 5) & 3, ln = rest & 31;
+      const float* W = params + (q == 0 ? kW2 : kW3);
+      const int k0 = 16 * kk + 2 * (ln & 3), n = 8 * nt + (ln >> 2);
+      auto at = [&](int k) { return W[k * kC + n]; };
+      sm.wf[q][rest] = make_uint2(pack_bf16(at(k0), at(k0 + 1)), pack_bf16(at(k0 + 8), at(k0 + 9)));
+    }
+    for (int e = threadIdx.x; e < kC * kC; e += kFThreads) {
+      const int q = e / (kC * kC / 2), n = (e / (kC / 2)) % kC, k = 2 * (e % (kC / 2));
+      const float* W = params + (q == 0 ? kW2 : kW3);
+      sm.wv[q][n][k / 2] = pack_bf16(W[k * kC + n], W[(k + 1) * kC + n]);
+    }
+  }
+  if (threadIdx.x < kC) {
+    const int c = threadIdx.x;
+    const float* bn = params + kBn;
+    sm.pg[c] = make_float4(params[kW0 + c], bf16r(params[kWxyz + c]),
+                           bf16r(params[kWxyz + kC + c]), bf16r(params[kWxyz + 2 * kC + c]));
+    sm.pb1[c] = make_float4(bn[c], bn[kC + c], bn[2 * kC + c], bn[3 * kC + c]);
+    sm.pb2[c] = make_float4(bn[4 * kC + c], bn[5 * kC + c], bn[6 * kC + c], bn[7 * kC + c]);
+    sm.pw[c] = make_float4(params[kB2 + c], params[kW4 + c],
+                           2.f * fabsf(__fmul_rn(bn[5 * kC + c], bn[6 * kC + c])) *
+                               (kMargin16 * 1.0009765625f),
+                           fabsf(bn[7 * kC + c]) * (1.0f / 1048576.0f));
+  }
+  __syncthreads();
+
+  uint32_t* stg = sm.stg[warp];
+  float* fix = sm.fix[warp];
+  // the lane's columns 2 t + 8 nt (+ 1): its parameters, sp of row i
+  const float4* pg = sm.pg + 2 * t;
+  const float4* pb1 = sm.pb1 + 2 * t;
+  const float4* pb2 = sm.pb2 + 2 * t;
+  const float4* pw = sm.pw + 2 * t;
+  // stat pass 0, with registers to spare, keeps its geometry columns in them
+  float4 pgr[4][2];
+  if constexpr (Mode == kStat0) {
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      pgr[nt][0] = pg[8 * nt];
+      pgr[nt][1] = pg[8 * nt + 1];
+    }
+  }
+  float si[4][2];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    const float2 v = *reinterpret_cast<const float2*>(sp + (cloud + i) * kC + 8 * nt + 2 * t);
+    si[nt][0] = v.x;
+    si[nt][1] = v.y;
+  }
+  const float sx = src[(cloud + i) * 3], sy = src[(cloud + i) * 3 + 1],
+              sz = src[(cloud + i) * 3 + 2];
+  // the final passes: the running max of each element and its first j; the
+  // stat passes: the column sums of the lane's rows and of their squares
+  Tile wm, sq;
+  int wj[kSlots ? 4 : 1][4];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      wm[nt][x] = kStat ? 0.f : -CUDART_INF_F;
+      sq[nt][x] = 0.f;
+      if constexpr (kSlots) wj[nt][x] = 0;
+    }
+  }
+
+  // the target point of pair (i, jb + lane), loaded an iteration ahead
+  auto target = [&](int j, float& x, float& y, float& z) {
+    x = y = z = 0.f;
+    if (j < m) {
+      x = tgt[(cloud + j) * 3];
+      y = tgt[(cloud + j) * 3 + 1];
+      z = tgt[(cloud + j) * 3 + 2];
+    }
+  };
+  float ntx, nty, ntz;
+  target(lane, ntx, nty, ntz);
+  for (int jb = 0; jb < m; jb += 32) {
+    // the distance and direction of pair (i, jb + lane)
+    float gd, gx, gy, gz;
+    {
+      const float tx = ntx, ty = nty, tz = ntz;
+      target(jb + 32 + lane, ntx, nty, ntz);
+      const float dx = __fsub_rn(sx, tx), dy = __fsub_rn(sy, ty), dz = __fsub_rn(sz, tz);
+      const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                                 __fmul_rn(dz, dz));
+      gd = __fsqrt_rn(d2);
+      const float den = __fadd_rn(gd, 1e-8f);
+      gx = bf16r(__fdiv_rn(dx, den));
+      gy = bf16r(__fdiv_rn(dy, den));
+      gz = bf16r(__fdiv_rn(dz, den));
+    }
+    const int halves = m - jb > 16 ? 2 : 1;
+    // stat pass 0, short and waiting on its loads, takes both tiles in one
+    // stretch of code; the others one at a time (their registers)
+#pragma unroll(Mode == kStat0 ? 2 : 1)
+    for (int half = 0; half < halves; ++half) {
+      const int j0 = jb + 16 * half;
+      // handed to the lanes whose rows hold the pair
+      float dist[2], nx[2], ny[2], nz[2];
+      bool ok[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int from = 16 * half + g + 8 * r;
+        dist[r] = __shfl_sync(0xffffffffu, gd, from);
+        nx[r] = __shfl_sync(0xffffffffu, gx, from);
+        ny[r] = __shfl_sync(0xffffffffu, gy, from);
+        nz[r] = __shfl_sync(0xffffffffu, gz, from);
+        ok[r] = live && j0 + g + 8 * r < m;
+      }
+      // h0 and x1 = bf16(relu(BatchNorm 1 (h0))), each operation rounded as
+      // the plain version rounds it (rows past M read tp as 0); stat pass 0
+      // sums h0 only
+      const float* tpj = tp + (cloud + j0 + g) * kC + 2 * t;
+      Packed px;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        float2 tv[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          tv[r] = j0 + g + 8 * r < m
+                      ? *reinterpret_cast<const float2*>(tpj + 8 * r * kC + 8 * nt)
+                      : make_float2(0.f, 0.f);
+        }
+        const float4 cg[2] = {pg[8 * nt], pg[8 * nt + 1]};
+        const float4 cb[2] = {pb1[8 * nt], pb1[8 * nt + 1]};
+        float y[4];
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          const int r = x >> 1, e = x & 1;
+          if constexpr (Mode == kStat0) {
+            // the statistics are held to a tolerance, not to the plain
+            // version's rounding: h0 with its products contracted
+            const float4 c = pgr[nt][e];
+            const float h0 = __fmaf_rn(dist[r], c.x, __fmaf_rn(nz[r], c.w, __fmaf_rn(
+                ny[r], c.z, __fmaf_rn(nx[r], c.y, __fadd_rn(si[nt][e], e ? tv[r].y : tv[r].x)))));
+            // selects, not branches: a branch a term splits the tile's code
+            // into blocks the scheduler cannot interleave
+            const float v = ok[r] ? h0 : 0.f;
+            wm[nt][x] = __fadd_rn(wm[nt][x], v);
+            sq[nt][x] = __fmaf_rn(v, v, sq[nt][x]);
+            continue;
+          }
+          float dot = __fmul_rn(nx[r], cg[e].y);
+          dot = __fmaf_rn(ny[r], cg[e].z, dot);
+          dot = __fmaf_rn(nz[r], cg[e].w, dot);
+          const float dproj = __fadd_rn(__fmul_rn(dist[r], cg[e].x), dot);
+          const float h0 = __fadd_rn(__fadd_rn(si[nt][e], e ? tv[r].y : tv[r].x), dproj);
+          const float hh = __fmul_rn(__fsub_rn(h0, cb[e].x), cb[e].y);
+          const float v = __fadd_rn(__fmul_rn(hh, cb[e].z), cb[e].w);
+          y[x] = v > 0.f ? v : 0.f;
+        }
+        if constexpr (Mode != kStat0) {
+          px[nt][0] = pack_bf16(y[0], y[1]);
+          px[nt][1] = pack_bf16(y[2], y[3]);
+        }
+      }
+      if constexpr (Mode == kStat0) continue;
+
+      // h1 = x1 . W2 + b2; elements whose bf16 rounding the summation order
+      // could change summed again in channel order
+      Tile acc, bnd;
+      zero(acc);
+      zero(bnd);
+      product(acc, px, sm.wf[0], lane);
+      product<true>(bnd, px, sm.wf[0], lane);     // x1 >= 0: |x1| . |W2|
+      uint32_t flags = 0u;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const float b2[2] = {pw[8 * nt].x, pw[8 * nt + 1].x};
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          const float h = __fadd_rn(acc[nt][x], b2[x & 1]);
+          if (near_bf16_midpoint(h, __fmul_rn(__fadd_rn(bnd[nt][x], fabsf(b2[x & 1])),
+                                              kMargin16))) {
+            flags |= 1u << (4 * nt + x);
+          }
+          acc[nt][x] = h;
+        }
+      }
+      if (__any_sync(0xffffffffu, flags != 0u)) {
+        stage_rows(px, stg, g, t);
+        __syncwarp();
+        resum<true>(acc, flags, stg, kStg, sm.wv[0], fix, lane, g, t);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int x = 0; x < 4; ++x)
+            if ((flags >> (4 * nt + x)) & 1u) {
+              acc[nt][x] = __fadd_rn(acc[nt][x], pw[8 * nt + (x & 1)].x);
+            }
+        __syncwarp();                  // the staged rows read before they are refilled
+      }
+      if constexpr (!kStat) {
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            // the first maximal j of the row; rows past M take no part
+            const bool take = ok[x >> 1] && acc[nt][x] > wm[nt][x];
+            wm[nt][x] = take ? acc[nt][x] : wm[nt][x];
+            if constexpr (kSlots) wj[nt][x] = take ? j0 + g + 8 * (x >> 1) : wj[nt][x];
+          }
+        }
+      }
+
+      // h2 = bf16(h1) . W3
+      Packed ph;
+      pack(acc, ph);
+      zero(acc);
+      product(acc, ph, sm.wf[1], lane);
+      if constexpr (Mode == kStat1) {
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            const float v = ok[x >> 1] ? acc[nt][x] : 0.f;
+            wm[nt][x] = __fadd_rn(wm[nt][x], v);
+            sq[nt][x] = __fmaf_rn(v, v, sq[nt][x]);
+          }
+        }
+        continue;
+      }
+      Packed pa;
+      abs_packed(ph, pa);
+      zero(bnd);
+      product<true>(bnd, pa, sm.wf[1], lane);     // |bf16(h1)| . |W3|
+      // y2 = BatchNorm 2 (h2), rounded op by op as the plain version rounds
+      // it, and the elements whose relu mask the summation order could
+      // change, summed again in channel order. Over h2 +- mg (mg =
+      // kMargin16 |bf16(h1)| . |W3|) the rounded BatchNorm moves by at most
+      // |inv2 gamma2| mg plus its rounding, 2^-22 (|hh2 gamma2| + |beta2|) at
+      // each end: where |y2| exceeds twice that the mask is certain;
+      // elsewhere (rarely) both ends are evaluated, the rounded BatchNorm
+      // being monotone in h2.
+      Tile y2;
+      uint32_t maybe = 0u;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const float4 cb[2] = {pb2[8 * nt], pb2[8 * nt + 1]};
+        const float4 cw[2] = {pw[8 * nt], pw[8 * nt + 1]};
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          const int e = x & 1;
+          const float hg = __fmul_rn(__fmul_rn(__fsub_rn(acc[nt][x], cb[e].x), cb[e].y), cb[e].z);
+          y2[nt][x] = __fadd_rn(hg, cb[e].w);
+          const float room = __fmaf_rn(cw[e].z, bnd[nt][x],
+                                       __fmaf_rn(fabsf(hg), 1.0f / 1048576.0f, cw[e].w));
+          if (fabsf(y2[nt][x]) <= room) maybe |= 1u << (4 * nt + x);
+        }
+      }
+      if (__any_sync(0xffffffffu, maybe != 0u)) {
+        flags = 0u;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const float4 cb[2] = {pb2[8 * nt], pb2[8 * nt + 1]};
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            if (!((maybe >> (4 * nt + x)) & 1u)) continue;
+            const int e = x & 1;
+            auto bn2 = [&](float h) {
+              return __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(h, cb[e].x), cb[e].y), cb[e].z),
+                               cb[e].w);
+            };
+            const float h2 = acc[nt][x], mg = __fmul_rn(bnd[nt][x], kMargin16);
+            if ((bn2(__fsub_rn(h2, mg)) > 0.f) != (bn2(__fadd_rn(h2, mg)) > 0.f)) {
+              flags |= 1u << (4 * nt + x);
+            }
+          }
+        }
+        if (__any_sync(0xffffffffu, flags != 0u)) {
+          stage_rows(ph, stg, g, t);
+          __syncwarp();
+          resum<true>(acc, flags, stg, kStg, sm.wv[1], fix, lane, g, t);
+          __syncwarp();
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+            for (int x = 0; x < 4; ++x) {
+              if (!((flags >> (4 * nt + x)) & 1u)) continue;
+              const float4 cb = pb2[8 * nt + (x & 1)];
+              y2[nt][x] = __fadd_rn(
+                  __fmul_rn(__fmul_rn(__fsub_rn(acc[nt][x], cb.x), cb.y), cb.z), cb.w);
+            }
+          }
+        }
+      }
+      // simr = relu(y2) . W4: the lane's 8 channels, then the quad
+      float s[2] = {0.f, 0.f};
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const float w4[2] = {pw[8 * nt].y, pw[8 * nt + 1].y};
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          s[x >> 1] = __fmaf_rn(y2[nt][x] > 0.f ? y2[nt][x] : 0.f, w4[x & 1], s[x >> 1]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        s[r] = __fadd_rn(s[r], __shfl_xor_sync(0xffffffffu, s[r], 1));
+        s[r] = __fadd_rn(s[r], __shfl_xor_sync(0xffffffffu, s[r], 2));
+      }
+      // lanes t 0 and 1 of the 8 quads: the tile's 16 logits, one store
+      if (t < 2 && ok[t]) simr[(cloud + i) * m + j0 + g + 8 * t] = t == 0 ? s[0] : s[1];
+    }
+  }
+
+  if constexpr (kStat) {
+    // the column sums over the warp's 8 row pairs by a butterfly, then the
+    // warps in order: one partial a block
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float v = __fadd_rn(wm[nt][e], wm[nt][2 + e]);
+        float v2 = __fadd_rn(sq[nt][e], sq[nt][2 + e]);
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) {
+          v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, off));
+          v2 = __fadd_rn(v2, __shfl_xor_sync(0xffffffffu, v2, off));
+        }
+        if (g == 0) {
+          sm.red[warp][0][tile_col(nt, e, t)] = v;
+          sm.red[warp][1][tile_col(nt, e, t)] = v2;
+        }
+      }
+    }
+    __syncthreads();
+    if (threadIdx.x < 2 * kC) {
+      const int which = threadIdx.x / kC, c = threadIdx.x % kC;
+      float s = sm.red[0][which][c];
+      for (int w = 1; w < kFWarps; ++w) s = __fadd_rn(s, sm.red[w][which][c]);
+      const long long blk = static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x;
+      part[(blk * 2 + which) * kC + c] = s;
+    }
+    return;
+  }
+  // wmax over the warp's rows: the lane's two rows, then its 8 quads by a
+  // butterfly; in train the larger value, a tie to the lower j
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float v = wm[nt][e];
+      int vj = kSlots ? wj[nt][e] : 0;
+      auto take = [&](float o, int oj) {
+        if constexpr (kSlots) {
+          if (o > v || (o == v && oj < vj)) {
+            v = o;
+            vj = oj;
+          }
+        } else {
+          v = fmaxf(v, o);
+        }
+      };
+      take(wm[nt][2 + e], kSlots ? wj[nt][2 + e] : 0);
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        const float o = __shfl_xor_sync(0xffffffffu, v, off);
+        const int oj = kSlots ? __shfl_xor_sync(0xffffffffu, vj, off) : 0;
+        take(o, oj);
+      }
+      if (live && g == 0) {
+        wmax[(cloud + i) * kC + tile_col(nt, e, t)] = v;
+        if constexpr (kSlots) argj[(cloud + i) * kC + tile_col(nt, e, t)] = vj;
+      }
+    }
+  }
 }
 
 // Pass 1 (S2, dW4), 2 (S1, dW3, dW2, db2) or 3 (dsp, dtp, dw0, dWxyz).
@@ -966,12 +1217,6 @@ sim_mlp_backward_kernel(const float* __restrict__ sp, const float* __restrict__ 
 
 extern "C" {
 
-// Shared memory a launch at M points needs, in bytes (the wrapper refuses an
-// M whose need exceeds the 227 KB a block may opt in to).
-int sim_mlp_smem_bytes(int m) {
-  return static_cast<int>(sizeof(float)) * (kParams + kWarps * kC + m * (kRow + 3));
-}
-
 // sp, tp (B, M, 32), src, tgt (B, M, 3) fp32, params (2496,) fp32 packed as
 // w0 (32), Wxyz (3, 32), W2 (32, 32), b2 (32), W3 (32, 32), W4 (32), then
 // mean1, inv1, gamma1, beta1, mean2, inv2, gamma2, beta2 (32 each; weights in
@@ -989,15 +1234,15 @@ int sim_mlp_forward(int mode, const float* sp, const float* tp, const float* src
                     float* simr, float* wmax, int* argj, float* part, void* stream) {
   if (batch < 1 || m < 1 || mode < 0 || mode > 3)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = sim_mlp_smem_bytes(m);
-  const dim3 grid((m + kWarps - 1) / kWarps, batch);
+  const int smem = static_cast<int>(sizeof(FwdSmem));
+  const dim3 grid((m + kFWarps - 1) / kFWarps, batch);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto run = [&](auto kernel) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<grid, kThreads, smem, st>>>(sp, tp, src, tgt, params, m, simr, wmax, argj,
-                                         part);
+    kernel<<<grid, kFThreads, smem, st>>>(sp, tp, src, tgt, params, m, simr, wmax, argj,
+                                          part);
     return static_cast<int>(cudaGetLastError());
   };
   if (mode == 0) return run(sim_mlp_kernel<kEval>);

@@ -1068,6 +1068,14 @@ def sim_mlp_batch_stats(sp, tp, src, tgt, w0, wxyz, W2, b2, W3, g1, be1):
     return st1, _batch_stats(_bf16_dot(_bf16_dot(x1, W2) + b2.to(torch.float32), W3))
 
 
+def sim_h1(sp, tp, src, tgt, w0, wxyz, W2, b2, g1, be1, st1):
+    """h1 = bf16(x1) @ bf16(W2) + b2 of every pair (B, M, M, C), x1 the relu
+    of BatchNorm 1 of h0 on the statistics st1 ([mean, var]): the
+    candidates of wmax's max over j."""
+    x1 = _bn_relu(sim_h0(sp, tp, src, tgt, w0, wxyz), st1[0], bn_inv(st1[1]), g1, be1)
+    return _bf16_dot(x1, W2) + b2.to(torch.float32)
+
+
 def sim_mlp_slots(sp, tp, src, tgt, w0, wxyz, W2, b2, W3, W4, g1, be1, g2, be2,
                   st1, st2):
     """The pairwise chain with the BatchNorms' statistics st1, st2 ([mean,
@@ -1075,8 +1083,7 @@ def sim_mlp_slots(sp, tp, src, tgt, w0, wxyz, W2, b2, W3, W4, g1, be1, g2, be2,
     The contract of the final passes of ``csrc/sim_mlp.cu``: with the
     running statistics (``sim_mlp_core``) or the batch's."""
     f32 = torch.float32
-    x1 = _bn_relu(sim_h0(sp, tp, src, tgt, w0, wxyz), st1[0], bn_inv(st1[1]), g1, be1)
-    h1 = _bf16_dot(x1, W2) + b2.to(f32)
+    h1 = sim_h1(sp, tp, src, tgt, w0, wxyz, W2, b2, g1, be1, st1)
     x2 = _bn_relu(_bf16_dot(h1, W3), st2[0], bn_inv(st2[1]), g2, be2)
     w4 = W4.reshape(-1).to(f32)
     simr = x2[..., 0] * w4[0]

@@ -257,3 +257,23 @@ def test_backward_from_slots_matches_the_pallas_passes(layers, K):
     auto = [a1t.grad.float()] + [p.grad for p in (*Wt, *gt, *bt)]
     for i, (g, w) in enumerate(zip(got, auto)):
         assert _normwise(g, w) < 2e-2, (i, _normwise(g, w))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_probe_chain_statistics_are_the_plain_chains(dtype):
+    """``probe_forward_mlps._chain_stats``, which reads the edge chain's
+    statistics against fp64 at DCP's step batch, gives the plain train
+    chain's statistics when it folds them (``ref.bn_scale_shift``) into the
+    layers below, in fp32 or fp64: normwise 1e-4 a layer, this file's bar
+    for statistics summed in other orders."""
+    from mvp_benchmark_tpu_torch.probe_forward_mlps import _chain_stats
+
+    a1, Ws, gammas, betas, _, _ = _case(5, N=37, K=7)
+    a1t = torch.from_numpy(a1).to(torch.bfloat16)
+    Wt, gt, bt = ([torch.from_numpy(x) for x in xs] for xs in (Ws, gammas, betas))
+    want = ref.edge_mlp_train(a1t, Wt, gt, bt)[1]
+    fold = ref.bn_scale_shift(gt, bt, [s[0] for s in want], [s[1] for s in want])
+    got = _chain_stats(a1t, Wt, [s for s, _ in fold], [h for _, h in fold], dtype)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert _normwise(g.float(), w.numpy()) < 1e-4

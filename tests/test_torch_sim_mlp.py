@@ -115,3 +115,94 @@ def test_split_bf16x3_reconstructs_fp32_bitwise(scale):
     w = w.double()
     assert torch.equal((hi.double() * w + mid.double() * w) + lo.double() * w,
                        x.double() * w)
+
+
+def _final_case(M=16):
+    """The plain train final pass at M 16 with duplicate targets (exact ties
+    over j): its inputs' core (sp, tp, ...), its outputs and candidates."""
+    (src, tgt, semb, temb, Wcat, W2, b2, W3, W4, b4, g1, be1, g2, be2,
+     m1, v1, m2, v2) = map(torch.from_numpy, _inputs(9, M=M, ties=True))
+    sp, tp = ref.sim_projections(semb, temb, Wcat)
+    core = (sp, tp, src, tgt, *ref.sim_mlp_split(Wcat, 16), W2, b2, W3, W4, g1, be1, g2, be2)
+    st1, st2 = torch.stack([m1, v1]), torch.stack([m2, v2])
+    return ref.sim_mlp_slots(*core, st1, st2), ref.sim_h1(*core[:8], *core[10:12], st1)
+
+
+def test_sim_h1_holds_the_candidates_of_wmax():
+    """``ref.sim_h1``: wmax and its saved j are its first max over j."""
+    (_, wmax, argj), h1 = _final_case()
+    want, first = ref._first_max(h1, 2)
+    assert torch.equal(wmax, want) and torch.equal(argj, first.to(torch.int32))
+
+
+def test_sim_final_check_takes_order_gaps_and_flips_at_ties():
+    """``chip_smoke.check_sim_final``, the card's bar on the similarity
+    MLP's final pass: gaps inside SIM_FINAL_ATOL + SIM_FINAL_RTOL |plain| and
+    a saved j moved to an exactly tied candidate pass, and the largest gap
+    is returned."""
+    import chip_smoke
+
+    (simr, wmax, argj), h1 = _final_case()
+    tied = argj + 8                              # the duplicate targets' j
+    assert torch.equal(ref._first_max(h1[:, :, 8:], 2)[0], wmax)
+    step = 0.5 * chip_smoke.SIM_FINAL_ATOL
+    got = (simr + step, wmax, tied)
+    assert chip_smoke.check_sim_final("plain", got, (simr, wmax, argj), h1) == pytest.approx(
+        step, rel=5e-2)
+    assert chip_smoke.check_sim_final("plain", (simr, wmax), (simr, wmax)) == 0.0
+
+
+@pytest.mark.parametrize("fault", ["simr", "wmax", "bf16_wmax", "far_j"])
+def test_sim_final_check_refuses_what_the_design_rules_out(fault):
+    """A logit or a max outside the bar, a max on the other side of a bf16
+    rounding, and a saved j whose plain candidate lies below the max by more
+    than the bar each fail ``chip_smoke.check_sim_final``."""
+    import chip_smoke
+
+    (simr, wmax, argj), h1 = _final_case()
+    got = [simr.clone(), wmax.clone(), argj.clone()]
+    if fault == "simr":
+        got[0][0, 1, 2] += 1e-3
+    elif fault == "wmax":
+        got[1][1, 3, 4] += 1e-3
+    elif fault == "bf16_wmax":
+        # 2^-23 either side of the midpoint of 1 and its bf16 neighbour:
+        # a gap inside the bar across a bf16 rounding boundary
+        mid = 1.0 + 2.0 ** -8
+        got[1][0, 0, 0], want = mid + 2.0 ** -23, wmax.clone()
+        want[0, 0, 0] = mid - 2.0 ** -23
+        with pytest.raises(chip_smoke.SmokeFailure, match="bf16"):
+            chip_smoke.check_sim_final("plain", got[:2], (simr, want))
+        return
+    else:
+        far = (h1[0, 0, :, 0] < wmax[0, 0, 0] - 1e-2).nonzero()[0, 0]
+        got[2][0, 0, 0] = int(far)
+    with pytest.raises(chip_smoke.SmokeFailure):
+        chip_smoke.check_sim_final("plain", got, (simr, wmax, argj), h1)
+
+
+@pytest.mark.parametrize("case", ["equal", "one_flip", "two_ulps", "many_flips"])
+def test_bf16_sums_check_allows_one_ulp_at_a_few_elements(case):
+    """``chip_smoke.check_bf16_sums``, the card's rule for the similarity
+    backward's bf16-rounded sums (dwxyz, dW2, dW3): equal, or one bf16 ulp
+    apart at no more than SIM_BF16_FLIPS of the elements; two ulps apart,
+    or one ulp at many elements, fails."""
+    import chip_smoke
+
+    rng = np.random.default_rng(3)
+    want = torch.from_numpy(rng.standard_normal((32, 32)).astype(np.float32))
+    want = want.to(torch.bfloat16).float()
+    got = want.clone()
+    up = lambda x, n: (x.view(torch.int32) + n).view(torch.float32)   # n bf16 ulps up
+    if case == "one_flip":
+        got[3, 4] = up(want[3, 4].contiguous(), 1 << 16)
+    elif case == "two_ulps":
+        got[3, 4] = up(want[3, 4].contiguous(), 2 << 16)
+    elif case == "many_flips":
+        got[:4] = up(want[:4].contiguous(), 1 << 16)
+    if case in ("equal", "one_flip"):
+        gap = chip_smoke.check_bf16_sums("dW3", got, want)
+        assert gap == float((got - want).abs().max())
+    else:
+        with pytest.raises(chip_smoke.SmokeFailure):
+            chip_smoke.check_bf16_sums("dW3", got, want)
