@@ -35,7 +35,8 @@ Phases, each of which raises on failure (exit code != 0):
    and of the chain's passes bitwise equal; IDAM's edge block (its
    product on the tensor cores, within a stated bar) and similarity MLP
    (bitwise) at its shapes plus ragged and tie cases, and for training
-   their stat passes (normwise), train final passes (the edge block's
+   their stat passes (normwise; the edge block's also bitwise against the
+   plain version in its summation order), train final passes (the edge block's
    within its bar, its saved slots equal but at near ties, the flips
    counted; the similarity MLP's bitwise; given the kernels' statistics),
    the graph's reverse list (bitwise) and backward passes (normwise
@@ -74,8 +75,11 @@ Phases, each of which raises on failure (exit code != 0):
    val clouds, its poses rigid, and a val batch cut to two full-width
    clouds equal to the CPU's (``check_dcp_batch_on_cpu``); DCP's train
    losses and gradients finite, its checkpoint reloading to the same val
-   metrics, and a train step on two full-width pairs equal to the CPU's
-   (``check_dcp_step_on_cpu``); IDAM's val metrics recomputed from its
+   metrics, and a train step on two full-width pairs against the CPU in
+   stages: its chain statistics against fp64, the CPU step given them
+   against the card's, a witness with the plain chain on the card through
+   both, and the free CPU step (``check_dcp_step_on_cpu``); IDAM's val
+   metrics recomputed from its
    poses as DCP's, and a val batch cut to two pairs against the CPU, its
    selection flips counted (``check_idam_batch_on_cpu``); IDAM's train
    losses and gradients finite, its checkpoint reloading to the same val
@@ -384,20 +388,37 @@ DCP_CPU_ATOL = {"loss": 2e-4, "RotE": 0.25, "transE": 3e-3, "RMSE": 2.5e-3,
 ATTN_BF16_BWD_NORM = 1e-3
 EDGE_TRAIN_NORM, EDGE_STAT_NORM, EDGE_GRAD_NORM = 1e-3, 1e-5, 2e-2
 # A DCP train step on two full-width pairs, card against CPU
-# (check_dcp_step_on_cpu): the loss relative, the gradients' cosine outside
+# (check_dcp_step_on_cpu), in stages. (a) The card step's edge-chain
+# statistics, both calls and every layer's mean and variance, normwise
+# against the chain in fp64 on the same edges and weights, each layer with
+# the fp64 statistics of the layers below folded (ref.edge_mlp_stats_given
+# in fp64, finding them as it goes), at EDGE_STAT_NORM (measured on an H100
+# 80GB HBM3 at 700 W over ten seeds: the wgmma stat passes 1.56e-6 at most,
+# the plain chain on the card 1.71e-6).
+# (b) The CPU step again with the card's statistics substituted by value
+# (the gradient still through its own, ref.edge_mlp_train's ``given``),
+# held to DCP_STEP_BARS: the loss absolute, the gradients' cosine outside
 # the edge chain, the running statistics absolute, the edge chain's leaves
 # by cosine and normwise against each leaf's own norm (bars that a zero or
-# sign-flipped gradient fails), each 6-30x its gap measured on an H100
-# (5.5e-5; 1 - 2.1e-5; 7.7e-7; 1 - 3.3e-6, 2.6e-3). The loss is a step
-# function of the chain's bf16 roundings. Over ten seeds of the weights and
-# the batch (probe_forward_mlps.py --dcp-loss, an H100 80GB HBM3 at 700 W)
-# the card's loss lay within 9.5e-5 of the CPU's with these kernels and
-# within 1.6e-4 with every kernel of the forward plain; the plain chain on
-# the card, and stat passes that sum in another order, each read about
-# -8e-4 at this check's batch (seed 1, whose loss is 4-9x smaller than the
-# other seeds') and within 2.3e-4 at the other nine. The check prints the
-# plain chain's reading beside the kernels'.
-DCP_STEP_BARS = {"loss": 5e-4, "cosine": 0.9998, "stats": 1e-5,
+# sign-flipped gradient fails), each but the loss 6-30x the free run's gap
+# on an H100 with the first design's stat passes (1 - 2.1e-5; 7.7e-7; 1 -
+# 3.3e-6, 2.6e-3). (c) A witness, the plain chain on the card
+# (plain_dcp_chain), through (a) and (b) at the same bars. (d) The free
+# run, the CPU with its own statistics, printed for both and held to the
+# same bars. The loss is a step function of the bf16 roundings of the
+# chain and of the bf16 transformer, so a right implementation's loss gap
+# is about constant in absolute terms, and no smaller given the card's
+# statistics than free: over ten seeds of the weights and the batch
+# (probe_forward_mlps.py --dcp-loss and --dcp-stages, the same card)
+# stages (b) and (d) of the kernels and of the witness lay within 4.8e-5
+# absolute of the CPU's loss, at losses of 0.036-0.32; at this check's
+# batch (seed 1, whose loss is 4-9x smaller than the other seeds') that is
+# 1.3e-3 relative, the witness's stage (b) read -9.4e-4, and the card's
+# own loss moves by 3.6e-4 relative when the chain's first BatchNorm scale
+# moves by 1e-6. Hence one absolute loss bar for every stage and variant,
+# about twice those gaps; the loss does not tell one summation order of
+# the statistics from another, stage (a) does.
+DCP_STEP_BARS = {"loss": 1e-4, "cosine": 0.9998, "stats": 1e-5,
                  "chain_cosine": 0.9999, "chain_normwise": 2e-2}
 # IDAM's similarity kernel runs its two 32 x 32 products on the tensor
 # cores, which sum the channels in another order than the plain version's
@@ -1098,10 +1119,12 @@ def compare_dcp_train_kernels_with_plain(device):
     2048, 4, 128) bf16 heads, the svd head's (32, 2048, 512) fp32
     embeddings, the chain's (32, 2048, 20, 6) edges) plus ragged ones (the
     attention backwards at (2|3, 1000 x 777) and (1, 129 x 65), cutting a
-    tile; the chain's backward at B N k edges no multiple of its 64-edge
+    tile; the chain's passes at B N k edges no multiple of its 64-edge
     tile, k 20, 7 and 1, down to 10 edges), against
-    ``ref.attention_backward``, ``ref.edge_mlp_backward`` and, at the two
-    larger shapes, the plain train forward and autograd of it; and two runs
+    ``ref.attention_backward``, ``ref.edge_mlp_backward``, the stat passes
+    against ``ref.edge_mlp_stats_given`` (the layers below folded with the
+    kernel's statistics) and, at the two larger shapes, the plain train
+    forward and autograd of it; and two runs
     of the attention backwards and of the chain's stat, train final and
     backward passes bitwise equal. Returns {key: max |kernel - plain|}."""
     err = dict.fromkeys(("attention_bnhd_backward", "attention_backward",
@@ -1141,6 +1164,11 @@ def compare_dcp_train_kernels_with_plain(device):
         for i, (g, w) in enumerate(zip(stats, want_stats) if main else ()):
             err["edge_mlp_stat"] = max(err["edge_mlp_stat"], check_normwise(
                 f"edge_mlp_stat ({B}, {N}, k {K}) layer {i}", g, w, EDGE_STAT_NORM))
+        for i, (g, w) in enumerate(zip(stats, ref.edge_mlp_stats_given(a1, Ws, gammas, betas,
+                                                                       stats))):
+            err["edge_mlp_stat"] = max(err["edge_mlp_stat"], check_normwise(
+                f"edge_mlp_stat ({B}, {N}, k {K}) layer {i}, the layers below given the "
+                "kernel's statistics", g, w, EDGE_STAT_NORM))
         d_a1, dWs, dgs, dbs = kernels.edge_mlp_train_backward(
             a1, Ws, gammas, betas, stats, slots, gxs, need_a1=True)
         names = ["d_a1"] + [f"{n}{i}" for n in ("dW", "dgamma", "dbeta") for i in range(4)]
@@ -1325,7 +1353,9 @@ def compare_idam_train_kernels_with_plain(device):
     block's (32, 2048, k 12, C 64), the similarity MLP's (32, 341, C 32))
     plus ragged ones (N 1001 C 32, N 37 k 5; M 37 and 1) and ties (repeated
     neighbours; repeated target points), against ``ref`` on the card: the
-    stat passes normwise (IDAM_STAT_NORM); the train final passes given the
+    stat passes normwise (IDAM_STAT_NORM), the edge block's also bitwise
+    against the plain version in its order
+    (``ref.gnn_propagate_stats_ordered``); the train final passes given the
     kernels' statistics within their bars and their slots by the slot rule
     (``check_propagate_final``, ``check_sim_final``, flips counted); the
     graph's reverse list bitwise ``ref.reverse_list``'s; the
@@ -1348,6 +1378,12 @@ def compare_idam_train_kernels_with_plain(device):
         err["gnn_propagate_stat"] = max(err["gnn_propagate_stat"], check_normwise(
             f"gnn_propagate_stat {what}", stats, ref.gnn_propagate_stats(p, idx),
             IDAM_STAT_NORM))
+        blocks = kernels._max_blocks(device)
+        check_equal(f"gnn_propagate_stat {what}: its partials and statistics against the "
+                    f"plain version in its order (ref.gnn_propagate_stats_ordered, {blocks} "
+                    "blocks)", (kernels.gnn_propagate_stat_partials(p, idx), stats),
+                    (ref.gnn_propagate_partials_ordered(p, idx, blocks),
+                     ref.gnn_propagate_stats_ordered(p, idx, blocks)))
         check_propagate_final(f"gnn_propagate train final pass {what}", x,
                               ref.gnn_propagate_candidates(p, idx, W, b, gamma, beta,
                                                            stats[0], stats[1]), slot)
@@ -1679,28 +1715,69 @@ def plain_dcp_chain():
         ops.edge_mlp_train = saved
 
 
-def check_dcp_step_on_cpu(cfg, device, clouds_cut=2):
-    """One DCP train step on two full-width pairs, card against CPU, the same
-    seeded weights: the loss, the updated running statistics, and every
-    gradient leaf: the key projections' biases (``DCP_SHIFT_INVARIANT``,
-    exactly 0) to 1e-5 of the whole gradient's norm, the edge chain's by
-    cosine and normwise against the leaf's norm, every other by cosine. Bars
-    in DCP_STEP_BARS. For each chain leaf it prints its share of the whole
-    gradient and the card's own move when the chain's first BatchNorm scale
-    moves by 1e-6: the bf16 roundings of the chain's activations make the
-    gradient a step function at that scale. It also prints the loss's
-    relative gap when the card moves that scale by 1e-6, and when the card
-    runs the plain edge chain (``plain_dcp_chain``) instead of the kernels."""
-    batch = _dcp_train_batch(cfg, clouds_cut)
-    loss, g_card, st_card = _dcp_step_on(cfg, device, batch)
-    loss_moved, g_moved, _ = _dcp_step_on(cfg, device, batch, 1 + 1e-6)
-    with plain_dcp_chain():
-        loss_plain = _dcp_step_on(cfg, device, batch)[0]
-    want, g_cpu, st_cpu = _dcp_step_on(cfg, torch.device("cpu"), batch)
-    rel = lambda x: (x - want) / want
-    print(f"DCP train step loss relative to the CPU's: the card's {rel(loss)!r}, the card's "
-          f"under the 1e-6 change {rel(loss_moved)!r}, the card's with the plain edge chain "
-          f"(ref.edge_mlp_train) {rel(loss_plain)!r} (bar {DCP_STEP_BARS['loss']})")
+def chain_stat_gaps(calls):
+    """Stage (a) of the DCP step check: for each recorded
+    ``ops.edge_mlp_train`` call (``record_dcp_chain``), each layer's
+    [mean, variance] normwise against the chain in fp64 on its inputs, each
+    layer's fp64 statistics folded into the layer above
+    (``ref.edge_mlp_stats_given``)."""
+    gaps = []
+    for a1, Ws, gammas, betas, stats in calls:
+        truth = ref.edge_mlp_stats_given(a1, Ws, gammas, betas, dtype=torch.float64)
+        gaps.append([[float((st[i].double() - t[i]).norm() / t[i].norm()) for i in (0, 1)]
+                     for st, t in zip(stats, truth)])
+    return gaps
+
+
+@contextlib.contextmanager
+def record_dcp_chain(calls):
+    """Each ``ops.edge_mlp_train`` call, whichever runs it, appended to
+    ``calls`` as (a1, Ws, gammas, betas, the statistics it returned),
+    detached copies (the optimizer's step updates the weights in place)."""
+    from mvp_benchmark_tpu_torch import ops
+
+    inner = ops.edge_mlp_train
+
+    def record(a1, Ws, gammas, betas):
+        xs, stats = inner(a1, Ws, gammas, betas)
+        d = lambda ts: [x.detach().clone() for x in ts]
+        calls.append((a1.detach().clone(), d(Ws), d(gammas), d(betas), d(stats)))
+        return xs, stats
+
+    ops.edge_mlp_train = record
+    try:
+        yield
+    finally:
+        ops.edge_mlp_train = inner
+
+
+@contextlib.contextmanager
+def dcp_chain_given_stats(given):
+    """DGCNN's train-mode edge chain by ``ref.edge_mlp_train`` with the
+    statistics of ``given`` (a list of four (2, ch) a call, taken in call
+    order) substituted by value, the gradient still through the batch's
+    own."""
+    from mvp_benchmark_tpu_torch import ops
+
+    saved, queue = ops.edge_mlp_train, list(given)
+    ops.edge_mlp_train = lambda a1, Ws, gammas, betas: ref.edge_mlp_train(
+        a1, Ws, gammas, betas, given=queue.pop(0))
+    try:
+        yield
+    finally:
+        ops.edge_mlp_train = saved
+
+
+def dcp_step_gaps(card, cpu, moved=None):
+    """A DCP train step's readings, (loss, {name: gradient}, {name: running
+    statistic}) on the card against the same on the CPU: the loss's
+    absolute and relative gaps, the worst cosine outside the edge chain,
+    each chain leaf's (cosine, normwise, the card's own move under the
+    1e-6 change in ``moved``'s gradients, share of the whole gradient's
+    norm), the shift-invariant biases against the whole norm
+    (``DCP_SHIFT_INVARIANT``, exactly 0) and the running statistics' max
+    |diff|."""
+    (loss, g_card, st_card), (want, g_cpu, st_cpu) = card, cpu
     total = float(torch.sqrt(sum((g * g).sum() for g in g_cpu.values())))
     cos, chain, shift = {}, {}, {}
     for name, w in g_cpu.items():
@@ -1711,28 +1788,103 @@ def check_dcp_step_on_cpu(cfg, device, clouds_cut=2):
         elif ".fused_" in name:
             norm = float(w.norm())
             chain[name] = (c, float((g - w).norm()) / norm,
-                           float((g_moved[name] - g).norm()) / norm, norm / total)
+                           None if moved is None else float((moved[name] - g).norm()) / norm,
+                           norm / total)
         else:
             cos[name] = c
-    stat_gap = max(float((st_card[n] - w).abs().max()) for n, w in st_cpu.items())
-    worst_cos = min(cos, key=cos.get)
-    print(f"DCP train step card vs CPU on {clouds_cut} full-width pairs: loss "
-          f"{loss!r} / {want!r}; gradient cosine >= {cos[worst_cos]!r} ({worst_cos}; "
-          f"bar {DCP_STEP_BARS['cosine']}); shift-invariant biases {shift!r} of the "
-          f"gradient (bar 1e-5); running statistics max |diff| {stat_gap!r} (bar "
-          f"{DCP_STEP_BARS['stats']})")
-    for name, (c, gap, moved, share) in chain.items():
-        print(f"DCP step edge chain {name}: cosine {c!r}, normwise {gap!r} (bars "
-              f"{DCP_STEP_BARS['chain_cosine']}, {DCP_STEP_BARS['chain_normwise']}); "
-              f"card's own move under the 1e-6 change {moved!r}; {share!r} of the "
-              f"whole gradient's norm")
-    check(abs(loss - want) <= DCP_STEP_BARS["loss"] * abs(want),
-          f"DCP step loss card {loss!r} CPU {want!r}")
-    check(cos[worst_cos] >= DCP_STEP_BARS["cosine"], f"DCP step {worst_cos}: cosine")
-    check(all(c >= DCP_STEP_BARS["chain_cosine"] and gap <= DCP_STEP_BARS["chain_normwise"]
-              for c, gap, _, _ in chain.values()), f"DCP step edge chain: {chain}")
-    check(max(shift.values()) <= 1e-5, f"DCP step shift-invariant biases: {shift}")
-    check(stat_gap <= DCP_STEP_BARS["stats"], f"DCP step running statistics {stat_gap!r}")
+    worst = min(cos, key=cos.get)
+    return {"loss": loss, "cpu_loss": want, "abs": loss - want, "rel": (loss - want) / want,
+            "cosine": (worst, cos[worst]), "chain": chain, "shift": max(shift.values()),
+            "stats": max(float((st_card[n] - w).abs().max()) for n, w in st_cpu.items())}
+
+
+def dcp_step_failures(r):
+    """The bars of DCP_STEP_BARS that a ``dcp_step_gaps`` reading fails."""
+    bad = []
+    if abs(r["abs"]) > DCP_STEP_BARS["loss"]:
+        bad.append(f"loss {r['loss']!r} CPU {r['cpu_loss']!r}")
+    if r["cosine"][1] < DCP_STEP_BARS["cosine"]:
+        bad.append(f"{r['cosine'][0]} cosine {r['cosine'][1]!r}")
+    bad += [f"edge chain {n}: cosine {c!r}, normwise {gap!r}"
+            for n, (c, gap, _, _) in r["chain"].items()
+            if c < DCP_STEP_BARS["chain_cosine"] or gap > DCP_STEP_BARS["chain_normwise"]]
+    if r["shift"] > 1e-5:
+        bad.append(f"shift-invariant biases {r['shift']!r}")
+    if r["stats"] > DCP_STEP_BARS["stats"]:
+        bad.append(f"running statistics {r['stats']!r}")
+    return bad
+
+
+def dcp_step_stages(cfg, device, batch, free, chain=contextlib.nullcontext, moved=None,
+                    seed=1):
+    """Stages (a), (b) and (d) of the DCP step check for one way of running
+    the chain on ``device`` (``chain``: a context that swaps
+    ``ops.edge_mlp_train``): the step there, its chain statistics against
+    fp64 (``chain_stat_gaps``), the CPU's step given them
+    (``dcp_chain_given_stats``) and the free CPU step ``free`` (the CPU
+    with its own statistics), each by ``dcp_step_gaps`` -> {"stat_gaps",
+    "given", "free"}. ``seed``: the weights' (``_dcp_step_on``)."""
+    calls = []
+    with chain(), record_dcp_chain(calls):
+        card = _dcp_step_on(cfg, device, batch, seed=seed)
+    with dcp_chain_given_stats([c[4] for c in calls]):
+        given = _dcp_step_on(cfg, torch.device("cpu"), batch, seed=seed)
+    return {"stat_gaps": chain_stat_gaps(calls), "given": dcp_step_gaps(card, given, moved),
+            "free": dcp_step_gaps(card, free, moved)}
+
+
+def check_dcp_step_on_cpu(cfg, device, clouds_cut=2):
+    """One DCP train step on two full-width pairs, card against CPU, the same
+    seeded weights, in stages (bars: DCP_STEP_BARS' comment). (a) The card
+    step's edge-chain statistics, each ``ops.edge_mlp_train`` call and
+    layer, normwise against the chain in fp64 (EDGE_STAT_NORM). (b) The CPU
+    step with the card's statistics substituted by value, against the
+    card's: the loss, the updated running statistics, and every gradient
+    leaf: the key projections' biases (``DCP_SHIFT_INVARIANT``, exactly 0)
+    to 1e-5 of the whole gradient's norm, the edge chain's by cosine and
+    normwise against the leaf's norm, every other by cosine. (c) A witness,
+    the plain edge chain on the card (``plain_dcp_chain``), through the same
+    stages and bars. (d) The free CPU step (its own statistics) against
+    both, at the same bars. For each chain leaf it
+    prints its share of the whole gradient and the card's own move when the
+    chain's first BatchNorm scale moves by 1e-6: the bf16 roundings of the
+    chain's activations make the gradient a step function at that scale."""
+    batch = _dcp_train_batch(cfg, clouds_cut)
+    loss_moved, g_moved, _ = _dcp_step_on(cfg, device, batch, 1 + 1e-6)
+    free = _dcp_step_on(cfg, torch.device("cpu"), batch)
+    witness = "witness (the plain chain on the card)"
+    runs = {"kernels": dcp_step_stages(cfg, device, batch, free, moved=g_moved),
+            witness: dcp_step_stages(cfg, device, batch, free, plain_dcp_chain)}
+    print(f"DCP train step on {clouds_cut} full-width pairs, card against CPU; the card's "
+          f"loss under the 1e-6 change {loss_moved!r}, relative to the CPU's "
+          f"{(loss_moved - free[0]) / free[0]!r}")
+    failed = []
+    for label, r in runs.items():
+        worst = max(g for call in r["stat_gaps"] for layer in call for g in layer)
+        print(f"DCP step {label}: (a) the chain's statistics against fp64, [mean, var] a "
+              f"layer of each call: {r['stat_gaps']!r}, worst {worst!r} (bar "
+              f"{EDGE_STAT_NORM})")
+        for stage, rr in (("(b) given the card's statistics", r["given"]),
+                          ("(d) free", r["free"])):
+            chain = rr["chain"].values()
+            print(f"DCP step {label}: {stage}: loss {rr['loss']!r} / CPU {rr['cpu_loss']!r}, "
+                  f"{rr['abs']!r} absolute, {rr['rel']!r} relative; gradient cosine >= "
+                  f"{rr['cosine'][1]!r} ({rr['cosine'][0]}); edge chain cosine >= "
+                  f"{min(c for c, _, _, _ in chain)!r}, normwise <= "
+                  f"{max(g for _, g, _, _ in chain)!r}; shift-invariant biases "
+                  f"{rr['shift']!r} of the gradient; running statistics max |diff| "
+                  f"{rr['stats']!r}")
+        if worst > EDGE_STAT_NORM:
+            failed.append(f"{label} (a): statistics {worst!r} against fp64")
+        failed += [f"{label} (b): {b}" for b in dcp_step_failures(r["given"])]
+        failed += [f"{label} (d): {b}" for b in dcp_step_failures(r["free"])]
+    print(f"DCP step bars: {DCP_STEP_BARS}, the loss absolute")
+    w_chain = runs[witness]["given"]["chain"]
+    for name, (c, gap, own, share) in runs["kernels"]["given"]["chain"].items():
+        print(f"DCP step edge chain {name}: cosine {c!r}, normwise {gap!r} (witness "
+              f"{w_chain[name][0]!r}, {w_chain[name][1]!r}); card's own move under the 1e-6 "
+              f"change {own!r}; {share!r} of the whole gradient's norm")
+    check(not failed, f"DCP step: {failed}")
 
 
 def _idam_step_on(cfg, device, batch, src_idx, forced=None, gamma_scale=1.0):

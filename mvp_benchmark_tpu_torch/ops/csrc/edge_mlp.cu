@@ -50,18 +50,19 @@
 // and wgmma: given the same scale and shift its max-pools and slots are
 // bitwise those of the first design (mma.sync tiles of 16 points).
 //
-// The stat passes (statpass::edge_mlp_stat_kernel) are the first design's:
-// a block is two groups of 4 warps on mma.sync tiles of 16 points walking
-// their k slots, each layer's bf16 activations through the group's buffer
-// in shared memory, each lane summing h_l and h_l^2 of its rows and
-// channels over the group's tiles. They stay so because the DCP train
-// step's check against the CPU cannot tell a right summation order of the
-// statistics from a wrong one (ROADMAP): a wgmma stat pass, as accurate
-// against fp64 sums, moved the step's loss outside that check's bar at its
-// batch, as the plain chain on the card does. The TPU adds every block into
-// one accumulator in grid order, a race on a GPU: here each group writes
-// its partial sums and the wrapper adds them in a fixed order, so the
-// statistics are the same from run to run.
+// The stat passes (edge_mlp_stat_kernel<l>), on the same machinery: a
+// block is three warpgroups on wgmma, each walking tiles of 64 flattened
+// edges and running the chain up to layer l, whose h_l and h_l^2 each warp
+// sums over its rows (a reduce-scatter of shuffles a 64-column chunk) into
+// its lanes' running sums. The TPU adds every block into one accumulator in
+// grid order, a race on a GPU: here the block's warps add their sums in
+// warp order into one partial a block, and the wrapper adds the partials in
+// a fixed order, so the statistics are the same from run to run. They sum
+// in another order than the first design's stat passes (mma.sync tiles of
+// 16 points walking their k slots): the DCP train step's check against the
+// CPU (chip_smoke.py `check_dcp_step_on_cpu`) holds the statistics against
+// the chain in fp64 and the step given them against the CPU's, stage by
+// stage, so that a right summation order passes it.
 //
 // Backward passes (edge_mlp_backward_kernel), top-down as the TPU's: pass
 // `level` (3, 2, 1, 0, -1) recomputes the chain for every edge, routes each
@@ -90,8 +91,7 @@
 // neighbours = 1.31 M edges of 2 (6*64 + 64*64 + 64*128 + 128*256) = 90.9 k
 // flops, 119 GFLOP a pass: 0.12 ms at the 989 TFLOP/s bf16 dense peak; a1
 // (15.7 MB) and the outputs (134 MB) take 0.045 ms. The four stat passes
-// recompute 165 GFLOP, on mma.sync tiles that barrier at every layer of
-// every slot; the backward needs ~356 GFLOP (the forward once,
+// recompute 165 GFLOP (0.167 ms); the backward needs ~356 GFLOP (the forward once,
 // every dW, the push-down), 0.36 ms, and the five passes form ~1.1 TFLOP
 // (each recomputes the chain, layers 0-2 again where the way down needs
 // them). Each warpgroup waits for its products before the elementwise work
@@ -601,17 +601,26 @@ __device__ __forceinline__ void issue64(float (&d)[32], uint32_t (&a)[KS][4], ui
 // after its activation. Each layer's activations packed to bf16 are the
 // next product's A operand; layer 2's two products, and layer 3's four, are
 // issued two at a time, so a chunk's elementwise work overlaps the next
-// chunk's product.
-template <typename Chunk>
+// chunk's product. With kStat = l >= 0 (a stat pass) the chain stops at
+// layer l, whose chunks are handed over before the activation: h_l.
+template <int kStat = -1, typename Chunk>
 __device__ __forceinline__ void chain(float (&h)[32], const float* ssc, const float* ssh,
                                       uint32_t sb, int t, Chunk&& chunk) {
+  if constexpr (kStat == 0) {
+    chunk(h, 0);
+    return;
+  }
   activate64(h, ssc + kOff0, ssh + kOff0, t);
-  chunk(h, 0);
+  if constexpr (kStat < 0) chunk(h, 0);
   uint32_t f1[4][4];
   pack_frags(h, f1);
   forward64(h, f1, sb + kBW1);
+  if constexpr (kStat == 1) {
+    chunk(h, 1);
+    return;
+  }
   activate64(h, ssc + kOff1, ssh + kOff1, t);
-  chunk(h, 1);
+  if constexpr (kStat < 0) chunk(h, 1);
   uint32_t f2[4][4];
   pack_frags(h, f2);
   float hb[32];
@@ -620,20 +629,32 @@ __device__ __forceinline__ void chain(float (&h)[32], const float* ssc, const fl
   issue64(hb, f2, sb + kBW2 + kCh1 * 128);
   wgmma_wait<1>();
   pin(h);
+  if constexpr (kStat == 2) {
+    chunk(h, 2);
+    wgmma_wait<0>();
+    pin(hb);
+    pin(f2);
+    chunk(hb, 3);
+    return;
+  }
   activate64(h, ssc + kOff2, ssh + kOff2, t);
-  chunk(h, 2);
+  if constexpr (kStat < 0) chunk(h, 2);
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) to_a_frag(h, kk, f3[kk]);
   wgmma_wait<0>();
   pin(hb);
   pin(f2);
   activate64(hb, ssc + kOff2 + 64, ssh + kOff2 + 64, t);
-  chunk(hb, 3);
+  if constexpr (kStat < 0) chunk(hb, 3);
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) to_a_frag(hb, kk, f3[4 + kk]);
   auto layer3 = [&](float (&d)[32], int q) {
-    activate64(d, ssc + kOff3 + 64 * q, ssh + kOff3 + 64 * q, t);
-    chunk(d, 4 + q);
+    if constexpr (kStat < 0) {
+      activate64(d, ssc + kOff3 + 64 * q, ssh + kOff3 + 64 * q, t);
+      chunk(d, 4 + q);
+    } else if constexpr (kStat == 3) {
+      chunk(d, 4 + q);
+    }
   };
   issue64(h, f3, sb + kBW3);
   issue64(hb, f3, sb + kBW3 + kCh2 * 128);
@@ -764,219 +785,108 @@ edge_mlp_kernel(const __nv_bfloat16* __restrict__ a1,
 
 // ---- stat passes ------------------------------------------------------------
 //
-// The stat pass of layer l on mma.sync tiles (the first design's, kept: see
-// the header). A block is kSGroups groups of 4 warps; a group takes 16
-// points a tile and walks their k slots, each layer's bf16 activations
-// through the group's buffer in shared memory (a named barrier a layer),
-// up to layer l, whose h and h^2 each lane sums over its rows into its
-// channels.
+// The stat pass of layer l on the final pass's machinery: a block is
+// kFwdWGs warpgroups on wgmma with the weights staged once in swizzled
+// panels; a warpgroup walks tiles of 64 flattened edges (edge e: point e /
+// k, slot e % k; the backward's tiling, since no max over slots is taken)
+// with a grid stride, loading the next tile's edges while it computes the
+// current one, and runs the chain up to layer l (`chain<l>`). Each 64-column
+// chunk of h_l is summed over the tile's valid rows, h and h^2, by a
+// reduce-scatter of shuffles (lane g keeps columns 8 g + 2 t + e) and added
+// to the lane's running sums; at the end the block's twelve warps add their
+// sums in warp order into one partial a block.
 
-namespace statpass {
-
-constexpr int kSGroups = 2, kSThreads = kSGroups * 128;
-// bf16 row strides (input width + 8) of the transposed weights and of the
-// per-group activation buffers
-constexpr int kS0 = 16 + 8, kS1 = kCh0 + 8, kS2 = kCh1 + 8, kS3 = kCh2 + 8;
-constexpr int kW0 = 0, kW1 = kW0 + kCh0 * kS0, kW2 = kW1 + kCh1 * kS1,
-              kW3 = kW2 + kCh2 * kS2, kWEnd = kW3 + kCh3 * kS3;
-constexpr int kA0 = 0, kA1 = kA0 + 16 * kS1, kA2 = kA1 + 16 * kS2,
-              kAEnd = kA2 + 16 * kS3;          // one group's buffers
-constexpr size_t kSmemBytes =
-    sizeof(__nv_bfloat16) * (kWEnd + kSGroups * kAEnd) + sizeof(float) * 2 * kChTotal;
-
-__device__ __forceinline__ void group_barrier(int group) {
-  asm volatile("bar.sync %0, %1;" ::"r"(1 + group), "r"(128) : "memory");
-}
-
-// The products of one layer for the 16 edges of a slot: A (16 x K) from
-// shared memory `a` (row stride SA bf16), B from the transposed weight `w`
-// (row stride SW), this warp's NT output tiles of 8 channels from n_base.
-template <int K, int NT, int SA, int SW>
-__device__ __forceinline__ void mma_layer(const __nv_bfloat16* a,
-                                          const __nv_bfloat16* w, int n_base,
-                                          float (&acc)[NT][4], int g, int t) {
+// A chunk's [sum h, sum h^2] over the tile's rows (kMask: rows not ok read
+// 0), added to acc: acc[e] sums column 8 g + 2 t + e, acc[2 + e] its squares.
+template <bool kMask>
+__device__ __forceinline__ void sum_moments64(const float (&h)[32], bool ok0, bool ok1,
+                                              int g, float (&acc)[4]) {
+  float v[8][4];
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < K / 16; ++kk) {
-    const uint32_t* r0 = reinterpret_cast<const uint32_t*>(a + g * SA + kk * 16 + 2 * t);
-    const uint32_t* r1 = reinterpret_cast<const uint32_t*>(a + (g + 8) * SA + kk * 16 + 2 * t);
-    const uint32_t af[4] = {r0[0], r1[0], r0[4], r1[4]};
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const uint32_t* wr = reinterpret_cast<const uint32_t*>(
-          w + (n_base + nt * 8 + g) * SW + kk * 16 + 2 * t);
-      mma_bf16(acc[nt], af, wr[0], wr[4]);
-    }
-  }
-}
-
-// Folded BatchNorm and relu of a layer's tiles into the bf16 activations of
-// the next layer's buffer.
-template <int NT>
-__device__ __forceinline__ void activate_tiles(const float (&acc)[NT][4],
-                                               const float* sc, const float* sh,
-                                               int n_base, __nv_bfloat16* next, int snext,
-                                               int g, int t) {
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const int c = n_base + nt * 8 + 2 * t;
-    float y[4];
-#pragma unroll
-    for (int x = 0; x < 4; ++x) {
-      const int cc = c + (x & 1);
-      y[x] = activate(acc[nt][x], sc[cc], sh[cc]);
-    }
-    *reinterpret_cast<uint32_t*>(next + g * snext + c) = pack_bf16(y[0], y[1]);
-    *reinterpret_cast<uint32_t*>(next + (g + 8) * snext + c) = pack_bf16(y[2], y[3]);
-  }
-}
-
-// Sums of h and h^2 of the valid rows into this lane's channels.
-template <int NT>
-__device__ __forceinline__ void sum_moments(const float (&acc)[NT][4], bool ok0,
-                                            bool ok1, float (&s)[NT][2],
-                                            float (&ss)[NT][2]) {
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
+  for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      const float v0 = ok0 ? acc[nt][e] : 0.f, v1 = ok1 ? acc[nt][2 + e] : 0.f;
-      s[nt][e] += v0 + v1;
-      ss[nt][e] += v0 * v0 + v1 * v1;
+      const float x0 = !kMask || ok0 ? h[4 * nt + e] : 0.f;
+      const float x1 = !kMask || ok1 ? h[4 * nt + 2 + e] : 0.f;
+      v[nt][e] = __fadd_rn(x0, x1);
+      v[nt][2 + e] = __fmaf_rn(x0, x0, __fmul_rn(x1, x1));
     }
   }
+  float out[4];
+  reduce_scatter8(v, out, g);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) acc[q] = __fadd_rn(acc[q], out[q]);
 }
 
-// A warp's per-lane channel sums, reduced over the 8 rows of lanes that
-// share a channel, written by lanes 0-3 to part[0][c] and part[1][c].
-template <int NT>
-__device__ __forceinline__ void write_sums(float (&s)[NT][2], float (&ss)[NT][2],
-                                           float* part, int ch, int n_base,
-                                           int lane) {
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-#pragma unroll
-      for (int off = 4; off < 32; off <<= 1) {
-        s[nt][e] += __shfl_xor_sync(0xffffffffu, s[nt][e], off);
-        ss[nt][e] += __shfl_xor_sync(0xffffffffu, ss[nt][e], off);
-      }
-      if (lane < 4) {
-        const int c = n_base + nt * 8 + 2 * lane + e;
-        part[c] = s[nt][e];
-        part[ch + c] = ss[nt][e];
-      }
-    }
-  }
-}
+// Dynamic shared memory of a stat-pass block: the weights' panels, the
+// scale and shift, and the warps' sums (two rows of 256 a warp).
+constexpr size_t kStatSmem = 1024 + kBDyn + kFwdWGs * 4 * 2 * kCh3 * 4;
 
-__host__ __device__ constexpr int stat_tiles(int layer) { return layer == 3 ? 8 : layer == 2 ? 4 : 2; }
-
-// The stat pass of layer kStat (0..3), whose group partials go to `partial`
-// ((gridDim.x * kSGroups, 2, ch_l) fp32).
+// The stat pass of layer kStat (0..3): [sum h, sum h^2] of each of its
+// channels over the `edges` edges -> partial[block] (2, ch_kStat).
 template <int kStat>
-__global__ void __launch_bounds__(kSThreads, 1)
+__global__ void __launch_bounds__(128 * kFwdWGs, 1)
 edge_mlp_stat_kernel(const __nv_bfloat16* __restrict__ a1,
                      const __nv_bfloat16* __restrict__ w0, const __nv_bfloat16* __restrict__ w1,
                      const __nv_bfloat16* __restrict__ w2, const __nv_bfloat16* __restrict__ w3,
                      const float* __restrict__ scale, const float* __restrict__ shift,
-                     long long points, int k, float* __restrict__ partial) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sw = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sa_all = sw + kWEnd;
-  float* ssc = reinterpret_cast<float*>(sa_all + kSGroups * kAEnd);
-  float* ssh = ssc + kChTotal;
-
-  // stage the weights transposed, (in, out) -> (out, in); W0's rows 6..15 zero
-  for (int i = threadIdx.x; i < kCh0 * 16; i += kSThreads) {
-    const int n = i / 16, c = i % 16;
-    sw[kW0 + n * kS0 + c] = c < kC0 ? w0[c * kCh0 + n] : __float2bfloat16(0.f);
-  }
-  for (int i = threadIdx.x; i < kCh0 * kCh1; i += kSThreads) {
-    sw[kW1 + (i % kCh1) * kS1 + i / kCh1] = w1[i];
-  }
-  for (int i = threadIdx.x; i < kCh1 * kCh2; i += kSThreads) {
-    sw[kW2 + (i % kCh2) * kS2 + i / kCh2] = w2[i];
-  }
-  for (int i = threadIdx.x; i < kCh2 * kCh3; i += kSThreads) {
-    sw[kW3 + (i % kCh3) * kS3 + i / kCh3] = w3[i];
-  }
-  for (int i = threadIdx.x; i < kChTotal; i += kSThreads) {
-    ssc[i] = scale[i];
-    ssh[i] = shift[i];
-  }
+                     long long edges, float* __restrict__ partial) {
+  constexpr int ch = layer_width(kStat), kChunks = ch / 64;
+  constexpr int kFirst = kStat == 3 ? 4 : kStat;   // chain's index of the layer's first chunk
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const uint32_t sb = smem_addr(base);
+  stage_weights(base, w0, w1, w2, w3, scale, shift);
+  fence_proxy_async();
   __syncthreads();
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int group = warp / 4, q = warp % 4;
-  const int g = lane >> 2, t = lane & 3;
-  __nv_bfloat16* sa = sa_all + group * kAEnd;
-  const long long tiles = (points + 15) / 16;
-
-  constexpr int kSNT = stat_tiles(kStat);
-  float s[kSNT][2], ss[kSNT][2];
+  const float* ssc = reinterpret_cast<const float*>(base + kBScale);
+  const float* ssh = ssc + kChTotal;
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const long long tiles = (edges + kBEdges - 1) / kBEdges;
+  const long long stride = static_cast<long long>(gridDim.x) * kFwdWGs;
+  float acc[kChunks][4];
 #pragma unroll
-  for (int nt = 0; nt < kSNT; ++nt) s[nt][0] = s[nt][1] = ss[nt][0] = ss[nt][1] = 0.f;
-
-  for (long long tile = static_cast<long long>(blockIdx.x) * kSGroups + group;
-       tile < tiles; tile += static_cast<long long>(gridDim.x) * kSGroups) {
-    const long long p0 = tile * 16;
-    const bool ok0 = p0 + g < points, ok1 = p0 + g + 8 < points;
-    for (int j = 0; j < k; ++j) {
-      // layer 0: the edge [x_j | x_i] of rows g, g + 8 straight from a1
-      float acc0[2][4];
-      {
-        uint32_t af[4] = {0u, 0u, 0u, 0u};
-        if (t < kC0 / 2) {
-          if (ok0) af[0] = *reinterpret_cast<const uint32_t*>(
-              a1 + ((p0 + g) * k + j) * kC0 + 2 * t);
-          if (ok1) af[1] = *reinterpret_cast<const uint32_t*>(
-              a1 + ((p0 + g + 8) * k + j) * kC0 + 2 * t);
-        }
+  for (int c = 0; c < kChunks; ++c) acc[c][0] = acc[c][1] = acc[c][2] = acc[c][3] = 0.f;
+  const int r0 = 16 * warp + g;
+  long long tile = static_cast<long long>(blockIdx.x) * kFwdWGs + wg;
+  uint32_t nf[2];
+  load_a0(a1, tile * kBEdges + r0, tile * kBEdges + r0 + 8, tile * kBEdges + r0 < edges,
+          tile * kBEdges + r0 + 8 < edges, t, nf);
+  for (; tile < tiles; tile += stride) {
+    const long long e0 = tile * kBEdges + r0;
+    const bool ok0 = e0 < edges, ok1 = e0 + 8 < edges;
+    uint32_t f0[1][4] = {{nf[0], nf[1], 0u, 0u}};
+    const long long n0 = e0 + stride * kBEdges;
+    load_a0(a1, n0, n0 + 8, n0 < edges, n0 + 8 < edges, t, nf);
+    const bool full = __all_sync(0xffffffffu, ok0 && ok1);
+    float h[32];
+    forward64(h, f0, sb + kBW0);
+    chain<kStat>(h, ssc, ssh, sb, t, [&](float (&d)[32], int c) {
+      if (full) {
+        sum_moments64<false>(d, ok0, ok1, g, acc[c - kFirst]);
+      } else {
+        sum_moments64<true>(d, ok0, ok1, g, acc[c - kFirst]);
+      }
+    });
+  }
+  // the warps' sums, then the block's in warp order
+  float* red = reinterpret_cast<float*>(base + kBDyn);
+  const int w = threadIdx.x >> 5;
 #pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-          acc0[nt][0] = acc0[nt][1] = acc0[nt][2] = acc0[nt][3] = 0.f;
-          const uint32_t* wr = reinterpret_cast<const uint32_t*>(
-              sw + kW0 + (q * 16 + nt * 8 + g) * kS0 + 2 * t);
-          mma_bf16(acc0[nt], af, wr[0], wr[4]);
-        }
-      }
-      if constexpr (kStat == 0) {
-        sum_moments(acc0, ok0, ok1, s, ss);
-        continue;
-      }
-      activate_tiles<2>(acc0, ssc + kOff0, ssh + kOff0, q * 16, sa + kA0, kS1, g, t);
-      group_barrier(group);
-      float acc1[2][4];
-      mma_layer<kCh0, 2, kS1, kS1>(sa + kA0, sw + kW1, q * 16, acc1, g, t);
-      if constexpr (kStat == 1) {
-        sum_moments(acc1, ok0, ok1, s, ss);
-        group_barrier(group);              // layer 0's buffer read before it is refilled
-        continue;
-      }
-      activate_tiles<2>(acc1, ssc + kOff1, ssh + kOff1, q * 16, sa + kA1, kS2, g, t);
-      group_barrier(group);
-      float acc2[4][4];
-      mma_layer<kCh1, 4, kS2, kS2>(sa + kA1, sw + kW2, q * 32, acc2, g, t);
-      if constexpr (kStat == 2) {
-        sum_moments(acc2, ok0, ok1, s, ss);
-        continue;
-      }
-      activate_tiles<4>(acc2, ssc + kOff2, ssh + kOff2, q * 32, sa + kA2, kS3, g, t);
-      group_barrier(group);
-      float acc3[8][4];
-      mma_layer<kCh2, 8, kS3, kS3>(sa + kA2, sw + kW3, q * 64, acc3, g, t);
-      if constexpr (kStat == 3) sum_moments(acc3, ok0, ok1, s, ss);
+  for (int c = 0; c < kChunks; ++c) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      red[(w * 2 + (q >> 1)) * ch + 64 * c + 8 * g + 2 * t + (q & 1)] = acc[c][q];
     }
   }
-  constexpr int ch = layer_width(kStat);
-  write_sums(s, ss, partial + (static_cast<long long>(blockIdx.x) * kSGroups + group) * 2 * ch,
-             ch, q * (ch / 4), lane);
+  __syncthreads();
+  for (int i = threadIdx.x; i < 2 * ch; i += blockDim.x) {
+    float s = red[i];
+    for (int v = 1; v < kFwdWGs * 4; ++v) s = __fadd_rn(s, red[v * 2 * ch + i]);
+    partial[static_cast<long long>(blockIdx.x) * 2 * ch + i] = s;
+  }
 }
-
-}  // namespace statpass
 
 // ---- backward ---------------------------------------------------------------
 
@@ -1311,18 +1221,17 @@ template <int kStat>
 int launch_stat(const void* a1, const void* w0, const void* w1, const void* w2,
                 const void* w3, const float* scale, const float* shift, long long points,
                 int k, float* partial, long long cap, void* stream) {
-  using namespace statpass;
   auto kernel = edge_mlp_stat_kernel<kStat>;
-  const long long tiles = (points + 15) / 16;
+  const long long edges = points * k;
+  const long long tiles = (edges + kBEdges - 1) / kBEdges;
   int grid = 0;
-  cudaError_t err = persistent_grid(kernel, kSThreads, kSmemBytes,
-                                    (tiles + kSGroups - 1) / kSGroups, cap, &grid);
+  cudaError_t err = persistent_grid(kernel, 128 * kFwdWGs, kStatSmem,
+                                    (tiles + kFwdWGs - 1) / kFwdWGs, cap, &grid);
   if (err != cudaSuccess) return static_cast<int>(err);
   using bf = __nv_bfloat16;
-  kernel<<<grid, kSThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, 128 * kFwdWGs, kStatSmem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf*>(a1), static_cast<const bf*>(w0), static_cast<const bf*>(w1),
-      static_cast<const bf*>(w2), static_cast<const bf*>(w3), scale, shift, points, k,
-      partial);
+      static_cast<const bf*>(w2), static_cast<const bf*>(w3), scale, shift, edges, partial);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1372,8 +1281,8 @@ int edge_mlp_forward(const void* a1, const void* w0, const void* w1,
 
 // The stat pass of `layer` (0..3): inputs as edge_mlp_forward, with scale
 // and shift read for the layers below `layer` only -> partial
-// (max_blocks * 2, 2, ch_layer) fp32, one row pair a group, rows past the
-// launched groups untouched (the caller zeroes them).
+// (max_blocks, 2, ch_layer) fp32, [sum h, sum h^2] of one block a row pair,
+// rows past the launched blocks untouched (the caller zeroes them).
 int edge_mlp_stat(const void* a1, const void* w0, const void* w1, const void* w2,
                   const void* w3, const float* scale, const float* shift,
                   long long points, int k, int layer, int max_blocks, float* partial,

@@ -55,7 +55,16 @@
 //   B N k edges, each edge built as above and never stored (on the TPU the
 //   (B, k, N, C) bf16 edge tensor, 100 MB at the protocol width, is written
 //   and reduced by XLA, :4163-4166). The wrapper turns the sums into the
-//   batch mean and biased variance.
+//   batch mean and biased variance. What bounds it: 0.0059 ms for p and
+//   idx read once (19.9 MB); the k gathered rows of every point, 201 MB,
+//   come through L2. Each thread sums one channel of one lane's points in
+//   a fixed order (ops/ref.py `gnn_propagate_stats_ordered` reproduces it
+//   bitwise), a chain of ~740 edges a thread at the protocol width; the
+//   first design loaded each edge's index and then its 4-byte value as the
+//   chain reached it, one device-memory round trip an edge. Now the block
+//   copies whole rows into shared memory with cp.async, 16 bytes a copy,
+//   three stages of points ahead of the one being summed, so the chains
+//   read shared memory and the gathers run at L2's rate.
 // - the final pass above with those statistics, which also saves the first
 //   neighbour slot s of each output's max (a byte a channel): the max routes
 //   its cotangent there (the TPU kernel recomputes h and compares, :4072).
@@ -337,57 +346,157 @@ int launch(const float* p, const int* idx, const float* w, const float* bias,
 // ---- the stat pass --------------------------------------------------------
 
 constexpr int kThreads = 256;
+// A lane's points in a stage of the stat pass, and the most neighbours a
+// point may have there.
+constexpr int kStatPoints = 2;
+constexpr int kStatMaxK = 32;
 
-// The edge e = bf16(bf16(p[b, j]) - p[pt]) of point pt and its neighbour j
-// in channel c, as the final pass builds it (NaN for j outside [0, n)).
-__device__ __forceinline__ float edge_value(const float* __restrict__ p, long long pt,
-                                            long long b, int n, int j, int c, int C) {
-  if (j < 0 || j >= n) return CUDART_NAN_F;
-  const float nb = bf16r(p[(b * n + j) * C + c]);
-  return bf16r(__fsub_rn(nb, p[pt * C + c]));
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src));
 }
 
-// Sums [e, e^2] of every channel over the edges of the points a block takes
-// (kLanes points at a time, a thread a channel), one partial a block:
-// part[block][0][c], part[block][1][c].
-template <int C>
+// Shared memory of a stat-pass block: kStages stages of kThreads / C lanes
+// x kStatPoints points, each point's k + 1 rows of C floats (its centre,
+// then its neighbours in slot order), and the lanes' sums.
+__host__ __device__ constexpr size_t stat_smem(int stages, int k) {
+  return static_cast<size_t>(stages) * kThreads * kStatPoints * (k + 1) * 4 +
+         2 * kThreads * 4;
+}
+
+// Sums [e, e^2] of every channel over the edges of the points of block
+// blockIdx.x: lane q (0 .. kThreads / C - 1) takes points blockIdx.x kLanes
+// + q + m gridDim.x kLanes, m = 0, 1, ..., and thread (q, c) sums channel
+// c over them in that order, each point's slots in order (s1 += e; s2 =
+// fma(e, e, s2)); the block adds its lanes in order q = 0, 1, ... into
+// part[block][0][c], part[block][1][c]. That is the first design's order (a
+// thread a channel loading one edge at a time), kept so that the
+// statistics stay bitwise its. What changed is how the rows arrive: a
+// stage is kStatPoints points of every lane, and the block copies each
+// stage's rows into shared memory (cp.async, 16 bytes a copy: C / 4
+// threads a row, two groups of them a point taking its even and odd rows)
+// kStages - 1 stages ahead of the stage being summed, each thread's
+// neighbour indices for a stage loaded a stage before its copies are
+// issued. A neighbour outside [0, n) is written as NaN, so its edge is
+// NaN. One barrier a stage.
+template <int C, int kStages>
 __global__ void __launch_bounds__(kThreads)
 gnn_propagate_stat_kernel(const float* __restrict__ p, const int* __restrict__ idx,
                           int n, int k, long long points, float* __restrict__ part) {
   constexpr int kLanes = kThreads / C;
-  __shared__ float red[2][kLanes][C];
+  constexpr int kRowCopies = C / 4;
+  constexpr int kCopies = (kStatMaxK + 2) / 2;   // a thread's rows of a point, at most
+  extern __shared__ __align__(16) float stat_buf[];
+  const int stage_floats = kLanes * kStatPoints * (k + 1) * C;
+  float* red = stat_buf + kStages * stage_floats;
   const int c = threadIdx.x % C;
   const int q = threadIdx.x / C;
+  const long long stride = static_cast<long long>(gridDim.x) * kLanes;
+  const long long first = static_cast<long long>(blockIdx.x) * kLanes;
+  // lane 0 has the most points
+  const long long lane0 = first < points ? (points - first + stride - 1) / stride : 0;
+  const int stages = static_cast<int>((lane0 + kStatPoints - 1) / kStatPoints);
+  // the thread's copies: point slot pp = lane kStatPoints + i of every
+  // stage, rows half, half + 2, ... (row 0 the centre, row 1 + s slot s),
+  // columns col .. col + 3
+  const int col = 4 * (threadIdx.x % kRowCopies);
+  const int pp = threadIdx.x / kRowCopies / 2, half = threadIdx.x / kRowCopies % 2;
+  const long long pt0 = first + pp / kStatPoints + (pp % kStatPoints) * stride;
+  const long long pt_step = kStatPoints * stride;
+  int jn[kCopies];
+  auto load_idx = [&](int s) {
+    const long long pt = pt0 + s * pt_step;
+#pragma unroll
+    for (int v = 0; v < kCopies; ++v) {
+      const int row = 2 * v + half;
+      jn[v] = s < stages && pt < points && row >= 1 && row <= k
+                  ? __ldg(idx + pt * k + row - 1) : 0;
+    }
+  };
+  auto issue = [&](int s) {
+    const long long pt = pt0 + s * pt_step;
+    if (s < stages && pt < points) {
+      float* dst = stat_buf + (s % kStages) * stage_floats + pp * (k + 1) * C + col;
+      const long long base = pt / n * n;
+#pragma unroll
+      for (int v = 0; v < kCopies; ++v) {
+        const int row = 2 * v + half;
+        if (row > k) break;
+        if (row == 0) {
+          cp_async16(dst, p + pt * C + col);
+        } else if (jn[v] >= 0 && jn[v] < n) {
+          cp_async16(dst + row * C, p + (base + jn[v]) * C + col);
+        } else {
+          *reinterpret_cast<float4*>(dst + row * C) =
+              make_float4(CUDART_NAN_F, CUDART_NAN_F, CUDART_NAN_F, CUDART_NAN_F);
+        }
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  for (int s = 0; s < kStages - 1; ++s) {
+    load_idx(s);
+    issue(s);
+  }
+  load_idx(kStages - 1);
+
   float s1 = 0.f, s2 = 0.f;
-  for (long long pt = static_cast<long long>(blockIdx.x) * kLanes + q; pt < points;
-       pt += static_cast<long long>(gridDim.x) * kLanes) {
-    const long long b = pt / n;
-    for (int s = 0; s < k; ++s) {
-      const float e = edge_value(p, pt, b, n, idx[pt * k + s], c, C);
-      s1 = __fadd_rn(s1, e);
-      s2 = __fmaf_rn(e, e, s2);
+  for (int s = 0; s < stages; ++s) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2));
+    __syncthreads();
+    // every thread is past stage s - 1, so its buffer takes stage s + kStages - 1
+    issue(s + kStages - 1);
+    load_idx(s + kStages);
+    const float* buf = stat_buf + (s % kStages) * stage_floats + c;
+    for (int i = 0; i < kStatPoints; ++i) {
+      if (first + q + (static_cast<long long>(s) * kStatPoints + i) * stride >= points) break;
+      const float* rows = buf + (q * kStatPoints + i) * (k + 1) * C;
+      const float centre = rows[0];
+      for (int slot = 1; slot <= k; ++slot) {
+        const float e = bf16r(__fsub_rn(bf16r(rows[slot * C]), centre));
+        s1 = __fadd_rn(s1, e);
+        s2 = __fmaf_rn(e, e, s2);
+      }
     }
   }
-  red[0][q][c] = s1;
-  red[1][q][c] = s2;
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  red[q * C + c] = s1;
+  red[kThreads + q * C + c] = s2;
   __syncthreads();
   if (q == 0) {
-    float a = red[0][0][c], bsum = red[1][0][c];
+    float a = red[c], bsum = red[kThreads + c];
     for (int r = 1; r < kLanes; ++r) {
-      a = __fadd_rn(a, red[0][r][c]);
-      bsum = __fadd_rn(bsum, red[1][r][c]);
+      a = __fadd_rn(a, red[r * C + c]);
+      bsum = __fadd_rn(bsum, red[kThreads + r * C + c]);
     }
     part[(static_cast<long long>(blockIdx.x) * 2) * C + c] = a;
     part[(static_cast<long long>(blockIdx.x) * 2 + 1) * C + c] = bsum;
   }
 }
 
+// Stages of the stat pass: four where they fit two blocks on an SM, else two.
+constexpr size_t kStatSmemTwoBlocks = 110 * 1024;
+
+template <int C, int kStages>
+int launch_stat_stages(const float* p, const int* idx, int batch, int n, int k, int blocks,
+                       float* part, cudaStream_t stream) {
+  auto kernel = gnn_propagate_stat_kernel<C, kStages>;
+  const size_t smem = stat_smem(kStages, k);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<blocks, kThreads, smem, stream>>>(p, idx, n, k, static_cast<long long>(batch) * n,
+                                             part);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int C>
 int launch_stat(const float* p, const int* idx, int batch, int n, int k, int blocks,
                 float* part, cudaStream_t stream) {
-  gnn_propagate_stat_kernel<C><<<blocks, kThreads, 0, stream>>>(
-      p, idx, n, k, static_cast<long long>(batch) * n, part);
-  return static_cast<int>(cudaGetLastError());
+  if (stat_smem(4, k) <= kStatSmemTwoBlocks)
+    return launch_stat_stages<C, 4>(p, idx, batch, n, k, blocks, part, stream);
+  return launch_stat_stages<C, 2>(p, idx, batch, n, k, blocks, part, stream);
 }
 
 // ---- the backward ---------------------------------------------------------
@@ -878,7 +987,7 @@ int gnn_propagate_forward(const float* p, const int* idx, const float* w,
 // [sum e, sum e^2] of every channel (a block with no points writes zeros).
 int gnn_propagate_stat(const float* p, const int* idx, int batch, int n, int c, int k,
                        int blocks, float* part, void* stream) {
-  if (batch < 1 || n < 1 || k < 1 || blocks < 1)
+  if (batch < 1 || n < 1 || k < 1 || k > kStatMaxK || blocks < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (c == 64) return launch_stat<64>(p, idx, batch, n, k, blocks, part, st);

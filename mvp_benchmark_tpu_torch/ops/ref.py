@@ -620,10 +620,14 @@ def edge_mlp_eval(a1: torch.Tensor, Ws, gammas, betas, means, variances):
     return tuple(xs)
 
 
-def edge_mlp_train(a1: torch.Tensor, Ws, gammas, betas):
+def edge_mlp_train(a1: torch.Tensor, Ws, gammas, betas, given=None):
     """DGCNN's per-edge chain in train mode, a1 (B, N, k, C1) -> (xs, stats):
     the max over k of every layer's activations, (B, N, ch_l) fp32, and the
     layers' batch statistics, (2, ch_l) [mean, biased variance], detached.
+    ``given``: a (2, ch_l) [mean, variance] a layer to use by value instead
+    of the batch's (``(stat - stat.detach()) + given``: exactly given's
+    value, the gradient still flowing through the batch's own), and
+    returned as its statistics.
 
     ``edge_mlp_reference(train=True)`` (``pallas_kernels.py:3163-3193``):
     bf16-rounded matmul inputs and fp32 sums; per layer the mean and
@@ -643,6 +647,10 @@ def edge_mlp_train(a1: torch.Tensor, Ws, gammas, betas):
         h = torch.matmul(a.to(torch.bfloat16).to(f32), W.to(torch.bfloat16).to(f32))
         mu = h.mean(dim=(0, 1, 2))
         var = torch.clamp((h * h).mean(dim=(0, 1, 2)) - mu * mu, min=0.0)
+        if given is not None:
+            st = given[len(stats)].to(mu)
+            mu = (mu - mu.detach()) + st[0]
+            var = (var - var.detach()) + st[1]
         stats.append(torch.stack([mu, var]).detach())
         a = torch.relu((h - mu) * torch.rsqrt(var + EDGE_MLP_EPS) * g.to(f32)
                        + b.to(f32))
@@ -665,6 +673,27 @@ def edge_mlp_slots(a1: torch.Tensor, Ws, gammas, betas, stats):
         xs.append(x)
         slots.append(j.to(torch.uint8))
     return tuple(xs), torch.cat(slots, dim=-1)
+
+
+def edge_mlp_stats_given(a1: torch.Tensor, Ws, gammas, betas, stats=None,
+                         dtype=torch.float32):
+    """Each layer's (2, ch_l) [mean, biased variance] of h over the edges,
+    the activations rounded to bf16 before each product and the chain run
+    in ``dtype``, the layers below folded by ``bn_scale_shift`` with the
+    statistics ``stats`` ((2, ch) a layer; the last unused): what the stat
+    pass of each layer in ``csrc/edge_mlp.cu`` computes given the
+    statistics found before it, which it sums in another order. With
+    ``stats`` None each layer's own statistics are folded into the layer
+    above, found as the chain goes (in fp64: the DCP step check's truth)."""
+    bf = torch.bfloat16
+    a, out = a1, []
+    for layer, (W, g, b) in enumerate(zip(Ws, gammas, betas)):
+        h = torch.matmul(a.to(bf).to(dtype), W.to(bf).to(dtype))
+        out.append(_batch_stats(h))
+        m, v = (stats if stats is not None else out)[layer]
+        (sc, sh), = bn_scale_shift([g], [b], [m], [v])
+        a = torch.relu(h * sc + sh)
+    return tuple(out)
 
 
 def edge_mlp_backward(a1: torch.Tensor, Ws, gammas, betas, stats, slots, gxs):
@@ -901,6 +930,67 @@ def gnn_propagate_stats(p: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     the B N k edges. The contract of ``gnn_propagate_stat`` in
     ``csrc/gnn_propagate.cu``, which sums per-block partials."""
     return _batch_stats(gnn_edges(p, idx))
+
+
+def stats_from_sums(sums: torch.Tensor, count: float) -> torch.Tensor:
+    """(2, C) [mean, max(sumsq / count - mean^2, 0)] from sums (2, C) =
+    [sum x, sum x^2] over ``count`` values, as the stat-pass wrappers form
+    them from the kernels' partial sums (``_gnn_edge_forward``,
+    ``pallas_kernels.py:4163-4166``)."""
+    mu = sums[0] / count
+    return torch.stack([mu, torch.clamp(sums[1] / count - mu * mu, min=0.0)])
+
+
+# the threads of a block of csrc/gnn_propagate.cu's stat pass
+GNN_STAT_THREADS = 256
+
+
+def gnn_propagate_partials_ordered(p: torch.Tensor, idx: torch.Tensor,
+                                   blocks: int) -> torch.Tensor:
+    """The per-block partial sums of ``gnn_propagate_stat`` in
+    ``csrc/gnn_propagate.cu``, in its order -> (blocks, 2, C) [sum e, sum
+    e^2]. Lane q of block b (L = 256 / C lanes a block) takes points b L +
+    q + m blocks L, m = 0, 1, ...; each channel of a lane sums its points'
+    edges in that order, a point's slots in order, s1 = s1 + e and s2 =
+    fma(e, e, s2) in fp32; a block adds its lanes in order q = 0, 1, ....
+    e is bf16-valued, so e^2 is exact in fp64 and s2 + e^2 summed in fp64
+    and rounded once to fp32 is the fma's single rounding, where e^2
+    underflows fp32 too. A neighbour index outside [0, N) gives a NaN
+    edge."""
+    f32, f64 = torch.float32, torch.float64
+    B, N, C = p.shape
+    k = idx.shape[2]
+    lanes, points = GNN_STAT_THREADS // C, B * N
+    units = blocks * lanes
+    M = -(-points // units)
+    valid = (idx >= 0) & (idx < N)
+    e = gnn_edges(p, torch.where(valid, idx, 0))
+    e = torch.where(valid[..., None], e, float("nan")).reshape(points, k, C)
+    # point m units + u of unit u = b L + q; the points past the end add 0
+    e = torch.cat([e, e.new_zeros((M * units - points, k, C))]).reshape(M, units, k, C)
+    s1 = torch.zeros((units, C), dtype=f32, device=p.device)
+    s2 = torch.zeros((units, C), dtype=f32, device=p.device)
+    for m in range(M):
+        for s in range(k):
+            x = e[m, :, s]
+            s1 = s1 + x
+            s2 = (s2.to(f64) + x.to(f64) * x.to(f64)).to(f32)
+    s1, s2 = s1.reshape(blocks, lanes, C), s2.reshape(blocks, lanes, C)
+    a, b = s1[:, 0], s2[:, 0]
+    for q in range(1, lanes):
+        a, b = a + s1[:, q], b + s2[:, q]
+    return torch.stack([a, b], dim=1)
+
+
+def gnn_propagate_stats_ordered(p: torch.Tensor, idx: torch.Tensor,
+                                blocks: int) -> torch.Tensor:
+    """``gnn_propagate_stats`` summed in the order of the stat pass in
+    ``csrc/gnn_propagate.cu`` with ``blocks`` blocks
+    (``gnn_propagate_partials_ordered``), its partials added and turned into
+    [mean, biased var] as its wrapper does: on the same device, the
+    kernel's statistics bitwise."""
+    part = gnn_propagate_partials_ordered(p, idx, blocks)
+    return stats_from_sums(part.sum(0), float(idx.numel()))
 
 
 def gnn_propagate_slots(p, idx, W, b, gamma, beta, mean, var):

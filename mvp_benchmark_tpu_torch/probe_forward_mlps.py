@@ -16,12 +16,15 @@ With ``--dcp-loss cpu,kernels,plain chain,all plain``, DCP's train step loss
 over ten seeds of the weights and the batch, on the CPU and on the card
 (``dcp_loss_spread``); with ``--dcp-stats``, the edge chain's statistics
 at that step's batch against the chain in fp64 (``dcp_stat_gaps``); with
+``--dcp-stages``, ``chip_smoke.check_dcp_step_on_cpu``'s stages over the
+ten seeds for the kernels and the plain chain (``dcp_stage_spread``); with
 ``--train-steps``, each model's train step on the host clock as
-``chip_smoke.py`` times it. These three import ``chip_smoke`` (run from the
+``chip_smoke.py`` times it. These four import ``chip_smoke`` (run from the
 repository's root).
 
     python -m mvp_benchmark_tpu_torch.probe_forward_mlps [--plain] [--models]
-        [--dcp-loss VARIANTS] [--dcp-stats] [--train-steps] [--no-forms] [--out FILE]
+        [--dcp-loss VARIANTS] [--dcp-stats] [--dcp-stages] [--train-steps] [--no-forms]
+        [--out FILE]
 
 Only the wrappers and their launch helpers of ``ops/kernels.py`` are
 called, so the script also times an older checkout's kernels when copied
@@ -313,18 +316,33 @@ def dcp_loss_spread(dev, seeds=range(1, 11), variants=DCP_VARIANTS):
     return out
 
 
-def _chain_stats(a1, Ws, scales, shifts, dtype):
-    """Each layer's [mean, biased variance] of h over the edges, the chain
-    run in ``dtype`` with the given folded scale and shift a layer (the
-    activations rounded to bf16 before each product, as the kernel's)."""
-    bf = torch.bfloat16
-    a, out = a1.reshape(-1, a1.shape[-1]), []
-    for layer, W in enumerate(Ws):
-        h = a.to(bf).to(dtype) @ W.to(bf).to(dtype)
-        mu = h.mean(0)
-        out.append(torch.stack([mu, (h * h).mean(0) - mu * mu]))
-        if layer + 1 < len(Ws):
-            a = torch.relu(h * scales[layer].to(dtype) + shifts[layer].to(dtype))
+def dcp_stage_spread(dev, seeds=range(1, 11)):
+    """``chip_smoke.check_dcp_step_on_cpu``'s stages over ten seeds of the
+    weights and the batch, for the kernels and the witness (the plain chain
+    on the card, ``chip_smoke.plain_dcp_chain``) -> {variant: [a seed's
+    readings]}: stage (a)'s worst gap to fp64, and for stage (b) (the CPU
+    given the card's statistics) and the free run the loss gap absolute and
+    relative, the worst cosine outside the chain, the chain's worst cosine
+    and normwise gap."""
+    import chip_smoke
+    from mvp_benchmark_tpu_torch.train.config import load_config
+
+    cfg = load_config(chip_smoke.DCP_CFG)
+    out = {"kernels": [], "plain chain": []}
+    for seed in seeds:
+        batch = chip_smoke._dcp_train_batch(cfg, 2, seed=seed)
+        free = chip_smoke._dcp_step_on(cfg, torch.device("cpu"), batch, seed=seed)
+        for variant, ctx in (("kernels", contextlib.nullcontext),
+                             ("plain chain", chip_smoke.plain_dcp_chain)):
+            r = chip_smoke.dcp_step_stages(cfg, dev, batch, free, ctx, seed=seed)
+            row = {"seed": seed, "loss": r["given"]["loss"],
+                   "a": max(g for call in r["stat_gaps"] for layer in call for g in layer)}
+            for stage in ("given", "free"):
+                s = r[stage]
+                row[stage] = {"abs": s["abs"], "rel": s["rel"], "cosine": s["cosine"][1],
+                              "chain_cosine": min(c[0] for c in s["chain"].values()),
+                              "chain_normwise": max(c[1] for c in s["chain"].values())}
+            out[variant].append(row)
     return out
 
 
@@ -332,43 +350,25 @@ def dcp_stat_gaps(dev, seed=1):
     """The edge chain's batch statistics at DCP's own step batch (the first
     ``ops.edge_mlp_train`` call of ``chip_smoke._dcp_step_on`` on the card,
     seed ``seed``), each layer's mean and variance normwise against the
-    chain in fp64: the kernel's stat passes, the plain chain on the card
-    and on the CPU (``ref.edge_mlp_train``, fp32), each with its own
-    statistics for the layers below; and, with the fp64 statistics folded
+    chain in fp64 (``ref.edge_mlp_stats_given``): the kernel's stat
+    passes, the plain chain on the card and on the CPU
+    (``ref.edge_mlp_train``, fp32), each with its own statistics for the
+    layers below; and, with the fp64 statistics folded
     into the layers below (``ref.bn_scale_shift``), the kernel's stat pass
     against the fp32 chain on the card, which isolates each pass's sums
     from what the layers below hand it."""
     import chip_smoke
-    from mvp_benchmark_tpu_torch import ops
     from mvp_benchmark_tpu_torch.train.config import load_config
 
     cfg = load_config(chip_smoke.DCP_CFG)
     seen = []
-    saved = ops.edge_mlp_train
-
-    def record(a1, *chain):
-        seen.append([a1.detach()] + [[t.detach() for t in c] for c in chain])
-        return saved(a1, *chain)
-
-    ops.edge_mlp_train = record
-    try:
+    with chip_smoke.record_dcp_chain(seen):
         chip_smoke._dcp_step_on(cfg, dev, chip_smoke._dcp_train_batch(cfg, 2, seed=seed),
                                 seed=seed)
-    finally:
-        ops.edge_mlp_train = saved
-    a1, Ws, gammas, betas = seen[0]
+    a1, Ws, gammas, betas, _ = seen[0]
     ws = [w.to(torch.bfloat16).contiguous() for w in Ws]
     f64 = torch.float64
-    # the fp64 chain, its statistics found layer by layer as the kernel's are
-    truth = []
-    for layer in range(len(Ws)):
-        scsh = ref.bn_scale_shift([g.to(f64) for g in gammas[:layer]],
-                                  [b.to(f64) for b in betas[:layer]],
-                                  [t[0] for t in truth], [t[1] for t in truth])
-        truth.append(_chain_stats(a1, Ws[:layer + 1], [s for s, _ in scsh],
-                                  [h for _, h in scsh], f64)[layer])
-    fold = [[t.float() for t in x] for x in ref.bn_scale_shift(
-        gammas, betas, [t[0].float() for t in truth], [t[1].float() for t in truth])]
+    truth = ref.edge_mlp_stats_given(a1, Ws, gammas, betas, dtype=f64)
 
     def given(gs, bs, means, variances, device):
         """``kernels._folded`` with the fp64 statistics of the layers below."""
@@ -388,9 +388,8 @@ def dcp_stat_gaps(dev, seed=1):
         "plain card": ref.edge_mlp_train(a1, Ws, gammas, betas)[1],
         "plain cpu": ref.edge_mlp_train(*cpu([a1]), cpu(Ws), cpu(gammas), cpu(betas))[1],
         "kernel, fp64 below": isolated,
-        "fp32 chain card, fp64 below": [
-            _chain_stats(a1, Ws[:layer + 1], [s for s, _ in fold], [h for _, h in fold],
-                         torch.float32)[layer] for layer in range(len(Ws))]}
+        "fp32 chain card, fp64 below": ref.edge_mlp_stats_given(a1, Ws, gammas, betas,
+                                                                truth)}
     gaps = {}
     for name, stats in readings.items():
         gaps[name] = [[float((st[i].to(f64).cpu() - t[i].cpu()).norm() / t[i].norm())
@@ -441,6 +440,9 @@ def main(argv=None):
                              f"(of {', '.join(DCP_VARIANTS)})")
     parser.add_argument("--dcp-stats", action="store_true",
                         help="the edge chain's statistics at DCP's step batch against fp64")
+    parser.add_argument("--dcp-stages", action="store_true",
+                        help="chip_smoke's staged DCP step check over ten seeds, kernels "
+                             "and the plain chain")
     parser.add_argument("--train-steps", action="store_true",
                         help="each model's train step on the host clock, as chip_smoke's")
     parser.add_argument("--no-forms", action="store_true", help="skip the forms' timings")
@@ -458,6 +460,13 @@ def main(argv=None):
     if arg.dcp_stats:
         out["dcp_stats"] = dcp_stat_gaps(dev)
         print(f"DCP step edge chain statistics: {json.dumps(out['dcp_stats'])}")
+    if arg.dcp_stages:
+        out["dcp_stages"] = dcp_stage_spread(dev)
+        for variant, rows in out["dcp_stages"].items():
+            for r in rows:
+                print(f"DCP step stages, {variant}, seed {r['seed']}: loss {r['loss']!r}; "
+                      f"(a) {r['a']!r}; (b) {json.dumps(r['given'])}; free "
+                      f"{json.dumps(r['free'])}")
     if arg.train_steps:
         out["train_steps_ms"] = train_steps(dev, card)
     out["forms"] = [] if arg.no_forms else probe(dev, arg.plain)

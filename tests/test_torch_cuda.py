@@ -1525,6 +1525,49 @@ def test_gnn_propagate_train_kernels_match_plain_version(cuda, B, N, k, C, dup):
     assert max(gaps.values()) <= chip_smoke.IDAM_GRAD_NORM, gaps
 
 
+@pytest.mark.parametrize("B,N,k,C", [(2, 2048, 12, 64), (3, 1001, 12, 32), (2, 37, 5, 64),
+                                     (2, 100, 32, 64), (1, 3, 1, 32)])
+def test_gnn_propagate_stat_pass_is_the_ordered_plain_version_bitwise(cuda, B, N, k, C):
+    """The stat pass's per-block partials and its wrapper's statistics
+    bitwise those of the plain version in its summation order
+    (``ref.gnn_propagate_partials_ordered``, ``gnn_propagate_stats_ordered``
+    with the wrapper's block count), also at the most neighbours it takes
+    (k 32: two stages of rows in shared memory instead of four); a
+    neighbour index outside [0, N) makes NaN where the plain version's
+    does."""
+    p, idx = _propagate_case(cuda, B, N, k, C)[:2]
+    blocks = kernels._max_blocks(cuda)
+    got = kernels.gnn_propagate_stat_partials(p, idx)
+    assert torch.equal(got, ref.gnn_propagate_partials_ordered(p, idx, blocks))
+    assert torch.equal(kernels.gnn_propagate_batch_stats(p, idx),
+                       ref.gnn_propagate_stats_ordered(p, idx, blocks))
+    idx[0, N - 1, k - 1] = N
+    got = kernels.gnn_propagate_stat_partials(p, idx)
+    want = ref.gnn_propagate_partials_ordered(p, idx, blocks)
+    assert torch.equal(got.isnan(), want.isnan()) and bool(got.isnan().any())
+    assert torch.equal(got.nan_to_num(), want.nan_to_num())
+
+
+@pytest.mark.parametrize("B,N,K", [(2, 2048, 20), (3, 1001, 7), (2, 37, 20), (1, 21, 20),
+                                   (2, 5, 1)])
+def test_edge_mlp_stat_passes_match_plain_given_the_layers_below(cuda, B, N, K):
+    """The four stat passes within chip_smoke.EDGE_STAT_NORM normwise of
+    ``ref.edge_mlp_stats_given`` on their own statistics for the layers
+    below (the same folded BatchNorm; the tensor cores sum in another
+    order), at B N k edges no multiple of the 64-edge tile down to 10; two
+    runs bitwise equal."""
+    import chip_smoke
+
+    a1, Ws, gammas, betas, _ = _edge_train_case(cuda, B, N, K)
+    ws = [w.to(torch.bfloat16).contiguous() for w in Ws]
+    got = kernels.edge_mlp_batch_stats(a1, ws, gammas, betas)
+    want = ref.edge_mlp_stats_given(a1, Ws, gammas, betas, got)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and _normwise(g, w) <= chip_smoke.EDGE_STAT_NORM
+    assert all(torch.equal(a, b) for a, b in
+               zip(got, kernels.edge_mlp_batch_stats(a1, ws, gammas, betas)))
+
+
 @pytest.mark.parametrize("B,M,ties", [(2, 341, False), (3, 37, False), (2, 64, True),
                                       (1, 2, False)])
 def test_sim_mlp_train_kernels_match_plain_version(cuda, B, M, ties):

@@ -261,19 +261,52 @@ def test_backward_from_slots_matches_the_pallas_passes(layers, K):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_probe_chain_statistics_are_the_plain_chains(dtype):
-    """``probe_forward_mlps._chain_stats``, which reads the edge chain's
-    statistics against fp64 at DCP's step batch, gives the plain train
-    chain's statistics when it folds them (``ref.bn_scale_shift``) into the
-    layers below, in fp32 or fp64: normwise 1e-4 a layer, this file's bar
-    for statistics summed in other orders."""
-    from mvp_benchmark_tpu_torch.probe_forward_mlps import _chain_stats
-
+    """``ref.edge_mlp_stats_given``, which the probe and the DCP step
+    check's stage (a) read the edge chain's statistics by, finding each
+    layer's statistics as it goes and folding them (``ref.bn_scale_shift``)
+    into the layer above, in fp32 or fp64, gives the plain train chain's
+    statistics: normwise 1e-4 a layer, this file's bar for statistics
+    summed in other orders (the plain chain folds nothing)."""
     a1, Ws, gammas, betas, _, _ = _case(5, N=37, K=7)
     a1t = torch.from_numpy(a1).to(torch.bfloat16)
     Wt, gt, bt = ([torch.from_numpy(x) for x in xs] for xs in (Ws, gammas, betas))
     want = ref.edge_mlp_train(a1t, Wt, gt, bt)[1]
-    fold = ref.bn_scale_shift(gt, bt, [s[0] for s in want], [s[1] for s in want])
-    got = _chain_stats(a1t, Wt, [s for s, _ in fold], [h for _, h in fold], dtype)
+    got = ref.edge_mlp_stats_given(a1t, Wt, gt, bt, dtype=dtype)
     for g, w in zip(got, want):
         assert g.dtype == dtype and g.shape == w.shape
         assert _normwise(g.float(), w.numpy()) < 1e-4
+
+
+def test_fp64_chain_statistics_fold_each_layers_own_below():
+    """``ref.edge_mlp_stats_given`` in fp64 with no statistics handed in
+    (the DCP step check's stage (a)) folds each layer's own statistics into
+    the layer above: bitwise the same function handed those statistics; and
+    other statistics handed in change every layer above the first but not
+    the first."""
+    a1, Ws, gammas, betas, _, _ = _case(6, N=37, K=7)
+    a1t = torch.from_numpy(a1).to(torch.bfloat16)
+    Wt, gt, bt = ([torch.from_numpy(x) for x in xs] for xs in (Ws, gammas, betas))
+    f64 = torch.float64
+    got = ref.edge_mlp_stats_given(a1t, Wt, gt, bt, dtype=f64)
+    assert all(g.dtype == f64 for g in got)
+    again = ref.edge_mlp_stats_given(a1t, Wt, gt, bt, got, dtype=f64)
+    assert all(torch.equal(g, w) for g, w in zip(again, got))
+    moved = [s * torch.tensor([[1.01], [1.0]], dtype=f64) for s in got]
+    other = ref.edge_mlp_stats_given(a1t, Wt, gt, bt, moved, dtype=f64)
+    assert torch.equal(other[0], got[0])
+    assert not any(torch.equal(o, g) for o, g in zip(other[1:], got[1:]))
+
+
+def test_stats_given_the_statistics_below_are_the_plain_chains():
+    """``ref.edge_mlp_stats_given`` (each stat pass's contract, given the
+    statistics of the layers below) on the plain train chain's statistics:
+    layer 0 bitwise, the others within 1e-4 normwise (the chain folds the
+    BatchNorm, ``edge_mlp_train`` does not)."""
+    a1, Ws, gammas, betas, _, _ = _case(7, N=37, K=7)
+    a1t = torch.from_numpy(a1).to(torch.bfloat16)
+    Wt, gt, bt = ([torch.from_numpy(x) for x in xs] for xs in (Ws, gammas, betas))
+    want = ref.edge_mlp_train(a1t, Wt, gt, bt)[1]
+    got = ref.edge_mlp_stats_given(a1t, Wt, gt, bt, want)
+    assert torch.equal(got[0], want[0])
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and _normwise(g, w.numpy()) < 1e-4

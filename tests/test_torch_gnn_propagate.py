@@ -96,3 +96,75 @@ def test_train_mode_on_cpu_is_the_plain_train_version():
     assert torch.equal(stats, ref.gnn_propagate_stats(p.detach(), idx))
     (g,) = torch.autograd.grad(x.sum(), p)
     assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
+
+
+def _kernel_order_partials(p, idx, blocks):
+    """The stat pass's per-block partials by its definition, one scalar at
+    a time in numpy fp32: lane q of block b takes points b L + q + m blocks
+    L, each channel summed over them and their slots in order (s2 by fma:
+    fp64 then one rounding), the lanes added in order."""
+    B, N, C = p.shape
+    k, L, pts = idx.shape[2], 256 // C, B * N
+    pb = p.astype(np.float32)
+    bf = lambda x: torch.tensor(np.float32(x)).to(torch.bfloat16).float().numpy()
+    out = np.zeros((blocks, 2, C), np.float32)
+    for b in range(blocks):
+        red = np.zeros((2, L, C), np.float32)
+        for q in range(L):
+            pt = np.arange(b * L + q, pts, blocks * L)
+            for c in range(C):
+                s1 = s2 = np.float32(0)
+                for i in pt:
+                    row, centre = i // N * N, pb.reshape(pts, C)[i, c]
+                    for j in idx.reshape(pts, k)[i]:
+                        e = (bf(bf(pb.reshape(pts, C)[row + j, c]) - centre) if 0 <= j < N
+                             else np.float32("nan"))
+                        s1 = np.float32(s1 + e)
+                        s2 = np.float32(np.float64(s2) + np.float64(e) * np.float64(e))
+                red[0, q, c], red[1, q, c] = s1, s2
+        for kind in (0, 1):
+            acc = red[kind, 0]
+            for q in range(1, L):
+                acc = (acc + red[kind, q]).astype(np.float32)
+            out[b, kind] = acc
+    return out
+
+
+@pytest.mark.parametrize("B,N,k,C,blocks", [(1, 9, 3, 32, 2), (2, 13, 4, 64, 3),
+                                            (1, 40, 5, 64, 264)])
+def test_ordered_stat_partials_follow_the_kernel_order(B, N, k, C, blocks):
+    """``ref.gnn_propagate_partials_ordered`` (vectorised over blocks, lanes
+    and channels) against the stat pass's order written out scalar by
+    scalar: bitwise, and NaN where a neighbour index lies outside [0, N)."""
+    from mvp_benchmark_tpu_torch.ops import ref
+
+    p, idx = _inputs(B * N + k, B, N, k, C)[:2]
+    idx[0, 1, k - 1] = N
+    got = ref.gnn_propagate_partials_ordered(torch.from_numpy(p), torch.from_numpy(idx),
+                                             blocks).numpy()
+    want = _kernel_order_partials(p, idx, blocks)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    assert np.isnan(got).any()
+    np.testing.assert_array_equal(np.nan_to_num(got).view(np.int32),
+                                  np.nan_to_num(want).view(np.int32))
+
+
+@pytest.mark.parametrize("B,N,k,C,blocks", [(2, 64, 12, 64, 264), (3, 40, 12, 32, 7),
+                                            (2, 48, 5, 64, 1)])
+def test_ordered_stats_match_plain_and_jax(B, N, k, C, blocks):
+    """The kernel-ordered statistics within ``chip_smoke.IDAM_STAT_NORM``
+    normwise of ``ref.gnn_propagate_stats`` and of JAX's
+    ``gnn_propagate_train`` statistics (``_gnn_edge_forward``, XLA's
+    reduction over the edge tensor in interpret mode)."""
+    import chip_smoke
+    from mvp_benchmark_tpu_torch.ops import ref
+
+    args = _inputs(B * N + k, B, N, k, C)
+    p, idx = map(torch.from_numpy, args[:2])
+    got = ref.gnn_propagate_stats_ordered(p, idx, blocks).double()
+    _, jst = pk.gnn_propagate_train(*map(jnp.asarray, args[:6]))
+    for want in (ref.gnn_propagate_stats(p, idx).double(),
+                 torch.from_numpy(np.array(jst)).double()):
+        for i in (0, 1):
+            gap = float((got[i] - want[i]).norm() / want[i].norm())
+            assert gap <= chip_smoke.IDAM_STAT_NORM, (i, gap)
