@@ -20,11 +20,16 @@ Phases, each of which raises on failure (exit code != 0):
    checked), at a
    VRCNet train step's shapes plus ragged, collision and tie cases within
    the same bar (the SA block's weight gradients, sums over every point,
-   against max|plain|) and two runs of each bitwise equal; the ball query at ECG's uniform-loss shapes plus ragged and
+   against max|plain|) and two runs of each bitwise equal; the chamfer
+   forward also at the VRCNet train step's four shapes, ragged sizes and
+   ties, two runs bitwise equal; the ball query at ECG's uniform-loss shapes plus ragged and
    edge cases, and the auction EMD at the val metric's (32, 2048, eps 0.004,
-   3000 iterations), at an iteration count that ends in the forced round
+   3000 iterations) on uniform clouds and in a price war (a blob of
+   bidders), each also on clusters of every size whose shared memory fits
+   and run twice, at
+   an iteration count that ends in the forced round
    and at an n that is not a multiple of 1024: indices and assignments
-   equal; DCP's kernels at its shapes: the attention forwards (bf16
+   equal; its launch plan and the cost of a cluster barrier printed; DCP's kernels at its shapes: the attention forwards (bf16
    normwise, fp32 within the SA bar, also at ragged shapes that cut a
    128-query and a 128-key tile, their row max and row sum there against a
    plain recomputation, two runs bitwise equal) and the edge chain's eval
@@ -125,7 +130,7 @@ from mvp_benchmark_tpu_torch.metrics import (calc_cd, fscore, rmse_loss,
                                              translation_error)
 from mvp_benchmark_tpu_torch.models.dcp import SHIFT_INVARIANT as DCP_SHIFT_INVARIANT
 from mvp_benchmark_tpu_torch.ops import kernels, ref
-from mvp_benchmark_tpu_torch import probe_knn_fps, probe_propagate
+from mvp_benchmark_tpu_torch import probe_emd_chamfer, probe_knn_fps, probe_propagate
 from mvp_benchmark_tpu_torch.data.mvp import BatchSpec, MVPCompletionDataset
 from mvp_benchmark_tpu_torch.train import engine, submission
 from mvp_benchmark_tpu_torch.train.meters import AverageValueMeter
@@ -547,6 +552,19 @@ def duplicate_clouds(device):
     return a, b
 
 
+def duplicate_ragged_clouds(device):
+    """Exact ties at ragged sizes, b the larger cloud (the chamfer forward's
+    rows): b's copies across its 256-row blocks and warps, a's across a
+    32-column step and past its first 2048 columns, and exact hits."""
+    a, b = clouds(10, 3, 2100, 2300, device)
+    b[:, 2048:2300] = b[:, 0:252]     # rows in the first and the ninth block
+    b[:, 40:45] = b[:, 33:38]         # within a warp's rows and across warps
+    a[:, 1000:1100] = a[:, 0:100]     # columns ties
+    a[:, 2050:2100] = a[:, 5:55]
+    a[:, 1500:1600] = b[:, 2200:2300]   # exact hits on duplicated b points
+    return a, b
+
+
 def check_equal(name, got, want):
     """Indices equal and float values bitwise equal (0 ulp apart); returns
     the largest absolute difference of the float outputs."""
@@ -605,11 +623,24 @@ def compare_kernels_with_plain(device):
         "random_32x2048x2048": clouds(0, 32, 2048, 2048, device),
         "random_2x96x50": clouds(1, 2, 96, 50, device),
         "duplicates_4x2048x2048": duplicate_clouds(device),
+        # the VRCNet train step's four calc_cd: predictions against gt2
+        "vrcnet_coarse_raw_64x1024x2048": clouds(40, 64, 1024, 2048, device),
+        "vrcnet_coarse_high_64x3072x2048": clouds(41, 64, 3072, 2048, device),
+        "vrcnet_coarse_64x2048x2048": clouds(42, 64, 2048, 2048, device),
+        "vrcnet_fine_64x2048x2048": clouds(43, 64, 2048, 2048, device),
+        # ragged: no multiple of 8 rows a lane, 32 columns a step, 256 rows a
+        # block or 2048 columns a tile; two column tiles
+        "ragged_3x1001x2049": clouds(44, 3, 1001, 2049, device),
+        "ragged_2x2050x777": clouds(45, 2, 2050, 777, device),
+        "ragged_2x3000x2100": clouds(46, 2, 3000, 2100, device),
+        "duplicates_ragged_3x2100x2300": duplicate_ragged_clouds(device),
     }
     for name, (a, b) in cases.items():
+        got = kernels.chamfer_forward(a, b)
         err["chamfer"] = max(err["chamfer"], check_equal(
-            f"chamfer {name}", kernels.chamfer_forward(a, b),
-            ref.chamfer_distance(a, b)))
+            f"chamfer {name}", got, ref.chamfer_distance(a, b)))
+        if name.startswith(("random_32", "vrcnet_coarse_high", "duplicates_ragged")):
+            check_rerun_bitwise(f"chamfer {name}", got, kernels.chamfer_forward(a, b))
 
     x1 = uniform(1, (32, 3072, 3), device)          # ECG's encoder points
     x2 = x1[:, :1024].contiguous()
@@ -852,8 +883,11 @@ def compare_geometry_kernels_with_plain(device):
     points, 102 centres, nsample 8-24; out1: 1024 points, 51 centres, 4-12)
     plus ragged shapes, duplicates and the edge cases (a centre with no hit,
     nsample above N, min_r > 0), indices equal; the auction EMD at the val
-    metric's shape, at an iteration count that ends in the forced round and
-    at n = 1000, assignments equal. Returns ({key: 0.0}, (xyz1, xyz2, eps,
+    metric's shape on uniform clouds and in a price war (a blob of bidders
+    against uniform targets, as random-weight predictions bid), both also on
+    clusters of every size whose shared memory fits and run twice, at an
+    iteration count
+    that ends in the forced round and at n = 1000, assignments equal. Returns ({key: 0.0}, (xyz1, xyz2, eps,
     iters, bids per round)) of the full-size EMD case, whose rounds the
     timing phase's bound counts."""
     for (B, n, m, lo, nsamples) in ((32, 2048, 102, 0.0, (8, 12, 16, 20, 24)),
@@ -870,26 +904,55 @@ def compare_geometry_kernels_with_plain(device):
                         [kernels.ball_query(lo, r, ns, xyz, centers)],
                         [ref.ball_query(lo, r, ns, xyz, centers)])
 
+    bad = kernels.emd_sqrt_mismatches(device)
+    check(bad == 0, f"emd_assignment's square root differs from __fsqrt_rn at {bad} floats")
+    print("kernel == plain: emd_assignment's square root: __fsqrt_rn's bits at every "
+          "float from 2^-100 to FLT_MAX")
     cases = {   # name: (B, n, eps, iters)
         "val_32x2048_eps0.004_3000": (32, 2048, 0.004, 3000),
         "forced_round_32x2048_eps0.004_20": (32, 2048, 0.004, 20),
         "n1000_4x1000_eps0.01_300": (4, 1000, 0.01, 300),
+        "price_war_32x2048_eps0.004_3000": (32, 2048, 0.004, 3000),
     }
     full = None
     for name, (B, n, eps, iters) in cases.items():
-        a, b = uniform(80 + n, (B, n, 3), device), uniform(81 + n, (B, n, 3), device)
+        if name.startswith("price_war"):    # a blob against uniform targets
+            a, b = probe_emd_chamfer.price_war_clouds(device, B, n, 90)
+        else:
+            a, b = uniform(80 + n, (B, n, 3), device), uniform(81 + n, (B, n, 3), device)
         bids = []
         got = kernels.emd_assignment(a, b, eps, iters)
         want = ref.emd_assignment(a, b, eps, iters, bids)
-        check_equal(f"emd_assignment {name} ({len(bids)} rounds, the last "
-                    f"{bids[-1]} bidders)", [got], [want])
+        check_equal(f"emd_assignment {name} ({len(bids)} rounds, {sum(bids)} "
+                    f"bidder-rounds, the last {bids[-1]} bidders)", [got], [want])
         if name.startswith("forced"):
             check(len(bids) == iters and bids[-1] > 0,
                   f"emd {name}: no forced round ({len(bids)} rounds, {bids[-1:]})")
+        if name.startswith(("val", "price_war")):
+            check_rerun_bitwise(f"emd_assignment {name}", [got],
+                                [kernels.emd_assignment(a, b, eps, iters)])
+            for C in range(1, kernels.EMD_MAX_CLUSTER + 1):   # every size that fits
+                if kernels.emd_shared_bytes(n, C) <= kernels.EMD_SMEM:
+                    check_equal(f"emd_assignment {name} on clusters of {C}",
+                                [kernels._emd_launch(a, b, eps, iters, C)], [want])
         if full is None:
             full = (a, b, eps, iters, bids)
     torch.cuda.synchronize()
     return {"ball_query": 0.0, "emd": 0.0}, full
+
+
+def print_emd_plan(device, card):
+    """The auction's launch plan at the val batch (32, 2048): C CTAs a cloud,
+    lanes a bidder, the clusters resident, and the cost of a cluster
+    barrier (CUDA events over 20000 of them) and of a round's barriers."""
+    plan = probe_emd_chamfer.emd_plan(device, 32, 2048)
+    print(f"emd plan (32, 2048): C {plan['C']} CTAs a cloud, {plan['targets_a_cta']} "
+          f"targets a CTA, {plan['shared_bytes']} bytes of shared memory, lanes a "
+          f"bidder {plan['lanes_a_bidder']}; clusters resident by C "
+          f"{plan['resident_clusters']}; a cluster barrier by C {plan['barrier_ms']} ms, "
+          f"{plan['barriers_a_round']} a round: {plan['barrier_ms_a_round']!r} ms a round "
+          f"on {card}")
+    return plan
 
 
 def check_bf16_sums(name, got, want):
@@ -2188,7 +2251,11 @@ def drive_emd_val(name, cfg, device):
     3000 iterations), counts zeroed just before and read just after: per val
     batch one chamfer and one emd_assignment. Its emd equals the plain
     auction's on the same predictions (rtol 1e-6: the assignments are
-    equal, the rest is the same arithmetic)."""
+    equal, the rest is the same arithmetic); then each batch's kernel
+    assignment is held bitwise against the plain auction's and timed, with
+    its rounds, bidder-rounds and slowest cloud (the plain auction's
+    counts, which the equal assignment shares) and the bounds of the batch
+    and of the slowest cloud on its C SMs."""
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     val = engine.run_completion_val(cfg, DATA_DIR, device)
@@ -2212,15 +2279,26 @@ def drive_emd_val(name, cfg, device):
         with torch.inference_mode():
             gt = torch.as_tensor(batch["gt"]).to(device)
             bids = []
-            dist = ref.emd_distance(out2, gt, ref.emd_assignment(out2, gt, 0.004, 3000,
-                                                                  bids))
+            stats = torch.zeros((out2.shape[0], 2), dtype=torch.int64, device=device)
+            want = ref.emd_assignment(out2, gt, 0.004, 3000, bids, stats)
+            dist = ref.emd_distance(out2, gt, want)
             emd = dist.sqrt().mean(1)
+            check_equal(f"{name} val batch {i} with eval_emd: emd_assignment",
+                        [kernels.emd_assignment(out2, gt, 0.004, 3000)], [want])
             ms = time_cuda(lambda: kernels.emd_assignment(out2, gt, 0.004, 3000), 1, 0)
-        ops = sum(bids) * gt.shape[1] * 13
+        n = gt.shape[1]
+        C = kernels.emd_cluster_size(out2.shape[0], n, device)
+        stats = stats.cpu()
+        slow = int(stats[:, 1].argmax())
+        ops = sum(bids) * n * 13
+        slow_ops = int(stats[slow, 1]) * n * 13
         print(f"{name} val batch {i} with eval_emd: the auction ran {len(bids)} rounds, "
               f"{sum(bids)} bidder-rounds (the first {bids[:3]}, the last "
-              f"{bids[-3:]}); emd_assignment {ms!r} ms, operation bound "
-              f"{ops / PEAK_FP32 * 1e3!r} ms (13 a pair, as geometry_timing_cases)")
+              f"{bids[-3:]}); the slowest cloud {slow}: {int(stats[slow, 1])} "
+              f"bidder-rounds in {int(stats[slow, 0])} rounds; emd_assignment {ms!r} ms "
+              f"on clusters of {C}, operation bound {ops / PEAK_FP32 * 1e3!r} ms (13 a "
+              f"pair, as geometry_timing_cases), the slowest cloud's on its {C} SMs "
+              f"{slow_ops / (PEAK_FP32 * C / 132) * 1e3!r} ms")
         c = int(batch["count"])
         total += float(emd[:c].mean().cpu()) * c
         count += c
@@ -2570,11 +2648,12 @@ def timing_cases(device):
                                            uniform(28, (B, 1024, 3), device))
     N, M, S = 2048, 2048, 2048
     return {
+        # operations: each distance once (8) and a compare a direction
         "chamfer": ("(32, 2048, 2048)",
                     lambda: kernels.chamfer_forward(a, b),
                     lambda: ref.chamfer_distance(a, b), None,
                     B * (N + M) * 12 + B * (N + M) * 8,
-                    2 * B * N * M * 8),
+                    B * N * M * 10),
         "knn": ("(32, 3072 x 3072, C 24, k 16)",
                 lambda: kernels.knn(f24, f24, 16),
                 lambda: ref.knn(f24, f24, 16), None,
@@ -3122,6 +3201,7 @@ def main() -> int:
     max_abs.update(compare_backward_kernels_with_plain(device))
     geometry_err, emd_case = compare_geometry_kernels_with_plain(device)
     max_abs.update(geometry_err)
+    print_emd_plan(device, card)
     max_abs.update(compare_dcp_kernels_with_plain(device))
     max_abs.update(compare_dcp_train_kernels_with_plain(device))
     for err in (compare_idam_kernels_with_plain(device),

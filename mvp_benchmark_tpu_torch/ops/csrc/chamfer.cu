@@ -7,15 +7,6 @@
 //   dist1[b, i] = min_j |a_i - b_j|^2, idx1 = argmin (lowest j on ties)
 //   dist2[b, j] = min_i |b_j - a_i|^2, idx2 = argmin (lowest i on ties)
 //
-// The Pallas kernel folds the column direction (dist2/idx2) into one output
-// block across its grid axis 1, which a TPU runs in order. GPU blocks run in
-// no order, so that carry would be a race here. Instead one row-min kernel is
-// launched twice, for (a -> b) and then (b -> a): each thread owns one query
-// row and keeps a running min and argmin over the other cloud, which the
-// block stages through shared memory tile by tile. j ascends and the compare
-// is a strict `<`, so ties go to the lower index, as `jnp.argmin`, the Pallas
-// kernel and `ops/ref.py` resolve them.
-//
 // Rounding: every distance is ((dx*dx + dy*dy) + dz*dz) with each operation
 // rounded on its own (__fsub_rn/__fmul_rn/__fadd_rn). nvcc would otherwise
 // contract a*b+c into an FMA, which changes distances in the last bit and can
@@ -23,15 +14,36 @@
 // bitwise equal to ref.chamfer_distance's on the card (eager torch
 // elementwise ops are not fused).
 //
-// What bounds it on an H100: compute. Each pair costs 3 subtractions and
-// 5 fp32 multiplies/adds plus a compare and select, and the slice's shape
-// (B=32, N=M=2048) is about 134 M pairs per direction, against 24 KB of
-// points per cloud in device memory; the N x M matrix never exists. The
-// design keeps the query point and the running min in registers, reads each
-// point of the other cloud once per block from device memory into shared
-// memory, and has all threads of a warp read the same shared word at once
-// (a broadcast, no bank conflicts). Register blocking of several query rows
-// per thread and warp-level tiling are left for later work.
+// What bounds it on an H100: instruction issue. Each pair costs 8 separately
+// rounded fp32 operations for its distance and a min a direction; at the
+// slice's shape (B=32, N=M=2048) that is 134 M pairs against 24 KB of points
+// a cloud in device memory, and the N x M matrix never exists. Design: both
+// directions in one pass, each distance computed once.
+//   * Rows: the larger cloud ("rows", a if N >= M), 256 a block (8 warps),
+//     8 a lane in registers; the other cloud ("columns") staged as float4 in
+//     shared memory, 2048 columns a tile, every lane reading 4 columns a
+//     step of 32 (lane = ry * 8 + cx: rows ry * 8 + [0, 8) of its warp's 32,
+//     columns cx + 8 q of the step; 8 lanes read 8 consecutive float4, no
+//     bank conflict). A step is 32 distances a lane, each tile column read
+//     once a lane for 8 rows.
+//   * Row minima: a running min (fminf), and the step where it last fell.
+//     At the end the 8 lanes sharing a row take the min and, among the
+//     lanes that hold it, the first step; the lanes recompute that step's
+//     32 distances and the lowest column equal to the min is the argmin.
+//     fminf of exact values is exact, and the first step holding the min
+//     holds its lowest index, so dist1/idx1 are the plain version's.
+//   * Column minima: each lane the min over its 8 rows, then over the 4
+//     lanes of the warp that share the column (shuffles), one value a warp
+//     and column in shared memory; after the tile, the block's min and the
+//     first warp holding it, one int2 a column and row block in `part`.
+//     A second kernel takes, per column, the min over the row blocks, the
+//     first row block and warp holding it, and recomputes that warp's 32
+//     distances (a lane a row, a ballot) for the lowest row equal to the
+//     min: dist2/idx2.
+// Min and argmin with the lowest index on ties are functions of the set of
+// distances, so no tiling or order of combining changes a bit. A min equal
+// to +inf (overflowing coordinates) takes index 0, as a running `d < best`
+// from +inf does. Rows past the cloud's end read as +inf points.
 //
 // Chamfer backward: replaces `_chamfer_grad_mxu` / `_chamfer_grad_mxu_kernel`
 // (pallas_kernels.py:333 and :270), the default backward of `_chamfer_bwd`
@@ -67,64 +79,210 @@
 #include <math_constants.h>
 
 #include "reverse_list.h"
+#include "smem_opt_in.h"
 
 namespace {
 
-constexpr int kThreads = 128;  // query rows per block
-constexpr int kTile = 1024;    // points of the other cloud per shared tile
+constexpr int kLaneRows = 8;                     // rows a lane
+constexpr int kLaneCols = 4;                     // columns a lane a step
+constexpr int kFwdWarps = 8;
+constexpr int kFwdThreads = kFwdWarps * 32;
+constexpr int kWarpRows = 4 * kLaneRows;         // 4 row groups (ry) a warp
+constexpr int kBlockRows = kFwdWarps * kWarpRows;   // 256
+constexpr int kStepCols = 8 * kLaneCols;         // 8 column groups (cx): 32
+constexpr int kTileCols = 2048;                  // columns staged a tile
+constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void __launch_bounds__(kThreads)
-chamfer_rowmin_kernel(const float* __restrict__ query,
-                      const float* __restrict__ points, int nq, int np,
-                      float* __restrict__ dist, int* __restrict__ idx) {
-  __shared__ float tile[kTile * 3];
+__device__ __forceinline__ float sqdist(float px, float py, float pz, float qx,
+                                        float qy, float qz) {
+  const float dx = __fsub_rn(px, qx);
+  const float dy = __fsub_rn(py, qy);
+  const float dz = __fsub_rn(pz, qz);
+  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
+}
+
+// rows (B, nr, 3), cols (B, nc, 3): dist/idx (B, nr) of the rows, and
+// part (B, ceil(nr / 256), nc): each row block's column min (as bits) and
+// the first of its warps holding it.
+__global__ void __launch_bounds__(kFwdThreads, 2)
+chamfer_fused_kernel(const float* __restrict__ rows, const float* __restrict__ cols,
+                     int nr, int nc, float* __restrict__ dist, int* __restrict__ idx,
+                     int2* __restrict__ part) {
+  extern __shared__ float4 tile[];                                // kTileCols
+  float* colpart = reinterpret_cast<float*>(tile + kTileCols);   // warps x kTileCols
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int ry = lane >> 3;
+  const int cx = lane & 7;
   const int b = blockIdx.y;
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  const float* q = query + static_cast<size_t>(b) * nq * 3;
-  const float* p = points + static_cast<size_t>(b) * np * 3;
-  const bool active = i < nq;
+  const int rb = blockIdx.x;
+  const float* p = rows + static_cast<size_t>(b) * nr * 3;
+  const float* q = cols + static_cast<size_t>(b) * nc * 3;
+  const int row0 = rb * kBlockRows + warp * kWarpRows + ry * kLaneRows;
 
-  float qx = 0.f, qy = 0.f, qz = 0.f;
-  if (active) {
-    qx = q[3 * i];
-    qy = q[3 * i + 1];
-    qz = q[3 * i + 2];
+  float* col = colpart + warp * kTileCols + cx;   // this lane's column slots
+  float px[kLaneRows], py[kLaneRows], pz[kLaneRows], best[kLaneRows];
+  int bstep[kLaneRows];
+#pragma unroll
+  for (int k = 0; k < kLaneRows; ++k) {
+    const int r = row0 + k;
+    const bool live = r < nr;
+    px[k] = live ? p[3 * r] : CUDART_INF_F;
+    py[k] = live ? p[3 * r + 1] : CUDART_INF_F;
+    pz[k] = live ? p[3 * r + 2] : CUDART_INF_F;
+    best[k] = CUDART_INF_F;
+    bstep[k] = 0;
   }
-  float best = CUDART_INF_F;
-  int best_j = 0;
 
-  for (int j0 = 0; j0 < np; j0 += kTile) {
-    const int n = min(kTile, np - j0);  // ragged last tile
-    for (int t = threadIdx.x; t < 3 * n; t += kThreads) {
-      tile[t] = p[3 * j0 + t];
+  for (int t0 = 0; t0 < nc; t0 += kTileCols) {
+    const int tcols = min(kTileCols, nc - t0);
+    const int steps = (tcols + kStepCols - 1) / kStepCols;
+    __syncthreads();                  // the last tile's reads are done
+    for (int c = tid; c < steps * kStepCols; c += kFwdThreads) {
+      tile[c] = c < tcols
+          ? make_float4(q[3 * (t0 + c)], q[3 * (t0 + c) + 1], q[3 * (t0 + c) + 2], 0.f)
+          : make_float4(CUDART_INF_F, CUDART_INF_F, CUDART_INF_F, 0.f);
     }
     __syncthreads();
-    if (active) {
-      for (int j = 0; j < n; ++j) {
-        const float dx = __fsub_rn(qx, tile[3 * j]);
-        const float dy = __fsub_rn(qy, tile[3 * j + 1]);
-        const float dz = __fsub_rn(qz, tile[3 * j + 2]);
-        const float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                                  __fmul_rn(dz, dz));
-        if (d < best) {
-          best = d;
-          best_j = j0 + j;
+    for (int s = 0; s < steps; ++s) {
+      float4 c4[kLaneCols];
+#pragma unroll
+      for (int u = 0; u < kLaneCols; ++u) c4[u] = tile[s * kStepCols + cx + 8 * u];
+      float cmin[kLaneCols];
+      const int gstep = t0 / kStepCols + s;
+#pragma unroll
+      for (int k = 0; k < kLaneRows; ++k) {
+        float d[kLaneCols];
+#pragma unroll
+        for (int u = 0; u < kLaneCols; ++u) {
+          d[u] = sqdist(px[k], py[k], pz[k], c4[u].x, c4[u].y, c4[u].z);
+          cmin[u] = k == 0 ? d[u] : fminf(cmin[u], d[u]);
         }
+        const float m = fminf(fminf(d[0], d[1]), fminf(d[2], d[3]));
+        if (m < best[k]) {
+          best[k] = m;
+          bstep[k] = gstep;
+        }
+      }
+      float* cp = col + s * kStepCols;
+#pragma unroll
+      for (int u = 0; u < kLaneCols; ++u) {
+        float c = cmin[u];
+        c = fminf(c, __shfl_xor_sync(kFull, c, 8));
+        c = fminf(c, __shfl_xor_sync(kFull, c, 16));
+        if (ry == 0) cp[8 * u] = c;
       }
     }
     __syncthreads();
+    int2* out = part + (static_cast<size_t>(b) * gridDim.x + rb) * nc + t0;
+    for (int c = tid; c < tcols; c += kFwdThreads) {
+      float m = colpart[c];
+      int w = 0;
+#pragma unroll
+      for (int v = 1; v < kFwdWarps; ++v) {
+        const float x = colpart[v * kTileCols + c];
+        if (x < m) {
+          m = x;
+          w = v;
+        }
+      }
+      out[c] = make_int2(__float_as_int(m), w);
+    }
   }
-  if (active) {
-    dist[static_cast<size_t>(b) * nq + i] = best;
-    idx[static_cast<size_t>(b) * nq + i] = best_j;
+
+  // the rows: min over the 8 lanes of the row, the first step holding it,
+  // then the lowest column of that step at the min
+#pragma unroll
+  for (int k = 0; k < kLaneRows; ++k) {
+    float m = best[k];
+    int s = bstep[k];
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1) {
+      const float om = __shfl_xor_sync(kFull, m, off);
+      const int os = __shfl_xor_sync(kFull, s, off);
+      if (om < m || (om == m && os < s)) {
+        m = om;
+        s = os;
+      }
+    }
+    int j_at = 0x7fffffff;
+#pragma unroll
+    for (int u = kLaneCols - 1; u >= 0; --u) {
+      const int j = s * kStepCols + cx + 8 * u;
+      if (j < nc && sqdist(px[k], py[k], pz[k], q[3 * j], q[3 * j + 1], q[3 * j + 2]) == m) {
+        j_at = j;
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1) j_at = min(j_at, __shfl_xor_sync(kFull, j_at, off));
+    const int r = row0 + k;
+    if (cx == 0 && r < nr) {
+      dist[static_cast<size_t>(b) * nr + r] = m;
+      idx[static_cast<size_t>(b) * nr + r] = m < CUDART_INF_F ? j_at : 0;
+    }
   }
 }
 
-void launch_rowmin(const float* query, const float* points, int batch, int nq,
-                   int np, float* dist, int* idx, cudaStream_t stream) {
-  const dim3 grid((nq + kThreads - 1) / kThreads, batch);
-  chamfer_rowmin_kernel<<<grid, kThreads, 0, stream>>>(query, points, nq, np,
-                                                       dist, idx);
+// dist/idx (B, nc) of the columns from `part` (B, blocks, nc): a warp takes
+// 32 columns, a lane a column for the min over the row blocks and the first
+// block and warp holding it; then for each of the 32 columns in turn the
+// lanes take that warp's 32 rows, one a lane (one coalesced load), and the
+// lowest row at the min comes from a ballot.
+__global__ void __launch_bounds__(256)
+chamfer_columns_kernel(const float* __restrict__ rows, const float* __restrict__ cols,
+                       const int2* __restrict__ part, int batch, int nr, int nc,
+                       int blocks, float* __restrict__ dist, int* __restrict__ idx) {
+  const int lane = threadIdx.x & 31;
+  const int gw = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int per_cloud = (nc + 31) / 32;
+  const int b = gw / per_cloud;
+  if (b >= batch) return;                    // the whole warp
+  const int j = (gw - b * per_cloud) * 32 + lane;
+  const bool live = j < nc;
+  float m = CUDART_INF_F;
+  int r0 = 0;
+  float qx = 0.f, qy = 0.f, qz = 0.f;
+  if (live) {
+    const int2* pb = part + static_cast<size_t>(b) * blocks * nc + j;
+    int2 at = pb[0];
+    int at_block = 0;
+    for (int v = 1; v < blocks; ++v) {
+      const int2 x = pb[static_cast<size_t>(v) * nc];
+      if (__int_as_float(x.x) < __int_as_float(at.x)) {
+        at = x;
+        at_block = v;
+      }
+    }
+    m = __int_as_float(at.x);
+    r0 = at_block * kBlockRows + at.y * kWarpRows;
+    const float* qj = cols + (static_cast<size_t>(b) * nc + j) * 3;
+    qx = qj[0];
+    qy = qj[1];
+    qz = qj[2];
+  }
+  const float* p = rows + static_cast<size_t>(b) * nr * 3;
+  int i_at = 0;
+#pragma unroll 4
+  for (int c = 0; c < 32; ++c) {
+    const float mc = __shfl_sync(kFull, m, c);
+    const int r = __shfl_sync(kFull, r0, c) + lane;
+    const float cx = __shfl_sync(kFull, qx, c);
+    const float cy = __shfl_sync(kFull, qy, c);
+    const float cz = __shfl_sync(kFull, qz, c);
+    const bool hit = mc < CUDART_INF_F && r < nr &&
+                     sqdist(p[3 * r], p[3 * r + 1], p[3 * r + 2], cx, cy, cz) == mc;
+    const unsigned at = __ballot_sync(kFull, hit);
+    if (lane == c && at != 0u) i_at = r - lane + __ffs(at) - 1;
+  }
+  if (live) {
+    dist[static_cast<size_t>(b) * nc + j] = m;
+    idx[static_cast<size_t>(b) * nc + j] = i_at;
+  }
+}
+
+size_t fused_smem() {
+  return kTileCols * sizeof(float4) + kFwdWarps * kTileCols * sizeof(float);
 }
 
 constexpr int kBwdThreads = 256;
@@ -216,15 +374,31 @@ chamfer_backward_kernel(const float* __restrict__ p, const float* __restrict__ q
 extern "C" {
 
 // a (B, N, 3), b (B, M, 3) float32 contiguous on the device; outputs
-// d1/i1 (B, N), d2/i2 (B, M). Launches on `stream` without synchronising and
-// returns cudaGetLastError() (0 on success).
+// d1/i1 (B, N), d2/i2 (B, M); part, scratch of B * ceil(max(N, M) / 256) *
+// min(N, M) int2 (chamfer_part_entries). The larger cloud (a when N >= M)
+// takes the rows. Launches on `stream` without synchronising and returns
+// cudaGetLastError() (0 on success).
 int chamfer_forward(const float* a, const float* b, int batch, int n, int m,
-                    float* d1, int* i1, float* d2, int* i2, void* stream) {
+                    float* d1, int* i1, float* d2, int* i2, void* part,
+                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  launch_rowmin(a, b, batch, n, m, d1, i1, s);
-  cudaError_t err = cudaGetLastError();
+  const bool a_rows = n >= m;
+  const float* rows = a_rows ? a : b;
+  const float* cols = a_rows ? b : a;
+  const int nr = a_rows ? n : m, nc = a_rows ? m : n;
+  const int blocks = (nr + kBlockRows - 1) / kBlockRows;
+  const size_t smem = fused_smem();
+  static SmemOptIn opted;
+  cudaError_t err = opted.raise(reinterpret_cast<const void*>(chamfer_fused_kernel), smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  launch_rowmin(b, a, batch, m, n, d2, i2, s);
+  int2* p = static_cast<int2*>(part);
+  chamfer_fused_kernel<<<dim3(blocks, batch), kFwdThreads, smem, s>>>(
+      rows, cols, nr, nc, a_rows ? d1 : d2, a_rows ? i1 : i2, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int threads = batch * ((nc + 31) / 32) * 32;
+  chamfer_columns_kernel<<<(threads + 255) / 256, 256, 0, s>>>(
+      rows, cols, p, batch, nr, nc, blocks, a_rows ? d2 : d1, a_rows ? i2 : i1);
   return static_cast<int>(cudaGetLastError());
 }
 

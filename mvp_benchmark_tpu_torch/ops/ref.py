@@ -1347,8 +1347,72 @@ def emd_validate(xyz1: torch.Tensor, xyz2: torch.Tensor) -> None:
             f"n={n}. The auction still runs correctly.", stacklevel=2)
 
 
+def emd_top2(v: torch.Tensor) -> Tuple[float, int, float]:
+    """(best, best_j, second) of one bidder's finite benefit row v (m,), as
+    ``emd_assignment`` takes them: best_j the lowest index among equal
+    maxima, second the largest value over the other targets (-inf when
+    there is none)."""
+    best_j = int(torch.argmax(v))
+    rest = v.clone()
+    rest[best_j] = -torch.inf
+    return float(v[best_j]), best_j, float(rest.max())
+
+
+def _emd_merge(t: Tuple[float, int, float], o: Tuple[float, int, float]):
+    """emd.cu's merge of the top-2 o of another set of targets into t."""
+    (b, j, s), (ob, oj, os) = t, o
+    if ob > b or (ob == b and oj < j):
+        return ob, oj, max(os, b)
+    return b, j, max(s, ob)
+
+
+def emd_split_top2(v: torch.Tensor, C: int, g: int,
+                   lanes: int = 32) -> Tuple[float, int, float]:
+    """emd.cu's top-2 of a benefit row v (m,), in its order: the targets
+    split over C CTAs (CTA r takes [r nt, (r + 1) nt), nt = ceil(m / C)),
+    each CTA's over g groups of ``lanes`` lanes (g warps, or with ``lanes``
+    under 32 one group of a warp; lane l of group w takes the local targets
+    w lanes + l, step lanes g, ascending, strict >), each group's lanes
+    merged by the xor butterfly, then the g groups in order, then the C
+    CTAs in rank order, every merge by emd.cu's rule. Equal to ``emd_top2``
+    for every C, g and lanes: the merge is a function of the set."""
+    vals = [float(x) for x in v.tolist()]
+    m = len(vals)
+    nt = -(-m // C)
+    empty = (-float("inf"), 0x7fffffff, -float("inf"))
+    ctas = []
+    for r in range(C):
+        t0, tn = r * nt, max(0, min(nt, m - r * nt))
+        warps = []
+        for w in range(g):
+            tops = []
+            for lane in range(lanes):
+                b, j, s = empty
+                for jl in range(w * lanes + lane, tn, lanes * g):
+                    x = vals[t0 + jl]
+                    if x > b:
+                        b, j, s = x, t0 + jl, b
+                    elif x > s:
+                        s = x
+                tops.append((b, j, s))
+            off = 1
+            while off < lanes:
+                tops = [_emd_merge(tops[lane], tops[lane ^ off]) for lane in range(lanes)]
+                off *= 2
+            warps.append(tops[0])
+        top = warps[0]
+        for w in warps[1:]:
+            top = _emd_merge(top, w)
+        ctas.append(top)
+    top = ctas[0]
+    for t in ctas[1:]:
+        top = _emd_merge(top, t)
+    return top[0], top[1], top[2]
+
+
 def emd_assignment(xyz1: torch.Tensor, xyz2: torch.Tensor, eps: float,
-                   iters: int, bids: Optional[List[int]] = None) -> torch.Tensor:
+                   iters: int, bids: Optional[List[int]] = None,
+                   counts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The auction assignment of ``_emd_kernel`` (``pallas_kernels.py:1986``):
     xyz1 (B, n, 3) bidders, xyz2 (B, n, 3) targets -> (B, n) int32.
 
@@ -1363,7 +1427,9 @@ def emd_assignment(xyz1: torch.Tensor, xyz2: torch.Tensor, eps: float,
     and a bidder is unassigned; then one forced round gives each leftover
     bidder its ``best_i`` (``:2108-2119``). Runs on CPU or CUDA tensors (one
     host sync a round); the contract of ``csrc/emd.cu``. ``bids``, if given,
-    gets the number of bidders of every round, the forced one included."""
+    gets the number of bidders of every round, the forced one included;
+    ``counts``, if given, a (B, 2) int64 tensor on xyz1's device, gets added
+    each cloud's rounds (those in which it had a bidder) and bidder-rounds."""
     B, n, _ = xyz1.shape
     m = xyz2.shape[1]
     dev = xyz1.device
@@ -1378,6 +1444,10 @@ def emd_assignment(xyz1: torch.Tensor, xyz2: torch.Tensor, eps: float,
             """best_i and bid_inc of the bidders (b, i)."""
             if bids is not None:
                 bids.append(int(b.numel()))
+            if counts is not None:
+                per_cloud = torch.bincount(b, minlength=B)
+                counts[:, 0] += per_cloud > 0
+                counts[:, 1] += per_cloud
             benefit = base[b, i] - price.view(B, m)[b]              # (U, m)
             best_i = torch.argmax(benefit, dim=1)
             best = benefit.gather(1, best_i[:, None])[:, 0]

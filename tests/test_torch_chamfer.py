@@ -137,3 +137,12 @@ def test_backward_matches_the_gated_off_masked_reduction_kernel(shape):
                                   torch.from_numpy(g1), i2, torch.from_numpy(g2))
     np.testing.assert_allclose(da.numpy(), want_a, rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(db.numpy(), want_b, rtol=1e-5, atol=1e-6)
+
+
+def test_part_entries_cover_every_row_block_and_column():
+    """The forward's scratch: a column partial for every block of 256 rows
+    of the larger cloud and every point of the smaller."""
+    assert kernels.chamfer_part_entries(32, 2048, 2048) == 32 * 8 * 2048
+    assert kernels.chamfer_part_entries(64, 1024, 2048) == 64 * 8 * 1024
+    assert kernels.chamfer_part_entries(64, 3072, 2048) == 64 * 12 * 2048
+    assert kernels.chamfer_part_entries(3, 1001, 2049) == 3 * 9 * 1001

@@ -35,10 +35,17 @@ def _on(device, *arrays):
 
 
 @pytest.mark.parametrize("case", ["2x128x96", "2x96x50", "3x1x2049",
-                                  "duplicates"])
+                                  "duplicates", "64x1024x2048", "64x3072x2048",
+                                  "3x1001x2049", "2x2050x777", "2x3000x2100",
+                                  "duplicates_2x2100x2300"])
 def test_chamfer_kernel_equals_plain_version(cuda, case):
+    """dist and idx bitwise: small and ragged shapes (no multiple of 8 rows
+    a lane, 32 columns a step, 256 rows a block, two 2048-column tiles),
+    the VRCNet step's shapes, and exact ties in both clouds, run twice."""
     if case == "duplicates":
         a, b = _on(cuda, *clouds_with_duplicates())
+    elif case.startswith("duplicates_"):
+        a, b = _on(cuda, *clouds_with_duplicates(*map(int, case[11:].split("x"))))
     else:
         a, b = _on(cuda, *clouds(3, *map(int, case.split("x"))))
     before = kernels.CHAMFER_LAUNCHES
@@ -47,6 +54,7 @@ def test_chamfer_kernel_equals_plain_version(cuda, case):
     assert kernels.CHAMFER_LAUNCHES == before + 1
     for g, w in zip(got, ref.chamfer_distance(a, b)):
         torch.testing.assert_close(g, w, rtol=0, atol=0)   # bitwise
+    _bitwise(kernels.chamfer_forward(a, b), kernels.chamfer_forward(a, b))
 
 
 def test_calc_cd_on_card_equals_cpu(cuda):
@@ -854,15 +862,80 @@ def test_ball_query_wrapper_rejects_bad_inputs(cuda):
 
 @pytest.mark.parametrize("B,n,eps,iters", [
     (2, 256, 0.02, 50), (3, 1000, 0.01, 5), (2, 2048, 0.004, 300), (1, 1, 0.01, 10),
-    (2, 7, 0.5, 1)])
+    (2, 7, 0.5, 1), (3, 777, 0.01, 200), (2, 1000, 0.01, 300), (2, 2048, 0.004, 20)])
 def test_emd_kernel_equals_plain_version(cuda, B, n, eps, iters):
-    """Assignments equal, converged or ended by the forced round, at ragged
-    n, n = 1 and iters = 1 (the forced round alone)."""
+    """Assignments equal, converged or ended by the forced round (20
+    iterations at 2048 points), at ragged n, n = 1 and iters = 1 (the
+    forced round alone); two runs equal."""
     a, b = _rand(cuda, B, n, 3, seed=21), _rand(cuda, B, n, 3, seed=22)
     got = kernels.emd_assignment(a, b, eps, iters)
     want = ref.emd_assignment(a, b, eps, iters)
     torch.cuda.synchronize()
     _bitwise([got], [want])
+    _bitwise([kernels.emd_assignment(a, b, eps, iters)], [got])
+
+
+@pytest.mark.parametrize("C,B", [(8, 16), (4, 33), (2, 66), (1, 67)])
+def test_emd_kernel_on_each_cluster_size(cuda, C, B):
+    """The batch sizes whose plan is C CTAs a cloud on 132 SMs, and C forced
+    at a small batch: assignments equal the plain version's."""
+    n, eps, iters = 512, 0.01, 100
+    a, b = _rand(cuda, B, n, 3, seed=26), _rand(cuda, B, n, 3, seed=27)
+    assert kernels.emd_plan(B, n, 132) == C
+    want = ref.emd_assignment(a, b, eps, iters)
+    _bitwise([kernels.emd_assignment(a, b, eps, iters)], [want])
+    _bitwise([kernels._emd_launch(a[:3].contiguous(), b[:3].contiguous(), eps, iters, C)],
+             [want[:3]])
+
+
+def test_emd_kernel_price_war(cuda):
+    """A blob of bidders against uniform targets (a price war, as
+    random-weight predictions bid) at the val metric's (32, 2048, eps 0.004,
+    3000): equal to the plain version, two runs equal."""
+    from mvp_benchmark_tpu_torch.probe_emd_chamfer import price_war_clouds
+
+    a, b = price_war_clouds(cuda, 32, 2048, 90)
+    want = ref.emd_assignment(a, b, 0.004, 3000)
+    got = kernels.emd_assignment(a, b, 0.004, 3000)
+    _bitwise([got], [want])
+    _bitwise([kernels.emd_assignment(a, b, 0.004, 3000)], [got])
+
+
+def test_emd_kernel_far_points_and_non_finite_coordinates(cuda):
+    """Points as far out as the wrapper takes (2^62, squared distances up to
+    ~2^126, benefits tied at -2^63 and below) equal the plain version; a NaN,
+    an infinite or a larger coordinate, whose squared distances the kernel's
+    square root does not take, raises."""
+    a, b = _rand(cuda, 2, 300, 3, seed=28), _rand(cuda, 2, 300, 3, seed=29)
+    a[0, 5, 1] = kernels.EMD_MAX_ABS
+    a[1, :40, 0] = -kernels.EMD_MAX_ABS
+    b[0, 7, 2] = -kernels.EMD_MAX_ABS
+    b[1, 9] = 1e18
+    for C in (1, 2, 4):
+        _bitwise([kernels._emd_launch(a, b, 0.01, 300, C)],
+                 [ref.emd_assignment(a, b, 0.01, 300)])
+    for bad in (float("nan"), float("inf"), 1e20):
+        far = b.clone()
+        far[1, 3, 0] = bad
+        with pytest.raises(ValueError, match="finite coordinates"):
+            kernels.emd_assignment(a, far, 0.01, 300)
+        with pytest.raises(ValueError, match="finite coordinates"):
+            kernels.emd_assignment(far, a, 0.01, 300)
+
+
+def test_emd_square_root_is_ieee(cuda):
+    """The auction's square root (sqrt.rn's fast path on d clamped to
+    2^-100) equals __fsqrt_rn bitwise at every float from 2^-100 to FLT_MAX."""
+    assert kernels.emd_sqrt_mismatches(cuda) == 0
+
+
+def test_emd_kernel_all_points_equal(cuda):
+    """Every bidder and target at one point: every benefit ties."""
+    a = torch.full((2, 300, 3), 0.25, device=cuda)
+    b = torch.full((2, 300, 3), 0.75, device=cuda)
+    for C in (1, 2, 4, 8):
+        _bitwise([kernels._emd_launch(a, b, 0.01, 1000, C)],
+                 [ref.emd_assignment(a, b, 0.01, 1000)])
 
 
 def test_emd_kernel_ties_and_equal_clouds(cuda):
