@@ -16,8 +16,9 @@ Phases, each of which raises on failure (exit code != 0):
    sums in another order, within |kernel - plain| <= 1e-5 + 1e-4 |plain|;
    the five backward kernels, gathers over reverse lists of their indices
    (``reverse_list.cu``, each list bitwise ``ref.reverse_list``'s; a
-   scatter_add_rows of a small cloud lists in shared memory, both forms
-   checked), at a
+   scatter_add_rows of a small cloud lists in shared memory, packed a warp
+   a cloud or by row range, every form checked, and bitwise against the
+   plain version run on CPU copies), at a
    VRCNet train step's shapes plus ragged, collision and tie cases within
    the same bar (the SA block's weight gradients, sums over every point,
    against max|plain|) and two runs of each bitwise equal; the chamfer
@@ -102,8 +103,12 @@ Phases, each of which raises on failure (exit code != 0):
    them with (``probe_knn_fps``: VRCNet at 32 and 64 clouds, ECG, DCP's
    k 20, IDAM's k 12), each held bitwise against its plain version and run
    twice, with kNN's issue floor under its rounding rule and FPS's time a
-   step; the SA block's backward at each of VRCNet's four levels, with the
-   device time of each of its passes; IDAM's Propagate block at its path
+   step; the SA block's forward at each of VRCNet's four levels at 32 and
+   64 clouds (held to its bar, run twice), its backward at each level with
+   the device time of each of its passes; scatter_add_rows at ECG's five
+   train-step shapes and VRCNet's (``probe_scatter_sa``: bitwise against
+   the plain version on CPU copies, run twice, beside ``torch.index_add``
+   and the bound); IDAM's Propagate block at its path
    shape, each launch by device time beside its bound
    (``probe_propagate``).
 
@@ -130,7 +135,8 @@ from mvp_benchmark_tpu_torch.metrics import (calc_cd, fscore, rmse_loss,
                                              translation_error)
 from mvp_benchmark_tpu_torch.models.dcp import SHIFT_INVARIANT as DCP_SHIFT_INVARIANT
 from mvp_benchmark_tpu_torch.ops import kernels, ref
-from mvp_benchmark_tpu_torch import probe_emd_chamfer, probe_knn_fps, probe_propagate
+from mvp_benchmark_tpu_torch import (probe_emd_chamfer, probe_knn_fps, probe_propagate,
+                                     probe_scatter_sa)
 from mvp_benchmark_tpu_torch.data.mvp import BatchSpec, MVPCompletionDataset
 from mvp_benchmark_tpu_torch.train import engine, submission
 from mvp_benchmark_tpu_torch.train.meters import AverageValueMeter
@@ -194,7 +200,8 @@ BACKWARD_KERNELS = {
                          "source": f"{_CSRC}/gather.cu",
                          "replaces": f"{_PK}:1613",
                          "globals": [_LIST, "scatter_add_rows_kernel",
-                                     "scatter_add_rows_local_kernel"]},
+                                     "scatter_add_rows_local_kernel",
+                                     "scatter_add_rows_packed_kernel"]},
     "group_max_backward": {"name": "group_max_backward",
                            "source": f"{_CSRC}/gather.cu",
                            "replaces": f"{_PK}:928",
@@ -705,10 +712,11 @@ def compare_kernels_with_plain(device):
                                 (3, 97, 8, 4, 16), (2, 1001, 8, 32, 128),
                                 (2, 333, 32, 16, 64)):
         args = sa_inputs(30 + n, B, n, k, rel, mid, device)
+        name = f"sa_attention ({B}, {n}, k {k}, rel {rel}, mid {mid})"
+        got = kernels.sa_attention_forward(*args, rel, mid, 8)
+        check_rerun_bitwise(name, [got], [kernels.sa_attention_forward(*args, rel, mid, 8)])
         err["sa_attention"] = max(err["sa_attention"], check_close(
-            f"sa_attention ({B}, {n}, k {k}, rel {rel}, mid {mid})",
-            kernels.sa_attention_forward(*args, rel, mid, 8),
-            ref.sa_attention(*args, rel, mid, 8)))
+            name, got, ref.sa_attention(*args, rel, mid, 8)))
     torch.cuda.synchronize()
     return err
 
@@ -786,12 +794,16 @@ def compare_backward_kernels_with_plain(device):
                 err["chamfer_backward"] = max(err["chamfer_backward"], check_close(
                     f"chamfer_backward {name} d{side}", g, w))
 
-    for name, (B, n, m, c, k, local) in {   # local: the one-launch form
+    for name, (B, n, m, c, k, local) in {   # local: a one-launch form
             "center_64x3072x64_by_1536": (64, 3072, 1536, 64, None, True),
             "center_64x768x256_by_384": (64, 768, 384, 256, None, True),
             "coarse_64x3072x3_by_2048": (64, 3072, 2048, 3, None, True),
             "ragged_3x97x5_by_41x7": (3, 97, 41, 5, 7, True),
             "uniform_knn_3264x24x3_by_24x2": (3264, 24, 24, 3, 2, True),
+            "uniform_knn_1632x4x3_by_4x2": (1632, 4, 4, 3, 2, True),
+            "packed_limit_5x1024x1_by_256": (5, 1024, 256, 1, None, True),
+            "past_packed_5x1024x1_by_257": (5, 1024, 257, 1, None, True),
+            "collisions_9x24x3_by_48_all_to_row_5": (9, 24, 48, 3, None, True),
             "dense_edge_32x3072x24_by_3072x16": (32, 3072, 3072, 24, 16, False),
             "collisions_4x2048x24_all_to_row_5": (4, 2048, 2048, 24, None, True),
             "collisions_2x4096x8_by_4096x4_all_to_row_5": (2, 4096, 4096, 8, 4, False)}.items():
@@ -806,6 +818,8 @@ def compare_backward_kernels_with_plain(device):
         got = kernels.scatter_add_rows(g, idx, n)
         check_rerun_bitwise(f"scatter_add_rows {name}", [got],
                             [kernels.scatter_add_rows(g, idx, n)])
+        check_equal(f"scatter_add_rows {name} against the plain version on the CPU",
+                    [got.cpu()], [ref.scatter_add_rows(g.cpu(), idx.cpu(), n)])
         check_list(f"scatter {name}", idx, n)
         err["scatter_add_rows"] = max(err["scatter_add_rows"], check_close(
             f"scatter_add_rows {name}", got, ref.scatter_add_rows(g, idx, n)))
@@ -2678,15 +2692,10 @@ def timing_cases(device):
                               lambda: ref.three_interpolate(t512, ti_idx, ti_w), None,
                               B * 1024 * 512 * 4 + B * 3072 * 3 * 8 + B * 3072 * 512 * 4,
                               B * 3072 * 512 * 5),
-        # bytes: proj, x1, idx read once, out written once (the weights are
-        # 1.4 KB); operations: the two MLP products, the bias and the
-        # weighted sum, 2 per multiply-add (relu not counted)
         "sa_attention": ("(32, 3072, rel 4, mid 16, k 16)",
                          lambda: kernels.sa_attention_forward(*sa, 4, 16, 8),
                          lambda: ref.sa_attention(*sa, 4, 16, 8), None,
-                         B * 3072 * (20 + 4 + 16 + 16) * 4,
-                         B * 3072 * (2 * 17 * 4 * 2 + 2 * 2 * 32 + 32
-                                     + 2 * 16 * 16)),
+                         *probe_scatter_sa.sa_forward_work(B, 3072, 16, 4, 16)),
     }
 
 
@@ -2740,6 +2749,19 @@ def time_sa_backward_at_path_shapes(device, card):
     return out
 
 
+def time_sa_forward_at_path_shapes(device, card):
+    """The SA block's forward at each of VRCNet's four levels in a val batch
+    (batch 32) and a train step (64) (``probe_scatter_sa.probe_sa_forward``):
+    held to its bar and run twice bitwise, kernel and plain times (CUDA
+    events, in the order plain, kernel, kernel, plain), device time under
+    torch.profiler, the bound (``probe_scatter_sa.sa_forward_work``) and the
+    plan (``kernels.sa_forward_plan``: warps, grid, shared bytes). Prints
+    one JSON line."""
+    out = probe_scatter_sa.probe_sa_forward(device)
+    print(f"sa_forward_path_shapes on {card}: {json.dumps(out)}")
+    return out
+
+
 def time_propagate_at_path_shape(device, card):
     """IDAM's Propagate block at its path shape (32, 2048, k 12, C 64), each
     wrapper call by CUDA events and each launch by its device time under
@@ -2753,33 +2775,16 @@ def time_propagate_at_path_shape(device, card):
 
 
 def time_scatter_at_ecg_shapes(device, card):
-    """scatter_add_rows at the shapes of ECG's train step, each form: the
-    uniform losses' kNN and grouping gathers (out2's largest), a sampled
-    centres' gather, the last FPS's gather and DenseEdge's neighbour gather
-    at level 1 (the list form); kernel and ``torch.index_add`` times (CUDA
-    events, in the order library, kernel, kernel, library). Prints one JSON
-    line."""
-    out = []
-    for label, (B, n, m, c) in {
-            "uniform_knn (3264, 24 x 2) into 24 x 3": (3264, 24, 48, 3),
-            "uniform_group (32, 102 x 24) into 2048 x 3": (32, 2048, 2448, 3),
-            "centres (32, 1024) into 3072 x 120": (32, 3072, 1024, 120),
-            "fine_fps (32, 2048) into 3072 x 3": (32, 3072, 2048, 3),
-            "dense_edge (32, 3072 x 16) into 3072 x 24": (32, 3072, 49152, 24)}.items():
-        g = cotangent(80 + m, (B, m, c), device)
-        idx = indices(81 + m, n, (B, m), device)
-        flat = (idx.long() + torch.arange(B, device=device)[:, None] * n).reshape(-1)
-        zero = torch.zeros(B * n, c, device=device)
-        kern = lambda: kernels.scatter_add_rows(g, idx, n)
-        lib = lambda: torch.index_add(zero, 0, flat, g.reshape(-1, c))
-        its = {"kernel": _iters(kern), "library": _iters(lib)}
-        runs = {"kernel": [], "library": []}
-        for which, fn in (("library", lib), ("kernel", kern), ("kernel", kern),
-                          ("library", lib)):
-            runs[which].append(time_cuda(fn, *its[which]))
-        out.append({"shape": label, "plan": kernels.scatter_plan(m, n, c // 4 if c % 4 == 0 else c),
-                    "ms": runs["kernel"], "library_ms": runs["library"]})
-    print(f"scatter_ecg_shapes on {card}: {json.dumps(out)}")
+    """scatter_add_rows at the shapes of ECG's train step (the uniform
+    losses' kNN and grouping gathers, out2's largest; a sampled centres'
+    gather; the last FPS's gather; DenseEdge's neighbour gather at level 1,
+    the list form) and VRCNet's centre gather (``probe_scatter_sa``): each
+    bitwise against the plain version on CPU copies and run twice, event
+    and device times beside ``torch.index_add``'s (events in the order
+    library, kernel, kernel, library), the bound and the plan (rows, warps,
+    clouds a block). Prints one JSON line."""
+    out = probe_scatter_sa.probe_scatter(device)
+    print(f"scatter_path_shapes on {card}: {json.dumps(out)}")
     return out
 
 
@@ -3308,6 +3313,7 @@ def main() -> int:
                      steps=3)
     times = time_kernels(device, card, emd_case)
     time_knn_fps_at_path_shapes(device, card)
+    time_sa_forward_at_path_shapes(device, card)
     time_sa_backward_at_path_shapes(device, card)
     time_scatter_at_ecg_shapes(device, card)
     time_propagate_at_path_shape(device, card)

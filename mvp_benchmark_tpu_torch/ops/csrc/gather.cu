@@ -63,12 +63,22 @@
 // output row once with a plain store, its incoming terms summed in
 // ascending source order, as ops/ref.py's scatters sum them on the CPU. No
 // float atomics, so two runs are bitwise equal. A scatter_add_rows of at
-// most 8192 entries a cloud (most of ECG's 28 a train step: the uniform
-// losses' small clouds, the sampled centres) is one launch instead:
-// scatter_add_rows_local_kernel, a block a cloud and range of rows, lists
-// the range's entries in shared memory in the same order and gathers them
-// (no list in memory, no second launch; its counts, as the list's, are
-// integer atomicAdd in shared memory, the same in any order).
+// most 8192 entries a cloud (26 of ECG's 28 a train step, all 4 of
+// VRCNet's) is one launch instead, which lists in shared memory, sized to
+// its plan, and gathers (no list in memory, no second launch; its counts,
+// as the list's, are integer atomicAdd in shared memory, the same in any
+// order). Its two forms, by the host plan kernels.scatter_plan:
+//   - packed (scatter_add_rows_packed_kernel), clouds of at most 256
+//     entries and 1024 output vectors (the uniform losses' kNN gathers,
+//     3264 clouds of 48 entries into 24 rows): a warp a cloud, 8 clouds a
+//     block; the warp holds its cloud's indices in registers, ranks each
+//     step's entries of a row with __match_any_sync and __popc, and needs
+//     no barrier but __syncwarp;
+//   - by row range (scatter_add_rows_local_kernel), clouds of a few
+//     thousand entries: a block a cloud and range of rows, each thread
+//     holding up to 16 of the cloud's indices in registers, read once.
+// Both list an entry whose index is outside [0, n) under row 0 as ~e, which
+// adds NaN. scatter_add_rows of more entries builds the list, then gathers.
 // scatter_add_rows and
 // three_interpolate_backward take one thread per output element (4
 // channels where C % 4 == 0 and the pointers are 16-byte aligned), walking
@@ -87,13 +97,17 @@
 // the 3 x 25 M reads mostly from L2, where a cloud's rows stay while its
 // blocks run. group_max_backward reads slot once for each of a point's k
 // edges (k x 25 MB at VRCNet's level 1, from L2). The list costs a launch
-// and the index's reads; the local form reads its cloud's index twice a
-// block, the launch's fixed cost being what it saves at these sizes.
+// and the index's reads; the one-launch forms read a cloud's index once a
+// block. At ECG's small clouds the bytes are ~1 us and what is left is
+// latency: the packed form's warp a cloud runs a few dependent steps with
+// no barrier, the range form one load of the index a thread and four
+// barriers.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 #include "reverse_list.h"
+#include "smem_opt_in.h"
 
 namespace {
 
@@ -291,44 +305,171 @@ scatter_add_rows_kernel(const float* __restrict__ g, const int* __restrict__ idx
   store_vec<V>(out + static_cast<size_t>(row) * c + cc, acc);
 }
 
-// The one-launch form of scatter_add_rows_kernel for clouds of at most
-// kLocalEntries entries: block (range, b), `warps` warps, takes the rows
-// [r0, r0 + nr) of cloud b, lists the cloud's entries of those rows in
-// shared memory as reverse_list.cu does (each warp counts, then places, a
-// contiguous range of the entries, 32 a step; the counts scanned rows in
-// order and, within a row, warps in order; a lane's slot is its row's
-// next slot plus its rank among the step's lower lanes of that row, so
-// every row lists its entries ascending), then gathers its rows as
-// scatter_add_rows_kernel does. Each block reads its cloud's index twice.
-constexpr int kLocalEntries = 8192;
+// The one-launch forms. An entry is listed as e, or as ~e (negative) where
+// its index is outside [0, n): listed under row 0, it adds NaN.
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kPackEntries = 256;       // the packed form: 8 entries a lane
+constexpr int kPackSteps = kPackEntries / 32;
+constexpr int kPackOutputs = 1024;      // output vectors (rows x C / V) a cloud
+constexpr int kPackWarps = 8;           // clouds a block
+constexpr int kLocalEntries = 8192;     // the range form
 constexpr int kLocalRows = 256;
-constexpr int kLocalWarps = kThreads / 32;
+constexpr int kLocalSteps = 16;         // entries a thread
+constexpr int kLocalMaxWarps = 16;
 
+// Sums, in list order, the g rows (channels cc .. cc + V) of the entries
+// lst[lo .. hi).
 template <int V>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void sum_list(const float* __restrict__ gb,
+                                         const int* lst, int lo, int hi, int c,
+                                         int cc, float (&acc)[V]) {
+#pragma unroll
+  for (int x = 0; x < V; ++x) acc[x] = 0.f;
+  for (int i = lo; i < hi; ++i) {
+    const int e = lst[i];
+    float v[V];
+    if (e >= 0) {
+      load_vec<V>(gb + static_cast<size_t>(e) * c + cc, v);
+    } else {
+#pragma unroll
+      for (int x = 0; x < V; ++x) v[x] = CUDART_NAN_F;
+    }
+#pragma unroll
+    for (int x = 0; x < V; ++x) acc[x] = __fadd_rn(acc[x], v[x]);
+  }
+}
+
+// The packed form: warp w of block b takes cloud b * 8 + w (B clouds of
+// `rows` <= 256 entries into n rows, n * C / V <= 1024). Its shared memory,
+// (n + rows) ints a warp: n counts, scanned to each row's first slot and
+// moved to its end as the row's entries are placed, then the list. Lane
+// `lane` holds the entries s * 32 + lane (step s) in registers; a step's
+// entries of one row take consecutive slots in lane order (their rank
+// among the step's lower lanes of that row, __match_any_sync and __popc),
+// after the slots of the steps before, so every row lists its entries
+// ascending. Then each output sums its row's list in order.
+template <int V>
+__global__ void __launch_bounds__(kPackWarps * 32)
+scatter_add_rows_packed_kernel(const float* __restrict__ g,
+                               const int* __restrict__ idx, int batch, int n,
+                               int c, int rows, float* __restrict__ out) {
+  extern __shared__ int pk_smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (b >= batch) return;                 // whole warps leave together
+  int* end = pk_smem + warp * (n + rows);
+  int* lst = end + n;
+  for (int q = lane; q < n; q += 32) end[q] = 0;
+  const int* ib = idx + static_cast<size_t>(b) * rows;
+  int key[kPackSteps];                    // the entry's row, -1 past the end
+  unsigned bad = 0;
+#pragma unroll
+  for (int s = 0; s < kPackSteps; ++s) {
+    const int e = s * 32 + lane;
+    key[s] = -1;
+    if (e < rows) {
+      const int v = ib[e];
+      const bool o = v < 0 || v >= n;
+      key[s] = o ? 0 : v;
+      bad |= static_cast<unsigned>(o) << s;
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int s = 0; s < kPackSteps; ++s) {
+    if (key[s] >= 0) atomicAdd(end + key[s], 1);   // an integer count
+  }
+  __syncwarp();
+  // exclusive scan of the counts: rows [q0, q1) a lane
+  const int rp = (n + 31) / 32;
+  const int q0 = min(n, lane * rp), q1 = min(n, q0 + rp);
+  int sum = 0;
+  for (int q = q0; q < q1; ++q) sum += end[q];
+  int incl = sum;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += v;
+  }
+  int run = incl - sum;
+  for (int q = q0; q < q1; ++q) {
+    const int v = end[q];
+    end[q] = run;
+    run += v;
+  }
+  __syncwarp();
+  const unsigned lower = (1u << lane) - 1u;
+#pragma unroll
+  for (int s = 0; s < kPackSteps; ++s) {
+    if (s * 32 < rows) {                  // the same on every lane
+      const int q = key[s];
+      const unsigned peers = __match_any_sync(kFull, q);
+      const int e = s * 32 + lane;
+      if (q >= 0) lst[end[q] + __popc(peers & lower)] = (bad >> s) & 1u ? ~e : e;
+      __syncwarp();
+      if (q >= 0 && lane == __ffs(peers) - 1) end[q] += __popc(peers);
+      __syncwarp();
+    }
+  }
+  // end[q] is now the end of row q's list, end[q - 1] its start
+  const float* gb = g + static_cast<size_t>(b) * rows * c;
+  const int cv = c / V;
+  for (int t = lane; t < n * cv; t += 32) {
+    const int q = t / cv;
+    const int cc = (t - q * cv) * V;
+    float acc[V];
+    sum_list<V>(gb, lst, q == 0 ? 0 : end[q - 1], end[q], c, cc, acc);
+    store_vec<V>(out + (static_cast<size_t>(b) * n + q) * c + cc, acc);
+  }
+}
+
+// The range form: block (b, range) of a 1-D grid, b = blockIdx.x / ranges,
+// `blockDim.x / 32` warps, takes the rows [r0, r0 + nr) of cloud b (of
+// `rows` <= 8192 entries). Warp w holds the entries w * 32 * steps + 32 s +
+// lane (step s < steps <= 16) in registers, read once; the block counts its
+// rows' entries per (warp, row) in shared memory, scans them rows in order
+// and, within a row, warps in order, places each warp's entries as the
+// packed form does (a warp's steps in order), then gathers its rows.
+// Shared memory: (warps + 1) nr + 1 + warps + rows ints.
+template <int V>
+__global__ void __launch_bounds__(kLocalMaxWarps * 32)
 scatter_add_rows_local_kernel(const float* __restrict__ g,
                               const int* __restrict__ idx, int n, int c,
-                              int rows, int nr, float* __restrict__ out) {
-  __shared__ int cnt[kLocalWarps * kLocalRows];   // (warps, m) counts, then slots
-  __shared__ int first[kLocalRows + 1];
-  __shared__ int lst[kLocalEntries];
-  __shared__ int warp_total[kLocalWarps];
-  const int b = blockIdx.y;
-  const int r0 = blockIdx.x * nr;
-  const int m = min(n, r0 + nr) - r0;
+                              int rows, int nr, int ranges, int steps,
+                              float* __restrict__ out) {
+  extern __shared__ int lc_smem[];
   const int warps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = blockIdx.x / ranges;
+  const int r0 = (blockIdx.x - b * ranges) * nr;
+  const int m = min(n, r0 + nr) - r0;
+  int* cnt = lc_smem;                     // (warps, m): counts, then slots
+  int* first = cnt + warps * m;           // (m + 1)
+  int* warp_total = first + m + 1;        // (warps)
+  int* lst = warp_total + warps;          // (rows)
   for (int t = threadIdx.x; t < warps * m; t += blockDim.x) cnt[t] = 0;
-  __syncthreads();
 
   const int* ib = idx + static_cast<size_t>(b) * rows;
-  const int per = (rows + warps - 1) / warps;
-  const int lo = min(rows, warp * per), hi = min(rows, lo + per);
+  const int e0 = warp * 32 * steps + lane;
+  int key[kLocalSteps];                   // the entry's row - r0; -1 if not the block's
+  unsigned bad = 0;
+#pragma unroll
+  for (int s = 0; s < kLocalSteps; ++s) {
+    key[s] = -1;
+    const int e = e0 + 32 * s;
+    if (s < steps && e < rows) {
+      const int v = ib[e];
+      const bool o = v < 0 || v >= n;
+      const int q = (o ? 0 : v) - r0;
+      if (q >= 0 && q < m) key[s] = q;
+      bad |= static_cast<unsigned>(o) << s;
+    }
+  }
+  __syncthreads();
   int* wc = cnt + warp * m;
-  for (int e = lo + lane; e < hi; e += 32) {
-    const int v = ib[e];
-    const int q = (v >= 0 && v < n ? v : 0) - r0;   // a bad index: row 0
-    if (q >= 0 && q < m) atomicAdd(wc + q, 1);        // an integer count
+#pragma unroll
+  for (int s = 0; s < kLocalSteps; ++s) {
+    if (key[s] >= 0) atomicAdd(wc + key[s], 1);     // an integer count
   }
   __syncthreads();
 
@@ -344,7 +485,7 @@ scatter_add_rows_local_kernel(const float* __restrict__ g,
   int incl = sum;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
-    const int v = __shfl_up_sync(0xffffffffu, incl, o);
+    const int v = __shfl_up_sync(kFull, incl, o);
     if (lane >= o) incl += v;
   }
   if (lane == 31) warp_total[warp] = incl;
@@ -363,42 +504,27 @@ scatter_add_rows_local_kernel(const float* __restrict__ g,
   __syncthreads();
 
   const unsigned lower = (1u << lane) - 1u;
-  for (int e0 = lo; e0 < hi; e0 += 32) {
-    const int e = e0 + lane;
-    int q = -1;
-    if (e < hi) {
-      const int v = ib[e];
-      q = (v >= 0 && v < n ? v : 0) - r0;
-      if (q < 0 || q >= m) q = -1;
+#pragma unroll
+  for (int s = 0; s < kLocalSteps; ++s) {
+    if (s < steps) {                      // the same on every lane
+      const int q = key[s];
+      const unsigned peers = __match_any_sync(kFull, q);
+      const int e = e0 + 32 * s;
+      if (q >= 0) lst[wc[q] + __popc(peers & lower)] = (bad >> s) & 1u ? ~e : e;
+      __syncwarp();
+      if (q >= 0 && lane == __ffs(peers) - 1) wc[q] += __popc(peers);
+      __syncwarp();
     }
-    const unsigned peers = __match_any_sync(0xffffffffu, q);
-    if (q >= 0) lst[wc[q] + __popc(peers & lower)] = e;
-    __syncwarp();
-    if (q >= 0 && lane == __ffs(peers) - 1) wc[q] += __popc(peers);
-    __syncwarp();
   }
   __syncthreads();
 
+  const float* gb = g + static_cast<size_t>(b) * rows * c;
   const int cv = c / V;
   for (int t = threadIdx.x; t < m * cv; t += blockDim.x) {
     const int q = t / cv;
     const int cc = (t - q * cv) * V;
-    const bool row0 = r0 + q == 0;      // row 0 also lists bad indices
     float acc[V];
-#pragma unroll
-    for (int x = 0; x < V; ++x) acc[x] = 0.f;
-    for (int i = first[q]; i < first[q + 1]; ++i) {
-      const int e = lst[i];
-      float v[V];
-      if (!row0 || (ib[e] >= 0 && ib[e] < n)) {
-        load_vec<V>(g + (static_cast<size_t>(b) * rows + e) * c + cc, v);
-      } else {
-#pragma unroll
-        for (int x = 0; x < V; ++x) v[x] = CUDART_NAN_F;
-      }
-#pragma unroll
-      for (int x = 0; x < V; ++x) acc[x] = __fadd_rn(acc[x], v[x]);
-    }
+    sum_list<V>(gb, lst, first[q], first[q + 1], c, cc, acc);
     store_vec<V>(out + (static_cast<size_t>(b) * n + r0 + q) * c + cc, acc);
   }
 }
@@ -597,33 +723,75 @@ int three_interpolate_forward(const float* f, const int* idx, const float* w,
 // cloud, as kernels.reverse_list_plan says; order and off sized as there),
 // then write every output row once.
 
-// g (B, M, C) float32, idx (B, M) int32 -> out (B, N, C), the scatter-add.
-// With `local_rows` > 0 (M <= 8192 and local_rows <= 256, the host plan
-// kernels.scatter_plan) one launch of the local form, `local_warps` warps
-// a block and local_rows rows a block, lists and gathers, and order and
-// off are not used; else the list, then the gather.
-int scatter_add_rows(const float* g, const int* idx, int batch, int n, int c,
-                     int rows, int local_rows, int local_warps, int list_warps,
-                     int ranges, int* order, int* off, int vec4,
-                     float* out, void* stream) {
+// g (B, M, C) float32, idx (B, M) int32 -> out (B, N, C), the scatter-add
+// in one launch, by the host plan kernels.scatter_plan (rows a block, warps
+// a block, clouds a block): with clouds > 1 the packed form (M <= 256,
+// N C / V <= 1024; a warp a cloud, `local_warps` == clouds a block); else
+// the range form (M <= 8192, local_rows <= 256 rows a block, `local_warps`
+// <= 16 warps of at most 16 entries a thread).
+int scatter_add_rows_local(const float* g, const int* idx, int batch, int n, int c,
+                           int rows, int local_rows, int local_warps, int clouds,
+                           int vec4, float* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int total = batch * n * (vec4 ? c / 4 : c);
   if (total == 0) return 0;
-  if (local_rows > 0) {
-    if (rows > kLocalEntries || local_rows > kLocalRows || local_warps < 1 ||
-        local_warps > kLocalWarps || batch > 65535) {
+  if (clouds > 1) {
+    if (rows > kPackEntries || total / batch > kPackOutputs || clouds != local_warps ||
+        clouds > kPackWarps) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
-    const dim3 grid((n + local_rows - 1) / local_rows, batch);
+    const size_t smem = sizeof(int) * static_cast<size_t>(clouds) * (n + rows);
+    const int grid = (batch + clouds - 1) / clouds;
+    static SmemOptIn opt_in[2];
     if (vec4) {
-      scatter_add_rows_local_kernel<4><<<grid, local_warps * 32, 0, s>>>(
-          g, idx, n, c, rows, local_rows, out);
+      auto kernel = scatter_add_rows_packed_kernel<4>;
+      cudaError_t err = opt_in[1].raise(reinterpret_cast<const void*>(kernel), smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      kernel<<<grid, clouds * 32, smem, s>>>(g, idx, batch, n, c, rows, out);
     } else {
-      scatter_add_rows_local_kernel<1><<<grid, local_warps * 32, 0, s>>>(
-          g, idx, n, c, rows, local_rows, out);
+      auto kernel = scatter_add_rows_packed_kernel<1>;
+      cudaError_t err = opt_in[0].raise(reinterpret_cast<const void*>(kernel), smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      kernel<<<grid, clouds * 32, smem, s>>>(g, idx, batch, n, c, rows, out);
     }
     return static_cast<int>(cudaGetLastError());
   }
+  const int steps = (rows + 32 * local_warps - 1) / (32 * local_warps);
+  const int row_ranges = local_rows > 0 ? (n + local_rows - 1) / local_rows : 0;
+  if (local_rows < 1 || rows > kLocalEntries || local_rows > kLocalRows || local_warps < 1 ||
+      local_warps > kLocalMaxWarps || steps > kLocalSteps ||
+      static_cast<long long>(batch) * row_ranges > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = sizeof(int) * (static_cast<size_t>(local_warps + 1) * local_rows +
+                                     1 + local_warps + rows);
+  static SmemOptIn opt_in[2];
+  if (vec4) {
+    auto kernel = scatter_add_rows_local_kernel<4>;
+    cudaError_t err = opt_in[1].raise(reinterpret_cast<const void*>(kernel), smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<batch * row_ranges, local_warps * 32, smem, s>>>(
+        g, idx, n, c, rows, local_rows, row_ranges, steps, out);
+  } else {
+    auto kernel = scatter_add_rows_local_kernel<1>;
+    cudaError_t err = opt_in[0].raise(reinterpret_cast<const void*>(kernel), smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<batch * row_ranges, local_warps * 32, smem, s>>>(
+        g, idx, n, c, rows, local_rows, row_ranges, steps, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same for clouds of more than 8192 entries: the reverse list of idx
+// (reverse_list.cu: `list_warps` warps a block and `ranges` blocks a cloud,
+// as kernels.reverse_list_plan says; order and off sized as there), then
+// the gather.
+int scatter_add_rows(const float* g, const int* idx, int batch, int n, int c,
+                     int rows, int list_warps, int ranges, int* order, int* off,
+                     int vec4, float* out, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int total = batch * n * (vec4 ? c / 4 : c);
+  if (total == 0) return 0;
   const int err = reverse_list_build(idx, batch, rows, n, list_warps, ranges,
                                      order, off, stream);
   if (err != 0) return err;

@@ -17,33 +17,54 @@
 // another order than ref.py's matmuls, so the two agree to a tolerance
 // (|kernel - plain| <= 1e-5 + 1e-4 |plain| at unit-scale inputs), not bitwise.
 //
-// Design: one warp per point, 8 warps a block, a grid of as many blocks as
-// fit on the card at once, each warp walking points with a grid stride. The
-// block stages W1 (transposed, so that lanes read consecutive addresses),
-// W2 and b2 in shared memory once. Per point:
-//   - lane j < k holds the neighbour index idx_j; others read it by shuffle;
-//   - the (1+k)*rel inputs of the first layer are spread over the lanes
-//     (element e on lane e % 32), each lane keeps ms partial sums, and a
-//     butterfly of shuffles leaves u on every lane;
-//   - lane t computes w[t], w[t+32], ... into a per-warp shared buffer;
-//   - lane t accumulates out[c] for c = t, t+32, ... over the k neighbours,
-//     reading the mid part of each neighbour row as one contiguous segment.
-// Templated on (rel, mid, ms) for VRCNet's four pyramid levels (4, 16, 2),
-// (8, 32, 4), (16, 64, 8) and (32, 128, 16); k is a runtime value in
-// [1, 32]. An index outside [0, N) makes the point's output NaN instead of
-// reading out of bounds (the wrapper does not range-check on the host).
+// Design (after the backward's pass 1): a group of G = rel lanes a point,
+// 32 / G points a warp and PTS points a group (1 at levels 1-2, 4 at
+// level 3, 2 at level 4, so that each weight read from shared memory
+// serves PTS points), `warps` warps a block. The block stages W1 (rows
+// padded so that a group's 16-byte reads of consecutive rows miss no bank
+// twice), W2 and b2 in shared memory once; after that a warp needs no
+// other warp: each group keeps its points' indices, u and w in its own
+// slice of shared memory, so the block has no barrier past the staging.
+// The blocks take contiguous chunks of the points (block b the b-th of
+// `grid` chunks, its warps consecutive parts of it), so an SM's blocks
+// work inside one or two clouds. Lane l of a group holds rel channel l and
+// mid channels 4l .. 4l + 3 of a row (VRCNet's levels have mid = 4 rel =
+// 8 ms). Per point:
+//   - its k indices read once by the group's lanes into shared memory;
+//   - walk 1: each neighbour row's rel channel l, relu'd, times row
+//     (1 + j) rel + l of W1 into MS partial sums a lane (the x1 term first);
+//   - the group's partial sums reduced by halving (lane bits pick the half
+//     kept, MS - 1 + log2(G / MS) shuffles instead of MS log2(G)), u = relu
+//     of the sums written to shared memory by the first MS lanes, read back
+//     by every lane of the group; at level 4 instead, for a warp's 16
+//     points at a time, the first layer on the tensor cores (3xTF32 on
+//     mma.sync m16n8k8: W1 staged once as its B fragments, hi and lo, the
+//     points' rows read as 16-byte vectors straight into A fragments);
+//   - w = u W2 + b2, outputs 4i .. 4i + 3 on lane i % G (16-byte reads of
+//     W2 and b2; one output a lane at ms 2), into the group's w buffer;
+//   - walk 2: each neighbour row's mid channels 4l .. 4l + 3 as one 16-byte
+//     read, times w[j, (4l .. 4l + 3) % ms] (one 16-byte shared read), into
+//     four sums a lane, stored as one 16-byte write.
+// The plan (warps, grid) is the host function `kernels.sa_forward_plan`'s,
+// a function of the shape and the card's SM count. Templated on (rel, mid,
+// ms) for VRCNet's four pyramid levels (4, 16, 2), (8, 32, 4), (16, 64, 8)
+// and (32, 128, 16); k is a runtime value in [1, 32]. An index outside
+// [0, N) makes the point's output NaN instead of reading out of bounds (the
+// wrapper does not range-check on the host).
 //
-// What bounds it on an H100: bytes. At level 1 of the protocol config
-// (B 32, N 3072, rel 4, mid 16, k 16) the inputs proj, x1 and idx and the
-// output are 22 MB (6.6 us at 3.35 TB/s) against 0.09 GFLOP of MLP and
-// weighted sum (1.4 us at the 67 TFLOP/s fp32 peak); level 4 (N 384, rel 32,
-// mid 128) is 4.5 MB against 0.37 GFLOP. A neighbour row is read once per
-// point that gathers it (k times on average); L2 (50 MB) holds proj, so
-// device memory sees it about once. This simple design is latency-bound: one
-// point a warp leaves half the lanes idle in the weighted sum at level 1
-// (mid 16), and the first layer's reduction costs 5 shuffles per output. A
-// later PR would give a warp several points, or run the first layer as a
-// tensor-core product over a tile of points.
+// What bounds it on an H100: bytes, in the count of the bound. At level 1
+// of the protocol config (B 32, N 3072, rel 4, mid 16, k 16) the inputs
+// proj, x1 and idx and the output are 22 MB (6.6 us at 3.35 TB/s) against
+// 0.09 GFLOP of MLP and weighted sum (1.4 us at the 67 TFLOP/s fp32 peak);
+// level 4 (N 384, rel 32, mid 128) is 4.5 MB against 0.37 GFLOP. But a
+// neighbour row is read once for each point that gathers it, k times on
+// average: k (rel + mid) N floats a cloud, the same at every level (126 MB
+// at B 32), from L2 or L1. On the card the time is the SM's, not these
+// bytes': with every neighbour drawn from a few rows that L1 holds, a
+// level runs within 10-15% of its time with rows from all over the cloud.
+// At level 4 the first layer's W1 rows (2 KB a neighbour a warp, read from
+// shared memory for PTS points) and its 14.8 k multiply-adds a point set
+// it, hence the tensor cores there.
 //
 // The backward replaces `_sa_bwd` / `_sa_bwd_kernel` (pallas_kernels.py:1417
 // and :1241), at fp32 with the `c % ms` layout of `_sa_fold`/`_sa_expand`.
@@ -104,8 +125,10 @@
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
+#include <stdint.h>
 
 #include "reverse_list.h"
+#include "smem_opt_in.h"
 
 namespace {
 
@@ -115,132 +138,52 @@ constexpr int kMaxK = 32;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kBwdMaxThreads = 512;   // the backward's pass 1: up to 16 warps
 
-// Shared floats a block needs for k neighbours: W1^T, W2, b2, and one w
-// buffer per warp.
-int smem_floats(int rel, int ms, int k) {
-  return (1 + k) * rel * ms + ms * k * ms + k * ms + kWarps * k * ms;
+// The forward by level (ms): at level 4 (ms 16) the first layer runs on
+// the tensor cores, a warp 16 points at a time (kTC); PTS points a group
+// in the second layer and the weighted sum (4 points a group at level 3 and
+// 2 at level 4 ran fastest on an H100; 4 at level 4, and 1 or 2 at level
+// 3, were slower); the largest block: 64 registers a thread at levels 1-2
+// (32 warps), 128 at levels 3-4 (16).
+template <int MS>
+struct SaFwd {
+  static constexpr int kRel = 2 * MS;    // VRCNet's levels (share 8)
+  static constexpr bool kTC = MS >= 16;
+  static constexpr int kPts = MS <= 4 ? 1 : (MS == 8 ? 4 : 2);
+  static constexpr int kMaxThreads = MS <= 4 ? 1024 : 512;
+  // W1's rows in shared memory on the CUDA cores: MS floats, padded to
+  // MS + 4 where a row is 32 bytes or more, so that the 16-byte reads of a
+  // group's lanes (rows e .. e + G - 1) fall on distinct banks
+  static constexpr int kW1Stride = MS <= 4 ? MS : MS + 4;
+  // Points of one pass of a warp's 32 / rel groups, and the points a warp
+  // takes at a time: 16 (an m16 tile) on the tensor cores, else a pass.
+  static constexpr int kPass = (32 / kRel) * kPts;
+  static constexpr int kUnit = kTC ? 16 : kPass;
+  // Shared floats of W1: its padded rows on the CUDA cores, on the tensor
+  // cores its B fragments, hi and lo.
+  __host__ __device__ static constexpr int w1_floats(int k) {
+    return kTC ? 2 * (1 + k) * kRel * MS : (1 + k) * kRel * kW1Stride;
+  }
+  // Shared floats of a block (`kernels._sa_fwd_smem` mirrors it): W1, W2,
+  // b2, and for each warp w for a pass of its groups, and u, the k indices
+  // and a bad-index flag for each point it takes at a time.
+  __host__ __device__ static constexpr int smem_floats(int k, int warps) {
+    return w1_floats(k) + MS * k * MS + k * MS + warps * (kPass * k * MS + kUnit * (MS + k + 1));
+  }
+};
+
+// x split into TF32 hi and lo = x - hi (3xTF32, as hopper.cuh's split_tf32)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
-// At least 4 blocks an SM: up to 64 registers a thread. Without the floor
-// ptxas aims at 8 blocks (32 registers) and spilled at (8, 32, 4).
-template <int REL, int MID, int MS>
-__global__ void __launch_bounds__(kThreads, 4)
-sa_attention_kernel(const float* __restrict__ proj,
-                    const float* __restrict__ x1, const int* __restrict__ idx,
-                    const float* __restrict__ w1, const float* __restrict__ w2,
-                    const float* __restrict__ b2, int n, int k, int points,
-                    float* __restrict__ out) {
-  constexpr int C = REL + MID;           // width of a proj row
-  constexpr int OUT_PER_LANE = (MID + 31) / 32;
-  extern __shared__ __align__(16) float smem[];
-  const int in_w = (1 + k) * REL;        // rows of W1
-  const int kms = k * MS;                // columns of W2
-  float* sw1t = smem;                    // (MS, in_w): W1 transposed
-  float* sw2 = sw1t + in_w * MS;         // (MS, kms)
-  float* sb2 = sw2 + MS * kms;           // (kms)
-  for (int t = threadIdx.x; t < in_w * MS; t += kThreads) {
-    sw1t[(t % MS) * in_w + t / MS] = w1[t];
-  }
-  for (int t = threadIdx.x; t < MS * kms; t += kThreads) sw2[t] = w2[t];
-  for (int t = threadIdx.x; t < kms; t += kThreads) sb2[t] = b2[t];
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  float* wb = sb2 + kms + warp * kms;    // this warp's w (k, MS)
-
-  for (int p = blockIdx.x * kWarps + warp; p < points;
-       p += gridDim.x * kWarps) {
-    const float* pb = proj + static_cast<size_t>(p / n) * n * C;
-    const int nb = lane < k ? idx[static_cast<size_t>(p) * k + lane] : 0;
-    float* op = out + static_cast<size_t>(p) * MID;
-    if (__any_sync(kFull, nb < 0 || nb >= n)) {
-      for (int c = lane; c < MID; c += 32) op[c] = CUDART_NAN_F;
-      continue;
-    }
-
-    // First layer: element e of w_in on lane e % 32, ms partial sums a lane.
-    float acc[MS];
-#pragma unroll
-    for (int q = 0; q < MS; ++q) acc[q] = 0.f;
-    for (int e0 = 0; e0 < in_w; e0 += 32) {
-      const int e = e0 + lane;
-      const int j = e >= REL ? (e - REL) / REL : 0;
-      const int row = __shfl_sync(kFull, nb, j < k ? j : 0);
-      if (e < in_w) {
-        const float v = fmaxf(
-            e < REL ? x1[static_cast<size_t>(p) * REL + e]
-                    : pb[static_cast<size_t>(row) * C + (e - REL) % REL],
-            0.f);
-#pragma unroll
-        for (int q = 0; q < MS; ++q) acc[q] = fmaf(v, sw1t[q * in_w + e], acc[q]);
-      }
-    }
-    float u[MS];
-#pragma unroll
-    for (int q = 0; q < MS; ++q) {
-      float s = acc[q];
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(kFull, s, o);
-      u[q] = fmaxf(s, 0.f);
-    }
-
-    // Second layer: w[o] = u . W2[:, o] + b2[o] into the warp's buffer.
-    for (int o = lane; o < kms; o += 32) {
-      float s = 0.f;
-#pragma unroll
-      for (int q = 0; q < MS; ++q) s = fmaf(u[q], sw2[q * kms + o], s);
-      wb[o] = s + sb2[o];
-    }
-    __syncwarp();
-
-    // Weighted sum over the neighbours, channel c on lane c % 32.
-    float o_acc[OUT_PER_LANE];
-#pragma unroll
-    for (int m = 0; m < OUT_PER_LANE; ++m) o_acc[m] = 0.f;
-#pragma unroll 4
-    for (int j = 0; j < k; ++j) {
-      const int row = __shfl_sync(kFull, nb, j);
-      const float* pr = pb + static_cast<size_t>(row) * C + REL;
-#pragma unroll
-      for (int m = 0; m < OUT_PER_LANE; ++m) {
-        const int c = lane + 32 * m;
-        if (c < MID) o_acc[m] = fmaf(wb[j * MS + c % MS], pr[c], o_acc[m]);
-      }
-    }
-#pragma unroll
-    for (int m = 0; m < OUT_PER_LANE; ++m) {
-      const int c = lane + 32 * m;
-      if (c < MID) op[c] = o_acc[m];
-    }
-    __syncwarp();                        // wb is rewritten for the next point
-  }
-}
-
-template <int REL, int MID, int MS>
-int launch(const float* proj, const float* x1, const int* idx, const float* w1,
-           const float* w2, const float* b2, int batch, int n, int k,
-           float* out, cudaStream_t stream) {
-  auto kernel = sa_attention_kernel<REL, MID, MS>;
-  const size_t smem = sizeof(float) * smem_floats(REL, MS, k);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kThreads, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int points = batch * n;
-  int grid = per_sm * sms;                  // every block resident at once
-  if (grid < 1) grid = 1;
-  if (grid > (points + kWarps - 1) / kWarps) grid = (points + kWarps - 1) / kWarps;
-  sa_attention_kernel<REL, MID, MS><<<grid, kThreads, smem, stream>>>(
-      proj, x1, idx, w1, w2, b2, n, k, points, out);
-  return static_cast<int>(cudaGetLastError());
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // MS consecutive floats (16-byte aligned where MS % 4 == 0, else 8-byte).
@@ -261,6 +204,355 @@ __device__ __forceinline__ void load_ms(const float* p, float (&v)[MS]) {
     v[0] = t.x;
     v[1] = t.y;
   }
+}
+
+// The sum over a group of G lanes of each lane's MS values, by halving: at
+// step S (offset 2^S, S < log2 MS) a lane keeps the half of its values that
+// bit S of its place l names and adds its partner's other half; then the
+// one value left is summed over the remaining lanes. Returns, on every lane,
+// the total of q = qmap(l) (below). A template a step, so that every index
+// into `a` is a constant (a loop left rolled put `a` in local memory).
+template <int MS, int G, int S = 0>
+__device__ __forceinline__ float group_reduce_scatter(float (&a)[MS], int l) {
+  if constexpr ((1 << S) < MS) {
+    constexpr int h = MS >> (S + 1);
+    const bool up = (l >> S) & 1;
+#pragma unroll
+    for (int i = 0; i < h; ++i) {
+      const float keep = up ? a[i + h] : a[i];
+      const float send = up ? a[i] : a[i + h];
+      a[i] = keep + __shfl_xor_sync(kFull, send, 1 << S);
+    }
+    return group_reduce_scatter<MS, G, S + 1>(a, l);
+  } else {
+    float v = a[0];
+#pragma unroll
+    for (int o = MS; o < G; o <<= 1) v += __shfl_xor_sync(kFull, v, o);
+    return v;
+  }
+}
+
+// The q whose total group_reduce_scatter leaves on place l of a group.
+template <int MS>
+__device__ __forceinline__ int qmap(int l) {
+  int q = 0;
+#pragma unroll
+  for (int s = 0; (1 << s) < MS; ++s) q += ((l >> s) & 1) * (MS >> (s + 1));
+  return q;
+}
+
+// W1's B fragments for the tensor cores: entry ((src KS + s) NT + nt) 32 +
+// lane, lane (g, t) = (lane / 4, lane % 4), the float4 (b0 hi, b1 hi, b0 lo,
+// b1 lo) with b0 = W1[src REL + t CPL + 2 s][8 nt + g] and b1 the next row:
+// source src (0 the point's x1, 1 + j its neighbour j) contributes REL rows
+// in KS = REL / 8 k-steps, lane t taking its CPL = REL / 4 consecutive
+// channels, k-step s the pair 2 s, 2 s + 1 of them (A's columns t and
+// t + 4).
+template <int REL, int MS>
+__device__ __forceinline__ void stage_w1_fragments(const float* __restrict__ w1, int k,
+                                                   float4* frag) {
+  constexpr int KS = REL / 8, CPL = REL / 4, NT = MS / 8;
+  const int entries = (1 + k) * KS * NT * 32;
+  for (int i = threadIdx.x; i < entries; i += blockDim.x) {
+    const int lane = i & 31, g = lane >> 2, t = lane & 3;
+    const int nt = (i >> 5) % NT;
+    const int ks = (i >> 5) / NT;             // src KS + s
+    const int row = (ks / KS) * REL + t * CPL + 2 * (ks % KS);
+    uint32_t h0, l0, h1, l1;
+    split_tf32(w1[row * MS + 8 * nt + g], h0, l0);
+    split_tf32(w1[(row + 1) * MS + 8 * nt + g], h1, l1);
+    frag[i] = make_float4(__uint_as_float(h0), __uint_as_float(h1),
+                          __uint_as_float(l0), __uint_as_float(l1));
+  }
+}
+
+// The first layer of a warp's 16 points on the tensor cores (3xTF32 on
+// mma.sync m16n8k8): A = relu(w_in) (points g and g + 8 of lane (g, t),
+// read from their rows as 16-byte vectors), B = W1's fragments; u = relu
+// of the sums into ub (16, MS).
+template <int REL, int MID, int MS>
+__device__ __forceinline__ void first_layer_tc(
+    const float* __restrict__ proj, const float* __restrict__ x1, const float4* frag,
+    const int* ib, int k, int n, int points, int p0, float* ub) {
+  constexpr int KS = REL / 8, CPL = REL / 4, NT = MS / 8, C = REL + MID;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int pa = min(p0 + g, points - 1), pb = min(p0 + g + 8, points - 1);
+  const float* ca = proj + static_cast<size_t>(pa / n) * n * C + t * CPL;
+  const float* cb = proj + static_cast<size_t>(pb / n) * n * C + t * CPL;
+  float acc[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+#pragma unroll 2
+  for (int src = 0; src <= k; ++src) {
+    const float* ra;
+    const float* rb;
+    if (src == 0) {
+      ra = x1 + static_cast<size_t>(pa) * REL + t * CPL;
+      rb = x1 + static_cast<size_t>(pb) * REL + t * CPL;
+    } else {
+      ra = ca + static_cast<size_t>(ib[g * k + src - 1]) * C;
+      rb = cb + static_cast<size_t>(ib[(g + 8) * k + src - 1]) * C;
+    }
+    float va[CPL], vb[CPL];
+#pragma unroll
+    for (int c = 0; c < CPL; c += 4) {
+      const float4 x = __ldg(reinterpret_cast<const float4*>(ra + c));
+      const float4 y = __ldg(reinterpret_cast<const float4*>(rb + c));
+      va[c] = x.x; va[c + 1] = x.y; va[c + 2] = x.z; va[c + 3] = x.w;
+      vb[c] = y.x; vb[c + 1] = y.y; vb[c + 2] = y.z; vb[c + 3] = y.w;
+    }
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {
+      uint32_t hi[4], lo[4];
+      split_tf32(fmaxf(va[2 * s], 0.f), hi[0], lo[0]);
+      split_tf32(fmaxf(vb[2 * s], 0.f), hi[1], lo[1]);
+      split_tf32(fmaxf(va[2 * s + 1], 0.f), hi[2], lo[2]);
+      split_tf32(fmaxf(vb[2 * s + 1], 0.f), hi[3], lo[3]);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const float4 b = frag[((src * KS + s) * NT + nt) * 32 + lane];
+        mma_tf32(acc[nt], lo, __float_as_uint(b.x), __float_as_uint(b.y));
+        mma_tf32(acc[nt], hi, __float_as_uint(b.z), __float_as_uint(b.w));
+        mma_tf32(acc[nt], hi, __float_as_uint(b.x), __float_as_uint(b.y));
+      }
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    *reinterpret_cast<float2*>(ub + g * MS + 8 * nt + 2 * t) =
+        make_float2(fmaxf(acc[nt][0], 0.f), fmaxf(acc[nt][1], 0.f));
+    *reinterpret_cast<float2*>(ub + (g + 8) * MS + 8 * nt + 2 * t) =
+        make_float2(fmaxf(acc[nt][2], 0.f), fmaxf(acc[nt][3], 0.f));
+  }
+}
+
+template <int REL, int MID, int MS>
+__global__ void __launch_bounds__(SaFwd<MS>::kMaxThreads, 1)
+sa_attention_kernel(const float* __restrict__ proj,
+                    const float* __restrict__ x1, const int* __restrict__ idx,
+                    const float* __restrict__ w1, const float* __restrict__ w2,
+                    const float* __restrict__ b2, int n, int k, int points,
+                    float* __restrict__ out) {
+  constexpr int G = REL;
+  constexpr bool TC = SaFwd<MS>::kTC;
+  constexpr int PTS = SaFwd<MS>::kPts;
+  constexpr int PASS = SaFwd<MS>::kPass;     // points of one pass of the groups
+  constexpr int UNIT = SaFwd<MS>::kUnit;     // points a warp takes at a time
+  constexpr int W1S = SaFwd<MS>::kW1Stride;
+  constexpr int C = REL + MID;
+  static_assert(MID == 4 * REL && SaFwd<MS>::kRel == REL && MID == 8 * MS,
+                "the lane maps below take VRCNet's levels (share 8)");
+  static_assert(UNIT % PASS == 0, "a warp's points are whole passes");
+  extern __shared__ __align__(16) float smem[];
+  const int in_w = (1 + k) * REL;
+  const int kms = k * MS;
+  const int warps = blockDim.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  float* sw1 = smem;                       // (in_w, W1S), or W1's fragments
+  float* sw2 = sw1 + SaFwd<MS>::w1_floats(k);             // (MS, kms)
+  float* sb2 = sw2 + MS * kms;             // (kms)
+  float* wb = sb2 + kms + warp * PASS * kms;              // the warp's (PASS, kms): w
+  float* ub = sb2 + kms + warps * PASS * kms + warp * UNIT * MS;   // (UNIT, MS): u
+  int* ib = reinterpret_cast<int*>(sb2 + kms + warps * (PASS * kms + UNIT * MS)) +
+            warp * UNIT * (k + 1);         // (UNIT, k) indices, then (UNIT) flags
+  int* bf = ib + UNIT * k;
+  if constexpr (TC) {
+    stage_w1_fragments<REL, MS>(w1, k, reinterpret_cast<float4*>(sw1));
+  } else {
+    for (int t = threadIdx.x; t < in_w * MS; t += blockDim.x) {
+      sw1[(t / MS) * W1S + t % MS] = w1[t];
+    }
+  }
+  for (int t = threadIdx.x; t < MS * kms; t += blockDim.x) sw2[t] = w2[t];
+  for (int t = threadIdx.x; t < kms; t += blockDim.x) sb2[t] = b2[t];
+  __syncthreads();
+
+  const int grp = lane / G, l = lane % G;
+  // The block's chunk of the warps' units of UNIT points, then its warp's
+  // part of the chunk.
+  const int units = (points + UNIT - 1) / UNIT;
+  const int c0 = static_cast<int>(static_cast<long long>(units) * blockIdx.x / gridDim.x);
+  const int c1 = static_cast<int>(static_cast<long long>(units) * (blockIdx.x + 1) / gridDim.x);
+  const int u0 = c0 + static_cast<int>(static_cast<long long>(c1 - c0) * warp / warps);
+  const int u1 = c0 + static_cast<int>(static_cast<long long>(c1 - c0) * (warp + 1) / warps);
+  const int qm = qmap<MS>(l);
+
+  for (int unit = u0; unit < u1; ++unit) {
+    const int p0 = unit * UNIT;
+    // The unit's indices, one coalesced read; an index outside [0, n) is
+    // read as row 0 and flags its point.
+    // (Points past the end read the last point's indices.)
+    for (int t = lane; t < UNIT; t += 32) bf[t] = 0;
+    __syncwarp();
+    const size_t i0 = static_cast<size_t>(p0) * k, i_last = static_cast<size_t>(points) * k - 1;
+    for (int t = lane; t < UNIT * k; t += 32) {
+      const int v = idx[min(i0 + t, i_last)];
+      const bool o = v < 0 || v >= n;
+      ib[t] = o ? 0 : v;
+      if (o) bf[t / k] = 1;
+    }
+    __syncwarp();
+
+    if constexpr (TC) {
+      first_layer_tc<REL, MID, MS>(proj, x1, reinterpret_cast<const float4*>(sw1), ib, k, n,
+                                   points, p0, ub);
+    } else {
+      // Walk 1 on the CUDA cores: the first layer's MS partial sums a lane.
+      float acc[PTS][MS];
+      const float* cloud[PTS];             // the point's cloud, at channel l
+      {
+        float wv[MS];
+        load_ms<MS>(sw1 + l * W1S, wv);
+#pragma unroll
+        for (int r = 0; r < PTS; ++r) {
+          const int p = min(p0 + grp * PTS + r, points - 1);
+          cloud[r] = proj + static_cast<size_t>(p / n) * n * C + l;
+          const float v = fmaxf(x1[static_cast<size_t>(p) * REL + l], 0.f);
+#pragma unroll
+          for (int q = 0; q < MS; ++q) acc[r][q] = v * wv[q];
+        }
+      }
+#pragma unroll 4
+      for (int j = 0; j < k; ++j) {
+        float v[PTS];
+#pragma unroll
+        for (int r = 0; r < PTS; ++r) {
+          const int row = ib[(grp * PTS + r) * k + j];
+          v[r] = fmaxf(__ldg(cloud[r] + static_cast<size_t>(row) * C), 0.f);
+        }
+        float wv[MS];
+        load_ms<MS>(sw1 + ((1 + j) * REL + l) * W1S, wv);
+#pragma unroll
+        for (int r = 0; r < PTS; ++r) {
+#pragma unroll
+          for (int q = 0; q < MS; ++q) acc[r][q] = fmaf(v[r], wv[q], acc[r][q]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < PTS; ++r) {
+        const float s = group_reduce_scatter<MS, G>(acc[r], l);
+        if (l < MS) ub[(grp * PTS + r) * MS + qm] = fmaxf(s, 0.f);
+      }
+    }
+    __syncwarp();
+
+    for (int pass = 0; pass < UNIT; pass += PASS) {
+      const int slot = pass + grp * PTS;   // the group's first point of the unit
+      // w = u W2 + b2: outputs o .. o + 3 on lane o / 4 % G (16-byte reads
+      // of W2 and b2, 16-byte writes of w; kms % 4 == 0 where MS >= 4),
+      // output o on lane o % G where MS == 2.
+      {
+        float u[PTS][MS];
+#pragma unroll
+        for (int r = 0; r < PTS; ++r) load_ms<MS>(ub + (slot + r) * MS, u[r]);
+        float* wg = wb + grp * PTS * kms;
+        if constexpr (MS >= 4) {
+          for (int o = 4 * l; o < kms; o += 4 * G) {
+            float4 s[PTS];
+#pragma unroll
+            for (int r = 0; r < PTS; ++r) s[r] = *reinterpret_cast<const float4*>(sb2 + o);
+#pragma unroll
+            for (int q = 0; q < MS; ++q) {
+              const float4 wq = *reinterpret_cast<const float4*>(sw2 + q * kms + o);
+#pragma unroll
+              for (int r = 0; r < PTS; ++r) {
+                s[r].x = fmaf(u[r][q], wq.x, s[r].x);
+                s[r].y = fmaf(u[r][q], wq.y, s[r].y);
+                s[r].z = fmaf(u[r][q], wq.z, s[r].z);
+                s[r].w = fmaf(u[r][q], wq.w, s[r].w);
+              }
+            }
+#pragma unroll
+            for (int r = 0; r < PTS; ++r) *reinterpret_cast<float4*>(wg + r * kms + o) = s[r];
+          }
+        } else {
+          for (int o = l; o < kms; o += G) {
+            float s[PTS];
+#pragma unroll
+            for (int r = 0; r < PTS; ++r) s[r] = sb2[o];
+#pragma unroll
+            for (int q = 0; q < MS; ++q) {
+              const float wq = sw2[q * kms + o];
+#pragma unroll
+              for (int r = 0; r < PTS; ++r) s[r] = fmaf(u[r][q], wq, s[r]);
+            }
+#pragma unroll
+            for (int r = 0; r < PTS; ++r) wg[r * kms + o] = s[r];
+          }
+        }
+      }
+      __syncwarp();
+
+      // Walk 2: out[c] = sum_j w[j, c % MS] proj[idx_j, REL + c], c = 4l .. 4l + 3.
+      float4 o4[PTS];
+      const float* cloud[PTS];             // the point's cloud, at channel REL + 4l
+#pragma unroll
+      for (int r = 0; r < PTS; ++r) {
+        o4[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+        const int p = min(p0 + slot + r, points - 1);
+        cloud[r] = proj + static_cast<size_t>(p / n) * n * C + REL + 4 * l;
+      }
+      const int q0 = (4 * l) % MS;
+#pragma unroll 4
+      for (int j = 0; j < k; ++j) {
+#pragma unroll
+        for (int r = 0; r < PTS; ++r) {
+          const int row = ib[(slot + r) * k + j];
+          const float4 pm = __ldg(reinterpret_cast<const float4*>(
+              cloud[r] + static_cast<size_t>(row) * C));
+          const float* wr = wb + (grp * PTS + r) * kms + j * MS;
+          float4 w4;
+          if constexpr (MS == 2) {
+            const float2 t = *reinterpret_cast<const float2*>(wr);
+            w4 = make_float4(t.x, t.y, t.x, t.y);
+          } else {
+            w4 = *reinterpret_cast<const float4*>(wr + q0);
+          }
+          o4[r].x = fmaf(w4.x, pm.x, o4[r].x);
+          o4[r].y = fmaf(w4.y, pm.y, o4[r].y);
+          o4[r].z = fmaf(w4.z, pm.z, o4[r].z);
+          o4[r].w = fmaf(w4.w, pm.w, o4[r].w);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < PTS; ++r) {
+        const int p = p0 + slot + r;
+        if (p >= points) continue;
+        if (bf[slot + r]) {
+          o4[r] = make_float4(CUDART_NAN_F, CUDART_NAN_F, CUDART_NAN_F, CUDART_NAN_F);
+        }
+        *reinterpret_cast<float4*>(out + static_cast<size_t>(p) * MID + 4 * l) = o4[r];
+      }
+      __syncwarp();                      // wb is the next pass's
+    }
+  }
+}
+
+template <int REL, int MID, int MS>
+int launch(const float* proj, const float* x1, const int* idx, const float* w1,
+           const float* w2, const float* b2, int batch, int n, int k, int warps,
+           int grid, float* out, cudaStream_t stream) {
+  if (warps * 32 > SaFwd<MS>::kMaxThreads) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = sa_attention_kernel<REL, MID, MS>;
+  const size_t smem = sizeof(float) * SaFwd<MS>::smem_floats(k, warps);
+  static SmemOptIn opt_in;
+  cudaError_t err = opt_in.raise(reinterpret_cast<const void*>(kernel), smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // The rest of the SM's 256 KB as L1, where the chunk's neighbour rows are
+  // re-read: a hint for the least shared memory that holds the block and
+  // its 1 KB of reserve (per cent of the SM's 228 KB), set when it changes.
+  static int carveout = -1;
+  const int pct = min(100, static_cast<int>((100 * (smem + 1024) + 233471) / 233472));
+  if (carveout != pct) {
+    err = cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
+                               cudaFuncAttributePreferredSharedMemoryCarveout, pct);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    carveout = pct;
+  }
+  sa_attention_kernel<REL, MID, MS><<<grid, warps * 32, smem, stream>>>(
+      proj, x1, idx, w1, w2, b2, n, k, batch * n, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The backward's pass 1 keeps in shared memory W1^T, W2, b2, their per-block
@@ -303,7 +595,7 @@ sa_backward_points_kernel(
   constexpr int G = REL;
   constexpr int PW = 32 / G;
   constexpr int C = REL + MID;
-  static_assert(MID == 4 * REL && 2 * MS == REL && MID == 8 * MS,
+  static_assert(MID == 4 * REL && SaFwd<MS>::kRel == REL && MID == 8 * MS,
                 "the lane maps below take VRCNet's levels (share 8)");
   extern __shared__ __align__(16) float smem[];
   const int in_w = (1 + k) * REL;
@@ -637,30 +929,42 @@ extern "C" {
 
 // proj (B, N, rel+mid), x1 (B, N, rel), idx (B, N, k) int32, W1
 // ((1+k)*rel, ms), W2 (ms, k*ms), b2 (k*ms), ms = mid / share, all
-// contiguous float32 on the device -> out (B, N, mid). (rel, mid, ms) is
-// one of (4, 16, 2), (8, 32, 4), (16, 64, 8), (32, 128, 16); 1 <= k <= 32.
-// Launches on `stream` without synchronising and returns cudaGetLastError()
-// (0 on success), or cudaErrorInvalidValue for shapes outside those limits.
+// contiguous float32 on the device, proj and out 16-byte aligned -> out
+// (B, N, mid). (rel, mid, ms) is one of (4, 16, 2), (8, 32, 4), (16, 64, 8),
+// (32, 128, 16); 1 <= k <= 32. `grid` blocks of `warps` warps, the plan of
+// `kernels.sa_forward_plan`. Launches on `stream` without synchronising
+// and returns cudaGetLastError() (0 on success), or cudaErrorInvalidValue
+// for shapes or plans outside those limits.
 int sa_attention_forward(const float* proj, const float* x1, const int* idx,
                          const float* w1, const float* w2, const float* b2,
                          int batch, int n, int rel, int mid, int share, int k,
-                         float* out, void* stream) {
-  if (k < 1 || k > kMaxK || share < 1 || mid % share != 0) {
+                         int warps, int grid, float* out, void* stream) {
+  if (k < 1 || k > kMaxK || share < 1 || mid % share != 0 || warps < 1 || grid < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (batch * n == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int ms = mid / share;
-  if (rel == 4 && mid == 16 && ms == 2) {
-    return launch<4, 16, 2>(proj, x1, idx, w1, w2, b2, batch, n, k, out, s);
-  } else if (rel == 8 && mid == 32 && ms == 4) {
-    return launch<8, 32, 4>(proj, x1, idx, w1, w2, b2, batch, n, k, out, s);
-  } else if (rel == 16 && mid == 64 && ms == 8) {
-    return launch<16, 64, 8>(proj, x1, idx, w1, w2, b2, batch, n, k, out, s);
-  } else if (rel == 32 && mid == 128 && ms == 16) {
-    return launch<32, 128, 16>(proj, x1, idx, w1, w2, b2, batch, n, k, out, s);
-  }
+#define MVP_SA_FORWARD(R, M, S) \
+  launch<R, M, S>(proj, x1, idx, w1, w2, b2, batch, n, k, warps, grid, out, s)
+  if (rel == 4 && mid == 16 && ms == 2) return MVP_SA_FORWARD(4, 16, 2);
+  if (rel == 8 && mid == 32 && ms == 4) return MVP_SA_FORWARD(8, 32, 4);
+  if (rel == 16 && mid == 64 && ms == 8) return MVP_SA_FORWARD(16, 64, 8);
+  if (rel == 32 && mid == 128 && ms == 16) return MVP_SA_FORWARD(32, 128, 16);
+#undef MVP_SA_FORWARD
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The shared memory bytes the forward takes for k neighbours and `warps`
+// warps a block (kernels.sa_forward_plan mirrors it), or -1 for a level
+// outside VRCNet's four.
+int sa_attention_forward_smem(int rel, int ms, int k, int warps) {
+  const int f = static_cast<int>(sizeof(float));
+  if (rel == 4 && ms == 2) return f * SaFwd<2>::smem_floats(k, warps);
+  if (rel == 8 && ms == 4) return f * SaFwd<4>::smem_floats(k, warps);
+  if (rel == 16 && ms == 8) return f * SaFwd<8>::smem_floats(k, warps);
+  if (rel == 32 && ms == 16) return f * SaFwd<16>::smem_floats(k, warps);
+  return -1;
 }
 
 // The backward: inputs as sa_attention_forward plus g (B, N, mid) -> dx1

@@ -25,8 +25,8 @@
 memory fits, each held bitwise (``kernels.emd_plan`` follows).
 
 Only the public wrappers are timed, so the script also times an older
-checkout's kernels when copied into it (the counts and the plan are then
-left out). Writes its readings as JSON to ``--out`` (default
+checkout's kernels when copied into it with ``probe_knn_fps.py`` (its
+profiler helpers; the counts and the plan are then left out). Writes its readings as JSON to ``--out`` (default
 ``build/probe_emd_chamfer.json``). Needs a card; exits 1 if a check fails.
 """
 
@@ -36,7 +36,6 @@ import argparse
 import inspect
 import json
 import os
-import re
 import subprocess
 import sys
 import time
@@ -45,6 +44,7 @@ import numpy as np
 import torch
 
 from mvp_benchmark_tpu_torch.ops import kernels, ref
+from mvp_benchmark_tpu_torch.probe_knn_fps import device_ms, device_window
 
 PEAK_FP32 = 67e12
 ISSUE_FP32 = PEAK_FP32 / 2
@@ -102,34 +102,8 @@ def _time(fn, budget_ms=100.0):
     return sum(out) / 2
 
 
-def device_window(fn, n):
-    """{kernel: device ms a call} over ``n`` calls of ``fn`` under
-    torch.profiler."""
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    out: dict = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            us = getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
-            key = re.sub(r"\(.*$", "", e.key.replace("(anonymous namespace)::", "")
-                         .replace("void ", "")).strip()
-            out[key] = out.get(key, 0.0) + us / n / 1e3
-    return out
-
-
 def _forward_chamfer(name):
     return "chamfer" in name and "backward" not in name
-
-
-def device_ms(fn, pick, n=3):
-    """Device ms a call of the kernels whose names ``pick`` takes: the
-    larger of two windows of ``n`` calls (a window the profiler dropped
-    kernels from reads low)."""
-    fn()
-    torch.cuda.synchronize()
-    return max(sum(v for k, v in device_window(fn, n).items() if pick(k)) for _ in range(2))
 
 
 def _same(name, got, want):
@@ -199,7 +173,7 @@ def probe_emd(dev, sweep=False):
         fn = lambda: kernels.emd_assignment(a, b, EMD_EPS, EMD_ITERS)
         row = {"case": label, "B": B, "n": n, "rounds": len(bids),
                "bidder_rounds": sum(bids), "ms": _time(fn, 300.0),
-               "device_ms": device_ms(fn, lambda k: "emd" in k, n=2)}
+               "device_ms": device_ms(fn, n=2, names=("emd",))}
         row["bound_ms"] = sum(bids) * n * EMD_OPS / PEAK_FP32 * 1e3
         if st is not None:
             st = st.cpu()
@@ -238,7 +212,7 @@ def probe_chamfer(dev):
         t_ops = pairs * CHAMFER_OPS / PEAK_FP32 * 1e3
         t_bytes = B * (N + M) * (12 + 8) / PEAK_BYTES * 1e3
         row = {"shape": label, "B": B, "N": N, "M": M, "launches_a_vrcnet_step": per_step,
-               "ms": _time(fn), "device_ms": device_ms(fn, _forward_chamfer, n=10),
+               "ms": _time(fn), "device_ms": device_ms(fn, n=10, pick=_forward_chamfer),
                "bound_ms": max(t_ops, t_bytes),
                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                "issue_floor_ms": pairs * CHAMFER_OPS / ISSUE_FP32 * 1e3}

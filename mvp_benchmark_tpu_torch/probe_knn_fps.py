@@ -25,6 +25,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -116,26 +117,46 @@ def fps_plans(N):
     return out
 
 
-def device_ms(fn, n=5, names=("knn", "fps")):
-    """Device time a call of the kernels named, under torch.profiler: the
-    host's launch overhead, which bounds small calls timed with events,
-    left out. The larger of two windows of ``n`` calls: a window the
-    profiler dropped kernels from reads low."""
+def device_window(fn, n):
+    """{kernel: device ms a call} over ``n`` calls of ``fn`` under
+    torch.profiler, each kernel's name without its arguments."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+            key = re.sub(r"\(.*$", "", e.key.replace("(anonymous namespace)::", "")
+                         .replace("void ", "")).strip()
+            out[key] = out.get(key, 0.0) + us / n / 1e3
+    return out
+
+
+def device_ms(fn, n=5, names=("knn", "fps"), pick=None):
+    """Device time a call of the kernels that ``pick`` takes (by default
+    those whose names hold one of ``names``; every kernel where ``names`` is
+    None), under torch.profiler: the host's launch overhead, which bounds
+    small calls timed with events, left out. The larger of the first two
+    windows of ``n`` calls that recorded such a kernel, of at most six: the
+    profiler drops a window's kernels at times, and a window that lost some
+    reads low. Raises if no window recorded one."""
+    if pick is None:
+        pick = (lambda k: True) if names is None else (lambda k: any(m in k for m in names))
     fn()
     torch.cuda.synchronize()
-    out = []
-    for _ in range(2):
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        us = 0.0
-        for e in prof.key_averages():
-            if any(m in e.key for m in names):
-                us += getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
-        out.append(us / n / 1e3)
-    return max(out)
+    got = []
+    for _ in range(6):
+        ms = sum(v for k, v in device_window(fn, n).items() if pick(k))
+        if ms > 0:
+            got.append(ms)
+            if len(got) == 2:
+                break
+    if not got:
+        raise RuntimeError("device_ms: no profiler window of six recorded the kernels "
+                           f"asked for ({names if pick is None else pick})")
+    return max(got)
 
 
 def probe_knn(dev, sweep=False, plain=False):

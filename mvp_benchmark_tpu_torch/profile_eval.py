@@ -44,6 +44,7 @@ PORT_KERNELS = ("chamfer_rowmin_kernel", "knn_queue_kernel", "knn_direct_kernel"
                 "gather_rows_kernel", "group_max_kernel",
                 "three_interpolate_kernel", "sa_attention_kernel",
                 "chamfer_backward_kernel", "scatter_add_rows_local_kernel",
+                "scatter_add_rows_packed_kernel",
                 "scatter_add_rows_kernel",
                 "group_max_backward_kernel", "group_max_flag_kernel",
                 "three_interpolate_backward_kernel", "three_interpolate_dweight_kernel",

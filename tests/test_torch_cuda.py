@@ -387,9 +387,13 @@ def test_vrcnet_on_card_equals_cpu(cuda):
 
 
 # ---------------------------------------------------------------------------
-# Backward kernels: they scatter with fp32 atomics, whose order changes from
-# run to run, so each is held within 1e-5 + 1e-4 |plain| (the SA block's
-# weight gradients, sums over every point, within 1e-5 + 1e-4 max|plain|).
+# Backward kernels: each a gather over the reverse list of its index in a
+# fixed order, with no float atomics, so two runs are bitwise equal. Their
+# plain versions scatter with the card's atomic index_add_, whose order
+# changes from run to run, so each kernel is held within 1e-5 + 1e-4 |plain|
+# of them (the SA block's weight gradients, sums over every point, within
+# 1e-5 + 1e-4 max|plain|); scatter_add_rows also bitwise against its plain
+# version run on CPU copies, which adds in ascending order as it does.
 # ---------------------------------------------------------------------------
 
 
@@ -617,6 +621,31 @@ def test_backward_kernels_rerun_bitwise(cuda, name):
     _bitwise(first, second)
 
 
+@pytest.mark.parametrize("k", [1, 16, 32])
+@pytest.mark.parametrize("level", range(4))
+def test_sa_attention_kernel_at_the_train_step_levels(cuda, level, k):
+    """The forward at batch 64 (a VRCNet train step) at each level and k 1,
+    16 and 32 (k 32: the plan's smaller blocks at level 4), within 1e-5 +
+    1e-4 |plain|, two runs bitwise equal."""
+    rel, mid, _ = kernels.SA_LEVELS[level]
+    args = _sa_inputs(cuda, 64, 3072 >> level, k, rel, mid, seed=level)
+    got = kernels.sa_attention_forward(*args, rel, mid, 8)
+    _bitwise([got], [kernels.sa_attention_forward(*args, rel, mid, 8)])
+    _within_sa_tolerance(got, ref.sa_attention(*args, rel, mid, 8))
+
+
+def test_sa_forward_plan_fits_and_matches_the_library(cuda):
+    """The forward's host plan: its shared memory is the kernel's, at
+    VRCNet's four levels and k 1, 16 and 32, and it launches."""
+    lib = kernels.load()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for rel, mid, ms in kernels.SA_LEVELS:
+        for k in (1, 16, 32):
+            warps, grid, smem = kernels.sa_forward_plan(64, 384, k, rel, mid, 8, sms)
+            assert smem == lib.sa_attention_forward_smem(rel, ms, k, warps)
+            assert smem <= kernels.MAX_SMEM and 1 <= grid <= sms
+
+
 def test_sa_backward_plan_fits_and_matches_the_library(cuda):
     """The host plan's shared memory is the kernel's, at VRCNet's four
     levels and at k 32 on level 4 (the 4-warp fallback)."""
@@ -729,6 +758,61 @@ def test_backward_out_of_range_indices_give_nan_not_a_fault(cuda):
     assert torch.isnan(gm[0, 0, 0]) and torch.isfinite(gm[0, 0, 1:]).all()
     assert torch.isnan(ti[0, 0]).all() and torch.isnan(tw[0, 0, 2])
     assert torch.isnan(sa[1][0, 3]).all() and torch.isnan(sa[4][0])
+
+
+def _scatter_case(device, B, n, shape, c, seed, fill=None):
+    idx = _idx(device, n, (B, *shape), seed)
+    if fill is not None:
+        idx.fill_(fill)
+    return _cot(device, B, *shape, c, seed=seed + 1, positive=fill is not None), idx
+
+
+@pytest.mark.parametrize("case,B,n,shape,c,form", [
+    ("uniform_knn_3264_clouds_of_48", 3264, 24, (24, 2), 3, "packed"),
+    ("70000_clouds", 70000, 4, (8,), 3, "packed"),
+    ("at_the_packing_limit_256_entries", 5, 1024, (256,), 1, "packed"),
+    ("past_the_packing_limit_257_entries", 5, 1024, (257,), 1, "range"),
+    ("at_the_packing_limit_1024_vectors", 5, 256, (64,), 16, "packed"),
+    ("past_the_packing_limit_1028_vectors", 5, 257, (64,), 16, "range"),
+    ("all_into_one_row_packed", 9, 24, (48,), 3, "packed"),
+    ("all_into_one_row_range", 3, 3072, (2048,), 3, "range"),
+    ("all_into_one_row_8192", 2, 300, (8192,), 1, "range"),
+    ("vrcnet_64x1536x64_into_3072", 64, 3072, (1536,), 64, "range")])
+def test_scatter_add_rows_bitwise_at_the_plan_boundaries(cuda, case, B, n, shape, c, form):
+    """The one-launch forms at and past their limits (the packed form's 256
+    entries and 1024 output vectors a cloud, more than 65535 clouds, all
+    entries into one row, 8192 entries): bitwise against the plain version
+    run on CPU copies (index_add_ in ascending order), two runs equal."""
+    g, idx = _scatter_case(cuda, B, n, shape, c, seed=11,
+                           fill=5 if "one_row" in case else None)
+    entries = int(np.prod(shape))
+    rows, warps, clouds = kernels.scatter_plan(entries, n, c // 4 if c % 4 == 0 else c)
+    assert (clouds > 1) == (form == "packed") and rows > 0
+    got = kernels.scatter_add_rows(g, idx, n)
+    _bitwise([got], [kernels.scatter_add_rows(g, idx, n)])
+    _bitwise([got.cpu()], [ref.scatter_add_rows(g.cpu(), idx.cpu(), n)])
+
+
+@pytest.mark.parametrize("B,n,m,c", [(9, 24, 48, 3), (3, 1024, 2048, 3)])
+def test_scatter_one_launch_out_of_range_index_gives_nan_at_row_0(cuda, B, n, m, c):
+    """The packed and the range form add NaN at row 0 of a cloud for an index
+    outside [0, n); every other row is bitwise the plain version over the
+    entries left."""
+    g, idx = _scatter_case(cuda, B, n, (m,), c, seed=21)
+    idx[1, m // 2] = n
+    idx[2, 3] = -1
+    out = kernels.scatter_add_rows(g, idx, n)
+    torch.cuda.synchronize()
+    assert torch.isnan(out[1, 0]).all() and torch.isnan(out[2, 0]).all()
+    kept = idx.clone()
+    kept[1, m // 2] = 0
+    kept[2, 3] = 0
+    gk = g.clone()
+    gk[1, m // 2] = 0.0
+    gk[2, 3] = 0.0
+    want = ref.scatter_add_rows(gk.cpu(), kept.cpu(), n)
+    _bitwise([out[:, 1:].cpu()], [want[:, 1:]])
+    _bitwise([out[0].cpu()], [want[0]])
 
 
 def test_scatter_list_form_out_of_range_index_gives_nan(cuda):

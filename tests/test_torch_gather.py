@@ -199,3 +199,82 @@ def test_gather_then_split_equals_grouping_split(c1):
     got = ref.gather_points(torch.from_numpy(f), torch.from_numpy(idx))
     for g, w in zip((got[..., :c1], got[..., c1:]), want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w, np.float32))
+
+
+# Every scatter_add_rows of ECG's and VRCNet's train steps: (B, entries a
+# cloud, rows, C). ECG: the uniform losses' kNN gathers (51 or 102 centres a
+# cloud of 32, nsample 4-12 of out1, 8-24 of out2, k 2) and grouping
+# gathers, the sampled centres' gathers, DenseEdge's two smaller neighbour
+# gathers (its two larger take the list form, below), the last FPS's
+# gather; VRCNet: its centres' gathers and coarse_high's.
+_SCATTER_PATH_SHAPES = (
+    [(32 * 51, 2 * ns, ns, 3) for ns in (4, 6, 8, 10, 12)]
+    + [(32 * 102, 2 * ns, ns, 3) for ns in (8, 12, 16, 20, 24)]
+    + [(32, 51 * ns, 1024, 3) for ns in (4, 6, 8, 10, 12)]
+    + [(32, 102 * ns, 2048, 3) for ns in (8, 12, 16, 20, 24)]
+    + [(32, 1024, 3072, 120), (32, 256, 1024, 360), (32, 64, 256, 840)]
+    + [(32, 16 * n, n, 48) for n in (256, 64)]
+    + [(32, 2048, 3072, 3)]
+    + [(64, 1536, 3072, 64), (64, 768, 1536, 128), (64, 384, 768, 256), (64, 2048, 3072, 3)]
+    + [(70000, 8, 4, 3), (3, 257, 1024, 1), (2, 256, 1024, 1), (2, 8192, 300, 1)])
+
+
+def _scatter_shared_bytes(entries, n, vectors):
+    """The shared memory a block of gather.cu's one-launch forms takes under
+    ``kernels.scatter_plan``: packed, (n + entries) ints a cloud; by row
+    range, (warps + 1) rows + 1 + warps + entries ints; 0 for the list
+    form."""
+    rows, warps, clouds = kernels.scatter_plan(entries, n, vectors)
+    if clouds > 1:
+        return 4 * clouds * (n + entries)
+    return 4 * ((warps + 1) * rows + 1 + warps + entries) if rows else 0
+
+
+def _scatter_cover(B, entries, n, vectors):
+    """{(cloud, row): times} over the blocks (and the packed form's warps)
+    of gather.cu's one-launch forms under ``kernels.scatter_plan``, by the
+    kernels' own index arithmetic; and the entries a thread holds."""
+    rows, warps, clouds = kernels.scatter_plan(entries, n, vectors)
+    seen = {}
+    if clouds > 1:
+        for block in range(-(-B // clouds)):
+            for w in range(clouds):
+                b = block * clouds + w
+                if b < B:
+                    seen[b] = seen.get(b, 0) + 1
+        return {(b, r): t for b, t in seen.items() for r in range(n)}, -(-entries // 32)
+    ranges = -(-n // rows)
+    for block in range(B * ranges):
+        b, rng = divmod(block, ranges)
+        for r in range(rng * rows, min(n, rng * rows + rows)):
+            seen[(b, r)] = seen.get((b, r), 0) + 1
+    return seen, -(-entries // (32 * warps))
+
+
+@pytest.mark.parametrize("B,entries,n,c", _SCATTER_PATH_SHAPES)
+def test_scatter_plan_covers_each_cloud_and_row_once(B, entries, n, c):
+    """Plan arithmetic only (no kernel): at every scatter of the two train
+    steps, and at the packed form's limits and past 65535 clouds, the
+    one-launch forms write each (cloud, row) exactly once, a thread holds
+    at most 16 entries (the packed form's lanes 8), the list fits in its
+    block's shared memory and the grid in int32."""
+    vectors = c // 4 if c % 4 == 0 else c
+    rows, warps, clouds = kernels.scatter_plan(entries, n, vectors)
+    assert rows
+    if B > 50000:
+        seen = {(b, r): 1 for b in range(B) for r in range(n)} if clouds > 1 else {}
+        assert clouds > 1 and -(-B // clouds) < 2 ** 31
+    else:
+        seen, per_thread = _scatter_cover(B, entries, n, vectors)
+        assert set(seen) == {(b, r) for b in range(B) for r in range(n)}
+        assert set(seen.values()) == {1}
+        assert per_thread <= (kernels.SCATTER_PACK_ENTRIES // 32 if clouds > 1 else 16)
+    assert 0 < _scatter_shared_bytes(entries, n, vectors) <= kernels.MAX_SMEM
+
+
+def test_scatter_plan_list_form_past_8192_entries():
+    """DenseEdge's two largest neighbour gathers (3072 x 16 and 1024 x 16
+    entries a cloud) build the reverse list and gather: no shared list."""
+    for entries, n, c in ((49152, 3072, 24), (16384, 1024, 48)):
+        assert kernels.scatter_plan(entries, n, c // 4) == (0, 0, 0)
+        assert _scatter_shared_bytes(entries, n, c // 4) == 0

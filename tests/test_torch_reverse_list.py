@@ -135,19 +135,28 @@ def test_sa_backward_plan_at_the_train_step_levels():
 
 
 @pytest.mark.parametrize("entries,num_rows,vectors,plan", [
-    (48, 24, 3, (24, 1)), (2448, 2048, 3, (256, 3)), (1024, 3072, 30, (68, 8)),
-    (2048, 3072, 3, (256, 3)), (1536, 3072, 16, (128, 8)), (8192, 300, 1, (256, 8)),
-    (8193, 3072, 6, (0, 0)), (49152, 3072, 6, (0, 0)), (0, 5, 1, (5, 1))])
+    (48, 24, 3, (24, 8, 8)), (2448, 2048, 3, (256, 10, 1)), (1024, 3072, 30, (68, 8, 1)),
+    (2048, 3072, 3, (256, 8, 1)), (1536, 3072, 16, (128, 8, 1)), (8192, 300, 1, (256, 16, 1)),
+    (8193, 3072, 6, (0, 0, 0)), (49152, 3072, 6, (0, 0, 0)), (0, 5, 1, (5, 8, 8)),
+    (256, 1024, 1, (1024, 8, 8)), (257, 1024, 1, (256, 2, 1)), (256, 1025, 1, (256, 1, 1))])
 def test_scatter_plan_picks_the_local_form_for_small_clouds(entries, num_rows, vectors,
                                                             plan):
-    """ECG's uniform-loss kNN and grouping gathers, a sampled centres'
-    gather, the last FPS's gather and VRCNet's centre gather take the local
+    """ECG's uniform-loss kNN gathers (clouds of 8-48 entries) take the
+    packed form, a warp a cloud and 8 clouds a block, up to 256 entries and
+    1024 output vectors a cloud; its grouping gathers, a sampled centres'
+    gather, the last FPS's gather and VRCNet's centre gather the range
     form; past 8192 entries a cloud (DenseEdge's neighbour gather) the list
-    and the gather. A block lists at most 256 rows with at most 8 warps."""
+    and the gather. A range block lists at most 256 rows with at most 16
+    warps of at most 16 entries a thread."""
     got = kernels.scatter_plan(entries, num_rows, vectors)
     assert got == plan
-    rows, warps = got
-    if rows:
+    rows, warps, clouds = got
+    if clouds > 1:
+        assert entries <= kernels.SCATTER_PACK_ENTRIES
+        assert rows == num_rows and rows * vectors <= kernels.SCATTER_PACK_OUTPUTS
+        assert warps == clouds == kernels.SCATTER_PACK_CLOUDS
+    elif rows:
         assert entries <= kernels.SCATTER_LOCAL_ENTRIES
         assert 1 <= rows <= min(num_rows, kernels.SCATTER_LOCAL_ROWS)
         assert 1 <= warps <= kernels.SCATTER_LOCAL_WARPS
+        assert entries <= warps * 32 * 16

@@ -137,3 +137,50 @@ def test_autograd_function_names_the_backward_it_waits_for(monkeypatch):
     want = ref.sa_attention_backward(g, *[a.detach() for a in args], 4, 16, SHARE)
     for a, b in zip(got, (want[0], want[2], want[4])):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def _units_covered(units, warps, grid):
+    """{unit: times} of the forward's chunks: block b the b-th of ``grid``
+    contiguous chunks of the units, its warps consecutive parts of it
+    (sa_attention_kernel's integer arithmetic)."""
+    seen = {}
+    for b in range(grid):
+        c0, c1 = units * b // grid, units * (b + 1) // grid
+        for w in range(warps):
+            for u in range(c0 + (c1 - c0) * w // warps, c0 + (c1 - c0) * (w + 1) // warps):
+                seen[u] = seen.get(u, 0) + 1
+    return seen
+
+
+@pytest.mark.parametrize("k", range(1, 33))
+@pytest.mark.parametrize("rel,mid", LEVELS)
+def test_sa_forward_plan_fits_at_every_level_and_k(rel, mid, k):
+    """Plan arithmetic only (no kernel): at VRCNet's four levels (train
+    step, batch 64) and every k up to 32, the forward's block fits in the
+    shared memory a block may opt in to and its largest block, its warps
+    are the fewest that spread the units over the SMs (at most the most
+    that fit), the grid has a block an SM (132) or fewer, and the chunks
+    cover each unit of a warp's points exactly once."""
+    n = 3072 // (rel // 4)
+    ms = mid // SHARE
+    warps, grid, smem = kernels.sa_forward_plan(64, n, k, rel, mid, SHARE, 132)
+    per_warp = kernels.sa_forward_points_a_warp(rel, ms)
+    assert per_warp == (16 if ms >= kernels.SA_FWD_TENSOR_CORES_MS
+                        else 32 // rel * kernels.SA_FWD_POINTS_A_GROUP[ms])
+    most = max(w for w in kernels.SA_FWD_WARPS
+               if w * 32 <= kernels.SA_FWD_MAX_THREADS[ms]
+               and kernels._sa_fwd_smem(rel, ms, k, w) <= kernels.MAX_SMEM)
+    units = -(-64 * n // per_warp)
+    assert warps == min(most, -(-units // (132)))
+    assert smem == kernels._sa_fwd_smem(rel, ms, k, warps) <= kernels.MAX_SMEM
+    assert 1 <= grid <= 132
+    seen = _units_covered(units, warps, grid)
+    assert sorted(seen) == list(range(units)) and set(seen.values()) == {1}
+
+
+def test_sa_forward_plan_at_small_shapes():
+    """A few points take a warp a unit: one block of one warp for 5 points
+    at level 1 (a unit of 8), three for 40 at level 4 (units of 16)."""
+    assert kernels.sa_forward_plan(1, 5, 3, 4, 16, SHARE, 132)[:2] == (1, 1)
+    warps, grid, _ = kernels.sa_forward_plan(2, 20, 3, 32, 128, SHARE, 132)
+    assert (warps, grid) == (1, 3) and _units_covered(3, warps, grid) == {0: 1, 1: 1, 2: 1}
