@@ -185,17 +185,18 @@ KERNELS = {   # launch-count key -> the kernel's identity in the kernels line
                      "source": f"{_CSRC}/sa_attention.cu",
                      "replaces": f"{_PK}:1354"},
 }
-# Each of the five completion backwards first builds the reverse list of
-# its index (reverse_list.cu's reverse_list_kernel), then runs its gathers;
-# scatter_add_rows of a small cloud (``kernels.scatter_plan``) launches
-# its local kernel alone instead. "globals" names the __global__ kernels a
-# call can launch.
+# Three of the five completion backwards first build the reverse list of
+# their index (reverse_list.cu's reverse_list_kernel), then run their
+# gathers; scatter_add_rows of a small cloud (``kernels.scatter_plan``),
+# the chamfer backward and group_max's list their index in shared memory in
+# one launch instead. "globals" names the __global__ kernels a call can
+# launch.
 _LIST = "reverse_list.cu:reverse_list_kernel"
 BACKWARD_KERNELS = {
     "chamfer_backward": {"name": "chamfer_backward",
                          "source": f"{_CSRC}/chamfer.cu",
                          "replaces": f"{_PK}:333",
-                         "globals": [_LIST, "chamfer_backward_kernel"]},
+                         "globals": ["chamfer_backward_kernel"]},
     "scatter_add_rows": {"name": "scatter_add_rows",
                          "source": f"{_CSRC}/gather.cu",
                          "replaces": f"{_PK}:1613",
@@ -205,7 +206,7 @@ BACKWARD_KERNELS = {
     "group_max_backward": {"name": "group_max_backward",
                            "source": f"{_CSRC}/gather.cu",
                            "replaces": f"{_PK}:928",
-                           "globals": [_LIST, "group_max_backward_kernel"]},
+                           "globals": ["group_max_backward_kernel"]},
     "three_interpolate_backward": {"name": "three_interpolate_backward",
                                    "source": f"{_CSRC}/gather.cu",
                                    "replaces": f"{_PK}:1086",
@@ -588,6 +589,26 @@ def check_equal(name, got, want):
     return max_abs
 
 
+def check_equal_nan(name, got, want):
+    """Float outputs NaN at the same places and bitwise equal elsewhere (the
+    kernels' NaN and the CPU's differ in their bits); returns the largest
+    absolute difference where both are numbers."""
+    max_abs = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(g.shape == w.shape and g.dtype == w.dtype == torch.float32,
+              f"{name} output {i}: {g.shape}/{g.dtype} vs {w.shape}/{w.dtype}")
+        nan = torch.isnan(w)
+        check(bool((torch.isnan(g) == nan).all()), f"{name} output {i}: NaN elsewhere")
+        g, w = g[~nan], w[~nan]
+        if g.numel():
+            max_abs = max(max_abs, float((g - w).abs().max()))
+        bad = int((g.view(torch.int32) != w.view(torch.int32)).sum())
+        check(bad == 0, f"{name} output {i}: {bad} of {g.numel()} differ")
+    print(f"kernel == plain: {name}: NaN at the same places ({int(nan.sum())} in the "
+          f"last output), values 0 ulp apart elsewhere")
+    return max_abs
+
+
 def check_close(name, got, want, normwise=False):
     """|got - want| <= SA_ATOL + SA_RTOL |want| everywhere, or with
     ``normwise`` <= SA_ATOL + SA_RTOL max|want|; returns the largest absolute
@@ -772,10 +793,12 @@ def compare_backward_kernels_with_plain(device):
     collapsed[:, :1000] = collapsed[:, :1]          # 1000 copies of one point
     cases = {   # name: (a, b, need_a, need_b); calc_cd(pred, gt) needs db
         "calc_cd_64x2048_vs_3072": (gt, pred, False, True),
+        "calc_cd_64x2048_vs_2048": (gt, pred[:, :2048].contiguous(), False, True),
         "calc_cd_64x2048_vs_1024": (gt, pred[:, :1024].contiguous(), False, True),
         "ragged_2x96x50_both": clouds(42, 2, 96, 50, device) + (True, True),
         "collapsed_4x2048_vs_1024_both": (clouds(41, 4, 2048, 1024, device)[0],
                                           collapsed, True, True),
+        "chunks_2x5000x300_db": clouds(39, 2, 5000, 300, device) + (False, True),
     }
     for name, (a, b, need_a, need_b) in cases.items():
         d1, d2, i1, i2 = ref.chamfer_distance(a, b)
@@ -786,13 +809,35 @@ def compare_backward_kernels_with_plain(device):
                             [x for x in kernels.chamfer_backward(a, b, i1, g1, i2, g2,
                                                                  need_a, need_b)
                              if x is not None])
-        check_list(f"chamfer {name} i1", i1, b.shape[1])
+        if name.startswith("collapsed"):             # da's list of i2: 1000 on one row
+            longest = int(torch.bincount(i2[0].long(), minlength=a.shape[1]).max())
+            check(longest >= 1000, f"chamfer_backward {name}: longest list {longest}")
         want = ref.chamfer_backward(a, b, i1, g1, i2, g2, need_a, need_b)
-        for side, g, w in zip("ab", got, want):
+        on_cpu = ref.chamfer_backward(*(x.cpu() for x in (a, b, i1, g1, i2, g2)),
+                                      need_a, need_b)
+        for side, g, w, c in zip("ab", got, want, on_cpu):
             check((g is None) == (w is None), f"chamfer_backward {name} d{side}")
             if g is not None:
                 err["chamfer_backward"] = max(err["chamfer_backward"], check_close(
                     f"chamfer_backward {name} d{side}", g, w))
+                check_equal(f"chamfer_backward {name} d{side} against the plain version "
+                            "on the CPU", [g.cpu()], [c])
+    # argmins outside the other cloud: a point's own term NaN; listed under
+    # point 0, whose sum turns NaN
+    a, b = clouds(42, 2, 96, 50, device)
+    _, _, i1, i2 = ref.chamfer_distance(a, b)
+    g1, g2 = cotangent(43, (2, 96), device), cotangent(44, (2, 50), device)
+    i1[0, 5], i2[1, 7] = 50 + 3, -2
+    got = kernels.chamfer_backward(a, b, i1, g1, i2, g2)
+    check_rerun_bitwise("chamfer_backward out of range", [x.view(torch.int32) for x in got],
+                        [x.view(torch.int32)
+                         for x in kernels.chamfer_backward(a, b, i1, g1, i2, g2)])
+    ok = [x.cpu().clone() for x in (a, b, i1, g1, i2, g2)]
+    ok[2][0, 5], ok[3][0, 5], ok[4][1, 7], ok[5][1, 7] = 0, 0, 0, 0
+    da, db = ref.chamfer_backward(*ok)
+    da[0, 5], da[1, 0], db[0, 0], db[1, 7] = (float("nan"),) * 4
+    check_equal_nan("chamfer_backward out of range against the plain version on the CPU",
+                    [x.cpu() for x in got], [da, db])
 
     for name, (B, n, m, c, k, local) in {   # local: a one-launch form
             "center_64x3072x64_by_1536": (64, 3072, 1536, 64, None, True),
@@ -828,19 +873,44 @@ def compare_backward_kernels_with_plain(device):
             "level1_64x3072x64_by_1536x10": (64, 3072, 64, 1536, 10),
             "level2_64x1536x128_by_768x10": (64, 1536, 128, 768, 10),
             "level3_64x768x256_by_384x10": (64, 768, 256, 384, 10),
-            "ragged_ties_3x97x6_by_41x7": (3, 97, 6, 41, 7)}.items():
+            "ragged_ties_3x97x6_by_41x7": (3, 97, 6, 41, 7),
+            "pile_4x3072x64_by_1536x10_1000_on_row_7": (4, 3072, 64, 1536, 10),
+            "chunks_1x4000x8_by_2100x10": (1, 4000, 8, 2100, 10)}.items():
         # relu'd features: half are 0, so most maxima over zeros tie
         f = torch.relu(uniform(47 + n, (B, n, c), device) - 0.5)
         idx = indices(48 + n, n, (B, m, k), device)
         idx[:, :, k - 1] = idx[:, :, 0]              # a row twice: exact ties
+        if name.startswith("pile"):
+            idx[:, :100] = 7                         # 1000 entries on one row
         _, slot = kernels.group_max_forward(f, idx)
         g = cotangent(49 + n, (B, m, c), device)
         got = kernels.group_max_backward(g, idx, slot, n)
         check_rerun_bitwise(f"group_max_backward {name}", [got],
                             [kernels.group_max_backward(g, idx, slot, n)])
-        check_list(f"group_max {name}", idx, n)
         err["group_max_backward"] = max(err["group_max_backward"], check_close(
             f"group_max_backward {name}", got, ref.group_max_backward(g, idx, slot, n)))
+        check_equal(f"group_max_backward {name} against the plain version on the CPU",
+                    [got.cpu()], [ref.group_max_backward(g.cpu(), idx.cpu(), slot.cpu(), n)])
+    # an index outside [0, n): NaN in row 0 where its slot names it; a slot
+    # outside [0, k): NaN in row 0 of its channel
+    f = torch.relu(uniform(47, (2, 50, 16), device) - 0.5)
+    idx = indices(48, 50, (2, 20, 4), device)
+    _, slot = kernels.group_max_forward(f, idx)
+    g = cotangent(49, (2, 20, 16), device)
+    idx[0, 3, 2], slot[1, 4, 7] = 50 + 5, 9
+    got = kernels.group_max_backward(g, idx, slot, 50)
+    check_rerun_bitwise("group_max_backward out of range", [got.view(torch.int32)],
+                        [kernels.group_max_backward(g, idx, slot, 50).view(torch.int32)])
+    ok_idx, ok_slot, ok_g = idx.cpu().clone(), slot.cpu().clone(), g.cpu().clone()
+    named = ok_slot[0, 3] == 2                       # the channels the bad edge takes
+    ok_idx[0, 3, 2] = 0
+    ok_g[0, 3][named] = 0
+    ok_slot[1, 4, 7], ok_g[1, 4, 7] = 0, 0
+    want = ref.group_max_backward(ok_g, ok_idx, ok_slot, 50)
+    want[0, 0][named] = float("nan")
+    want[1, 0, 7] = float("nan")
+    check_equal_nan("group_max_backward out of range against the plain version on the CPU",
+                    [got.cpu()], [want])
 
     for name, (B, ms, n, c, need_w) in {
             "level4to3_64x384x512_to_768": (64, 384, 768, 512, False),
@@ -2685,7 +2755,7 @@ def timing_cases(device):
         "group_max": ("(32, 3072 x 120) by (32, 1024 x 16)",
                       lambda: kernels.group_max_forward(t120, gm_idx),
                       lambda: ref.group_max(t120, gm_idx), None,
-                      B * 3072 * 120 * 4 + B * 1024 * 16 * 4 + 2 * B * 1024 * 120 * 4,
+                      B * 3072 * 120 * 4 + B * 1024 * 16 * 4 + B * 1024 * 120 * (4 + 1),
                       B * 1024 * 120 * 15),
         "three_interpolate": ("(32, 1024 x 512) -> 3072",
                               lambda: kernels.three_interpolate_forward(t512, ti_idx, ti_w),
@@ -2834,7 +2904,7 @@ def backward_timing_cases(device):
             lambda: kernels.group_max_backward(sc_g, gm_idx, gm_slot, n1),
             lambda: ref.group_max_backward(sc_g, gm_idx, gm_slot, n1),
             None,
-            B * m1 * (2 * c1 + 10) * 4 + B * n1 * c1 * 4,
+            B * m1 * (c1 * (4 + 1) + 10 * 4) + B * n1 * c1 * 4,
             B * m1 * c1),
         "three_interpolate_backward": (
             "(64, 3072 x 128) into (64, 1536 x 128), d_features",

@@ -54,31 +54,31 @@
 //
 // (the XLA form of :442-450). The TPU kernel builds both terms as one-hot
 // MXU products, accumulating over its grid in order. Here the scatter term
-// is a gather: the wrapper's call first builds the reverse list of iq
-// (reverse_list.cu), then a thread a point i of p takes the gather term at
-// its own row and subtracts the sum of the q terms that name i, taken in
-// ascending j, with one plain store: no atomics, so two runs are bitwise
-// equal. A random-weight prediction sends many gt points to a few of its
-// points, so a list longer than eight entries is summed by the whole warp,
-// 32 terms a step, in the same order. (On VRCNet's step on an H100 a thread
-// a point alone took 11x the atomic form's device time, a warp a point
-// 3.7x, eight lanes a point, diverging over their lists, 8.4x.) Each term is (2 g) * (p - q),
-// rounded as ops/ref.py rounds it, and the sum is taken in the order
-// ref.py's scatter takes it on the CPU. The wrapper launches it only for a
-// side whose gradient is asked for: `calc_cd(pred, gt)` needs the
+// is a gather, in one launch: a block a cloud and range of p's points (a
+// thread a point) reads iq once, lists the entries naming its points in
+// shared memory (local_list.cuh) and, as it places each entry, writes the
+// entry's term (2 g) * (q - p), rounded as ops/ref.py rounds it, at the
+// entry's list slot. Each thread then adds its point's terms in list order,
+// ascending j (the order ref.py's scatter takes on the CPU), and subtracts
+// the sum from its own term with one plain store: no atomics and no list in
+// device memory, so two runs are bitwise equal. The wrapper launches it only
+// for a side whose gradient is asked for: `calc_cd(pred, gt)` needs the
 // prediction side alone. An index outside its cloud makes the gather term
-// NaN at the point's own row, or is listed under row 0 (scatter term),
-// whose thread adds NaN, instead of reading out of bounds.
+// NaN at the point's own row, or is listed under row 0 (scatter term) with
+// a NaN term, instead of reading out of bounds.
 //
-// What bounds it: bytes, and the list's serial steps. At VRCNet's step (B
-// 64, 3072 predicted against 2048 gt points) it reads 3.2 MB and writes
-// 2.4 MB (~0.002 ms at 3.35 TB/s); the lists' lengths follow the
-// prediction, and a warp takes a long one 32 entries at a time.
+// What bounds it: the longest list's serial adds, then bytes. At VRCNet's
+// step (B 64, 3072 predicted against 2048 gt points) it reads 3.2 MB and
+// writes 2.4 MB (~0.002 ms at 3.35 TB/s). A random-weight prediction sends
+// nearly all of gt's points to one of its points (lists of up to 2048 on
+// VRCNet's step on an H100): that sum is 2048 dependent adds a coordinate,
+// which no order-keeping split shortens, so its thread reads the terms,
+// computed in parallel when placed, one float4 a term.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
-#include "reverse_list.h"
+#include "local_list.cuh"
 #include "smem_opt_in.h"
 
 namespace {
@@ -285,88 +285,89 @@ size_t fused_smem() {
   return kTileCols * sizeof(float4) + kFwdWarps * kTileCols * sizeof(float);
 }
 
-constexpr int kBwdThreads = 256;
+constexpr int kBwdThreads = 512;
+constexpr int kBwdChunk = 4096;          // iq's entries listed at a time, at most
+static_assert(kBwdChunk <= kBwdThreads * kListSteps, "a chunk's keys in one batch");
 
-// dp (B, np, 3): a thread a point i of p takes the gather term at its own
-// row and subtracts the sum, ascending over its list of iq (B, nq), of the
-// q terms that name it. A list longer than kShort is summed by the whole
-// warp, 32 terms a step, every lane adding them in list order (the same
-// order a thread takes), one such list at a time. `rows` = B np.
-constexpr int kShort = 8;
-
+// The backward: block (b, range) of a 1-D grid, b = blockIdx.x / ranges,
+// takes the points [r0, r0 + nr) of cloud b of p, a thread a point i. For
+// each chunk of `chunk` of iq's nq entries (B, nq), ascending, it lists the
+// entries naming its points in shared memory (local_list.cuh) and, placing
+// entry j, writes its term 2 gq[j] (q[j] - p[i]) at its slot (NaN for an
+// index outside [0, np), listed under point 0); then each thread adds its
+// point's terms in slot order, ascending j, into a sum kept across chunks.
+// A long list (a predicted point that is the argmin of most of gt's points)
+// is one thread's serial chain of adds, a float4 read and three adds a
+// term (sixteen terms' reads issued together): no term's arithmetic waits
+// on another. Last, the point's own term
+// 2 gp[i] (p[i] - q[ip[i]]) less the sum: dp[i], one plain store. Shared
+// memory: list_ints(warps, nr) ints rounded up to 4, then chunk float4.
 __global__ void __launch_bounds__(kBwdThreads)
 chamfer_backward_kernel(const float* __restrict__ p, const float* __restrict__ q,
                         const int* __restrict__ ip, const float* __restrict__ gp,
                         const int* __restrict__ iq, const float* __restrict__ gq,
-                        const int* __restrict__ order, const int* __restrict__ off,
-                        int np, int nq, int rows, float* __restrict__ dp) {
-  const unsigned full = 0xffffffffu;
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kBwdThreads + threadIdx.x;
-  const bool live = row < rows;                      // no early exit: shuffles below
-  const int b = live ? row / np : 0;
-  const int i = live ? row - b * np : 0;
-  float pi[3], s[3];
+                        int np, int nq, int nr, int ranges, int chunk,
+                        float* __restrict__ dp) {
+  extern __shared__ int4 cb_smem[];
+  int* lsm = reinterpret_cast<int*>(cb_smem);
+  const int b = blockIdx.x / ranges;
+  const int r0 = (blockIdx.x - b * ranges) * nr;
+  const int m = min(np, r0 + nr) - r0;
+  const int warps = blockDim.x >> 5;
+  const int* first = lsm + warps * m;
+  float4* terms = reinterpret_cast<float4*>(cb_smem) + (list_ints(warps, nr) + 3) / 4;
+  const float* pb = p + static_cast<size_t>(b) * np * 3;
+  const float* qb = q + static_cast<size_t>(b) * nq * 3;
+  const int* iqb = iq + static_cast<size_t>(b) * nq;
+  const float* gqb = gq + static_cast<size_t>(b) * nq;
+  const int t = threadIdx.x;
+  float s[3] = {0.f, 0.f, 0.f};
+  for (int e0 = 0; e0 == 0 || e0 < nq; e0 += chunk) {   // once at least
+    build_list<false>(
+        [&](int e, bool& bad) {
+          const int v = iqb[e];
+          bad = v < 0 || v >= np;
+          const int i = (bad ? 0 : v) - r0;
+          return i >= 0 && i < m ? i : -1;
+        },
+        [&](int at, int e, bool bad, int i) {
+          const float coef = __fmul_rn(2.f, gqb[e]);
+          const float* qj = qb + 3 * static_cast<size_t>(e);
+          const float* pi = pb + 3 * static_cast<size_t>(r0 + i);
+          float v[3];
 #pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    pi[c] = live ? p[3 * static_cast<size_t>(row) + c] : 0.f;
-    s[c] = 0.f;
-  }
-  const int begin = live ? off[row] : 0;
-  const int end = live ? off[row + 1] : 0;
-  // 2 gq[j] (q[j] - p[i]) for entry t of the cloud b row (b, i) lists
-  auto term = [&](int t, int tb, int ti, const float (&tp)[3], float (&v)[3]) {
-    const int e = order[t];                          // tb nq + j
-    const int j = e - tb * nq;
-    const bool ok = ti != 0 || (iq[e] >= 0 && iq[e] < np);  // row 0 lists bad ones
-    const float coef = __fmul_rn(2.f, gq[e]);
-    const float* qj = q + (static_cast<size_t>(tb) * nq + j) * 3;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      v[c] = ok ? __fmul_rn(coef, __fsub_rn(qj[c], tp[c])) : CUDART_NAN_F;
-    }
-  };
-  if (end - begin <= kShort) {
-    for (int t = begin; t < end; ++t) {
-      float v[3];
-      term(t, b, i, pi, v);
-#pragma unroll
-      for (int c = 0; c < 3; ++c) s[c] = __fadd_rn(s[c], v[c]);
-    }
-  }
-  for (unsigned longs = __ballot_sync(full, end - begin > kShort); longs != 0;
-       longs &= longs - 1) {
-    const int src = __ffs(longs) - 1;
-    const int lb = __shfl_sync(full, begin, src), le = __shfl_sync(full, end, src);
-    const int tb = __shfl_sync(full, b, src), ti = __shfl_sync(full, i, src);
-    float tp[3], acc[3] = {0.f, 0.f, 0.f};
-#pragma unroll
-    for (int c = 0; c < 3; ++c) tp[c] = __shfl_sync(full, pi[c], src);
-    for (int t0 = lb; t0 < le; t0 += 32) {
-      float v[3] = {0.f, 0.f, 0.f};
-      if (t0 + lane < le) term(t0 + lane, tb, ti, tp, v);
-      const int count = min(32, le - t0);
-      for (int u = 0; u < count; ++u) {
-#pragma unroll
-        for (int c = 0; c < 3; ++c) acc[c] = __fadd_rn(acc[c], __shfl_sync(full, v[c], u));
+          for (int c = 0; c < 3; ++c) {
+            v[c] = bad ? CUDART_NAN_F : __fmul_rn(coef, __fsub_rn(qj[c], pi[c]));
+          }
+          terms[at] = make_float4(v[0], v[1], v[2], 0.f);
+        },
+        e0, min(chunk, nq - e0), m, lsm);
+    if (t < m) {
+      const int hi = first[t + 1];
+#pragma unroll 16
+      for (int at = first[t]; at < hi; ++at) {
+        const float4 v = terms[at];
+        s[0] = __fadd_rn(s[0], v.x);
+        s[1] = __fadd_rn(s[1], v.y);
+        s[2] = __fadd_rn(s[2], v.z);
       }
     }
-    if (lane == src) {
-#pragma unroll
-      for (int c = 0; c < 3; ++c) s[c] = acc[c];
-    }
   }
-  if (!live) return;
+  if (t >= m) return;
+  const size_t row = static_cast<size_t>(b) * np + r0 + t;
   const int j = ip[row];                             // 2 gp[i] (p[i] - q[ip[i]])
   const float coef = __fmul_rn(2.f, gp[row]);
-  const float* qb = q + static_cast<size_t>(b) * nq * 3;
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     const float v = j >= 0 && j < nq
-        ? __fmul_rn(coef, __fsub_rn(pi[c], qb[3 * j + c]))
+        ? __fmul_rn(coef, __fsub_rn(p[3 * row + c], qb[3 * j + c]))
         : CUDART_NAN_F;
-    dp[3 * static_cast<size_t>(row) + c] = __fsub_rn(v, s[c]);
+    dp[3 * row + c] = __fsub_rn(v, s[c]);
   }
+}
+
+size_t backward_smem(int nr, int chunk) {
+  return sizeof(int4) * ((list_ints(kBwdThreads / 32, nr) + 3) / 4 + chunk);
 }
 
 }  // namespace
@@ -403,23 +404,29 @@ int chamfer_forward(const float* a, const float* b, int batch, int n, int m,
 }
 
 // The gradient of one side: p (B, NP, 3), q (B, NQ, 3) float32, ip/gp
-// (B, NP), iq/gq (B, NQ) (int32 / float32), all contiguous on the device;
-// the reverse list of iq (reverse_list.cu: `list_warps`, `ranges`, order
-// (B NQ), off (B NP + 1)) -> dp (B, NP, 3). For da of chamfer_forward(a, b) pass
-// (a, b, i1, g1, i2, g2); for db, (b, a, i2, g2, i1, g1). Launches on
+// (B, NP), iq/gq (B, NQ) (int32 / float32), all contiguous on the device ->
+// dp (B, NP, 3), in one launch by the host plan
+// kernels.chamfer_backward_plan: `rows` <= 512 points of p a block, iq's
+// entries listed `chunk` <= 4096 at a time. For da of chamfer_forward(a, b)
+// pass (a, b, i1, g1, i2, g2); for db, (b, a, i2, g2, i1, g1). Launches on
 // `stream` without synchronising; returns cudaGetLastError().
 int chamfer_backward(const float* p, const float* q, const int* ip,
                      const float* gp, const int* iq, const float* gq,
-                     int batch, int np, int nq, int list_warps, int ranges,
-                     int* order, int* off, float* dp, void* stream) {
+                     int batch, int np, int nq, int rows, int chunk, float* dp,
+                     void* stream) {
   if (batch == 0 || np == 0) return 0;
-  const int err = reverse_list_build(iq, batch, nq, np, list_warps, ranges, order,
-                                     off, stream);
-  if (err != 0) return err;
-  const int rows = batch * np;
-  chamfer_backward_kernel<<<(rows + kBwdThreads - 1) / kBwdThreads, kBwdThreads, 0,
+  const int ranges = rows > 0 ? (np + rows - 1) / rows : 0;
+  if (rows < 1 || rows > kBwdThreads || chunk < 1 || chunk > kBwdChunk ||
+      static_cast<long long>(batch) * ranges > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = backward_smem(rows, chunk);
+  static SmemOptIn opted;
+  cudaError_t err = opted.raise(reinterpret_cast<const void*>(chamfer_backward_kernel), smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  chamfer_backward_kernel<<<batch * ranges, kBwdThreads, smem,
                             static_cast<cudaStream_t>(stream)>>>(
-      p, q, ip, gp, iq, gq, order, off, np, nq, rows, dp);
+      p, q, ip, gp, iq, gq, np, nq, rows, ranges, chunk, dp);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -58,16 +58,17 @@
 // The TPU kernels scatter with one-hot-transpose MXU products (bf16 or
 // hi/lo-bf16 tables) into one output block that the grid revisits in order,
 // which is deterministic. GPU blocks run in no order, so each backward here
-// turns its scatter into a gather: it first builds the reverse list of its
-// index (reverse_list.cu: every row's sources, ascending), then writes every
-// output row once with a plain store, its incoming terms summed in
-// ascending source order, as ops/ref.py's scatters sum them on the CPU. No
-// float atomics, so two runs are bitwise equal. A scatter_add_rows of at
-// most 8192 entries a cloud (26 of ECG's 28 a train step, all 4 of
-// VRCNet's) is one launch instead, which lists in shared memory, sized to
-// its plan, and gathers (no list in memory, no second launch; its counts,
-// as the list's, are integer atomicAdd in shared memory, the same in any
-// order). Its two forms, by the host plan kernels.scatter_plan:
+// turns its scatter into a gather over the reverse list of its index (every
+// row's sources, ascending), then writes every output row once with a plain
+// store, its incoming terms summed in ascending source order, as
+// ops/ref.py's scatters sum them on the CPU. No float atomics, so two runs
+// are bitwise equal. group_max_backward and a scatter_add_rows of at most
+// 8192 entries a cloud (26 of ECG's 28 a train step, all 4 of VRCNet's) are
+// one launch each, which lists in shared memory and gathers (no list in
+// memory, no second launch; their counts are integer atomicAdd in shared
+// memory, the same in any order); three_interpolate_backward and a larger
+// scatter_add_rows first build the list in device memory (reverse_list.cu).
+// scatter_add_rows's one-launch forms, by the host plan kernels.scatter_plan:
 //   - packed (scatter_add_rows_packed_kernel), clouds of at most 256
 //     entries and 1024 output vectors (the uniform losses' kNN gathers,
 //     3264 clouds of 48 entries into 24 rows): a warp a cloud, 8 clouds a
@@ -78,34 +79,39 @@
 //     thousand entries: a block a cloud and range of rows, each thread
 //     holding up to 16 of the cloud's indices in registers, read once.
 // Both list an entry whose index is outside [0, n) under row 0 as ~e, which
-// adds NaN. scatter_add_rows of more entries builds the list, then gathers.
-// scatter_add_rows and
-// three_interpolate_backward take one thread per output element (4
-// channels where C % 4 == 0 and the pointers are 16-byte aligned), walking
-// the row's list; group_max_backward walks the list of idx too and adds
-// g[m, c] for the edges (m, j) whose slot[m, c] is j, so each element goes
-// to the row the forward saved, in ascending m. d_w is a dot product per
-// (n, l): one warp per target row, lanes over channels, a shuffle
-// reduction. An index outside [0, N) is listed under row 0 of its cloud,
-// which adds NaN instead of reading out of bounds; a slot outside [0, k)
-// sets a flag from which a last small kernel writes NaN to row 0 of its
+// adds NaN. group_max_backward (kernels.group_max_backward_plan) lists as
+// the range form does (local_list.cuh) over idx's m k edges, in batches
+// of 16 entries a lane where a warp holds more, 16 warps and about eight
+// output vectors
+// of 8 channels a thread: it adds g[m, c] for the edges (m, j) whose saved
+// slot[m, c] (a byte, written by group_max_forward) is j, so each element
+// goes to the row the forward saved, in ascending m. scatter_add_rows's
+// list form and three_interpolate_backward take one thread per output
+// element (4 channels where C % 4 == 0 and the pointers are 16-byte
+// aligned), walking the row's list. d_w is a dot product per (n, l): one
+// warp per target row, lanes over channels, a shuffle reduction. An index
+// outside [0, N) is listed under row 0 of its cloud, which adds NaN instead
+// of reading out of bounds; a slot outside [0, k) sets NaN in row 0 of its
 // cloud and channel.
 //
-// What bounds them: bytes. At VRCNet's largest three_interpolate backward
-// (B 64, 3072 x 128 from 1536 rows) g is 101 MB and d_f 50 MB: 0.045 ms at
-// 3.35 TB/s; the gather reads each g row once for each of its 3 targets,
-// the 3 x 25 M reads mostly from L2, where a cloud's rows stay while its
-// blocks run. group_max_backward reads slot once for each of a point's k
-// edges (k x 25 MB at VRCNet's level 1, from L2). The list costs a launch
-// and the index's reads; the one-launch forms read a cloud's index once a
-// block. At ECG's small clouds the bytes are ~1 us and what is left is
-// latency: the packed form's warp a cloud runs a few dependent steps with
-// no barrier, the range form one load of the index a thread and four
-// barriers.
+// What bounds them: bytes, and the lists' serial steps. At VRCNet's largest
+// three_interpolate backward (B 64, 3072 x 128 from 1536 rows) g is 101 MB
+// and d_f 50 MB: 0.045 ms at 3.35 TB/s; the gather reads each g row once
+// for each of its 3 targets, the 3 x 25 M reads mostly from L2, where a
+// cloud's rows stay while its blocks run. group_max_backward at VRCNet's
+// level 1 (B 64, 1536 points x 10 edges into 3072 rows of 64 channels)
+// moves 86 MB (0.026 ms); it reads an edge's slot bytes and g vector
+// together, k x 6 MB and k x 25 MB from L2, and each of a cloud's six
+// blocks lists all 15,360 of the cloud's edges to find its rows'. The
+// one-launch forms read a cloud's index once a block. At ECG's small
+// clouds the bytes are ~1 us and what is left is latency: the packed
+// form's warp a cloud runs a few dependent steps with no barrier, the
+// range form one load of the index a thread and four barriers.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "local_list.cuh"
 #include "reverse_list.h"
 #include "smem_opt_in.h"
 
@@ -137,30 +143,6 @@ __device__ __forceinline__ void store_vec(float* p, const float (&v)[V]) {
   }
 }
 
-template <int V>
-__device__ __forceinline__ void load_ivec(const int* p, int (&v)[V]) {
-  if constexpr (V == 4) {
-    const int4 t = *reinterpret_cast<const int4*>(p);
-    v[0] = t.x;
-    v[1] = t.y;
-    v[2] = t.z;
-    v[3] = t.w;
-  } else {
-#pragma unroll
-    for (int e = 0; e < V; ++e) v[e] = p[e];
-  }
-}
-
-template <int V>
-__device__ __forceinline__ void store_ivec(int* p, const int (&v)[V]) {
-  if constexpr (V == 4) {
-    *reinterpret_cast<int4*>(p) = make_int4(v[0], v[1], v[2], v[3]);
-  } else {
-#pragma unroll
-    for (int e = 0; e < V; ++e) p[e] = v[e];
-  }
-}
-
 // out (B, rows, C) from f (B, n, C) and idx (B, rows); `total` = B*rows*C/V.
 template <int V>
 __global__ void __launch_bounds__(kThreads)
@@ -183,12 +165,15 @@ gather_rows_kernel(const float* __restrict__ f, const int* __restrict__ idx,
   store_vec<V>(out + static_cast<size_t>(r) * c + cc, v);
 }
 
-// out/slot (B, m, C) from f (B, n, C) and idx (B, m, k); `total` = B*m*C/V.
+// out/slot (B, m, C) from f (B, n, C) and idx (B, m, k <= 255); `total` =
+// B*m*C/V. The slot is a byte, kBadSlot where an index is outside [0, n).
+constexpr unsigned char kBadSlot = 255;
+
 template <int V>
 __global__ void __launch_bounds__(kThreads)
 group_max_kernel(const float* __restrict__ f, const int* __restrict__ idx,
                  int n, int c, int m, int k, int total, float* __restrict__ out,
-                 int* __restrict__ slot) {
+                 unsigned char* __restrict__ slot) {
   const int t = blockIdx.x * kThreads + threadIdx.x;
   if (t >= total) return;
   const int cv = c / V;
@@ -225,11 +210,16 @@ group_max_kernel(const float* __restrict__ f, const int* __restrict__ idx,
 #pragma unroll
     for (int e = 0; e < V; ++e) {
       acc[e] = CUDART_NAN_F;
-      sl[e] = -1;
+      sl[e] = kBadSlot;
     }
   }
   store_vec<V>(out + static_cast<size_t>(r) * c + cc, acc);
-  store_ivec<V>(slot + static_cast<size_t>(r) * c + cc, sl);
+  unsigned char* so = slot + static_cast<size_t>(r) * c + cc;
+  if constexpr (V == 4) {
+    *reinterpret_cast<uchar4*>(so) = make_uchar4(sl[0], sl[1], sl[2], sl[3]);
+  } else {
+    so[0] = static_cast<unsigned char>(sl[0]);
+  }
 }
 
 // out (B, n, C) from f (B, ms, C), idx and w (B, n, 3); `total` = B*n*C/V.
@@ -529,62 +519,186 @@ scatter_add_rows_local_kernel(const float* __restrict__ g,
   }
 }
 
-// d (B, n, C) from g (B, m, C): thread (b r, c .. c + V) walks r's list of
-// idx (B, m, k) (entries (b m + i) k + j, ascending) and adds g[i, c] where
-// slot[i, c] == j: the elements routed to r, in ascending i. A slot outside
-// [0, k) sets the flag of its cloud and channel instead; `total` =
-// B*n*C/V.
+// group_max's backward in one launch: block (b, range) of a 1-D grid, b =
+// blockIdx.x / ranges, kGmWarps warps, takes the rows [r0, r0 + nr) of cloud
+// b. For each chunk of `chunk` of the cloud's m k entries (idx (B, m, k),
+// entry point k + j), ascending, it lists the entries of its rows in shared
+// memory (local_list.cuh), then a thread an output vector (row q, channels
+// cc .. cc + V) walks q's list and adds g[point, c] where slot[point, c] ==
+// j: the elements routed to the row, in ascending point. A later chunk adds
+// to what the earlier ones stored. Four entries at a time: their slot bytes
+// and g vectors loaded together (one wait on memory, not two: the g vector
+// read whether or not a slot names the entry), then the adds in list order.
+// An entry whose index is outside [0, n) is listed under row 0 as ~e and
+// adds NaN where its slot names it; the block of row 0 reads its cloud's
+// slots once, and a channel with a slot outside [0, k) gets NaN in row 0.
+// Shared memory: list_ints(kGmWarps, nr) + chunk + c ints.
+constexpr int kGmWarps = 16;
+
 template <int V>
-__global__ void __launch_bounds__(kThreads)
-group_max_backward_kernel(const float* __restrict__ g,
-                          const int* __restrict__ idx,
-                          const int* __restrict__ slot,
-                          const int* __restrict__ order,
-                          const int* __restrict__ off, int n, int c, int k,
-                          int total, float* __restrict__ d,
-                          int* __restrict__ flags) {
-  const int t = blockIdx.x * kThreads + threadIdx.x;
-  if (t >= total) return;
-  const int cv = c / V;
-  const int row = t / cv;               // b * n + r
-  const int cc = (t - row * cv) * V;
-  float acc[V];
-#pragma unroll
-  for (int e = 0; e < V; ++e) acc[e] = 0.f;
-#pragma unroll 4
-  for (int i = off[row]; i < off[row + 1]; ++i) {
-    const int ent = order[i];           // (b m + point) k + j
-    const int src = ent / k;
-    const int j = ent - src * k;
-    int s[V];
-    load_ivec<V>(slot + static_cast<size_t>(src) * c + cc, s);
-    bool hit = false;
-#pragma unroll
-    for (int e = 0; e < V; ++e) hit |= s[e] == j;
-    if (hit) {
-      float v[V];
-      load_vec<V>(g + static_cast<size_t>(src) * c + cc, v);
-      const bool ok = row % n != 0 || (idx[ent] >= 0 && idx[ent] < n);
-#pragma unroll
-      for (int e = 0; e < V; ++e) {
-        if (s[e] == j) acc[e] = __fadd_rn(acc[e], ok ? v[e] : CUDART_NAN_F);
-      }
-    }
-#pragma unroll
-    for (int e = 0; e < V; ++e) {
-      if (s[e] < 0 || s[e] >= k) flags[(row / n) * c + cc + e] = 1;
-    }
+__device__ __forceinline__ unsigned long long load_slots(const unsigned char* p) {
+  if constexpr (V == 8) {
+    return *reinterpret_cast<const unsigned long long*>(p);
+  } else {
+    return *p;
   }
-  store_vec<V>(d + static_cast<size_t>(row) * c + cc, acc);
 }
 
-// d[b, 0, c] = NaN where a slot of cloud b and channel c is outside
-// [0, k): `total` = B*C.
-__global__ void __launch_bounds__(kThreads)
-group_max_flag_kernel(const int* __restrict__ flags, int n, int c, int total,
-                      float* __restrict__ d) {
-  const int t = blockIdx.x * kThreads + threadIdx.x;
-  if (t < total && flags[t] != 0) d[static_cast<size_t>(t / c) * n * c + t % c] = CUDART_NAN_F;
+template <int V>
+__device__ __forceinline__ void load_g(const float* p, float (&v)[V]) {
+  if constexpr (V == 8) {
+    float4 t = *reinterpret_cast<const float4*>(p), u = *reinterpret_cast<const float4*>(p + 4);
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+    v[4] = u.x; v[5] = u.y; v[6] = u.z; v[7] = u.w;
+  } else {
+    v[0] = *p;
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_g(float* p, const float (&v)[V]) {
+  if constexpr (V == 8) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+    *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
+  } else {
+    *p = v[0];
+  }
+}
+
+__device__ __forceinline__ unsigned slot_byte(unsigned long long w, int x) {
+  return static_cast<unsigned>(w >> (8 * x)) & 0xffu;
+}
+
+// Rows [0, m) of a block (d's row q at dq + q c), each output vector summed
+// over its row's list lst[first[q] .. first[q + 1]); ADD: onto what an
+// earlier chunk stored. A row takes `lanes` >= c / V consecutive threads,
+// the ones past c / V idle, so that rows of fewer than 32 vectors do not
+// straddle warps (a warp then walks the longest of fewer lists).
+template <int V, bool ADD>
+__device__ __forceinline__ void group_max_gather(const float* __restrict__ gb,
+                                                 const unsigned char* __restrict__ sb,
+                                                 const int* first, const int* lst, int m,
+                                                 int c, int k, int lanes,
+                                                 float* __restrict__ dq) {
+  const int cv = c / V;
+  for (int t = threadIdx.x; t < m * lanes; t += blockDim.x) {
+    const int q = t / lanes;
+    const int x = t - q * lanes;
+    if (x >= cv) continue;                // an idle lane
+    const int cc = x * V;
+    float acc[V];
+    if constexpr (ADD) {
+      load_g<V>(dq + static_cast<size_t>(q) * c + cc, acc);
+    } else {
+#pragma unroll
+      for (int x = 0; x < V; ++x) acc[x] = 0.f;
+    }
+    const int hi = first[q + 1];
+    for (int i = first[q]; i < hi; i += 4) {
+      int j[4];
+      unsigned long long w[4];
+      unsigned bad = 0;
+      float v[4][V];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {       // past the list's end: point 0, j -1
+        const int raw = i + u < hi ? lst[i + u] : 0;
+        const int e = raw < 0 ? ~raw : raw;
+        const int pt = e / k;
+        bad |= static_cast<unsigned>(raw < 0) << u;
+        j[u] = i + u < hi ? e - pt * k : -1;
+        w[u] = load_slots<V>(sb + static_cast<size_t>(pt) * c + cc);
+        load_g<V>(gb + static_cast<size_t>(pt) * c + cc, v[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+#pragma unroll
+        for (int x = 0; x < V; ++x) {
+          if (slot_byte(w[u], x) == static_cast<unsigned>(j[u])) {
+            acc[x] = __fadd_rn(acc[x], (bad >> u) & 1u ? CUDART_NAN_F : v[u][x]);
+          }
+        }
+      }
+    }
+    store_g<V>(dq + static_cast<size_t>(q) * c + cc, acc);
+  }
+}
+
+template <int V>
+__global__ void __launch_bounds__(kGmWarps * 32, 2)   // two blocks an SM: 64 registers
+group_max_backward_kernel(const float* __restrict__ g, const int* __restrict__ idx,
+                          const unsigned char* __restrict__ slot, int n, int c,
+                          int mp, int k, int nr, int ranges, int chunk, int lanes,
+                          float* __restrict__ d) {
+  extern __shared__ int gm_smem[];
+  const int b = blockIdx.x / ranges;
+  const int r0 = (blockIdx.x - b * ranges) * nr;
+  const int m = min(n, r0 + nr) - r0;
+  const int entries = mp * k;
+  const int* first = gm_smem + kGmWarps * m;
+  int* lst = gm_smem + list_ints(kGmWarps, m);
+  int* bad_channel = lst + chunk;         // (c), the block of row 0
+  const int* ib = idx + static_cast<size_t>(b) * entries;
+  const unsigned char* sb = slot + static_cast<size_t>(b) * mp * c;
+  const float* gb = g + static_cast<size_t>(b) * mp * c;
+  float* db = d + (static_cast<size_t>(b) * n + r0) * c;
+  if (r0 == 0) {
+    for (int t = threadIdx.x; t < c; t += blockDim.x) bad_channel[t] = 0;
+  }
+  for (int e0 = 0; e0 == 0 || e0 < entries; e0 += chunk) {   // once at least
+    build_list<true>(
+        [&](int e, bool& bad) {
+          const int v = ib[e];
+          bad = v < 0 || v >= n;
+          const int q = (bad ? 0 : v) - r0;
+          return q >= 0 && q < m ? q : -1;
+        },
+        [&](int at, int e, bool bad, int) { lst[at] = bad ? ~e : e; }, e0,
+        min(chunk, entries - e0), m, gm_smem);
+    if (e0 == 0) {
+      group_max_gather<V, false>(gb, sb, first, lst, m, c, k, lanes, db);
+    } else {
+      group_max_gather<V, true>(gb, sb, first, lst, m, c, k, lanes, db);
+    }
+  }
+  if (r0 == 0) {                          // the same on the whole block
+    // the cloud's slots: 16 bytes a load where aligned, a thread's 8 loads
+    // in flight at once, each checked a byte at a time only where one of
+    // its bytes is at least k (__vcmpgeu4); else a byte a load
+    const int bytes = mp * c;
+    const unsigned kk = static_cast<unsigned>(k) * 0x01010101u;
+    if (bytes % 16 == 0 && (reinterpret_cast<size_t>(sb) & 15) == 0) {
+      const uint4* s4 = reinterpret_cast<const uint4*>(sb);
+      for (int t0 = threadIdx.x; t0 < bytes / 16; t0 += 8 * blockDim.x) {
+        uint4 w[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int t = t0 + u * blockDim.x;
+          w[u] = t < bytes / 16 ? s4[t] : make_uint4(0, 0, 0, 0);
+        }
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const unsigned x4[4] = {w[u].x, w[u].y, w[u].z, w[u].w};
+#pragma unroll
+          for (int h = 0; h < 4; ++h) {
+            if (__vcmpgeu4(x4[h], kk) == 0u) continue;
+            for (int x = 0; x < 4; ++x) {
+              if (((x4[h] >> (8 * x)) & 0xffu) >= static_cast<unsigned>(k)) {
+                bad_channel[((t0 + u * blockDim.x) * 16 + 4 * h + x) % c] = 1;
+              }
+            }
+          }
+        }
+      }
+    } else {
+      for (int t = threadIdx.x; t < bytes; t += blockDim.x) {
+        if (sb[t] >= k) bad_channel[t % c] = 1;
+      }
+    }
+    __syncthreads();
+    for (int t = threadIdx.x; t < c; t += blockDim.x) {
+      if (bad_channel[t]) db[t] = CUDART_NAN_F;
+    }
+  }
 }
 
 // d_f (B, ms, C) from g (B, n, C) and w (B, n, 3): row (b, r) sums,
@@ -682,14 +796,15 @@ int gather_rows_forward(const float* f, const int* idx, int batch, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
-// f (B, N, C) float32, idx (B, M, K) int32 -> out (B, M, C) float32,
-// slot (B, M, C) int32.
+// f (B, N, C) float32, idx (B, M, K <= 255) int32 -> out (B, M, C)
+// float32, slot (B, M, C) uint8.
 int group_max_forward(const float* f, const int* idx, int batch, int n, int c,
-                      int m, int k, int vec4, float* out, int* slot,
+                      int m, int k, int vec4, float* out, unsigned char* slot,
                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int total = batch * m * (vec4 ? c / 4 : c);
   if (total == 0) return 0;
+  if (k < 1 || k > kBadSlot) return static_cast<int>(cudaErrorInvalidValue);
   if (vec4) {
     group_max_kernel<4><<<blocks_for(total), kThreads, 0, s>>>(
         f, idx, n, c, m, k, total, out, slot);
@@ -805,31 +920,29 @@ int scatter_add_rows(const float* g, const int* idx, int batch, int n, int c,
   return static_cast<int>(cudaGetLastError());
 }
 
-// g (B, M, C) float32, idx (B, M, K) int32, slot (B, M, C) int32 ->
-// d (B, N, C), the routed g; `flags` (B, C) int32 scratch; `vec4` as for
-// the forwards (g, slot and d). The list is over idx.
-int group_max_backward(const float* g, const int* idx, const int* slot,
-                       int batch, int n, int c, int m, int k, int list_warps,
-                       int ranges, int* order, int* off, int* flags, int vec4,
-                       float* d, void* stream) {
+// g (B, M, C) float32, idx (B, M, K) int32, slot (B, M, C) uint8 -> d
+// (B, N, C), the routed g, in one launch by the host plan
+// kernels.group_max_backward_plan: `rows` rows a block, entries listed
+// `chunk` at a time, `lanes` threads a row; `vec8` (0 or 1) asks for 8
+// channels a thread, which needs C % 8 == 0 and g, d 16-byte, slot 8-byte
+// aligned.
+int group_max_backward(const float* g, const int* idx, const unsigned char* slot,
+                       int batch, int n, int c, int m, int k, int rows, int chunk,
+                       int lanes, int vec8, float* d, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int total = batch * n * c;
-  if (total == 0) return 0;
-  int err = reverse_list_build(idx, batch, m * k, n, list_warps, ranges, order,
-                               off, stream);
-  if (err != 0) return err;
-  cudaError_t e = cudaMemsetAsync(flags, 0, sizeof(int) * batch * c, s);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (vec4) {
-    group_max_backward_kernel<4><<<blocks_for(total / 4), kThreads, 0, s>>>(
-        g, idx, slot, order, off, n, c, k, total / 4, d, flags);
-  } else {
-    group_max_backward_kernel<1><<<blocks_for(total), kThreads, 0, s>>>(
-        g, idx, slot, order, off, n, c, k, total, d, flags);
+  if (batch * n * c == 0) return 0;
+  const int ranges = rows > 0 ? (n + rows - 1) / rows : 0;
+  if (rows < 1 || chunk < 1 || lanes < c / (vec8 ? 8 : 1) ||
+      static_cast<long long>(batch) * ranges > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
-  group_max_flag_kernel<<<blocks_for(batch * c), kThreads, 0, s>>>(flags, n, c,
-                                                                   batch * c, d);
+  const size_t smem = sizeof(int) * (static_cast<size_t>(list_ints(kGmWarps, rows)) + chunk + c);
+  static SmemOptIn opt_in[2];
+  auto kernel = vec8 ? group_max_backward_kernel<8> : group_max_backward_kernel<1>;
+  cudaError_t err = opt_in[vec8 ? 1 : 0].raise(reinterpret_cast<const void*>(kernel), smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<batch * ranges, kGmWarps * 32, smem, s>>>(g, idx, slot, n, c, m, k, rows, ranges,
+                                                    chunk, lanes, d);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -235,18 +235,22 @@ def group_max(features: torch.Tensor,
               idx: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Max over gathered neighbours with its argmax slot.
 
-    features (B, N, C), idx (B, M, k) -> out (B, M, C) =
-    max_j features[idx[:, :, j]], slot (B, M, C) int32 = the lowest j that
+    features (B, N, C), idx (B, M, k) with k <= 255 -> out (B, M, C) =
+    max_j features[idx[:, :, j]], slot (B, M, C) uint8 = the lowest j that
     reaches the max (a loop over j with a strict ``>``, as
-    ``_group_max_fwd_kernel``, ``pallas_kernels.py:808-827``). The contract
-    of ``group_max_forward`` in ``csrc/gather.cu``.
+    ``_group_max_fwd_kernel``, ``pallas_kernels.py:808-827``, whose slot
+    holds the same values in int32). The contract of ``group_max_forward``
+    in ``csrc/gather.cu``, which saves the slot in a byte.
     """
+    if idx.shape[-1] > 255:
+        raise ValueError(f"group_max over k = {idx.shape[-1]} neighbours: its slot "
+                         "is a byte, k <= 255")
     acc = slot = None
     for j in range(idx.shape[-1]):
         g = gather_points(features, idx[..., j])
         if acc is None:
             acc = g
-            slot = torch.zeros(g.shape, dtype=torch.int32, device=g.device)
+            slot = torch.zeros(g.shape, dtype=torch.uint8, device=g.device)
         else:
             better = g > acc
             slot = slot.masked_fill(better, j)
@@ -257,7 +261,7 @@ def group_max(features: torch.Tensor,
 def group_max_backward(g: torch.Tensor, idx: torch.Tensor, slot: torch.Tensor,
                        num_rows: int) -> torch.Tensor:
     """The backward of ``group_max``: g (B, M, C), idx (B, M, k), slot
-    (B, M, C) -> d_features (B, num_rows, C) with
+    (B, M, C) (uint8, or any integer type) -> d_features (B, num_rows, C) with
     ``d_features[b, idx[b, m, slot[b, m, c]], c] += g[b, m, c]``: the whole
     gradient goes to the lowest slot reaching the max, as
     ``_group_max_bwd_kernel`` (``pallas_kernels.py:830``) routes it. The

@@ -46,7 +46,7 @@ PORT_KERNELS = ("chamfer_rowmin_kernel", "knn_queue_kernel", "knn_direct_kernel"
                 "chamfer_backward_kernel", "scatter_add_rows_local_kernel",
                 "scatter_add_rows_packed_kernel",
                 "scatter_add_rows_kernel",
-                "group_max_backward_kernel", "group_max_flag_kernel",
+                "group_max_backward_kernel",
                 "three_interpolate_backward_kernel", "three_interpolate_dweight_kernel",
                 "sa_backward_points_kernel", "sa_backward_sum_kernel",
                 "sa_backward_rows_kernel", "reverse_list_kernel",

@@ -253,7 +253,7 @@ def test_out_of_range_indices_give_nan_not_a_fault(cuda):
     out, slot = kernels.group_max_forward(f, idx)
     g = kernels.gather_rows(f, idx)
     torch.cuda.synchronize()
-    assert torch.isnan(out).all() and (slot == -1).all()
+    assert torch.isnan(out).all() and (slot == 255).all()
     assert torch.isnan(g[0, 0, 1]).all() and torch.isfinite(g[0, 0, 0]).all()
 
 
@@ -410,10 +410,12 @@ def _cot(device, *shape, seed=0, positive=False):
     return u if positive else u * 2 - 1
 
 
-@pytest.mark.parametrize("case", ["2x2048x3072_db", "2x128x96_both", "collapsed"])
+@pytest.mark.parametrize("case", ["2x2048x3072_db", "2x128x96_both", "collapsed",
+                                  "chunks_2x5000x300_db"])
 def test_chamfer_backward_kernel_matches_plain_version(cuda, case):
+    """The last case lists gt's 5000 argmins in two chunks."""
     B, N, M = {"2x2048x3072_db": (2, 2048, 3072), "2x128x96_both": (2, 128, 96),
-               "collapsed": (2, 1024, 700)}[case]
+               "collapsed": (2, 1024, 700), "chunks_2x5000x300_db": (2, 5000, 300)}[case]
     a, b = _on(cuda, *clouds(6, B, N, M))
     if case == "collapsed":              # 600 predicted points on one spot
         b[:, :600] = b[:, :1]
@@ -430,6 +432,8 @@ def test_chamfer_backward_kernel_matches_plain_version(cuda, case):
     for g, w in zip(got, want):
         if w is not None:
             _close(g, w)
+    cpu = ref.chamfer_backward(*(x.cpu() for x in (a, b, i1, g1, i2, g2)), need_a, True)
+    _bitwise([g for g in got if g is not None], [w.to(cuda) for w in cpu if w is not None])
 
 
 @pytest.mark.parametrize("case", ["2x3072x64_by_1536", "3x97x5_by_41x7",
@@ -459,9 +463,11 @@ def test_scatter_add_rows_kernel_matches_plain_version(cuda, case):
     _close(got, ref.scatter_add_rows(g, idx, n))
 
 
-@pytest.mark.parametrize("B,n,c,m,k", [(2, 3072, 64, 1536, 10), (3, 97, 6, 41, 7)])
+@pytest.mark.parametrize("B,n,c,m,k", [(2, 3072, 64, 1536, 10), (3, 97, 6, 41, 7),
+                                       (1, 4000, 8, 2100, 10)])
 def test_group_max_backward_kernel_matches_plain_version_with_ties(cuda, B, n, c,
                                                                    m, k):
+    """The last case lists its 21000 entries in two chunks."""
     f = torch.relu(_rand(cuda, B, n, c, seed=5) - 0.5)     # half 0: ties
     idx = torch.randint(0, n, (B, m, k), dtype=torch.int32,
                         generator=torch.Generator().manual_seed(6)).to(cuda)
@@ -470,6 +476,7 @@ def test_group_max_backward_kernel_matches_plain_version_with_ties(cuda, B, n, c
     g = _cot(cuda, B, m, c, seed=7)
     got = kernels.group_max_backward(g, idx, slot, n)
     _close(got, ref.group_max_backward(g, idx, slot, n))
+    _bitwise([got], [ref.group_max_backward(g.cpu(), idx.cpu(), slot.cpu(), n).to(cuda)])
     # all of each (m, c) goes to its lowest tied slot: the sums are kept
     _close(got.sum(1), g.sum(1))
 
@@ -726,8 +733,10 @@ def test_backward_wrappers_reject_bad_inputs(cuda):
         kernels.scatter_add_rows(g, idx, 0)
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.scatter_add_rows(g, idx.cpu(), 20)
-    slot = torch.zeros(2, 10, 4, dtype=torch.int32, device=cuda)
+    slot = torch.zeros(2, 10, 4, dtype=torch.uint8, device=cuda)
     idx3 = torch.zeros(2, 10, 3, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError, match="uint8"):
+        kernels.group_max_backward(g, idx3, slot.int(), 20)
     with pytest.raises(ValueError, match="slot must be"):
         kernels.group_max_backward(g, idx3, slot[:, :, :2].contiguous(), 20)
     with pytest.raises(ValueError, match="idx and weight"):
@@ -745,7 +754,7 @@ def test_backward_out_of_range_indices_give_nan_not_a_fault(cuda):
     f = _rand(cuda, 1, 5, 4)
     idx3 = torch.tensor([[[0, 1, 9], [1, 2, 3], [0, 0, 1]]], dtype=torch.int32,
                         device=cuda)
-    slot = torch.zeros(1, 3, 4, dtype=torch.int32, device=cuda)
+    slot = torch.zeros(1, 3, 4, dtype=torch.uint8, device=cuda)
     slot[0, 1, 0] = 5                                       # outside k = 3
     gm = kernels.group_max_backward(g, idx3, slot, 5)
     ti, tw = kernels.three_interpolate_backward(g, idx3, _rand(cuda, 1, 3, 3), f)

@@ -7,7 +7,9 @@ and ``chip_smoke.py``). Tolerances:
 - gathers and group_max values: bitwise against ``jnp_ref`` (copies and
   compares, no arithmetic);
 - group_max slots: equal to the Pallas kernel's in interpret mode, with
-  features rounded to bf16 values so that its bf16 one-hot product is exact;
+  features rounded to bf16 values so that its bf16 one-hot product is exact
+  (the port's slot a byte, the kernel's int32); the backward they route
+  equal too, with cotangents in k/8;
 - three_interpolate: rtol 1e-6 against ``jnp_ref`` and against
   ``three_interpolate_fused`` in interpret mode (bf16-representable features
   and weights, three distinct indices per row, so its bf16 one-hot product
@@ -64,7 +66,7 @@ def test_group_max_values_equal_jnp_ref():
                                                   torch.from_numpy(idx)))
     want = np.asarray(jnp.max(jnp_ref.grouping_operation(f, idx), axis=2))
     np.testing.assert_array_equal(out, want)
-    assert slot.dtype == np.int32 and slot.shape == out.shape
+    assert slot.dtype == np.uint8 and slot.shape == out.shape
     # the slot names a neighbour that reaches the max, the lowest such j
     g = np.asarray(jnp_ref.grouping_operation(f, idx))
     hit = g == out[:, :, None, :]
@@ -80,6 +82,28 @@ def test_group_max_slots_equal_pallas_interpret():
         jnp.asarray(f), jnp.asarray(idx))
     np.testing.assert_array_equal(out, np.asarray(p_out))
     np.testing.assert_array_equal(slot, np.asarray(p_slot))
+
+
+def test_group_max_byte_slot_and_backward_equal_pallas_interpret():
+    """The port saves group_max's slot in a byte, the Pallas kernel in
+    int32: at a few hundred points, on the same inputs, the slots' values
+    are equal, and the backward the byte slot routes equals
+    ``_group_max_bwd_rule``'s (cotangents in k/8 keep its bf16 one-hot
+    products and f32 sums exact)."""
+    rng = np.random.default_rng(21)
+    B, N, C, M, k = 2, 320, 16, 256, 10
+    f = _bf16_values(rng.random((B, N, C), dtype=np.float64).astype(np.float32))
+    f[:, :, 3] = 0.5                    # a channel that ties everywhere
+    idx = rng.integers(0, N, (B, M, k)).astype(np.int32)
+    g = (rng.integers(-16, 16, (B, M, C)) / 8).astype(np.float32)
+    out, slot = ref.group_max(torch.from_numpy(f), torch.from_numpy(idx))
+    p_out, res = pallas_kernels._group_max_forward(jnp.asarray(f), jnp.asarray(idx))
+    assert slot.dtype == torch.uint8 and np.asarray(res[2]).dtype == np.int32
+    np.testing.assert_array_equal(out.numpy(), np.asarray(p_out))
+    np.testing.assert_array_equal(slot.numpy().astype(np.int32), np.asarray(res[2]))
+    got = ref.group_max_backward(torch.from_numpy(g), torch.from_numpy(idx), slot, N)
+    want, _ = pallas_kernels._group_max_bwd_rule(res, jnp.asarray(g))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 def _interp_inputs(B=2, M=40, C=16, N=256):
