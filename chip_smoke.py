@@ -14,11 +14,15 @@ Phases, each of which raises on failure (exit code != 0):
    with exact copies across its candidate tiles, run twice, bitwise equal
    (and at every path shape in phase 6); the SA block, which
    sums in another order, within |kernel - plain| <= 1e-5 + 1e-4 |plain|;
-   the five backward kernels, gathers over reverse lists of their indices
-   (``reverse_list.cu``, each list bitwise ``ref.reverse_list``'s; a
-   scatter_add_rows of a small cloud lists in shared memory, packed a warp
-   a cloud or by row range, every form checked, and bitwise against the
-   plain version run on CPU copies), at a
+   group_max's forward (``GROUP_MAX_FWD_CASES``: staged and direct, the
+   max and its slot bitwise the plain version on CPU copies, run twice; an
+   out-of-range index and NaN rows); the five backward kernels, gathers
+   over reverse lists of their indices (``reverse_list.cu``, each list
+   bitwise ``ref.reverse_list``'s; a scatter_add_rows of a small cloud
+   lists in shared memory, packed a warp a cloud or by row range, every
+   form checked, and bitwise against the plain version run on CPU copies;
+   three_interpolate's under both forms of its plan at ``TI_BWD_CASES``,
+   bitwise the plain version on CPU copies and run twice), at a
    VRCNet train step's shapes plus ragged, collision and tie cases within
    the same bar (the SA block's weight gradients, sums over every point,
    against max|plain|) and two runs of each bitwise equal; the chamfer
@@ -108,7 +112,10 @@ Phases, each of which raises on failure (exit code != 0):
    the device time of each of its passes; scatter_add_rows at ECG's five
    train-step shapes and VRCNet's (``probe_scatter_sa``: bitwise against
    the plain version on CPU copies, run twice, beside ``torch.index_add``
-   and the bound); IDAM's Propagate block at its path
+   and the bound); group_max's forward and three_interpolate's backward
+   at the VRCNet and ECG steps' six shapes each (``probe_backwards``:
+   bitwise, run twice, device time beside the bound, every form of their
+   plans); IDAM's Propagate block at its path
    shape, each launch by device time beside its bound
    (``probe_propagate``).
 
@@ -135,8 +142,8 @@ from mvp_benchmark_tpu_torch.metrics import (calc_cd, fscore, rmse_loss,
                                              translation_error)
 from mvp_benchmark_tpu_torch.models.dcp import SHIFT_INVARIANT as DCP_SHIFT_INVARIANT
 from mvp_benchmark_tpu_torch.ops import kernels, ref
-from mvp_benchmark_tpu_torch import (probe_emd_chamfer, probe_knn_fps, probe_propagate,
-                                     probe_scatter_sa)
+from mvp_benchmark_tpu_torch import (probe_backwards, probe_emd_chamfer, probe_knn_fps,
+                                     probe_propagate, probe_scatter_sa)
 from mvp_benchmark_tpu_torch.data.mvp import BatchSpec, MVPCompletionDataset
 from mvp_benchmark_tpu_torch.train import engine, submission
 from mvp_benchmark_tpu_torch.train.meters import AverageValueMeter
@@ -177,7 +184,8 @@ KERNELS = {   # launch-count key -> the kernel's identity in the kernels line
     "gather": {"name": "gather_rows", "source": f"{_CSRC}/gather.cu",
                "replaces": f"{_PK}:1712"},
     "group_max": {"name": "group_max_forward", "source": f"{_CSRC}/gather.cu",
-                  "replaces": f"{_PK}:887"},
+                  "replaces": f"{_PK}:887",
+                  "globals": ["group_max_staged_kernel", "group_max_direct_kernel"]},
     "three_interpolate": {"name": "three_interpolate_forward",
                           "source": f"{_CSRC}/gather.cu",
                           "replaces": f"{_PK}:1050"},
@@ -185,12 +193,14 @@ KERNELS = {   # launch-count key -> the kernel's identity in the kernels line
                      "source": f"{_CSRC}/sa_attention.cu",
                      "replaces": f"{_PK}:1354"},
 }
-# Three of the five completion backwards first build the reverse list of
-# their index (reverse_list.cu's reverse_list_kernel), then run their
-# gathers; scatter_add_rows of a small cloud (``kernels.scatter_plan``),
-# the chamfer backward and group_max's list their index in shared memory in
-# one launch instead. "globals" names the __global__ kernels a call can
-# launch.
+# The SA backward first builds the reverse list of its index
+# (reverse_list.cu's reverse_list_kernel), then runs its gather, and so do
+# scatter_add_rows and three_interpolate's backward for a large cloud
+# (``kernels.scatter_plan``, ``three_interpolate_backward_plan``); for a
+# small cloud these two, and the chamfer backward and group_max's always,
+# list their index in shared memory in one launch instead. "globals" names
+# the __global__ kernels a call can launch (group_max's forward: staged or
+# direct, by ``kernels.group_max_forward_plan``).
 _LIST = "reverse_list.cu:reverse_list_kernel"
 BACKWARD_KERNELS = {
     "chamfer_backward": {"name": "chamfer_backward",
@@ -211,6 +221,7 @@ BACKWARD_KERNELS = {
                                    "source": f"{_CSRC}/gather.cu",
                                    "replaces": f"{_PK}:1086",
                                    "globals": [_LIST, "three_interpolate_backward_kernel",
+                                               "three_interpolate_backward_local_kernel",
                                                "three_interpolate_dweight_kernel"]},
     "sa_attention_backward": {"name": "sa_attention_backward",
                               "source": f"{_CSRC}/sa_attention.cu",
@@ -716,6 +727,7 @@ def compare_kernels_with_plain(device):
         err["group_max"] = max(err["group_max"], check_equal(
             f"group_max {n}x{c}->{m}", kernels.group_max_forward(f, idx),
             ref.group_max(f, idx)))
+    err["group_max"] = max(err["group_max"], check_group_max_forward(device))
 
     for (ms, c, n) in ((64, 1024, 256), (256, 768, 1024), (1024, 512, 3072)):
         f = uniform(14 + ms, (32, ms, c), device) - 0.5
@@ -740,6 +752,140 @@ def compare_kernels_with_plain(device):
             name, got, ref.sa_attention(*args, rel, mid, 8)))
     torch.cuda.synchronize()
     return err
+
+
+# group_max's forward at the VRCNet and ECG train steps' shapes (B, n, c, m,
+# k), then k 255, an odd C, k 17 (no unrolled k) and a table too tall to
+# stage (the direct form)
+GROUP_MAX_FWD_CASES = {
+    "vrcnet_level1_64x3072x64_by_1536x10": (64, 3072, 64, 1536, 10),
+    "vrcnet_level2_64x1536x128_by_768x10": (64, 1536, 128, 768, 10),
+    "vrcnet_level3_64x768x256_by_384x10": (64, 768, 256, 384, 10),
+    "ecg_32x256x840_by_64x16": (32, 256, 840, 64, 16),
+    "ecg_32x1024x360_by_256x16": (32, 1024, 360, 256, 16),
+    "ecg_32x3072x120_by_1024x16": (32, 3072, 120, 1024, 16),
+    "k255_2x300x24_by_100x255": (2, 300, 24, 100, 255),
+    "odd_c_3x97x5_by_41x7": (3, 97, 5, 41, 7),
+    "k17_2x500x12_by_200x17": (2, 500, 12, 200, 17),
+    "tall_2x20000x24_by_500x10": (2, 20000, 24, 500, 10)}
+
+
+def check_group_max_forward(device):
+    """group_max's forward (``kernels.group_max_forward_plan``) at
+    ``GROUP_MAX_FWD_CASES`` on relu'd features (ties) with a neighbour
+    twice, the max and the slot bitwise the plain version on CPU copies
+    and run twice; then an index outside [0, n) and a NaN row: NaN and slot
+    255 in the bad index's row, the NaN kept at j = 0 and passed over
+    later. Returns max |kernel - plain|."""
+    err = 0.0
+    for name, (B, n, c, m, k) in GROUP_MAX_FWD_CASES.items():
+        f = torch.relu(uniform(17 + n, (B, n, c), device) - 0.5)
+        idx = indices(18 + n, n, (B, m, k), device)
+        idx[:, :, k - 1] = idx[:, :, 0]
+        got = kernels.group_max_forward(f, idx)
+        check_rerun_bitwise(f"group_max {name}", got, kernels.group_max_forward(f, idx))
+        err = max(err, check_equal(f"group_max {name} against the plain version on the CPU",
+                                   [x.cpu() for x in got], ref.group_max(f.cpu(), idx.cpu())))
+    f = uniform(19, (2, 50, 16), device)
+    f[0, 5] = float("nan")
+    idx = indices(20, 50, (2, 30, 10), device)
+    idx[0, 3, 0], idx[0, 4, 1], idx[1, 7, 4] = 5, 5, 50 + 3
+    out, slot = kernels.group_max_forward(f, idx)
+    ok = idx.cpu().clone()
+    ok[1, 7, 4] = 0
+    want, want_slot = ref.group_max(f.cpu(), ok)
+    want[1, 7], want_slot[1, 7] = float("nan"), 255
+    check_equal_nan("group_max out of range and NaN against the plain version on the CPU",
+                    [out.cpu()], [want])
+    check_equal("group_max out of range and NaN: slots", [slot.cpu()], [want_slot])
+    return err
+
+
+# three_interpolate's backward (B, Ms, N, C, need_w): the VRCNet step's three,
+# ECG's three, a ragged shape, every target on row 0, and a cloud of more
+# than one chunk of kernels.TI_BWD_CHUNK entries
+TI_BWD_CASES = {
+    "level4to3_64x384x512_to_768": (64, 384, 768, 512, False),
+    "level3to2_64x768x256_to_1536": (64, 768, 1536, 256, False),
+    "level2to1_64x1536x128_to_3072": (64, 1536, 3072, 128, True),
+    "ecg_32x64x1024_to_256": (32, 64, 256, 1024, False),
+    "ecg_32x256x768_to_1024": (32, 256, 1024, 768, False),
+    "ecg_32x1024x512_to_3072": (32, 1024, 3072, 512, False),
+    "ragged_2x37x5_to_101": (2, 37, 101, 5, True),
+    "collisions_2x64x16_to_512_all_row_0": (2, 64, 512, 16, True),
+    "chunks_2x2000x64_to_6000": (2, 2000, 6000, 64, False)}
+
+
+def ti_backward_forms(ms, c, n):
+    """{form: plan} of ``kernels.three_interpolate_backward_plan`` that a
+    three_interpolate backward call is checked under: the plan's own and
+    the other form (the list in device memory, or the one-launch form's
+    default plan)."""
+    vectors = c // 8 if c % 8 == 0 else c
+    plan = kernels.three_interpolate_backward_plan(ms, c, n, vectors)
+    if not plan[0]:
+        return {"list (the plan's)": plan,
+                "one launch": kernels.three_interpolate_backward_local_plan(ms, c, n, vectors)}
+    return {"one launch (the plan's)": plan, "list": (0, 0, 0)}
+
+
+def check_three_interpolate_backward(device, err):
+    """three_interpolate's backward at ``TI_BWD_CASES`` under both forms
+    (``ti_backward_forms``): d_features bitwise the plain version on CPU
+    copies and run twice, d_weight within the bar of the plain version on
+    the card and run twice; the plan's own form also within the bar of the
+    plain version on the card, with its index's reverse list checked; then
+    an index outside [0, Ms): NaN at row 0 of its cloud under both forms."""
+    plan_fn = kernels.three_interpolate_backward_plan
+    for name, (B, ms, n, c, need_w) in TI_BWD_CASES.items():
+        f = cotangent(50 + n, (B, ms, c), device)
+        src = uniform(51 + n, (B, ms, 3), device)
+        idx, w = ref.three_nn_upsampling(uniform(52 + n, (B, n, 3), device), src)
+        if name.startswith("collisions"):
+            idx = torch.zeros_like(idx)
+        g = cotangent(53 + n, (B, n, c), device,
+                      positive=name.startswith("collisions"))
+        on_cpu = ref.three_interpolate_backward(g.cpu(), idx.cpu(), w.cpu(), f.cpu(), need_w)
+        for form, plan in ti_backward_forms(ms, c, n).items():
+            kernels.three_interpolate_backward_plan = lambda *a, plan=plan: plan
+            try:
+                got = kernels.three_interpolate_backward(g, idx, w, f, need_w)
+                check_rerun_bitwise(f"three_interpolate_backward {name} ({form})",
+                                    [x for x in got if x is not None],
+                                    [x for x in kernels.three_interpolate_backward(
+                                        g, idx, w, f, need_w) if x is not None])
+            finally:
+                kernels.three_interpolate_backward_plan = plan_fn
+            check((got[1] is None) == (not need_w), f"three_interpolate_backward {name}")
+            check_equal(f"three_interpolate_backward {name} ({form}) d_features against "
+                        "the plain version on the CPU", [got[0].cpu()], [on_cpu[0]])
+            if not form.endswith("(the plan's)"):
+                continue
+            check_list(f"three_interpolate {name}", idx, ms)
+            want = ref.three_interpolate_backward(g, idx, w, f, need_w)
+            for part, gt_, wt in zip(("d_features", "d_weight"), got, want):
+                if wt is not None:
+                    err["three_interpolate_backward"] = max(
+                        err["three_interpolate_backward"], check_close(
+                            f"three_interpolate_backward {name} {part}", gt_, wt))
+    B, ms, n, c = 2, 50, 200, 24
+    f = cotangent(54, (B, ms, c), device)
+    idx, w = ref.three_nn_upsampling(uniform(55, (B, n, 3), device),
+                                     uniform(56, (B, ms, 3), device))
+    g = cotangent(57, (B, n, c), device)
+    ok = idx.cpu().clone()
+    idx[0, 7, 1], idx[1, 150, 2] = ms + 3, -1
+    ok[0, 7, 1] = ok[1, 150, 2] = 0
+    want, _ = ref.three_interpolate_backward(g.cpu(), ok, w.cpu(), f.cpu(), False)
+    want[:, 0] = float("nan")
+    for form, plan in ti_backward_forms(ms, c, n).items():
+        kernels.three_interpolate_backward_plan = lambda *a, plan=plan: plan
+        try:
+            got, _ = kernels.three_interpolate_backward(g, idx, w, f, False)
+        finally:
+            kernels.three_interpolate_backward_plan = plan_fn
+        check_equal_nan(f"three_interpolate_backward out of range ({form}) against the "
+                        "plain version on the CPU", [got.cpu()], [want])
 
 
 def compare_knn_across_tiles(device):
@@ -912,32 +1058,7 @@ def compare_backward_kernels_with_plain(device):
     check_equal_nan("group_max_backward out of range against the plain version on the CPU",
                     [got.cpu()], [want])
 
-    for name, (B, ms, n, c, need_w) in {
-            "level4to3_64x384x512_to_768": (64, 384, 768, 512, False),
-            "level3to2_64x768x256_to_1536": (64, 768, 1536, 256, False),
-            "level2to1_64x1536x128_to_3072": (64, 1536, 3072, 128, True),
-            "ragged_2x37x5_to_101": (2, 37, 101, 5, True),
-            "collisions_2x64x16_to_512_all_row_0": (2, 64, 512, 16, True)}.items():
-        f = cotangent(50 + n, (B, ms, c), device)
-        src = uniform(51 + n, (B, ms, 3), device)
-        idx, w = ref.three_nn_upsampling(uniform(52 + n, (B, n, 3), device), src)
-        if name.startswith("collisions"):
-            idx = torch.zeros_like(idx)
-        g = cotangent(53 + n, (B, n, c), device,
-                      positive=name.startswith("collisions"))
-        got = kernels.three_interpolate_backward(g, idx, w, f, need_w)
-        check_rerun_bitwise(f"three_interpolate_backward {name}",
-                            [x for x in got if x is not None],
-                            [x for x in kernels.three_interpolate_backward(
-                                g, idx, w, f, need_w) if x is not None])
-        check_list(f"three_interpolate {name}", idx, ms)
-        want = ref.three_interpolate_backward(g, idx, w, f, need_w)
-        check((got[1] is None) == (not need_w), f"three_interpolate_backward {name}")
-        for part, gt_, wt in zip(("d_features", "d_weight"), got, want):
-            if wt is not None:
-                err["three_interpolate_backward"] = max(
-                    err["three_interpolate_backward"], check_close(
-                        f"three_interpolate_backward {name} {part}", gt_, wt))
+    check_three_interpolate_backward(device, err)
 
     for (B, n, k, rel, mid) in ((64, 3072, 16, 4, 16), (64, 1536, 16, 8, 32),
                                 (64, 768, 16, 16, 64), (64, 384, 16, 32, 128),
@@ -2724,8 +2845,9 @@ def timing_cases(device):
     t24 = uniform(22, (B, 3072, 24), device)
     edge_idx = indices(23, 3072, (B, 3072, 16), device)
     edge_idx64 = edge_idx.reshape(B, -1, 1).long().expand(-1, -1, 24)
-    t120 = uniform(24, (B, 3072, 120), device)
-    gm_idx = indices(25, 3072, (B, 1024, 16), device)
+    gm_shape = (64, 1536, 128, 768, 10)                # VRCNet's level 2: staged
+    gm_f = uniform(24, gm_shape[:3], device)
+    gm_idx = indices(25, gm_shape[1], (gm_shape[0], *gm_shape[3:]), device)
     sa = sa_inputs(29, B, 3072, 16, 4, 16, device)     # VRCNet level 1
     t512 = uniform(26, (B, 1024, 512), device)
     ti_idx, ti_w = ref.three_nn_upsampling(uniform(27, (B, 3072, 3), device),
@@ -2752,11 +2874,11 @@ def timing_cases(device):
                    lambda: torch.gather(t24, 1, edge_idx64),
                    B * 3072 * 24 * 4 + B * 3072 * 16 * 4 + B * 3072 * 16 * 24 * 4,
                    0),
-        "group_max": ("(32, 3072 x 120) by (32, 1024 x 16)",
-                      lambda: kernels.group_max_forward(t120, gm_idx),
-                      lambda: ref.group_max(t120, gm_idx), None,
-                      B * 3072 * 120 * 4 + B * 1024 * 16 * 4 + B * 1024 * 120 * (4 + 1),
-                      B * 1024 * 120 * 15),
+        "group_max": ("(64, 1536 x 128) by (64, 768 x 10)",
+                      lambda: kernels.group_max_forward(gm_f, gm_idx),
+                      lambda: ref.group_max(gm_f, gm_idx), None,
+                      probe_backwards.group_max_forward_bytes(*gm_shape),
+                      gm_shape[0] * gm_shape[3] * gm_shape[2] * (gm_shape[4] - 1)),
         "three_interpolate": ("(32, 1024 x 512) -> 3072",
                               lambda: kernels.three_interpolate_forward(t512, ti_idx, ti_w),
                               lambda: ref.three_interpolate(t512, ti_idx, ti_w), None,
@@ -2841,6 +2963,20 @@ def time_propagate_at_path_shape(device, card):
     Prints one JSON line."""
     out = probe_propagate.probe(device)
     print(f"propagate_path_shape on {card}: {json.dumps(out)}")
+    return out
+
+
+def time_gather_at_step_shapes(device, card):
+    """group_max's forward and three_interpolate's backward at the VRCNet
+    and ECG train steps' six shapes each, on seeded uniform inputs
+    (``probe_backwards.probe_uniform``): bitwise the plain version on CPU
+    copies and run twice, device time under torch.profiler (the list and
+    the gather apart) beside the bound; every form of each plan (staged and
+    direct, one launch and the list) runs at one of them. Prints one JSON
+    line."""
+    out = probe_backwards.probe_uniform(
+        device, ("group_max_forward", "three_interpolate_backward"))
+    print(f"gather_step_shapes on {card}: {json.dumps(out)}")
     return out
 
 
@@ -3386,6 +3522,7 @@ def main() -> int:
     time_sa_forward_at_path_shapes(device, card)
     time_sa_backward_at_path_shapes(device, card)
     time_scatter_at_ecg_shapes(device, card)
+    time_gather_at_step_shapes(device, card)
     time_propagate_at_path_shape(device, card)
 
     launches = {k: sum(counts[k] for counts in paths.values()) for k in KERNELS}

@@ -3,4 +3,4 @@
 // (the extern "C" functions and their arguments) is not the one it binds.
 // Bump it with any change to that interface.
 
-extern "C" int mvp_kernels_abi_version() { return 22; }
+extern "C" int mvp_kernels_abi_version() { return 23; }

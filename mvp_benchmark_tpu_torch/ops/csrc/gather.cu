@@ -27,9 +27,11 @@
 // Design: one thread per output element, or per 4 channels (16-byte loads
 // and stores) where C % 4 == 0 and the pointers are 16-byte aligned. A warp
 // covers consecutive channels of consecutive output rows, so each gathered
-// row is read as one contiguous segment; no shared memory. An index outside
-// [0, N) writes NaN (and slot -1) instead of reading out of bounds: the
-// wrappers do not range-check on the host, which would need a device sync.
+// row is read as one contiguous segment; group_max's forward stages a slice
+// of the table or its rows' indices in shared memory (see below). An index
+// outside [0, N) writes NaN (and slot 255) instead of reading out of
+// bounds: the wrappers do not range-check on the host, which would need a
+// device sync.
 //
 // What bounds them on an H100: bytes. None does arithmetic worth counting
 // (group_max k - 1 compares, three_interpolate 5 operations per output).
@@ -62,12 +64,13 @@
 // row's sources, ascending), then writes every output row once with a plain
 // store, its incoming terms summed in ascending source order, as
 // ops/ref.py's scatters sum them on the CPU. No float atomics, so two runs
-// are bitwise equal. group_max_backward and a scatter_add_rows of at most
-// 8192 entries a cloud (26 of ECG's 28 a train step, all 4 of VRCNet's) are
-// one launch each, which lists in shared memory and gathers (no list in
+// are bitwise equal. group_max_backward, a scatter_add_rows of at most
+// 8192 entries a cloud (26 of ECG's 28 a train step, all 4 of VRCNet's) and
+// a three_interpolate_backward of at most 1024 (ECG's smallest) are one
+// launch each, which lists in shared memory and gathers (no list in
 // memory, no second launch; their counts are integer atomicAdd in shared
-// memory, the same in any order); three_interpolate_backward and a larger
-// scatter_add_rows first build the list in device memory (reverse_list.cu).
+// memory, the same in any order); a larger three_interpolate_backward or
+// scatter_add_rows first builds the list in device memory (reverse_list.cu).
 // scatter_add_rows's one-launch forms, by the host plan kernels.scatter_plan:
 //   - packed (scatter_add_rows_packed_kernel), clouds of at most 256
 //     entries and 1024 output vectors (the uniform losses' kNN gathers,
@@ -86,9 +89,11 @@
 // of 8 channels a thread: it adds g[m, c] for the edges (m, j) whose saved
 // slot[m, c] (a byte, written by group_max_forward) is j, so each element
 // goes to the row the forward saved, in ascending m. scatter_add_rows's
-// list form and three_interpolate_backward take one thread per output
-// element (4 channels where C % 4 == 0 and the pointers are 16-byte
-// aligned), walking the row's list. d_w is a dot product per (n, l): one
+// list form takes one thread per output element (4 channels where C % 4 ==
+// 0 and the pointers are 16-byte aligned), walking the row's list;
+// three_interpolate_backward's, 8 channels a thread (where C % 8 == 0),
+// rows inside a warp and four entries' loads before their adds, the walk
+// (ti_walk) its one-launch form shares. d_w is a dot product per (n, l): one
 // warp per target row, lanes over channels, a shuffle reduction. An index
 // outside [0, N) is listed under row 0 of its cloud, which adds NaN instead
 // of reading out of bounds; a slot outside [0, k) sets NaN in row 0 of its
@@ -97,8 +102,10 @@
 // What bounds them: bytes, and the lists' serial steps. At VRCNet's largest
 // three_interpolate backward (B 64, 3072 x 128 from 1536 rows) g is 101 MB
 // and d_f 50 MB: 0.045 ms at 3.35 TB/s; the gather reads each g row once
-// for each of its 3 targets, the 3 x 25 M reads mostly from L2, where a
-// cloud's rows stay while its blocks run. group_max_backward at VRCNet's
+// for each of its 3 targets, 300 MB from L2, where a cloud's rows stay
+// while the 1-D grid's few clouds in flight read them. The one-launch form
+// lost there on an H100: each of a cloud's blocks lists all of its 9216
+// entries, and few blocks a cloud put ~44 clouds' g (66 MB) in flight. group_max_backward at VRCNet's
 // level 1 (B 64, 1536 points x 10 edges into 3072 rows of 64 channels)
 // moves 86 MB (0.026 ms); it reads an edge's slot bytes and g vector
 // together, k x 6 MB and k x 25 MB from L2, and each of a cloud's six
@@ -165,15 +172,78 @@ gather_rows_kernel(const float* __restrict__ f, const int* __restrict__ idx,
   store_vec<V>(out + static_cast<size_t>(r) * c + cc, v);
 }
 
-// out/slot (B, m, C) from f (B, n, C) and idx (B, m, k <= 255); `total` =
-// B*m*C/V. The slot is a byte, kBadSlot where an index is outside [0, n).
+// group_max's forward: out/slot (B, m, C) from f (B, n, C) and idx (B, m,
+// k <= 255), in one of two forms by the host plan
+// kernels.group_max_forward_plan. The slot is a byte, kBadSlot where an
+// index is outside [0, n), which also sets NaN in every channel. The
+// compares run in ascending j with a strict `>`, a chain a thread, so the
+// slot is the lowest j reaching the max and a NaN at j = 0 stays.
+//   - direct (group_max_direct_kernel): a thread V channels (4 or 1) of one
+//     output row, its k rows of f read through L2. Those gathered reads, k a
+//     row (10 x 25 MB at VRCNet's level 1), cross L2 at ~5.6 TB/s on an
+//     H100, which sets its time: more loads in flight a thread, 8 channels
+//     a thread or the row's indices staged in shared memory read no faster;
+//   - staged (group_max_staged_kernel), where a slice of at least 16
+//     channels of a cloud's table fits in shared memory in at most 8 slices
+//     (the index is read once a slice): block (b, slice), kGmsThreads
+//     threads, copies f[b, :, slice] from device memory once, then a thread
+//     takes V channels of one output row of the slice, its k rows read from
+//     shared memory, the loop over j unrolled for K (10, 16; the row's
+//     indices in K / 2 8-byte loads) where the plan says so.
 constexpr unsigned char kBadSlot = 255;
+constexpr int kGmsThreads = 512;
+constexpr int kGmsSmem = 232448;        // the staged form's table: what a block may opt in to
 
 template <int V>
+__device__ __forceinline__ void load_row(const float* p, float (&v)[V]) {
+  if constexpr (V == 8) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    const float4 u = *reinterpret_cast<const float4*>(p + 4);
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+    v[4] = u.x; v[5] = u.y; v[6] = u.z; v[7] = u.w;
+  } else {
+    load_vec<V>(p, v);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_row(float* p, const float (&v)[V]) {
+  if constexpr (V == 8) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+    *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
+  } else {
+    store_vec<V>(p, v);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_slots(unsigned char* so, const int (&sl)[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<uchar4*>(so) = make_uchar4(sl[0], sl[1], sl[2], sl[3]);
+  } else {
+    so[0] = static_cast<unsigned char>(sl[0]);
+  }
+}
+
+// acc/sl take v, the row of neighbour j, where it is larger (or j == 0).
+template <int V>
+__device__ __forceinline__ void take_max(const float (&v)[V], int j, float (&acc)[V],
+                                         int (&sl)[V]) {
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    if (j == 0 || v[e] > acc[e]) {
+      acc[e] = v[e];
+      sl[e] = j;
+    }
+  }
+}
+
+// `total` = B*m*C/V threads, one a (row, V channels).
+template <int V>
 __global__ void __launch_bounds__(kThreads)
-group_max_kernel(const float* __restrict__ f, const int* __restrict__ idx,
-                 int n, int c, int m, int k, int total, float* __restrict__ out,
-                 unsigned char* __restrict__ slot) {
+group_max_direct_kernel(const float* __restrict__ f, const int* __restrict__ idx,
+                        int n, int c, int m, int k, int total, float* __restrict__ out,
+                        unsigned char* __restrict__ slot) {
   const int t = blockIdx.x * kThreads + threadIdx.x;
   if (t >= total) return;
   const int cv = c / V;
@@ -182,14 +252,9 @@ group_max_kernel(const float* __restrict__ f, const int* __restrict__ idx,
   const int b = r / m;
   const int* ir = idx + static_cast<size_t>(r) * k;
   const float* fb = f + static_cast<size_t>(b) * n * c + cc;
-  float acc[V];
-  int sl[V];
+  float acc[V] = {};
+  int sl[V] = {};
   bool bad = false;
-#pragma unroll
-  for (int e = 0; e < V; ++e) {
-    acc[e] = 0.f;
-    sl[e] = 0;
-  }
   for (int j = 0; j < k; ++j) {
     const int src = ir[j];
     if (src < 0 || src >= n) {
@@ -198,13 +263,7 @@ group_max_kernel(const float* __restrict__ f, const int* __restrict__ idx,
     }
     float v[V];
     load_vec<V>(fb + static_cast<size_t>(src) * c, v);
-#pragma unroll
-    for (int e = 0; e < V; ++e) {
-      if (j == 0 || v[e] > acc[e]) {
-        acc[e] = v[e];
-        sl[e] = j;
-      }
-    }
+    take_max<V>(v, j, acc, sl);
   }
   if (bad) {
 #pragma unroll
@@ -214,11 +273,88 @@ group_max_kernel(const float* __restrict__ f, const int* __restrict__ idx,
     }
   }
   store_vec<V>(out + static_cast<size_t>(r) * c + cc, acc);
-  unsigned char* so = slot + static_cast<size_t>(r) * c + cc;
-  if constexpr (V == 4) {
-    *reinterpret_cast<uchar4*>(so) = make_uchar4(sl[0], sl[1], sl[2], sl[3]);
-  } else {
-    so[0] = static_cast<unsigned char>(sl[0]);
+  store_slots<V>(slot + static_cast<size_t>(r) * c + cc, sl);
+}
+
+// The staged form: block (b, slice) of a 1-D grid, b = blockIdx.x / slices,
+// the channels [c0, c0 + cs) of cloud b (fewer in the last slice; cs a
+// multiple of V). Shared memory: n cs floats, row r of the slice at r cs.
+template <int V, int K>
+__global__ void __launch_bounds__(kGmsThreads)
+group_max_staged_kernel(const float* __restrict__ f, const int* __restrict__ idx,
+                        int n, int c, int m, int k, int cs, int slices,
+                        float* __restrict__ out, unsigned char* __restrict__ slot) {
+  extern __shared__ float gms_smem[];
+  const int kk = K > 0 ? K : k;
+  const int b = blockIdx.x / slices;
+  const int c0 = (blockIdx.x - b * slices) * cs;
+  const int wv = min(cs, c - c0) / V;               // the slice's vectors a row
+  const float* fb = f + static_cast<size_t>(b) * n * c + c0;
+  const int items = n * wv;
+  for (int t = threadIdx.x; t < items; t += 4 * blockDim.x) {   // 4 loads in flight
+    float v[4][V];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = t + u * blockDim.x;
+      if (i < items) {
+        const int r = i / wv;
+        load_vec<V>(fb + static_cast<size_t>(r) * c + (i - r * wv) * V, v[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = t + u * blockDim.x;
+      if (i < items) {
+        const int r = i / wv;
+        store_vec<V>(gms_smem + r * cs + (i - r * wv) * V, v[u]);
+      }
+    }
+  }
+  __syncthreads();
+  const int* ib = idx + static_cast<size_t>(b) * m * kk;
+  for (int t = threadIdx.x; t < m * wv; t += blockDim.x) {
+    const int q = t / wv;
+    const int x = (t - q * wv) * V;
+    const int* ir = ib + static_cast<size_t>(q) * kk;
+    float acc[V] = {};
+    int sl[V] = {};
+    bool bad = false;
+    if constexpr (K > 0) {                          // the row's K indices in K / 2 loads
+      int src[K];
+#pragma unroll
+      for (int j = 0; j < K; j += 2) {
+        const int2 t = *reinterpret_cast<const int2*>(ir + j);
+        src[j] = t.x;
+        src[j + 1] = t.y;
+      }
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        const bool ok = src[j] >= 0 && src[j] < n;
+        bad |= !ok;
+        float v[V];
+        load_vec<V>(gms_smem + (ok ? src[j] : 0) * cs + x, v);
+        take_max<V>(v, j, acc, sl);
+      }
+    } else {
+      for (int j = 0; j < k; ++j) {
+        const int src = ir[j];
+        const bool ok = src >= 0 && src < n;
+        bad |= !ok;
+        float v[V];
+        load_vec<V>(gms_smem + (ok ? src : 0) * cs + x, v);
+        take_max<V>(v, j, acc, sl);
+      }
+    }
+    if (bad) {
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        acc[e] = CUDART_NAN_F;
+        sl[e] = kBadSlot;
+      }
+    }
+    const size_t o = (static_cast<size_t>(b) * m + q) * c + c0 + x;
+    store_vec<V>(out + o, acc);
+    store_slots<V>(slot + o, sl);
   }
 }
 
@@ -544,27 +680,6 @@ __device__ __forceinline__ unsigned long long load_slots(const unsigned char* p)
   }
 }
 
-template <int V>
-__device__ __forceinline__ void load_g(const float* p, float (&v)[V]) {
-  if constexpr (V == 8) {
-    float4 t = *reinterpret_cast<const float4*>(p), u = *reinterpret_cast<const float4*>(p + 4);
-    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-    v[4] = u.x; v[5] = u.y; v[6] = u.z; v[7] = u.w;
-  } else {
-    v[0] = *p;
-  }
-}
-
-template <int V>
-__device__ __forceinline__ void store_g(float* p, const float (&v)[V]) {
-  if constexpr (V == 8) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-    *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
-  } else {
-    *p = v[0];
-  }
-}
-
 __device__ __forceinline__ unsigned slot_byte(unsigned long long w, int x) {
   return static_cast<unsigned>(w >> (8 * x)) & 0xffu;
 }
@@ -588,7 +703,7 @@ __device__ __forceinline__ void group_max_gather(const float* __restrict__ gb,
     const int cc = x * V;
     float acc[V];
     if constexpr (ADD) {
-      load_g<V>(dq + static_cast<size_t>(q) * c + cc, acc);
+      load_row<V>(dq + static_cast<size_t>(q) * c + cc, acc);
     } else {
 #pragma unroll
       for (int x = 0; x < V; ++x) acc[x] = 0.f;
@@ -607,7 +722,7 @@ __device__ __forceinline__ void group_max_gather(const float* __restrict__ gb,
         bad |= static_cast<unsigned>(raw < 0) << u;
         j[u] = i + u < hi ? e - pt * k : -1;
         w[u] = load_slots<V>(sb + static_cast<size_t>(pt) * c + cc);
-        load_g<V>(gb + static_cast<size_t>(pt) * c + cc, v[u]);
+        load_row<V>(gb + static_cast<size_t>(pt) * c + cc, v[u]);
       }
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
@@ -619,7 +734,7 @@ __device__ __forceinline__ void group_max_gather(const float* __restrict__ gb,
         }
       }
     }
-    store_g<V>(dq + static_cast<size_t>(q) * c + cc, acc);
+    store_row<V>(dq + static_cast<size_t>(q) * c + cc, acc);
   }
 }
 
@@ -701,10 +816,60 @@ group_max_backward_kernel(const float* __restrict__ g, const int* __restrict__ i
   }
 }
 
-// d_f (B, ms, C) from g (B, n, C) and w (B, n, 3): row (b, r) sums,
-// ascending over its list of idx (B, n, 3) (entries (b n + i) 3 + l),
-// w[i, l] * g[i], each product rounded as ref.py's `g * w`; `total` =
-// B*ms*C/V.
+// acc[V] += w[e] g[e / 3, cc .. cc + V) for the entries e of one row's list,
+// positions [lo, hi) of `list` ascending, each product rounded as ref.py's
+// `g * w` and added with __fadd_rn in list order; an entry whose index lies
+// outside [0, ms) adds NaN. Four entries' w and g loads are made before
+// their adds. The one-launch form's list (LOCAL, in shared memory) holds
+// such an entry as ~e; the list form's (in device memory) holds e, and its
+// row 0 (`first`) reads idx to find them. g and w start at the entries'
+// cloud, or at entry 0 where the entries count from there.
+template <int V, bool LOCAL>
+__device__ __forceinline__ void ti_walk(const float* __restrict__ g,
+                                        const float* __restrict__ w,
+                                        const int* __restrict__ list,
+                                        const int* __restrict__ idx, int ms, bool first,
+                                        int lo, int hi, int c, int cc, float (&acc)[V]) {
+  for (int i = lo; i < hi; i += 4) {
+    float v[4][V];
+    float wl[4];
+    unsigned bad = 0;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {       // past the list's end: an entry not added
+      int ent;
+      if constexpr (LOCAL) {
+        const int raw = i + u < hi ? list[i + u] : 0;
+        ent = raw < 0 ? ~raw : raw;
+        bad |= static_cast<unsigned>(raw < 0) << u;
+      } else {
+        ent = list[i + u < hi ? i + u : i];
+        if (first) {
+          const int src = idx[ent];
+          bad |= static_cast<unsigned>(src < 0 || src >= ms) << u;
+        }
+      }
+      wl[u] = w[ent];
+      load_row<V>(g + static_cast<size_t>(ent / 3) * c + cc, v[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (i + u < hi) {
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          acc[e] = __fadd_rn(acc[e], (bad >> u) & 1u ? CUDART_NAN_F
+                                                     : __fmul_rn(v[u][e], wl[u]));
+        }
+      }
+    }
+  }
+}
+
+// d_f (B, ms, C) from g (B, n, C) and w (B, n, 3), the list form: row (b,
+// r) sums, ascending over its list of idx (B, n, 3) in device memory
+// (entries (b n + i) 3 + l), w[i, l] * g[i] (ti_walk). A thread V channels
+// (8 or 1) of a row, `lanes` threads a row (the next power of two of the
+// row's C / V vectors below 32, so that rows do not straddle warps), `rows`
+// = B ms.
 template <int V>
 __global__ void __launch_bounds__(kThreads)
 three_interpolate_backward_kernel(const float* __restrict__ g,
@@ -712,33 +877,88 @@ three_interpolate_backward_kernel(const float* __restrict__ g,
                                   const float* __restrict__ w,
                                   const int* __restrict__ order,
                                   const int* __restrict__ off, int ms, int c,
-                                  int total, float* __restrict__ df) {
-  const int t = blockIdx.x * kThreads + threadIdx.x;
-  if (t >= total) return;
+                                  int lanes, int rows, float* __restrict__ df) {
+  const long long t = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  const int row = static_cast<int>(t / lanes);      // b * ms + r
+  const int x = static_cast<int>(t - static_cast<long long>(row) * lanes);
+  if (row >= rows || x >= c / V) return;            // idle lanes, past the end
+  const int cc = x * V;
+  const bool first = row % ms == 0;                 // row 0 also lists bad indices
+  float acc[V] = {};
+  ti_walk<V, false>(g, w, order, idx, ms, first, off[row], off[row + 1], c, cc, acc);
+  store_row<V>(df + static_cast<size_t>(row) * c + cc, acc);
+}
+
+// three_interpolate's backward in one launch: block (b, range) of a 1-D
+// grid, b = blockIdx.x / ranges, kTiWarps warps, takes the rows [r0, r0 +
+// nr) of cloud b's d_f. For each chunk of `chunk` of the cloud's 3 n entries
+// (idx (B, n, 3), entry point 3 + l), ascending, it lists the entries of its
+// rows in shared memory (local_list.cuh), then a thread an output vector
+// (row q, channels cc .. cc + V; `lanes` threads a row, as group_max's
+// backward) walks q's list as the list form does (ti_walk). A later chunk
+// adds to what the earlier ones stored, so every row is
+// summed in ascending (point, l), as ref.py's scatter on the CPU. An entry
+// whose index is outside [0, ms) is listed under row 0 as ~e and adds NaN.
+// Shared memory: list_ints(kTiWarps, nr) + chunk ints.
+constexpr int kTiWarps = 16;
+
+template <int V, bool ADD>
+__device__ __forceinline__ void ti_backward_gather(const float* __restrict__ gb,
+                                                   const float* __restrict__ wb,
+                                                   const int* first, const int* lst, int m,
+                                                   int c, int lanes, float* __restrict__ dq) {
   const int cv = c / V;
-  const int row = t / cv;               // b * ms + r
-  const int cc = (t - row * cv) * V;
-  float acc[V];
-#pragma unroll
-  for (int e = 0; e < V; ++e) acc[e] = 0.f;
-  const bool first = row % ms == 0;     // row 0 also lists bad indices
-#pragma unroll 4
-  for (int i = off[row]; i < off[row + 1]; ++i) {
-    const int ent = order[i];           // (b n + point) 3 + l
-    float v[V];
-    if (!first || (idx[ent] >= 0 && idx[ent] < ms)) {
-      load_vec<V>(g + static_cast<size_t>(ent / 3) * c + cc, v);
-      const float wl = w[ent];
-#pragma unroll
-      for (int e = 0; e < V; ++e) v[e] = __fmul_rn(v[e], wl);
+  for (int t = threadIdx.x; t < m * lanes; t += blockDim.x) {
+    const int q = t / lanes;
+    const int x = t - q * lanes;
+    if (x >= cv) continue;                // an idle lane
+    const int cc = x * V;
+    float acc[V];
+    if constexpr (ADD) {
+      load_row<V>(dq + static_cast<size_t>(q) * c + cc, acc);
     } else {
 #pragma unroll
-      for (int e = 0; e < V; ++e) v[e] = CUDART_NAN_F;
+      for (int e = 0; e < V; ++e) acc[e] = 0.f;
     }
-#pragma unroll
-    for (int e = 0; e < V; ++e) acc[e] = __fadd_rn(acc[e], v[e]);
+    ti_walk<V, true>(gb, wb, lst, nullptr, 0, false, first[q], first[q + 1], c, cc, acc);
+    store_row<V>(dq + static_cast<size_t>(q) * c + cc, acc);
   }
-  store_vec<V>(df + static_cast<size_t>(row) * c + cc, acc);
+}
+
+template <int V>
+__global__ void __launch_bounds__(kTiWarps * 32, 2)   // two blocks an SM: 64 registers
+three_interpolate_backward_local_kernel(const float* __restrict__ g,
+                                        const int* __restrict__ idx,
+                                        const float* __restrict__ w, int ms, int c, int n,
+                                        int nr, int ranges, int chunk, int lanes,
+                                        float* __restrict__ df) {
+  extern __shared__ int ti_smem[];
+  const int b = blockIdx.x / ranges;
+  const int r0 = (blockIdx.x - b * ranges) * nr;
+  const int m = min(ms, r0 + nr) - r0;
+  const int entries = n * 3;
+  const int* first = ti_smem + kTiWarps * m;
+  int* lst = ti_smem + list_ints(kTiWarps, m);
+  const int* ib = idx + static_cast<size_t>(b) * entries;
+  const float* wb = w + static_cast<size_t>(b) * entries;
+  const float* gb = g + static_cast<size_t>(b) * n * c;
+  float* db = df + (static_cast<size_t>(b) * ms + r0) * c;
+  for (int e0 = 0; e0 == 0 || e0 < entries; e0 += chunk) {   // once at least
+    build_list<true>(
+        [&](int e, bool& bad) {
+          const int v = ib[e];
+          bad = v < 0 || v >= ms;
+          const int q = (bad ? 0 : v) - r0;
+          return q >= 0 && q < m ? q : -1;
+        },
+        [&](int at, int e, bool bad, int) { lst[at] = bad ? ~e : e; }, e0,
+        min(chunk, entries - e0), m, ti_smem);
+    if (e0 == 0) {
+      ti_backward_gather<V, false>(gb, wb, first, lst, m, c, lanes, db);
+    } else {
+      ti_backward_gather<V, true>(gb, wb, first, lst, m, c, lanes, db);
+    }
+  }
 }
 
 // d_w (B, n, 3) = <g[b, n], f[b, idx[b, n, l]]>: one warp per row of
@@ -771,6 +991,17 @@ three_interpolate_dweight_kernel(const float* __restrict__ g,
 
 int blocks_for(int total) { return (total + kThreads - 1) / kThreads; }
 
+// three_interpolate's d_weight (B, N, 3), the dot products, where dw is
+// not null.
+int three_interpolate_dweight(const float* g, const int* idx, const float* f, int batch,
+                              int ms, int c, int n, float* dw, cudaStream_t s) {
+  if (dw == nullptr || n == 0) return 0;
+  const int rows = batch * n;
+  three_interpolate_dweight_kernel<<<(rows + kThreads / 32 - 1) / (kThreads / 32),
+                                     kThreads, 0, s>>>(g, idx, f, ms, c, n, rows, dw);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -797,21 +1028,54 @@ int gather_rows_forward(const float* f, const int* idx, int batch, int n,
 }
 
 // f (B, N, C) float32, idx (B, M, K <= 255) int32 -> out (B, M, C)
-// float32, slot (B, M, C) uint8.
+// float32, slot (B, M, C) uint8, by the host plan
+// kernels.group_max_forward_plan: `vec` (4 or 1) channels a thread, which
+// needs C % vec == 0 and, at 4, f and out 16-byte and slot 4-byte aligned.
+// With `cs` > 0 the staged form, cs channels a slice (a multiple of vec; N
+// cs floats of shared memory, at most kGmsSmem), `unroll` 10 or 16 (== k,
+// idx 8-byte aligned) for the loop over j unrolled, else 0; with cs 0 the
+// direct form, `unroll` 0.
 int group_max_forward(const float* f, const int* idx, int batch, int n, int c,
-                      int m, int k, int vec4, float* out, unsigned char* slot,
-                      void* stream) {
+                      int m, int k, int vec, int cs, int unroll, float* out,
+                      unsigned char* slot, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int total = batch * m * (vec4 ? c / 4 : c);
-  if (total == 0) return 0;
-  if (k < 1 || k > kBadSlot) return static_cast<int>(cudaErrorInvalidValue);
-  if (vec4) {
-    group_max_kernel<4><<<blocks_for(total), kThreads, 0, s>>>(
-        f, idx, n, c, m, k, total, out, slot);
-  } else {
-    group_max_kernel<1><<<blocks_for(total), kThreads, 0, s>>>(
-        f, idx, n, c, m, k, total, out, slot);
+  if (static_cast<long long>(batch) * m * c == 0) return 0;
+  const size_t align = reinterpret_cast<size_t>(f) | reinterpret_cast<size_t>(out);
+  if (k < 1 || k > kBadSlot || (vec != 1 && vec != 4) || c % vec != 0 ||
+      (vec == 4 && ((align & 15) != 0 || (reinterpret_cast<size_t>(slot) & 3) != 0)) ||
+      cs < 0 || cs % vec != 0 ||
+      (unroll != 0 && (cs == 0 || unroll != k || (unroll != 10 && unroll != 16) ||
+                       (reinterpret_cast<size_t>(idx) & 7) != 0))) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (cs == 0) {
+    const int total = batch * m * (c / vec);
+    if (vec == 4) {
+      group_max_direct_kernel<4><<<blocks_for(total), kThreads, 0, s>>>(
+          f, idx, n, c, m, k, total, out, slot);
+    } else {
+      group_max_direct_kernel<1><<<blocks_for(total), kThreads, 0, s>>>(
+          f, idx, n, c, m, k, total, out, slot);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int slices = (c + cs - 1) / cs;
+  const size_t smem = sizeof(float) * static_cast<size_t>(n) * cs;
+  if (smem > static_cast<size_t>(kGmsSmem) ||
+      static_cast<long long>(batch) * slices > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  static SmemOptIn opt_in[6];
+  const int which = (vec == 4 ? 3 : 0) + (unroll == 10 ? 1 : unroll == 16 ? 2 : 0);
+  auto kernel = vec == 4 ? (unroll == 10   ? group_max_staged_kernel<4, 10>
+                            : unroll == 16 ? group_max_staged_kernel<4, 16>
+                                           : group_max_staged_kernel<4, 0>)
+                         : (unroll == 10   ? group_max_staged_kernel<1, 10>
+                            : unroll == 16 ? group_max_staged_kernel<1, 16>
+                                           : group_max_staged_kernel<1, 0>);
+  cudaError_t err = opt_in[which].raise(reinterpret_cast<const void*>(kernel), smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<batch * slices, kGmsThreads, smem, s>>>(f, idx, n, c, m, k, cs, slices, out, slot);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -947,32 +1211,69 @@ int group_max_backward(const float* g, const int* idx, const unsigned char* slot
 }
 
 // g (B, N, C), idx (B, N, 3) int32, w (B, N, 3), f (B, Ms, C) float32 ->
-// df (B, Ms, C), and dw (B, N, 3) when dw is not null.
+// df (B, Ms, C), and dw (B, N, 3) when dw is not null: the list form, the
+// reverse list of idx in device memory, then the gather; `vec8` (0 or 1)
+// asks for 8 channels a thread, which needs C % 8 == 0 and g, df 16-byte
+// aligned.
 int three_interpolate_backward(const float* g, const int* idx, const float* w,
                                const float* f, int batch, int ms, int c, int n,
                                int list_warps, int ranges, int* order,
-                               int* off, int vec4,
+                               int* off, int vec8,
                                float* df, float* dw, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int total = batch * ms * (vec4 ? c / 4 : c);
-  if (total == 0) return 0;
+  if (static_cast<long long>(batch) * ms * c == 0) return 0;
+  const size_t align = reinterpret_cast<size_t>(g) | reinterpret_cast<size_t>(df);
+  if (vec8 && (c % 8 != 0 || (align & 15) != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int cv = vec8 ? c / 8 : c;
+  int lanes = 1;
+  while (lanes < cv && lanes < 32) lanes <<= 1;
+  if (cv >= 32) lanes = cv;
+  const long long grid =
+      (static_cast<long long>(batch) * ms * lanes + kThreads - 1) / kThreads;
+  if (grid > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const int err = reverse_list_build(idx, batch, n * 3, ms, list_warps, ranges,
                                      order, off, stream);
   if (err != 0) return err;
-  if (vec4) {
-    three_interpolate_backward_kernel<4><<<blocks_for(total), kThreads, 0, s>>>(
-        g, idx, w, order, off, ms, c, total, df);
-  } else {
-    three_interpolate_backward_kernel<1><<<blocks_for(total), kThreads, 0, s>>>(
-        g, idx, w, order, off, ms, c, total, df);
-  }
+  auto kernel = vec8 ? three_interpolate_backward_kernel<8>
+                     : three_interpolate_backward_kernel<1>;
+  kernel<<<static_cast<int>(grid), kThreads, 0, s>>>(g, idx, w, order, off, ms, c, lanes,
+                                                     batch * ms, df);
   cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || dw == nullptr || n == 0) return static_cast<int>(e);
-  const int rows = batch * n;
-  three_interpolate_dweight_kernel<<<(rows + kThreads / 32 - 1) / (kThreads / 32),
-                                     kThreads, 0, s>>>(g, idx, f, ms, c, n,
-                                                       rows, dw);
-  return static_cast<int>(cudaGetLastError());
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return three_interpolate_dweight(g, idx, f, batch, ms, c, n, dw, s);
+}
+
+// The same in one launch, by the host plan
+// kernels.three_interpolate_backward_plan: `rows` rows of df a block, the 3 N
+// entries listed `chunk` at a time, `lanes` threads a row; `vec8` (0 or 1)
+// asks for 8 channels a thread, which needs C % 8 == 0 and g, df 16-byte
+// aligned.
+int three_interpolate_backward_local(const float* g, const int* idx, const float* w,
+                                     const float* f, int batch, int ms, int c, int n,
+                                     int rows, int chunk, int lanes, int vec8, float* df,
+                                     float* dw, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (static_cast<long long>(batch) * ms * c == 0) return 0;
+  const int ranges = rows > 0 ? (ms + rows - 1) / rows : 0;
+  const size_t align = reinterpret_cast<size_t>(g) | reinterpret_cast<size_t>(df);
+  if (rows < 1 || chunk < 1 || lanes < c / (vec8 ? 8 : 1) ||
+      (vec8 && (c % 8 != 0 || (align & 15) != 0)) ||
+      static_cast<long long>(batch) * ranges > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = sizeof(int) * (static_cast<size_t>(list_ints(kTiWarps, rows)) + chunk);
+  static SmemOptIn opt_in[2];
+  auto kernel = vec8 ? three_interpolate_backward_local_kernel<8>
+                     : three_interpolate_backward_local_kernel<1>;
+  cudaError_t err = opt_in[vec8 ? 1 : 0].raise(reinterpret_cast<const void*>(kernel), smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<batch * ranges, kTiWarps * 32, smem, s>>>(g, idx, w, ms, c, n, rows, ranges,
+                                                    chunk, lanes, df);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return three_interpolate_dweight(g, idx, f, batch, ms, c, n, dw, s);
 }
 
 }  // extern "C"

@@ -1,30 +1,42 @@
-"""The chamfer backward (``chamfer_backward``, ``ops/csrc/chamfer.cu``) and
-group_max's backward (``group_max_backward``, ``ops/csrc/gather.cu``) on the
-card, alone and on their paths.
+"""The completion gathers of ``ops/csrc/{chamfer,gather,ball_query}.cu`` on
+the card, alone and on their paths: the chamfer backward
+(``chamfer_backward``), group_max's backward and forward
+(``group_max_backward``, ``group_max_forward``), three_interpolate's
+backward (``three_interpolate_backward``) and the ball query
+(``ball_query``).
 
-- Every call of the two that one PCN, VRCNet and ECG train step makes
-  (seeded weights, the synthetic train batch), captured and replayed: the
-  output bitwise against the plain version on CPU copies and against a
-  second run, the device time a call under torch.profiler split by kernel
-  (a two-launch form's list build and gather apart), the bound (each input
-  read once, the output written once) and the lengths of the rows' lists
-  (the longest, and the share of entries in rows of more than 8).
-- group_max's forward at the VRCNet step's shapes and ECG's largest: checks
-  and device time (its saved slot's bytes set what it writes).
-- Both at the VRCNet step's shapes on seeded inputs: group_max's backward
-  with uniform neighbour indices, the chamfer backward of gt's 2048 points
-  against uniform predictions of 1024 / 3072 / 2048 points and against a
-  collapsed one (1000 copies of a point).
+- Every call of these that one PCN, VRCNet and ECG train step makes (seeded
+  weights, the synthetic train batch), captured and replayed: the output
+  bitwise against the plain version on CPU copies and against a second run,
+  the device time a call under torch.profiler split by kernel (a two-launch
+  form's list build and gather apart), the bound (each input read once, the
+  output written once; the ball query's operations over the pairs its
+  inputs scan) and, for the backwards, the lengths of the rows' lists (the
+  longest, and the share of entries in rows of more than 8).
+  three_interpolate's backward also says whether d_weight was asked for.
+- group_max's forward at the VRCNet and ECG steps' shapes and
+  three_interpolate's backward at theirs, on seeded uniform inputs: checks
+  and device time.
+- The chamfer and group_max backwards at the VRCNet step's shapes on seeded
+  inputs: group_max's with uniform neighbour indices, the chamfer backward
+  of gt's 2048 points against uniform predictions of 1024 / 3072 / 2048
+  points and against a collapsed one (1000 copies of a point).
+- ``--sweep``: group_max's backward, group_max's forward and
+  three_interpolate's backward under other launch plans, at the steps'
+  calls and on uniform inputs, each held bitwise against the default plan.
 - ``--models``: the PCN, VRCNet and ECG train steps, on the host clock
   (calls ending in a synchronise) and in device time under torch.profiler,
-  with the two backwards' kernels' share.
+  with the probed kernels' share.
+- ``--parts``: the kernels probed (default all of ``PARTS``).
 
-    python -m mvp_benchmark_tpu_torch.probe_backwards [--models] [--out FILE]
+    python -m mvp_benchmark_tpu_torch.probe_backwards [--models] [--sweep]
+        [--parts three_interpolate_backward,group_max_forward] [--out FILE]
 
-Only the public wrappers are called, so the script also times an older
-checkout's kernels when copied into it with ``probe_knn_fps.py`` (its
-profiler helpers). Writes its readings as JSON to ``--out`` (default
-``build/probe_backwards.json``). Needs a card; exits 1 if a check fails.
+Without ``--sweep`` only the public wrappers are called, so the script also
+times an older checkout's kernels when copied into it with
+``probe_knn_fps.py`` (its profiler helpers). Writes its readings as JSON to
+``--out`` (default ``build/probe_backwards.json``). Needs a card; exits 1 if
+a check fails.
 """
 
 from __future__ import annotations
@@ -42,13 +54,23 @@ from mvp_benchmark_tpu_torch.ops import kernels, ref
 from mvp_benchmark_tpu_torch.probe_knn_fps import device_window
 
 PEAK_BYTES = 3.35e12
-# the kernels of the two backwards under torch.profiler, with the list and
-# flag kernels of the two-launch forms an older checkout runs
-BACKWARD_NAMES = ("chamfer_backward", "group_max_backward", "group_max_flag",
-                  "reverse_list")
+PEAK_FP32 = 67e12
+PARTS = ("chamfer_backward", "group_max_backward", "group_max_forward",
+         "three_interpolate_backward", "ball_query")
+# the probed kernels under torch.profiler, with the list and flag kernels
+# of the two-launch forms an older checkout runs
+KERNEL_NAMES = ("chamfer_backward", "group_max", "three_interpolate_backward",
+                "three_interpolate_dweight", "reverse_list", "ball_query")
 # group_max's backward in the VRCNet step: (B, n rows, c, m points, k)
 GROUP_MAX_SHAPES = [(64, 3072, 64, 1536, 10), (64, 1536, 128, 768, 10),
                     (64, 768, 256, 384, 10)]
+# group_max's forward: the VRCNet step's three and ECG's three
+GROUP_MAX_FWD_SHAPES = GROUP_MAX_SHAPES + [(32, 256, 840, 64, 16), (32, 1024, 360, 256, 16),
+                                           (32, 3072, 120, 1024, 16)]
+# three_interpolate's backward: (B, Ms source rows, C, N targets), the VRCNet
+# step's three and ECG's three
+TI_SHAPES = [(64, 384, 512, 768), (64, 768, 256, 1536), (64, 1536, 128, 3072),
+             (32, 64, 1024, 256), (32, 256, 768, 1024), (32, 1024, 512, 3072)]
 # the chamfer backward in the VRCNet step: (B, gt points, predicted points)
 CHAMFER_SHAPES = [(64, 2048, 1024), (64, 2048, 3072), (64, 2048, 2048)]
 
@@ -63,23 +85,33 @@ def _uniform(dev, shape, seed):
 
 def _bitwise(name, got, want):
     got, want = got.contiguous(), want.contiguous()
-    if got.shape != want.shape or not torch.equal(got.view(torch.int32),
-                                                  want.view(torch.int32)):
-        bad = int((got.view(torch.int32) != want.view(torch.int32)).sum()) \
-            if got.shape == want.shape else -1
+    if got.dtype == torch.float32:
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    if got.shape != want.shape or not torch.equal(got, want):
+        bad = int((got != want).sum()) if got.shape == want.shape else -1
         raise RuntimeError(f"probe_backwards: {name}: {bad} values differ")
 
 
 def _split(fn, n=10):
-    """{kernel: device ms a call}: the window of two whose total is the
-    larger (a window that lost kernels reads low)."""
+    """{kernel: device ms a call}: of the first two profiler windows that
+    recorded a kernel, of at most six, the one whose total is the larger (a
+    window that lost kernels reads low)."""
     fn()
     torch.cuda.synchronize()
-    wins = [device_window(fn, n) for _ in range(2)]
-    best = max(wins, key=lambda w: sum(w.values()))
-    if not best:
-        raise RuntimeError("probe_backwards: no profiler window recorded a kernel")
-    return best
+    wins = []
+    for _ in range(6):
+        w = device_window(fn, n)
+        if w:
+            wins.append(w)
+            if len(wins) == 2:
+                break
+    if not wins:
+        raise RuntimeError("probe_backwards: no profiler window of six recorded a kernel")
+    return max(wins, key=lambda w: sum(w.values()))
+
+
+def _part(split, *names):
+    return sum(v for k, v in split.items() if any(m in k for m in names))
 
 
 def _list_lengths(idx, num_rows):
@@ -116,8 +148,8 @@ def chamfer_case(label, args):
             nbytes += B * (np_ + nq) * (12 + 8) + B * np_ * 12
             lists[f"d{side}"] = _list_lengths(iq, np_)
     split = _split(fn)
-    row = {"call": label, "B": B, "N": N, "M": M, "need": [need_a, need_b],
-           "device_ms": sum(split.values()), "by_kernel": split,
+    row = {"kind": "chamfer_backward", "call": label, "B": B, "N": N, "M": M,
+           "need": [need_a, need_b], "device_ms": sum(split.values()), "by_kernel": split,
            "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
            "lists": {k: {"longest": v[0], "share_over_8": v[1]} for k, v in lists.items()}}
     print(f"chamfer backward {label} (B {B}, N {N}, M {M}, need {row['need']}): device "
@@ -140,7 +172,8 @@ def group_max_case(label, args):
     nbytes = B * m * c * (4 + slot.element_size()) + B * m * k * 4 + B * n * c * 4
     split = _split(fn)
     longest, share = _list_lengths(idx, n)
-    row = {"call": label, "shape": [B, n, c, m, k], "slot_bytes": slot.element_size(),
+    row = {"kind": "group_max_backward", "call": label, "shape": [B, n, c, m, k],
+           "slot_bytes": slot.element_size(),
            "device_ms": sum(split.values()), "by_kernel": split,
            "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
            "lists": {"longest": longest, "share_over_8": share}}
@@ -151,28 +184,152 @@ def group_max_case(label, args):
     return row
 
 
-def capture(run):
-    """The arguments of every chamfer_backward and group_max_backward call
-    that ``run()`` makes, cloned."""
-    calls = {"chamfer": [], "group_max": []}
-    orig = kernels.chamfer_backward, kernels.group_max_backward
+def group_max_forward_bytes(B, n, c, m, k, slot_bytes=1):
+    """features read once, idx read once, the max and the slot written once."""
+    return B * (n * c * 4 + m * k * 4 + m * c * (4 + slot_bytes))
 
-    def chamfer(*args):
-        calls["chamfer"].append(tuple(x.clone() if torch.is_tensor(x) else x
-                                      for x in args))
-        return orig[0](*args)
 
-    def group_max(*args):
-        calls["group_max"].append(tuple(x.clone() if torch.is_tensor(x) else x
-                                        for x in args))
-        return orig[1](*args)
+def group_max_forward_case(label, args):
+    """One group_max forward call ``args`` = (features, idx): the max (NaN
+    rows included) and the slot bitwise ``ref.group_max`` on CPU copies and
+    a second run, device time, bound."""
+    f, idx = args
+    fn = lambda: kernels.group_max_forward(f, idx)
+    out, slot = fn()
+    want, want_slot = ref.group_max(f.cpu(), idx.cpu())
+    _bitwise(f"group_max forward {label} against the plain version on CPU copies",
+             out.cpu(), want)
+    _bitwise(f"group_max forward {label} slot", slot.cpu(), want_slot.to(slot.dtype))
+    again = fn()
+    _bitwise(f"group_max forward {label}, run twice", again[0], out)
+    _bitwise(f"group_max forward {label} slot, run twice", again[1], slot)
+    (B, n, c), (m, k) = f.shape, idx.shape[1:]
+    split = _split(fn)
+    nbytes = group_max_forward_bytes(B, n, c, m, k, slot.element_size())
+    row = {"kind": "group_max_forward", "call": label, "shape": [B, n, c, m, k],
+           "slot_bytes": slot.element_size(), "device_ms": _part(split, "group_max"),
+           "by_kernel": split, "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes"}
+    print(f"group_max forward {label} ((B, n, c, m, k) {row['shape']}, slot "
+          f"{row['slot_bytes']} B): device {row['device_ms']!r} ms, bound "
+          f"{row['bound_ms']!r} ms; bitwise the plain version on CPU copies, run twice",
+          flush=True)
+    return row
 
-    kernels.chamfer_backward, kernels.group_max_backward = chamfer, group_max
+
+def ti_backward_bytes(B, ms, c, n, need_w):
+    """g, idx and w read once, d_features written once; with need_w also
+    the features read and d_weight written."""
+    return B * (n * c * 4 + n * 3 * 8 + ms * c * 4) + (B * (ms * c * 4 + n * 3 * 4)
+                                                        if need_w else 0)
+
+
+def ti_backward_case(label, args):
+    """One three_interpolate backward call ``args`` = (g, idx, weight,
+    features, need_w): d_features bitwise the plain version on CPU copies
+    and a second run (d_weight, a dot product in another order, within
+    1e-5 + 1e-4 |plain|), device time by kernel (the list launches and the
+    gather apart), bound, list lengths."""
+    g, idx, w, f, need_w = args
+    fn = lambda: kernels.three_interpolate_backward(*args)
+    got = fn()
+    again = fn()
+    want = ref.three_interpolate_backward(g.cpu(), idx.cpu(), w.cpu(), f.cpu(), need_w)
+    _bitwise(f"three_interpolate backward {label} against the plain version on CPU "
+             "copies", got[0].cpu(), want[0])
+    _bitwise(f"three_interpolate backward {label}, run twice", again[0], got[0])
+    if (got[1] is None) != (not need_w):
+        raise RuntimeError(f"probe_backwards: three_interpolate backward {label}: d_weight")
+    if need_w:
+        _bitwise(f"three_interpolate backward {label} d_weight, run twice", again[1], got[1])
+        err = (got[1].cpu() - want[1]).abs()
+        if not bool((err <= 1e-5 + 1e-4 * want[1].abs()).all()):
+            raise RuntimeError(f"probe_backwards: three_interpolate backward {label} "
+                               f"d_weight off by {float(err.max())}")
+    B, N, C = g.shape
+    Ms = f.shape[1]
+    split = _split(fn)
+    longest, share = _list_lengths(idx, Ms)
+    nbytes = ti_backward_bytes(B, Ms, C, N, need_w)
+    row = {"kind": "three_interpolate_backward", "call": label, "shape": [B, Ms, C, N],
+           "need_w": bool(need_w), "device_ms": sum(split.values()), "by_kernel": split,
+           "list_ms": _part(split, "reverse_list"),
+           "gather_ms": _part(split, "three_interpolate_backward"),
+           "dweight_ms": _part(split, "three_interpolate_dweight"),
+           "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
+           "lists": {"longest": longest, "share_over_8": share}}
+    print(f"three_interpolate backward {label} ((B, Ms, C, N) {row['shape']}, need_w "
+          f"{row['need_w']}): device {row['device_ms']!r} ms (list {row['list_ms']!r}, "
+          f"gather {row['gather_ms']!r}, d_weight {row['dweight_ms']!r}) "
+          f"{json.dumps(split)}; bound {row['bound_ms']!r} ms; lists "
+          f"{json.dumps(row['lists'])}; bitwise the plain version on CPU copies, run twice",
+          flush=True)
+    return row
+
+
+def ball_query_work(min_r, max_r, nsample, xyz, centers):
+    """(bytes, operations) of a ball query on these inputs: the points and
+    centres read once, the indices written once; each centre's pairs up to
+    its ``nsample``-th hit, 11 operations a pair (3 subtractions, 3
+    multiplies, 2 adds, 3 compares), as ``chip_smoke.geometry_timing_cases``
+    counts them."""
+    (B, n, _), m = xyz.shape, centers.shape[1]
+    with torch.no_grad():
+        d = ref._sqdist(centers, xyz)
+        hit = (d == 0) | ((d >= ref.squared_radius(min_r)) & (d < ref.squared_radius(max_r)))
+        scanned = torch.clamp((hit.cumsum(-1) < nsample).sum(-1) + 1, max=n)
+    return B * (n + m) * 12 + B * m * nsample * 4, int(scanned.sum()) * 11
+
+
+def ball_query_case(label, args):
+    """One ball query call ``args`` = (min_r, max_r, nsample, xyz, centers):
+    indices equal to ``ref.ball_query`` on CPU copies and a second run,
+    device time, bound."""
+    min_r, max_r, ns, xyz, centers = args
+    fn = lambda: kernels.ball_query(*args)
+    got = fn()
+    _bitwise(f"ball_query {label} against the plain version on CPU copies", got.cpu(),
+             ref.ball_query(min_r, max_r, ns, xyz.cpu(), centers.cpu()))
+    _bitwise(f"ball_query {label}, run twice", fn(), got)
+    nbytes, ops = ball_query_work(*args)
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
+    split = _split(fn)
+    row = {"kind": "ball_query", "call": label,
+           "shape": [xyz.shape[0], xyz.shape[1], centers.shape[1], ns],
+           "radius": [min_r, max_r], "device_ms": _part(split, "ball_query"),
+           "by_kernel": split, "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    print(f"ball_query {label} ((B, N, M, nsample) {row['shape']}, r {row['radius']}): "
+          f"device {row['device_ms']!r} ms, bound {row['bound_ms']!r} ms "
+          f"({row['bound_by']}); equal to the plain version on CPU copies, run twice",
+          flush=True)
+    return row
+
+
+CASES = {"chamfer_backward": chamfer_case, "group_max_backward": group_max_case,
+         "group_max_forward": group_max_forward_case,
+         "three_interpolate_backward": ti_backward_case, "ball_query": ball_query_case}
+
+
+def capture(run, parts=PARTS):
+    """The arguments of every call of the wrappers named in ``parts`` that
+    ``run()`` makes, cloned: {wrapper name: [args, ...]}."""
+    calls = {name: [] for name in parts}
+    orig = {name: getattr(kernels, name) for name in parts}
+
+    def wrap(name):
+        def fn(*args):
+            calls[name].append(tuple(x.clone() if torch.is_tensor(x) else x for x in args))
+            return orig[name](*args)
+        return fn
+
+    for name in parts:
+        setattr(kernels, name, wrap(name))
     try:
         run()
         torch.cuda.synchronize()
     finally:
-        kernels.chamfer_backward, kernels.group_max_backward = orig
+        for name, fn in orig.items():
+            setattr(kernels, name, fn)
     return calls
 
 
@@ -187,110 +344,187 @@ def _steps(dev):
                                ("ECG", chip_smoke.ECG_CFG))}
 
 
-def probe_paths(dev, steps):
-    """Every call of the two in one train step of each model, replayed."""
+def probe_paths(dev, steps, parts=PARTS):
+    """Every call of the kernels in ``parts`` in one train step of each
+    model, replayed."""
     out = {}
     for name, run in steps.items():
-        calls = capture(run)
-        rows = [chamfer_case(f"{name} step call {i + 1}", args)
-                for i, args in enumerate(calls["chamfer"])]
-        rows += [group_max_case(f"{name} step call {i + 1}", args)
-                 for i, args in enumerate(calls["group_max"])]
-        for kind in ("chamfer", "group_max"):
-            got = [r["device_ms"] for r in rows if (kind == "chamfer") == ("N" in r)]
+        calls = capture(run, parts)
+        rows = []
+        for kind in parts:
+            got = [CASES[kind](f"{name} step call {i + 1}", args)
+                   for i, args in enumerate(calls[kind])]
             if got:
-                print(f"{name} step: the {len(got)} {kind} backwards {sum(got)!r} ms "
-                      f"of device time", flush=True)
+                total = sum(r["device_ms"] for r in got)
+                extra = ""
+                if kind == "three_interpolate_backward":
+                    extra = (f", d_weight asked for in {sum(r['need_w'] for r in got)} of "
+                             f"{len(got)}")
+                print(f"{name} step: the {len(got)} {kind} calls {total!r} ms of device "
+                      f"time{extra}", flush=True)
+            rows += got
         out[name] = rows
     return out
 
 
-def probe_forward(dev):
-    """group_max's forward at the VRCNet step's shapes and at ECG's largest
-    (32, 3072 x 120 by 1024 x 16): the max bitwise and the slot's values
-    equal to ``ref.group_max`` on CPU copies, device time a call beside the
-    bound (features and idx read once, the max and the slot written once)."""
+def ti_uniform_args(dev, i, B, ms, c, n):
+    """three_interpolate backward inputs at (B, Ms, C, N): the 3-NN of N
+    uniform points among Ms, unit-scale g, the d_features of a step (no
+    d_weight)."""
+    idx, w = ref.three_nn_upsampling(_uniform(dev, (B, n, 3), 700 + i),
+                                     _uniform(dev, (B, ms, 3), 710 + i))
+    g = _uniform(dev, (B, n, c), 720 + i) * 2 - 1
+    f = _uniform(dev, (B, ms, c), 730 + i) * 2 - 1
+    return g, idx, w, f, False
+
+
+def gm_forward_uniform_args(dev, i, B, n, c, m, k):
+    return (_uniform(dev, (B, n, c), 670 + i),
+            torch.randint(0, n, (B, m, k), generator=_gen(dev, 680 + i), device=dev,
+                          dtype=torch.int32))
+
+
+def probe_uniform(dev, parts=PARTS):
+    """group_max's forward and three_interpolate's backward at the steps'
+    shapes on seeded uniform inputs."""
     rows = []
-    for i, (B, n, c, m, k) in enumerate(GROUP_MAX_SHAPES + [(32, 3072, 120, 1024, 16)]):
-        f = _uniform(dev, (B, n, c), 670 + i)
-        idx = torch.randint(0, n, (B, m, k), generator=_gen(dev, 680 + i), device=dev,
-                            dtype=torch.int32)
-        out, slot = kernels.group_max_forward(f, idx)
-        want, want_slot = ref.group_max(f.cpu(), idx.cpu())
-        _bitwise(f"group_max forward {i + 1}", out.cpu(), want)
-        if not torch.equal(slot.cpu().long(), want_slot.long()):
-            raise RuntimeError(f"probe_backwards: group_max forward {i + 1}: slots differ")
-        split = _split(lambda: kernels.group_max_forward(f, idx))
-        nbytes = B * (n * c * 4 + m * k * 4 + m * c * (4 + slot.element_size()))
-        row = {"shape": [B, n, c, m, k], "slot_bytes": slot.element_size(),
-               "device_ms": sum(split.values()), "bound_ms": nbytes / PEAK_BYTES * 1e3}
-        print(f"group_max forward (B, n, c, m, k) {row['shape']}, slot {row['slot_bytes']} B: "
-              f"device {row['device_ms']!r} ms, bound {row['bound_ms']!r} ms", flush=True)
-        rows.append(row)
+    if "group_max_forward" in parts:
+        rows += [group_max_forward_case(f"uniform {list(s)}", gm_forward_uniform_args(dev, i, *s))
+                 for i, s in enumerate(GROUP_MAX_FWD_SHAPES)]
+    if "three_interpolate_backward" in parts:
+        rows += [ti_backward_case(f"uniform {list(s)}", ti_uniform_args(dev, i, *s))
+                 for i, s in enumerate(TI_SHAPES)]
     return rows
 
 
-def probe_shapes(dev):
-    """Both at the VRCNet step's shapes on seeded inputs."""
+def probe_shapes(dev, parts=PARTS):
+    """The chamfer and group_max backwards at the VRCNet step's shapes on
+    seeded inputs."""
     rows = []
-    for i, (B, n, c, m, k) in enumerate(GROUP_MAX_SHAPES):
-        f = torch.relu(_uniform(dev, (B, n, c), 600 + i) - 0.5)
-        idx = torch.randint(0, n, (B, m, k), generator=_gen(dev, 610 + i), device=dev,
-                            dtype=torch.int32)
-        _, slot = kernels.group_max_forward(f, idx)
-        g = _uniform(dev, (B, m, c), 620 + i) * 2 - 1
-        rows.append(group_max_case(f"level {i + 1}", (g, idx, slot, n)))
-    for i, (B, N, M) in enumerate(CHAMFER_SHAPES + [(64, 2048, 2048)]):
-        gt, pred = _uniform(dev, (B, N, 3), 630 + i), _uniform(dev, (B, M, 3), 640 + i)
-        label = f"uniform, {M} predicted"
-        if i == len(CHAMFER_SHAPES):
-            pred[:, :1000] = pred[:, :1]               # 1000 copies of one point
-            label = f"collapsed, {M} predicted"
-        _, _, i1, i2 = kernels.chamfer_forward(gt, pred)
-        g1 = _uniform(dev, (B, N), 650 + i) * 2 - 1
-        g2 = _uniform(dev, (B, M), 660 + i) * 2 - 1
-        rows.append(chamfer_case(label, (gt, pred, i1, g1, i2, g2, False, True)))
+    if "group_max_backward" in parts:
+        for i, (B, n, c, m, k) in enumerate(GROUP_MAX_SHAPES):
+            f = torch.relu(_uniform(dev, (B, n, c), 600 + i) - 0.5)
+            idx = torch.randint(0, n, (B, m, k), generator=_gen(dev, 610 + i), device=dev,
+                                dtype=torch.int32)
+            _, slot = kernels.group_max_forward(f, idx)
+            g = _uniform(dev, (B, m, c), 620 + i) * 2 - 1
+            rows.append(group_max_case(f"level {i + 1}", (g, idx, slot, n)))
+    if "chamfer_backward" in parts:
+        for i, (B, N, M) in enumerate(CHAMFER_SHAPES + [(64, 2048, 2048)]):
+            gt, pred = _uniform(dev, (B, N, 3), 630 + i), _uniform(dev, (B, M, 3), 640 + i)
+            label = f"uniform, {M} predicted"
+            if i == len(CHAMFER_SHAPES):
+                pred[:, :1000] = pred[:, :1]               # 1000 copies of one point
+                label = f"collapsed, {M} predicted"
+            _, _, i1, i2 = kernels.chamfer_forward(gt, pred)
+            g1 = _uniform(dev, (B, N), 650 + i) * 2 - 1
+            g2 = _uniform(dev, (B, M), 660 + i) * 2 - 1
+            rows.append(chamfer_case(label, (gt, pred, i1, g1, i2, g2, False, True)))
     return rows
 
 
-def sweep_group_max(dev, steps):
-    """group_max's backward under other plans (output vectors a thread,
-    which sets the rows a block), each held bitwise against the plan's own
-    output: at the VRCNet step's shapes on uniform indices, and at every
-    call of the VRCNet and ECG steps on their own."""
-    cases = []
-    for i, (B, n, c, m, k) in enumerate(GROUP_MAX_SHAPES):
-        f = torch.relu(_uniform(dev, (B, n, c), 600 + i) - 0.5)
-        idx = torch.randint(0, n, (B, m, k), generator=_gen(dev, 610 + i), device=dev,
-                            dtype=torch.int32)
-        _, slot = kernels.group_max_forward(f, idx)
-        g = _uniform(dev, (B, m, c), 620 + i) * 2 - 1
-        cases.append((f"uniform {[B, n, c, m, k]}", (g, idx, slot, n)))
-    for name in ("VRCNet", "ECG"):
-        cases += [(f"{name} step call {i + 1}", args)
-                  for i, args in enumerate(capture(steps[name])["group_max"])]
+def _sweep(label, kind, fn, want, plan_name, plans):
+    """Device time of ``fn`` under each plan of ``plans`` set as
+    ``kernels.<plan_name>``'s answer, each held bitwise against ``want``."""
+    plan_fn = getattr(kernels, plan_name)
     out = []
-    plan_fn = kernels.group_max_backward_plan
     try:
-        for label, (g, idx, slot, n) in cases:
-            (B, m, c), k = g.shape, idx.shape[2]
-            want = kernels.group_max_backward(g, idx, slot, n)
-            base = plan_fn(n, c, m, k, c // 8)
-            for items, lanes in ((4, base[2]), (8, c // 8), (8, base[2]), (16, base[2])):
-                rows = min(n, items * 32 * kernels.GROUP_MAX_BWD_WARPS // lanes)
-                plan = (rows, base[1], lanes)
-                if kernels.group_max_backward_smem(rows, base[1], c) > kernels.MAX_SMEM:
-                    continue
-                kernels.group_max_backward_plan = lambda *a, plan=plan: plan
-                fn = lambda: kernels.group_max_backward(g, idx, slot, n)
-                _bitwise(f"group_max {label} plan {plan}", fn(), want)
-                row = {"call": label, "plan": list(plan), "items": items, "lanes": lanes,
-                       "device_ms": sum(_split(fn).values())}
-                kernels.group_max_backward_plan = plan_fn
-                print(f"group_max sweep: {json.dumps(row)}", flush=True)
-                out.append(row)
+        for plan in plans:
+            setattr(kernels, plan_name, lambda *a, plan=plan: plan)
+            got = fn()
+            for x, y in zip(got if isinstance(got, tuple) else (got,), want):
+                if x is not None:
+                    _bitwise(f"{kind} {label} plan {plan}", x, y)
+            row = {"kind": kind, "call": label, "plan": list(plan),
+                   "device_ms": _part(_split(fn), *KERNEL_NAMES)}
+            print(f"sweep: {json.dumps(row)}", flush=True)
+            out.append(row)
     finally:
-        kernels.group_max_backward_plan = plan_fn
+        setattr(kernels, plan_name, plan_fn)
+    return out
+
+
+def sweep_group_max(cases):
+    """group_max's backward under other plans (output vectors a thread,
+    which sets the rows a block)."""
+    out = []
+    for label, (g, idx, slot, n) in cases:
+        (B, m, c), k = g.shape, idx.shape[2]
+        want = (kernels.group_max_backward(g, idx, slot, n),)
+        base = kernels.group_max_backward_plan(n, c, m, k, c // 8)
+        plans = []
+        for items, lanes in ((4, base[2]), (8, c // 8), (8, base[2]), (16, base[2])):
+            rows = min(n, items * 32 * kernels.GROUP_MAX_BWD_WARPS // lanes)
+            if kernels.group_max_backward_smem(rows, base[1], c) <= kernels.MAX_SMEM:
+                plans.append((rows, base[1], lanes))
+        out += _sweep(label, "group_max_backward",
+                      lambda: kernels.group_max_backward(g, idx, slot, n), want,
+                      "group_max_backward_plan", plans)
+    return out
+
+
+def sweep_group_max_forward(cases):
+    """group_max's forward direct, and staged in the widest slices (a
+    multiple of 8 channels) that fit in a half and in all of an SM's shared
+    memory, with the loop over j unrolled for k where it can be and not."""
+    out = []
+    for label, (f, idx) in cases:
+        (B, n, c), k = f.shape, idx.shape[2]
+        want = kernels.group_max_forward(f, idx)
+        widths = {min(c, stage // (4 * n) // 8 * 8)
+                  for stage in (kernels.GROUP_MAX_STAGE_SMEM, kernels.MAX_SMEM)}
+        unrolled = (0, k) if k in kernels.GROUP_MAX_FWD_UNROLLED else (0,)
+        plans = [(4, 0, 0)] + [(4, cs, u) for cs in sorted(widths) if cs for u in unrolled]
+        out += _sweep(label, "group_max_forward", lambda: kernels.group_max_forward(f, idx),
+                      want, "group_max_forward_plan", plans)
+    return out
+
+
+def sweep_ti_backward(cases):
+    """three_interpolate's backward in its list form and in its one-launch
+    form at 1, 2, 4, 8 and 16 output vectors a thread (fewer, more blocks a
+    cloud: each lists all of the cloud's entries, and fewer clouds' g are
+    read at once)."""
+    out = []
+    for label, (g, idx, w, f, need_w) in cases:
+        (B, N, C), Ms = g.shape, f.shape[1]
+        want = kernels.three_interpolate_backward(g, idx, w, f, need_w)
+        plans = [(0, 0, 0)] + [kernels.three_interpolate_backward_local_plan(Ms, C, N, C // 8, items)
+                               for items in (1, 2, 4, 8, 16)]
+        out += _sweep(label, "three_interpolate_backward",
+                      lambda: kernels.three_interpolate_backward(g, idx, w, f, need_w),
+                      want, "three_interpolate_backward_plan", plans)
+    return out
+
+
+def sweep(dev, steps, parts=PARTS):
+    """The plans of the kernels in ``parts`` that have more than one: at
+    the VRCNet and ECG steps' calls and on uniform inputs."""
+    captured = {name: capture(steps[name], parts) for name in ("VRCNet", "ECG")}
+
+    def cases(kind):
+        return [(f"{name} step call {i + 1}", args) for name in ("VRCNet", "ECG")
+                for i, args in enumerate(captured[name].get(kind, []))]
+
+    out = []
+    if "group_max_backward" in parts:
+        uni = []
+        for i, (B, n, c, m, k) in enumerate(GROUP_MAX_SHAPES):
+            f = torch.relu(_uniform(dev, (B, n, c), 600 + i) - 0.5)
+            idx = torch.randint(0, n, (B, m, k), generator=_gen(dev, 610 + i), device=dev,
+                                dtype=torch.int32)
+            _, slot = kernels.group_max_forward(f, idx)
+            g = _uniform(dev, (B, m, c), 620 + i) * 2 - 1
+            uni.append((f"uniform {[B, n, c, m, k]}", (g, idx, slot, n)))
+        out += sweep_group_max(uni + cases("group_max_backward"))
+    if "group_max_forward" in parts:
+        out += sweep_group_max_forward(
+            [(f"uniform {list(s)}", gm_forward_uniform_args(dev, i, *s))
+             for i, s in enumerate(GROUP_MAX_FWD_SHAPES)] + cases("group_max_forward"))
+    if "three_interpolate_backward" in parts:
+        out += sweep_ti_backward(
+            [(f"uniform {list(s)}", ti_uniform_args(dev, i, *s))
+             for i, s in enumerate(TI_SHAPES)] + cases("three_interpolate_backward"))
     return out
 
 
@@ -308,7 +542,7 @@ def _host(fn, calls, repeats=3):
 
 def model_times(steps):
     """Each train step: host ms a call (three runs of 5) and device ms a
-    call (two profiler windows), with the two backwards' kernels' device ms."""
+    call (two profiler windows), with the probed kernels' device ms."""
     out = {}
     for name, fn in steps.items():
         for _ in range(2):
@@ -318,11 +552,11 @@ def model_times(steps):
         windows = [device_window(fn, 5) for _ in range(2)]
         out[name] = {
             "host_ms": host, "device_ms": [sum(w.values()) for w in windows],
-            "backwards_ms": [{k: v for k, v in w.items()
-                              if any(m in k for m in BACKWARD_NAMES)} for w in windows]}
+            "probed_ms": [{k: v for k, v in w.items()
+                           if any(m in k for m in KERNEL_NAMES)} for w in windows]}
         r = out[name]
         print(f"{name} train step: host {r['host_ms']!r} ms, device {r['device_ms']!r} ms; "
-              f"the backwards' kernels {json.dumps(r['backwards_ms'])} (device, a call)",
+              f"the probed kernels {json.dumps(r['probed_ms'])} (device, a call)",
               flush=True)
     return out
 
@@ -332,9 +566,14 @@ def main(argv=None):
     parser.add_argument("--models", action="store_true",
                         help="time the PCN, VRCNet and ECG train steps too")
     parser.add_argument("--sweep", action="store_true",
-                        help="time group_max's backward under other launch plans")
+                        help="time the kernels under other launch plans")
+    parser.add_argument("--parts", default=",".join(PARTS),
+                        help=f"the kernels probed, of {','.join(PARTS)}")
     parser.add_argument("--out", default=os.path.join("build", "probe_backwards.json"))
     arg = parser.parse_args(argv)
+    parts = tuple(p for p in arg.parts.split(",") if p)
+    if not set(parts) <= set(PARTS):
+        parser.error(f"--parts: unknown {sorted(set(parts) - set(PARTS))}")
     if not torch.cuda.is_available():
         print("probe_backwards: needs an NVIDIA card", file=sys.stderr)
         return 1
@@ -344,10 +583,10 @@ def main(argv=None):
                           text=True).stdout.strip()
     kernels.load()
     steps = _steps(dev)
-    out = {"card": card, "forward": probe_forward(dev), "shapes": probe_shapes(dev),
-           "paths": probe_paths(dev, steps)}
+    out = {"card": card, "uniform": probe_uniform(dev, parts),
+           "shapes": probe_shapes(dev, parts), "paths": probe_paths(dev, steps, parts)}
     if arg.sweep:
-        out["sweep"] = sweep_group_max(dev, steps)
+        out["sweep"] = sweep(dev, steps, parts)
     if arg.models:
         out["models"] = model_times(steps)
     print(f"on {card}")

@@ -39,15 +39,16 @@ from mvp_benchmark_tpu_torch.train.meters import AverageValueMeter
 from mvp_benchmark_tpu_torch.train.optim import build_optimizer
 
 # Substrings of the port's kernel names (ops/csrc/*.cu).
-PORT_KERNELS = ("chamfer_rowmin_kernel", "knn_queue_kernel", "knn_direct_kernel",
-                "fps_kernel",
-                "gather_rows_kernel", "group_max_kernel",
+PORT_KERNELS = ("chamfer_fused_kernel", "chamfer_columns_kernel", "knn_queue_kernel",
+                "knn_direct_kernel", "fps_kernel",
+                "gather_rows_kernel", "group_max_forward_kernel",
                 "three_interpolate_kernel", "sa_attention_kernel",
                 "chamfer_backward_kernel", "scatter_add_rows_local_kernel",
                 "scatter_add_rows_packed_kernel",
                 "scatter_add_rows_kernel",
                 "group_max_backward_kernel",
-                "three_interpolate_backward_kernel", "three_interpolate_dweight_kernel",
+                "three_interpolate_backward_kernel",
+                "three_interpolate_backward_local_kernel", "three_interpolate_dweight_kernel",
                 "sa_backward_points_kernel", "sa_backward_sum_kernel",
                 "sa_backward_rows_kernel", "reverse_list_kernel",
                 "ball_query_kernel", "emd_kernel",

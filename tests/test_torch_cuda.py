@@ -91,6 +91,15 @@ def _bitwise(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
+def _bitwise_nan(got, want):
+    """NaN at the same places (a kernel's NaN and the CPU's differ in their
+    bits), bitwise equal elsewhere."""
+    assert got.shape == want.shape and got.dtype == want.dtype == torch.float32
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    _bitwise([got[~nan].view(torch.int32)], [want[~nan].view(torch.int32)])
+
+
 @pytest.mark.parametrize("B,M,N,C,k", [
     (2, 96, 200, 3, 16), (2, 64, 96, 24, 16), (2, 40, 80, 48, 16),
     (2, 70, 300, 3, 3), (2, 33, 129, 5, 10), (1, 50, 60, 24, 20),
@@ -500,6 +509,100 @@ def test_three_interpolate_backward_kernel_matches_plain_version(cuda, case):
         assert (got[1] is None) == (not need_w)
         if need_w:
             _close(got[1], want[1])
+
+
+def _ti_plan(form, ms, c, n):
+    """The plan of ``kernels.three_interpolate_backward_plan`` a test
+    forces: the list form, the one-launch form's, or one whose entries pass
+    in chunks of 37 at 2 output vectors a thread."""
+    vectors = c // 8 if c % 8 == 0 else c
+    if form == "list":
+        return 0, 0, 0
+    if form == "chunks":
+        rows, _, lanes = kernels.three_interpolate_backward_local_plan(ms, c, n, vectors, 2)
+        return rows, 37, lanes
+    return kernels.three_interpolate_backward_local_plan(ms, c, n, vectors)
+
+
+@pytest.mark.parametrize("form", ["local", "list", "chunks"])
+@pytest.mark.parametrize("case", ["2x1536x128_to_3072", "2x1024x512_to_3072",
+                                  "2x37x5_to_101", "whole_cloud_to_row_0",
+                                  "out_of_range"])
+def test_three_interpolate_backward_forms_bitwise_on_cpu_copies(cuda, monkeypatch, case,
+                                                                form):
+    """Both forms of the plan (the list in shared memory in one launch, or
+    the list in device memory and the gather), and the one-launch form with
+    its entries in several chunks: d_features bitwise the plain version on
+    CPU copies and a second run; an index outside [0, ms) NaN at row 0 of
+    its cloud, the other rows as the plain version of the valid part."""
+    B, ms, c, n = {"2x1536x128_to_3072": (2, 1536, 128, 3072),
+                   "2x1024x512_to_3072": (2, 1024, 512, 3072),
+                   "2x37x5_to_101": (2, 37, 5, 101),
+                   "whole_cloud_to_row_0": (2, 64, 16, 512),
+                   "out_of_range": (2, 50, 24, 200)}[case]
+    f = _cot(cuda, B, ms, c, seed=60)
+    idx, w = ref.three_nn_upsampling(_rand(cuda, B, n, 3, seed=61),
+                                     _rand(cuda, B, ms, 3, seed=62))
+    if case == "whole_cloud_to_row_0":
+        idx[1] = 0
+    g = _cot(cuda, B, n, c, seed=63)
+    ok = idx.cpu().clone()
+    if case == "out_of_range":
+        idx[0, 7, 1], idx[1, 150, 2] = ms + 3, -1
+        ok[0, 7, 1] = ok[1, 150, 2] = 0
+    plan = _ti_plan(form, ms, c, n)
+    monkeypatch.setattr(kernels, "three_interpolate_backward_plan", lambda *a: plan)
+    got, _ = kernels.three_interpolate_backward(g, idx, w, f, False)
+    again, _ = kernels.three_interpolate_backward(g, idx, w, f, False)
+    want, _ = ref.three_interpolate_backward(g.cpu(), ok, w.cpu(), f.cpu(), False)
+    if case == "out_of_range":
+        want[:, 0] = float("nan")
+    _bitwise_nan(got, want.to(cuda))
+    _bitwise([again.view(torch.int32)], [got.view(torch.int32)])
+
+
+# (B, n rows, c, m points, k): the VRCNet step's three, ECG's three, at two
+# clouds
+GROUP_MAX_STEP_SHAPES = [(2, 3072, 64, 1536, 10), (2, 1536, 128, 768, 10),
+                         (2, 768, 256, 384, 10), (2, 256, 840, 64, 16),
+                         (2, 1024, 360, 256, 16), (2, 3072, 120, 1024, 16)]
+
+
+@pytest.mark.parametrize("B,n,c,m,k,vec,stage", [
+    (*shape, vec, stage) for shape in GROUP_MAX_STEP_SHAPES + [
+        (2, 300, 24, 100, 1), (2, 300, 24, 100, 17), (2, 300, 8, 40, 255),
+        (3, 97, 5, 41, 7), (2, 50, 1, 30, 255)]
+    for stage in (kernels.GROUP_MAX_STAGE_SMEM, 0) for vec in (4, 1) if shape[2] % vec == 0])
+def test_group_max_forward_plans_bitwise_with_ties_and_nan(cuda, monkeypatch, B, n, c, m,
+                                                           k, vec, stage):
+    """Both forms of ``kernels.group_max_forward_plan`` (staged in slices as
+    wide as fit, k unrolled or looped, and direct; 4 or 1 channels a thread)
+    at the steps' shapes, k 1 / 17 / 255 and odd C: the max and the slot bitwise
+    ``ref.group_max`` on CPU copies, with exact ties (relu'd features, a
+    neighbour twice), a NaN row (at j = 0 it stays, later it is passed
+    over) and an out-of-range index (NaN and slot 255 in its row)."""
+    f = torch.relu(_rand(cuda, B, n, c, seed=64) - 0.5)
+    f[0, 5] = float("nan")
+    idx = _idx(cuda, n, (B, m, k), seed=65)
+    idx[:, :, k - 1] = idx[:, :, 0]
+    idx[0, 3, 0] = 5                                  # NaN at j = 0
+    if k > 1:
+        idx[0, 4, 1] = 5                              # NaN at j = 1
+    idx[1, 2, k // 2] = n + 2
+    plan = (vec, 0, 0)                                # direct
+    if stage:                                         # staged, however narrow
+        plan = (vec, min(c, stage // (4 * n) // vec * vec),
+                k if k in kernels.GROUP_MAX_FWD_UNROLLED else 0)
+    monkeypatch.setattr(kernels, "group_max_forward_plan", lambda *a: plan)
+    out, slot = kernels.group_max_forward(f, idx)
+    ok = idx.cpu().clone()
+    ok[1, 2, k // 2] = 0
+    want, want_slot = ref.group_max(f.cpu(), ok)
+    want[1, 2], want_slot[1, 2] = float("nan"), 255
+    _bitwise_nan(out, want.to(cuda))
+    _bitwise([slot], [want_slot.to(cuda)])
+    again = kernels.group_max_forward(f, idx)
+    _bitwise([again[0].view(torch.int32), again[1]], [out.view(torch.int32), slot])
 
 
 @pytest.mark.parametrize("B,N,k,rel,mid", [
